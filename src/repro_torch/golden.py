@@ -1,0 +1,176 @@
+"""Replay the repository's golden workloads through the port.
+
+``tests/golden/two_party_trace.json`` (vanilla, fedbcd, celu) and
+``three_party_trace.json`` pin the reference engine's first 20 rounds on
+tiny WDL workloads.  The same workloads run here, on the port, from the
+reference's initial parameters (``tests/golden/jax_init_params.npz``,
+regenerated and checked by ``tests/test_torch_engine.py``), so the card
+can replay the goldens without JAX.  The caller names the directory that
+holds these files.
+
+Tolerances: the integer counters must match exactly.  Loss and ``w_mean``
+differ from the reference only by float32 summation order (XLA's and
+PyTorch's reductions, the embedding scatter-add), which stays within
+:data:`LOSS_RTOL` and :data:`W_MEAN_ATOL` over 20 rounds.  ``w_zero_frac``
+counts rows that land at cos ξ and is reported, not held.
+"""
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+import torch
+
+from . import resolve_device
+from .bridge import load_flat, subtree
+from .configs.base import CELUConfig
+from .core import engine
+from .data import to_device
+from .data.synthetic import TabularSpec, aligned_batches, make_tabular
+from .models.tabular import (DLRMConfig, MLP, PartyA, WDLPartyB,
+                             logistic_loss, make_dlrm, wdl_logit)
+from .optim import make_optimizer
+
+PARAMS_NPZ = "jax_init_params.npz"
+LOSS_RTOL = 1e-4
+W_MEAN_ATOL = 1e-4
+
+TWO_PARTY_CFG = DLRMConfig("wdl", 4, 3, vocab=32, embed_dim=4, z_dim=8,
+                           hidden=(16, 8))
+THREE_PARTY_CFG = DLRMConfig("wdl", 4, 4, vocab=64, embed_dim=4, z_dim=8,
+                             hidden=(16, 8))
+THREE_PARTY_TOP = (3 * 8, 16, 1)
+
+
+def load_params(golden_dir) -> dict:
+    with np.load(os.path.join(golden_dir, PARAMS_NPZ)) as f:
+        return {k: f[k] for k in f.files}
+
+
+def load_golden(golden_dir, name: str) -> dict:
+    with open(os.path.join(golden_dir, name)) as f:
+        return json.load(f)
+
+
+def _rows_metrics(m) -> dict:
+    return {"loss": float(m["loss"]), "w_mean": float(m["w_mean"]),
+            "w_zero_frac": float(m["w_zero_frac"]),
+            "local_steps": int(m["local_steps"])}
+
+
+def two_party_trace(protocol: str, flat_params: dict, *, device=None,
+                    cache_fused: bool = True, rounds: int = 20) -> list:
+    """The two-party golden workload (``tests/test_engine.py::_workload``)
+    through the port -> rows in the golden JSON's schema."""
+    dev = resolve_device(device)
+    cfg = TWO_PARTY_CFG
+    data = make_tabular(TabularSpec("criteo", fields_a=4, fields_b=3,
+                                    vocab=32, n_train=2048, n_test=512),
+                        seed=0)
+    init_fn, task, _ = make_dlrm(cfg)
+    params = init_fn(0, cfg, dev)
+    load_flat(params["a"], subtree(flat_params, "two_party.a"))
+    load_flat(params["b"], subtree(flat_params, "two_party.b"))
+    base = CELUConfig(R=3, W=3, xi_degrees=60.0, cache_fused=cache_fused)
+    ccfg, nloc = engine.preset_config(protocol, base)
+    opt = make_optimizer("adagrad", 0.05)
+    it = aligned_batches(data["train"], 64, seed=0)
+    _, ba, bb = next(it)
+    etask = engine.lift_two_party(task)
+    state = engine.init_state(etask, engine.lift_two_party_params(params),
+                              opt, ccfg, [to_device(ba, dev)],
+                              to_device(bb, dev))
+    rnd = engine.make_round(etask, opt, ccfg, local_steps=nloc)
+    it = aligned_batches(data["train"], 64, seed=0)
+    rows = []
+    for _ in range(rounds):
+        bi, ba, bb = next(it)
+        state, m = rnd(state, [to_device(ba, dev)], to_device(bb, dev), bi)
+        rows.append(_rows_metrics(m))
+    rows.append({"steps_a": int(state["steps"]["a"][0]),
+                 "steps_b": int(state["steps"]["b"]),
+                 "comm_rounds": int(state["comm_rounds"])})
+    return rows
+
+
+def three_party_task() -> engine.KPartyTask:
+    """Two feature parties and Party B's WDL head over both cut tensors
+    (``tests/test_engine.py::_three_party_workload``)."""
+    def forward_a(pa, batch_a):
+        return pa.tower(batch_a["x_a"])
+
+    def loss_b(pb, z_list, batch_b):
+        li = logistic_loss(wdl_logit(pb, z_list, batch_b["x_b"]),
+                           batch_b["y"])
+        return li, li.new_zeros(())
+
+    return engine.KPartyTask(forward_a, loss_b)
+
+
+def three_party_trace(flat_params: dict, *, device=None,
+                      cache_fused: bool = True, rounds: int = 20) -> list:
+    """The three-party (K = 2 feature parties) golden workload."""
+    dev = resolve_device(device)
+    cfg = THREE_PARTY_CFG
+    data = make_tabular(TabularSpec("t", fields_a=8, fields_b=4, vocab=64,
+                                    n_train=4096, n_test=512), seed=0)
+    gen = torch.Generator().manual_seed(0)
+    pas = [PartyA(cfg, gen), PartyA(cfg, gen)]
+    pb = WDLPartyB(cfg, gen)
+    pb.top = MLP(THREE_PARTY_TOP, gen)
+    for i, pa in enumerate(pas):
+        load_flat(pa, subtree(flat_params, f"three_party.a{i}"))
+    load_flat(pb, subtree(flat_params, "three_party.b"))
+    pas = [pa.to(dev) for pa in pas]
+    pb = pb.to(dev)
+    task = three_party_task()
+    celu = CELUConfig(R=2, W=2, xi_degrees=60.0, cache_fused=cache_fused)
+    opt = make_optimizer("adagrad", 0.02)
+
+    def split(ba, bb):
+        return ([to_device({"x_a": ba["x_a"][:, :4]}, dev),
+                 to_device({"x_a": ba["x_a"][:, 4:]}, dev)],
+                to_device(bb, dev))
+
+    it = aligned_batches(data["train"], 64, seed=0)
+    _, ba, bb = next(it)
+    state = engine.init_state(task, {"a": pas, "b": pb}, opt, celu,
+                              *split(ba, bb))
+    rnd = engine.make_round(task, opt, celu)
+    it = aligned_batches(data["train"], 64, seed=0)
+    rows = []
+    for _ in range(rounds):
+        bi, ba, bb = next(it)
+        state, m = rnd(state, *split(ba, bb), bi)
+        rows.append(_rows_metrics(m))
+    rows.append({"steps_a": [int(s) for s in state["steps"]["a"]],
+                 "steps_b": int(state["steps"]["b"]),
+                 "comm_rounds": int(state["comm_rounds"])})
+    return rows
+
+
+def compare(got: list, want: list) -> dict:
+    """Deviation of a replayed trace from the golden one: exact counter
+    agreement plus the largest loss (relative), ``w_mean`` and
+    ``w_zero_frac`` (absolute) deviations over the rounds compared."""
+    n = len(got) - 1
+    rows = want[:n]
+    return {
+        "rounds": n,
+        "counters_equal": (got[-1] == want[-1] if n == len(want) - 1
+                           else True) and all(
+            g["local_steps"] == w["local_steps"]
+            for g, w in zip(got, rows)),
+        "loss_rel": max(abs(g["loss"] - w["loss"]) / abs(w["loss"])
+                        for g, w in zip(got, rows)),
+        "w_mean_abs": max(abs(g["w_mean"] - w["w_mean"])
+                          for g, w in zip(got, rows)),
+        "w_zero_frac_abs": max(abs(g["w_zero_frac"] - w["w_zero_frac"])
+                               for g, w in zip(got, rows)),
+    }
+
+
+def within_tolerance(dev: dict) -> bool:
+    return (dev["counters_equal"] and dev["loss_rel"] <= LOSS_RTOL
+            and dev["w_mean_abs"] <= W_MEAN_ATOL)

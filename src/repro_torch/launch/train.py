@@ -1,0 +1,225 @@
+"""End-to-end VFL training entry point of the port (the DLRM half of
+``repro/launch/train.py``).
+
+``--arch wdl-criteo | dssm-avazu`` trains on the synthetic vertically
+partitioned stream with the selected protocol (vanilla | fedbcd | celu)
+and reports AUC and communication accounting (rounds, bytes, simulated-WAN
+seconds).  It runs on the card unless ``--device cpu`` is given.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch wdl-criteo \\
+        --protocol celu --rounds 300 --R 5 --W 5 --xi 60
+    PYTHONPATH=src python -m repro_torch.launch.train --arch wdl-criteo \\
+        --device cpu --small --rounds 20
+
+Flags of the reference that switch on what later slices of the port
+bring (pipelining, the compressed wire, quantised cache and optimizer
+state, chaos, checkpoints, the LLM archs) are refused with a message; the
+reference's flags that only tune those features (``--fault-seed``,
+``--checkpoint-every``, ...) are not defined, so argparse rejects them.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Any, Dict
+
+import torch
+
+from .. import resolve_device
+from ..configs import DLRM_IDS, get_config
+from ..configs.base import CELUConfig
+from ..core import engine
+from ..core.workset import QUANT_KEYS, workset_nbytes
+from ..data import synthetic as synth
+from ..data import to_device
+from ..models.tabular import DLRMConfig, auc, make_dlrm
+from ..optim import make_optimizer
+from .wan import WANClock, transport_round_updown
+
+DEFAULT_WAN = WANClock()
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def refuse_unported(args) -> None:
+    """Exit with a message on any flag whose feature this slice of the
+    port does not have."""
+    later = []
+    if args.arch not in DLRM_IDS:
+        later.append(f"--arch {args.arch} (the LLM split models, slice 7)")
+    if args.pipeline_depth:
+        later.append("--pipeline-depth > 0 (slice 2)")
+    if args.compression:
+        later.append("--compression (slice 3)")
+    if args.cache_dtype != "float32":
+        later.append("--cache-dtype other than float32 (slice 4)")
+    if args.opt_state_dtype != "float32" or args.optimizer == "sm3":
+        later.append("--opt-state-dtype other than float32 and "
+                     "--optimizer sm3 (slice 5)")
+    if (args.fault_drop_prob or args.fault_straggler_prob
+            or args.fault_dropout):
+        later.append("--fault-* (slice 6)")
+    if args.checkpoint or args.resume:
+        later.append("--checkpoint / --resume (slice 6)")
+    if later:
+        raise SystemExit("repro_torch.launch.train: not in the port yet: "
+                         + "; ".join(later)
+                         + " (see ROADMAP.md; repro.launch.train has them)")
+
+
+def train_dlrm(args) -> Dict[str, Any]:
+    refuse_unported(args)
+    dev = resolve_device(args.device)
+    cfg: DLRMConfig = get_config(args.arch)
+    if args.small:
+        cfg = dataclasses.replace(cfg, vocab=128, embed_dim=8, z_dim=32,
+                                  hidden=(64, 32))
+    spec_name = {"wdl-criteo": "criteo", "dssm-avazu": "avazu"}[args.arch]
+    spec = dataclasses.replace(synth.TABULAR_SPECS[spec_name],
+                               vocab=cfg.vocab, n_train=args.n_train,
+                               n_test=args.n_test)
+    data = synth.make_tabular(spec, seed=args.seed)
+    init_fn, task, predict = make_dlrm(cfg)
+
+    base = CELUConfig(R=args.R, W=args.W, xi_degrees=args.xi,
+                      weighting=not args.no_weighting,
+                      cache_fused=not args.no_cache_fusion)
+    celu_cfg, n_local = engine.preset_config(args.protocol, base)
+    params = init_fn(args.seed, cfg, dev)
+    opt = make_optimizer(args.optimizer, args.lr)
+
+    it = synth.aligned_batches(data["train"], args.batch_size,
+                               seed=args.seed)
+    _, ba0, bb0 = next(it)
+    etask = engine.lift_two_party(task)
+    transport = engine.make_transport(celu_cfg)
+    state = engine.init_state(etask, engine.lift_two_party_params(params),
+                              opt, celu_cfg, [to_device(ba0, dev)],
+                              to_device(bb0, dev), transport=transport)
+    tables = state["ws"]["a"] + [state["ws"]["b"]]
+    cache_stat_b = sum(workset_nbytes(w, QUANT_KEYS) for w in tables)
+    cache_total_b = sum(workset_nbytes(w) for w in tables)
+    print(f"[cache] workset tables: {cache_total_b / 1e6:.2f} MB "
+          f"({cache_stat_b / 1e6:.2f} MB cut statistics at "
+          f"{celu_cfg.cache_dtype}; fused sample "
+          f"{'on' if celu_cfg.cache_fused else 'off'}; device {dev})",
+          flush=True)
+    rnd = engine.make_round(etask, opt, celu_cfg, local_steps=n_local,
+                            transport=transport)
+    z_shapes = [(args.batch_size, cfg.z_dim)]
+    up_bytes, down_bytes = transport_round_updown(transport, z_shapes)
+
+    te = data["test"]
+    tea = to_device({"x_a": te["x_a"]}, dev)
+    teb = to_device({"x_b": te["x_b"], "y": te["y"]}, dev)
+    it = synth.aligned_batches(data["train"], args.batch_size,
+                               seed=args.seed)
+    history = []
+    train_s = 0.0        # round time only: evaluation is kept out
+    steady_s = 0.0       # the same from round 2 on (no first-call set-up)
+    loss = float("nan")
+    t0 = time.perf_counter()
+    for i in range(args.rounds):
+        bi, ba, bb = next(it)
+        state, m = rnd(state, [to_device(ba, dev)], to_device(bb, dev), bi)
+        if i == 0 or (i + 1) % max(1, args.rounds // 10) == 0 \
+                or i + 1 == args.rounds:
+            _sync(dev)
+            dt = time.perf_counter() - t0
+            train_s += dt
+            steady_s += dt if i else 0.0
+            loss = float(m["loss"])
+            if i:
+                logits = predict(engine.unlift_params(state["params"]), cfg,
+                                 tea, teb)
+                a = auc(logits.cpu().numpy(), te["y"])
+                history.append((i + 1, loss, a))
+                print(f"round {i+1:6d} loss {loss:.4f} AUC {a:.4f} "
+                      f"local_steps {int(m['local_steps'])} "
+                      f"w_mean {float(m['w_mean']):.3f}", flush=True)
+            t0 = time.perf_counter()
+    # overlap-aware simulated wall-clock, as the reference charges it: the
+    # measured compute split into the exchange share (1 fresh update) and
+    # the local share (n_local updates), serialized with the wire
+    compute_per_round = train_s / max(args.rounds, 1)
+    ex_c = compute_per_round / (1 + n_local)
+    comm_s = DEFAULT_WAN.time_to_target(
+        args.rounds, up_bytes, down_bytes, exchange_compute_s=ex_c,
+        local_compute_s=compute_per_round - ex_c, pipeline_depth=0)
+    out = {
+        "arch": args.arch, "protocol": args.protocol, "device": str(dev),
+        "rounds": args.rounds, "n_local": n_local,
+        "final_auc": history[-1][2] if history else None,
+        "final_loss": loss,
+        "comm_bytes": args.rounds * (up_bytes + down_bytes),
+        "uplink_bytes": args.rounds * up_bytes,
+        "downlink_bytes": args.rounds * down_bytes,
+        "sim_wan_s": comm_s, "compute_wall_s": train_s,
+        "steady_round_ms": (1e3 * steady_s / (args.rounds - 1)
+                            if args.rounds > 1 else None),
+        "history": history,
+        "state": state,
+    }
+    auc_note = "n/a" if out["final_auc"] is None \
+        else f"{out['final_auc']:.4f}"
+    print(f"[done] {args.protocol}: AUC={auc_note} "
+          f"comm={out['comm_bytes']/1e6:.1f}MB "
+          f"(up {up_bytes/1e3:.0f}KB/dn {down_bytes/1e3:.0f}KB per round) "
+          f"simWAN={comm_s:.1f}s wall={train_s:.1f}s")
+    return out
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    ap.add_argument("--protocol", default="celu",
+                    choices=("vanilla", "fedbcd", "celu"))
+    ap.add_argument("--rounds", type=int, default=100)
+    ap.add_argument("--batch-size", type=int, default=256)
+    ap.add_argument("--R", type=int, default=5)
+    ap.add_argument("--W", type=int, default=5)
+    ap.add_argument("--xi", type=float, default=60.0)
+    ap.add_argument("--no-weighting", action="store_true")
+    ap.add_argument("--no-cache-fusion", action="store_true",
+                    help="materialise the sampled workset entry and weight "
+                         "it with the row-gate kernel (K2) instead of the "
+                         "fused ring-sample kernel (K1)")
+    ap.add_argument("--optimizer", default="adagrad",
+                    choices=("adagrad", "sgd", "adam", "sm3"))
+    ap.add_argument("--lr", type=float, default=0.01)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--small", action="store_true",
+                    help="smaller DLRM dims for quick CPU runs")
+    ap.add_argument("--n-train", type=int, default=32768)
+    ap.add_argument("--n-test", type=int, default=8192)
+    later = ap.add_argument_group(
+        "flags of later slices of the port (refused)")
+    later.add_argument("--pipeline-depth", type=int, default=0)
+    later.add_argument("--compression", default="")
+    later.add_argument("--cache-dtype", default="float32",
+                       choices=("float32", "bfloat16", "int8", "int4"))
+    later.add_argument("--opt-state-dtype", default="float32",
+                       choices=("float32", "bfloat16", "int8"))
+    later.add_argument("--fault-drop-prob", type=float, default=0.0)
+    later.add_argument("--fault-straggler-prob", type=float, default=0.0)
+    later.add_argument("--fault-dropout", action="append", default=[])
+    later.add_argument("--checkpoint", default="")
+    later.add_argument("--resume", default="")
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    out = train_dlrm(args)
+    out.pop("state")
+    return out
+
+
+if __name__ == "__main__":
+    main()

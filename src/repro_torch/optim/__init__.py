@@ -1,0 +1,113 @@
+"""Optimizers as explicit transforms over lists of tensors.
+
+Port of ``repro/optim/__init__.py``.  ``Optimizer(init, update)``:
+
+  * ``init(params) -> opt_state``
+  * ``update(grads, opt_state, params) -> (updates, opt_state)``; updates
+    are ADDED to params by ``apply_updates``.
+
+``params`` and ``grads`` are matching lists of tensors (a module's
+``parameters()``).  ``torch.optim`` is not used: the engine scales each
+update by the draw's valid mask before applying it, and the arithmetic
+follows the reference op for op.  Accumulators are fp32.
+"""
+from __future__ import annotations
+
+from typing import Callable, List, NamedTuple
+
+import torch
+
+
+class Optimizer(NamedTuple):
+    init: Callable
+    update: Callable
+
+
+def _zeros_like_f32(params):
+    return [torch.zeros_like(p, dtype=torch.float32) for p in params]
+
+
+OPT_STATE_DTYPES = ("float32", "bfloat16", "int8")
+
+
+def adagrad(lr: float, eps: float = 1e-10, *, use_pallas: bool = False,
+            state_dtype: str = "float32") -> Optimizer:
+    """a' = a + g², u = -lr·g / (√a' + eps)."""
+    if state_dtype not in OPT_STATE_DTYPES:
+        raise ValueError(f"state_dtype must be one of {OPT_STATE_DTYPES}, "
+                         f"got {state_dtype!r}")
+    if state_dtype != "float32" or use_pallas:
+        raise NotImplementedError(
+            "quantised AdaGrad state and the fused AdaGrad kernels (K7, "
+            "K8) come with slice 5 of the port (ROADMAP.md)")
+
+    def init(params):
+        return {"accum": _zeros_like_f32(params)}
+
+    def update(grads, state, params=None):
+        upd, acc = [], []
+        for g, a in zip(grads, state["accum"]):
+            gf = g.float()
+            a_new = a + gf * gf
+            upd.append(-lr * gf / (torch.sqrt(a_new) + eps))
+            acc.append(a_new)
+        return upd, {"accum": acc}
+
+    return Optimizer(init, update)
+
+
+def sgd(lr: float, momentum: float = 0.0) -> Optimizer:
+    def init(params):
+        if momentum:
+            return {"mom": _zeros_like_f32(params)}
+        return {}
+
+    def update(grads, state, params=None):
+        if momentum:
+            mom = [momentum * m + g.float()
+                   for m, g in zip(state["mom"], grads)]
+            return [-lr * m for m in mom], {"mom": mom}
+        return [-lr * g.float() for g in grads], state
+
+    return Optimizer(init, update)
+
+
+def adam(lr: float, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> Optimizer:
+    def init(params):
+        p0 = params[0]
+        return {"m": _zeros_like_f32(params), "v": _zeros_like_f32(params),
+                "t": torch.zeros((), dtype=torch.int32, device=p0.device)}
+
+    def update(grads, state, params=None):
+        t = state["t"] + 1
+        m = [b1 * m_ + (1 - b1) * g.float()
+             for m_, g in zip(state["m"], grads)]
+        v = [b2 * v_ + (1 - b2) * torch.square(g.float())
+             for v_, g in zip(state["v"], grads)]
+        tf = t.float()
+        bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32,
+                                         device=tf.device), tf)
+        bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
+                                         device=tf.device), tf)
+        upd = [-lr * (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
+               for m_, v_ in zip(m, v)]
+        return upd, {"m": m, "v": v, "t": t}
+
+    return Optimizer(init, update)
+
+
+@torch.no_grad()
+def apply_updates(params: List[torch.Tensor], updates) -> None:
+    """p <- p + u, in place (the reference returns new arrays; the port
+    updates the module's parameters where they are)."""
+    for p, u in zip(params, updates):
+        p.add_(u)
+
+
+def make_optimizer(name: str, lr: float, **kw) -> Optimizer:
+    if name == "sm3":
+        raise NotImplementedError(
+            "sm3 (factored AdaGrad state) comes with slice 5 of the port "
+            "(ROADMAP.md)")
+    return {"adagrad": adagrad, "sgd": sgd, "adam": adam}[name](lr, **kw)

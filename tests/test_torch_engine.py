@@ -1,0 +1,301 @@
+"""The port's round engine against the reference's golden traces.
+
+Both golden workloads (``golden/two_party_trace.json``: vanilla, fedbcd,
+celu; ``golden/three_party_trace.json``) run through ``repro_torch`` on
+the CPU from the reference's initial parameters, with the fused ring
+sample (K1) on and off (K2).  The integer counters must match exactly;
+loss is held to ``LOSS_RTOL`` relative and ``w_mean`` to ``W_MEAN_ATOL``
+absolute (float32 summation order differs between XLA and PyTorch).
+"""
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.models.tabular import DLRMConfig as JDLRMConfig
+from repro.models.tabular import _mlp_init, make_dlrm as jmake_dlrm
+from repro_torch import golden
+from repro_torch.bridge import flatten_tree
+
+torch.set_num_threads(1)
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
+
+
+def _jax_init_params() -> dict:
+    """The reference's initial parameters of both golden workloads, as the
+    recorders in ``tests/test_engine.py`` draw them, flattened to dotted
+    paths under ``two_party`` / ``three_party``.  The goldens were recorded
+    before JAX made the partitionable threefry its default, so the draw
+    uses the earlier threefry."""
+    with jax.threefry_partitionable(False):
+        return _draw_init_params()
+
+
+def _draw_init_params() -> dict:
+    c2 = golden.TWO_PARTY_CFG
+    init2, _, _ = jmake_dlrm(JDLRMConfig(c2.model, c2.fields_a, c2.fields_b,
+                                         c2.vocab, c2.embed_dim, c2.z_dim,
+                                         tuple(c2.hidden)))
+    c3 = golden.THREE_PARTY_CFG
+    cfg3 = JDLRMConfig(c3.model, c3.fields_a, c3.fields_b, c3.vocab,
+                       c3.embed_dim, c3.z_dim, tuple(c3.hidden))
+    init3, _, _ = jmake_dlrm(cfg3)
+    pb = dict(init3(jax.random.PRNGKey(2), cfg3)["b"])
+    pb["top"] = _mlp_init(jax.random.PRNGKey(3), list(golden.THREE_PARTY_TOP))
+    tree = {"two_party": init2(jax.random.PRNGKey(0), JDLRMConfig(
+                c2.model, c2.fields_a, c2.fields_b, c2.vocab, c2.embed_dim,
+                c2.z_dim, tuple(c2.hidden))),
+            "three_party": {"a0": init3(jax.random.PRNGKey(0), cfg3)["a"],
+                            "a1": init3(jax.random.PRNGKey(1), cfg3)["a"],
+                            "b": pb}}
+    return {k: np.asarray(v) for k, v in
+            flatten_tree(jax.tree_util.tree_map(np.asarray, tree)).items()}
+
+
+def test_committed_init_params_match_jax():
+    """The committed fixture is what JAX draws today (it cannot go
+    stale)."""
+    want = _jax_init_params()
+    got = golden.load_params(GOLDEN)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def params():
+    return golden.load_params(GOLDEN)
+
+
+def _check(dev):
+    print(dev)
+    assert dev["counters_equal"], dev
+    assert dev["loss_rel"] <= golden.LOSS_RTOL, dev
+    assert dev["w_mean_abs"] <= golden.W_MEAN_ATOL, dev
+
+
+@pytest.mark.parametrize("cache_fused", [True, False])
+@pytest.mark.parametrize("protocol", ["vanilla", "fedbcd", "celu"])
+def test_two_party_golden(protocol, cache_fused, params):
+    got = golden.two_party_trace(protocol, params, device="cpu",
+                                 cache_fused=cache_fused)
+    _check(golden.compare(got, golden.load_golden(GOLDEN,
+        "two_party_trace.json")[protocol]))
+
+
+@pytest.mark.parametrize("cache_fused", [True, False])
+def test_three_party_golden(cache_fused, params):
+    got = golden.three_party_trace(params, device="cpu",
+                                   cache_fused=cache_fused)
+    _check(golden.compare(got, golden.load_golden(GOLDEN,
+        "three_party_trace.json")["celu"]))
+
+
+@pytest.mark.parametrize("cache_fused", [True, False])
+def test_engine_hands_kernels_operands_they_take(cache_fused, params,
+                                                 monkeypatch):
+    """The CUDA wrappers check their operands (device, dtype, shape,
+    contiguity, the slot) before a launch; the CPU path skips the checks.
+    Run them here on every call the engine makes, so an operand the card
+    would refuse shows up on the CPU."""
+    from repro_torch.kernels import cosine_weight as cw
+    from repro_torch.kernels import fused_sample as fs
+    seen = []
+
+    def k1(slot, a, z, dz, cos_xi):
+        fs.check_ring(slot, a, z, dz)
+        seen.append("k1")
+        return fs.fused_sample_plain(slot, a, z, dz, cos_xi)
+
+    def k2a(a, s, dz, cos_xi):
+        cw.check_rows("cosine_weight_2d", a, s, dz)
+        seen.append("k2a")
+        return cw.cosine_weight_plain(a, s, dz, cos_xi)
+
+    def k2b(a, s, cos_xi):
+        cw.check_rows("cosine_weights_2d", a, s)
+        seen.append("k2b")
+        return cw.cosine_weights_plain(a, s, cos_xi)
+
+    monkeypatch.setattr(fs, "fused_sample_2d", k1)
+    monkeypatch.setattr(cw, "cosine_weight_2d", k2a)
+    monkeypatch.setattr(cw, "cosine_weights_2d", k2b)
+    golden.two_party_trace("celu", params, device="cpu",
+                           cache_fused=cache_fused, rounds=3)
+    golden.three_party_trace(params, device="cpu", cache_fused=cache_fused,
+                             rounds=3)
+    want = {"k1"} if cache_fused else {"k2a", "k2b"}
+    assert set(seen) == want
+
+
+def test_protocol_shim_reproduces_golden_prefix(params):
+    """``core/protocol.py``: the two-party shim (its own state layout over
+    the K-party engine) runs the golden celu workload like the engine."""
+    from repro_torch.bridge import load_flat, subtree
+    from repro_torch.configs.base import CELUConfig
+    from repro_torch.core import protocol
+    from repro_torch.data import to_device
+    from repro_torch.data.synthetic import (TabularSpec, aligned_batches,
+                                            make_tabular)
+    from repro_torch.models.tabular import make_dlrm
+    from repro_torch.optim import make_optimizer
+    cfg = golden.TWO_PARTY_CFG
+    data = make_tabular(TabularSpec("criteo", fields_a=4, fields_b=3,
+                                    vocab=32, n_train=2048, n_test=512), 0)
+    init_fn, task, _ = make_dlrm(cfg)
+    p = init_fn(0, cfg, "cpu")
+    load_flat(p["a"], subtree(params, "two_party.a"))
+    load_flat(p["b"], subtree(params, "two_party.b"))
+    celu = CELUConfig(R=3, W=3, xi_degrees=60.0)
+    opt = make_optimizer("adagrad", 0.05)
+    it = aligned_batches(data["train"], 64, seed=0)
+    _, ba, bb = next(it)
+    state = protocol.init_state(task, p, opt, celu, to_device(ba, "cpu"),
+                                to_device(bb, "cpu"))
+    rnd = protocol.make_round(task, opt, celu)
+    it = aligned_batches(data["train"], 64, seed=0)
+    rows = []
+    for _ in range(6):
+        bi, ba, bb = next(it)
+        state, m = rnd(state, to_device(ba, "cpu"), to_device(bb, "cpu"), bi)
+        rows.append(golden._rows_metrics(m))
+    rows.append({})
+    _check(golden.compare(rows, golden.load_golden(GOLDEN,
+        "two_party_trace.json")["celu"]))
+    assert int(state["steps"]["a"]) == 6 + sum(r["local_steps"]
+                                               for r in rows[:-1]) // 2
+    assert protocol.exchange_bytes((64, 8)) == 2 * 64 * 8 * 4
+
+
+@pytest.mark.parametrize("cache_fused", [True, False])
+def test_local_grads_on_entry_match_ring_reads(cache_fused, params):
+    """``local_grad_a`` / ``local_grad_b`` on a materialised workset entry
+    give the gradients and weights that the round's ring reads give."""
+    from repro_torch.bridge import load_flat, subtree
+    from repro_torch.configs.base import CELUConfig
+    from repro_torch.core import engine
+    from repro_torch.core.workset import workset_entry
+    from repro_torch.data import to_device
+    from repro_torch.data.synthetic import (TabularSpec, aligned_batches,
+                                            make_tabular)
+    from repro_torch.models.tabular import make_dlrm
+    from repro_torch.optim import make_optimizer
+    cfg = golden.TWO_PARTY_CFG
+    data = make_tabular(TabularSpec("criteo", fields_a=4, fields_b=3,
+                                    vocab=32, n_train=512, n_test=64), 0)
+    init_fn, task, _ = make_dlrm(cfg)
+    p = init_fn(0, cfg, "cpu")
+    load_flat(p["a"], subtree(params, "two_party.a"))
+    load_flat(p["b"], subtree(params, "two_party.b"))
+    celu = CELUConfig(R=3, W=3, cache_fused=cache_fused)
+    opt = make_optimizer("adagrad", 0.05)
+    etask = engine.lift_two_party(task)
+    it = aligned_batches(data["train"], 64, seed=0)
+    _, ba, bb = next(it)
+    state = engine.init_state(etask, engine.lift_two_party_params(p), opt,
+                              celu, [to_device(ba, "cpu")],
+                              to_device(bb, "cpu"))
+    rnd = engine.make_round(etask, opt, celu)
+    for _ in range(2):
+        bi, ba, bb = next(it)
+        state, _ = rnd(state, [to_device(ba, "cpu")], to_device(bb, "cpu"),
+                       bi)
+    cos_xi = engine.xi_to_cos(60.0)
+    slot = torch.tensor(0, dtype=torch.int32)
+    pa, pb = state["params"]["a"][0], state["params"]["b"]
+    wsa, wsb = state["ws"]["a"][0], state["ws"]["b"]
+    got = [engine.local_grad_a(task.forward_a, pa, workset_entry(wsa, slot),
+                               cos_xi),
+           engine.local_grad_b(etask.loss_b, pb, workset_entry(wsb, slot),
+                               cos_xi)]
+    want = [engine.local_grad_a_cached(task.forward_a, pa, wsa, slot, cos_xi,
+                                       cache_fused=cache_fused),
+            engine.local_grad_b_cached(etask.loss_b, pb, wsb, slot, cos_xi,
+                                       cache_fused=cache_fused)]
+    for (g, w), (g0, w0) in zip(got, want):
+        assert 0.0 < float(w.mean()) < 1.0
+        torch.testing.assert_close(w, w0, rtol=0, atol=1e-6)
+        for a, b in zip(g, g0):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+def test_synthetic_stream_and_configs_match_reference():
+    """The port's copies of ``data/synthetic.py`` and the DLRM configs give
+    the reference's stream and widths exactly."""
+    from repro.configs import get_config as jget_config
+    from repro.configs.base import CELUConfig as JCELU
+    from repro.data import synthetic as jsyn
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import CELUConfig
+    from repro_torch.data import synthetic as tsyn
+    for name in ("criteo", "avazu", "d3"):
+        assert tsyn.TABULAR_SPECS[name] == tsyn.TabularSpec(
+            **vars(jsyn.TABULAR_SPECS[name]))
+    spec = dict(name="t", fields_a=5, fields_b=3, vocab=50, n_train=300,
+                n_test=40)
+    want = jsyn.make_tabular(jsyn.TabularSpec(**spec), seed=4)
+    got = tsyn.make_tabular(tsyn.TabularSpec(**spec), seed=4)
+    for split in ("train", "test"):
+        for k in ("x_a", "x_b", "y"):
+            np.testing.assert_array_equal(got[split][k], want[split][k])
+    jit = jsyn.aligned_batches(want["train"], 64, seed=4)
+    tit = tsyn.aligned_batches(got["train"], 64, seed=4)
+    for _ in range(6):      # crosses an epoch boundary (4 batches each)
+        (ji, ja, jb), (ti, ta, tb) = next(jit), next(tit)
+        assert ti == ji
+        for k in ja:
+            np.testing.assert_array_equal(ta[k], ja[k])
+        for k in jb:
+            np.testing.assert_array_equal(tb[k], jb[k])
+    for arch in ("wdl-criteo", "dssm-avazu"):
+        j, t = jget_config(arch), get_config(arch)
+        assert (t.model, t.fields_a, t.fields_b, t.vocab, t.embed_dim,
+                t.z_dim, tuple(t.hidden)) == (
+                    j.model, j.fields_a, j.fields_b, j.vocab, j.embed_dim,
+                    j.z_dim, tuple(j.hidden))
+    for k, v in vars(CELUConfig()).items():
+        assert getattr(JCELU(), k) == v, k
+
+
+@pytest.mark.parametrize("wire", ["float32", "bfloat16"])
+def test_transport_and_wan_clock_match_reference(wire):
+    """``SimWANTransport``'s wire cast and byte accounting, and the WAN
+    clock's seconds per round, against the reference."""
+    import jax.numpy as jnp
+    from repro.configs.base import CELUConfig as JCELU
+    from repro.core import engine as jengine
+    from repro.launch import wan as jwan
+    from repro_torch.configs.base import CELUConfig
+    from repro_torch.core import engine as tengine
+    from repro_torch.launch import wan as twan
+    jtp = jengine.SimWANTransport(JCELU(wire_dtype=wire))
+    ttp = tengine.make_transport(CELUConfig(wire_dtype=wire))
+    x = np.random.default_rng(0).standard_normal((16, 8)).astype(np.float32)
+    np.testing.assert_array_equal(
+        ttp.send(None, torch.from_numpy(x))[0].numpy(),
+        np.asarray(jtp.send(None, jnp.asarray(x))[0]))
+    shapes = [(256, 256), (256, 64)]
+    assert ttp.round_bytes(shapes) == jtp.round_bytes(shapes)
+    up, down = twan.transport_round_updown(ttp, shapes)
+    assert (up, down) == jwan.transport_round_updown(jtp, shapes)
+    for depth in (0, 1, 3):
+        kw = dict(exchange_compute_s=0.004, local_compute_s=0.02,
+                  pipeline_depth=depth)
+        assert twan.WANClock().time_to_target(10, up, down, **kw) == \
+            jwan.WANClock().time_to_target(10, up, down, **kw)
+    clock = twan.WANClock().with_bandwidth(1e6, 2e6)
+    assert twan.wan_seconds(up, down, clock=clock) == jwan.wan_seconds(
+        up, down, clock=jwan.WANClock().with_bandwidth(1e6, 2e6))
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        tengine.make_transport(CELUConfig(), "int8")
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        tengine.SimWANTransport(CELUConfig(dp_sigma=0.5))
+
+
+if __name__ == "__main__":
+    # regenerate the fixture (only when the golden workloads change)
+    np.savez(os.path.join(GOLDEN, golden.PARAMS_NPZ), **_jax_init_params())

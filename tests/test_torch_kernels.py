@@ -1,0 +1,154 @@
+"""The port's Algorithm-2 gate kernels (K1, K2a, K2b) against the reference.
+
+On the CPU each wrapper runs its plain PyTorch version; the reference runs
+its Pallas kernels through ``repro.kernels.ops`` in interpret mode.  The
+same numpy inputs go through both.  Rows whose cosine lies within
+``NEAR`` of cos ξ may land on either side of the threshold under another
+summation order, so they are left out of the weight comparison.
+Tolerance: float32 reductions of F <= 256 terms in another order, so
+``ATOL`` absolute on weights and cotangents (all O(1)).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro_torch.core.weighting import instance_weights, xi_to_cos
+from repro_torch.kernels import _cuda
+from repro_torch.kernels import ops as tops
+
+torch.set_num_threads(1)
+
+COS_XI = xi_to_cos(60.0)
+NEAR = 1e-6
+ATOL = 2e-6
+SHAPES = [(3, 64, 8), (5, 256, 256), (2, 37, 8)]
+DTYPES = {"float32": (np.float32, jnp.float32, torch.float32),
+          "bfloat16": (np.float32, jnp.bfloat16, torch.bfloat16)}
+
+
+def _inputs(W, B, F, seed):
+    """ad_hoc (B, F) and rings (W, B, F) whose slot-1 rows have cosines
+    spread across [-1, 1], so the threshold zeroes some rows and keeps
+    others."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((B, F)).astype(np.float32)
+    z = rng.standard_normal((W, B, F)).astype(np.float32)
+    mix = rng.uniform(-1.0, 3.0, size=(B, 1)).astype(np.float32)
+    z[1] = a * mix + z[1]
+    dz = rng.standard_normal((W, B, F)).astype(np.float32)
+    return a, z, dz
+
+
+def _ring(x, dtype):
+    """numpy fp32 -> (jax array, torch tensor) in the ring dtype; bf16
+    rounding happens once, in JAX, and the torch side takes its bits."""
+    _, jdt, tdt = DTYPES[dtype]
+    j = jnp.asarray(x).astype(jdt)
+    t = torch.from_numpy(np.array(j.astype(jnp.float32))).to(tdt)
+    return j, t
+
+
+def _assert_weights(got, want, margin):
+    keep = np.abs(margin - np.float32(COS_XI)) > NEAR
+    dev = np.abs(got - want)[keep].max(initial=0.0)
+    print(f"w: {keep.sum()} rows compared, max |dev| {dev:.3g}")
+    assert dev <= ATOL
+    return keep
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_k1_fused_sample_matches_reference(shape, dtype):
+    W, B, F = shape
+    a, z, dz = _inputs(W, B, F, seed=W * 1000 + B)
+    jz, tz = _ring(z, dtype)
+    jdz, tdz = _ring(dz, dtype)
+    slot = 1
+    jw, jcot = jops.fused_gather_weight(jnp.int32(slot), jnp.asarray(a), jz,
+                                        jdz, COS_XI)
+    tslot = torch.tensor(slot, dtype=torch.int32)
+    tw, tcot = tops.fused_gather_weight(tslot, torch.from_numpy(a), tz, tdz,
+                                        COS_XI)
+    cos = instance_weights(torch.from_numpy(a), tz[1], -2.0).numpy()
+    keep = _assert_weights(tw.numpy(), np.asarray(jw), cos)
+    dev = np.abs(tcot.numpy() - np.asarray(jcot))[keep].max(initial=0.0)
+    print(f"cot max |dev| {dev:.3g}")
+    assert dev <= ATOL
+    # weights-only (Party B's call): the reference passes the ring twice
+    jw2, _ = jops.fused_gather_weight(jnp.int32(slot), jnp.asarray(a), jdz,
+                                      jdz, COS_XI)
+    tw2 = tops.fused_gather_weights(tslot, torch.from_numpy(a), tdz, COS_XI)
+    cos2 = instance_weights(torch.from_numpy(a), tdz[1], -2.0).numpy()
+    _assert_weights(tw2.numpy(), np.asarray(jw2), cos2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_k2_row_gate_matches_reference(shape, dtype):
+    W, B, F = shape
+    a, z, dz = _inputs(W, B, F, seed=W * 1000 + B + 1)
+    jz, tz = _ring(z[1], dtype)
+    jd = jnp.asarray(dz[1])
+    ja = jnp.asarray(a)
+    ta = torch.from_numpy(a)
+    cos = instance_weights(ta, tz, -2.0).numpy()
+    # K2a: weights and weighted cotangent (the engine passes fp32 dz)
+    jw, jcot = jops.weighted_cotangent(ja, jz, jd, COS_XI)
+    tw, tcot = tops.weighted_cotangent(ta, tz, torch.from_numpy(dz[1]),
+                                       COS_XI)
+    keep = _assert_weights(tw.numpy(), np.asarray(jw), cos)
+    dev = np.abs(tcot.numpy() - np.asarray(jcot))[keep].max(initial=0.0)
+    print(f"cot max |dev| {dev:.3g}")
+    assert dev <= ATOL
+    # K2b: weights only
+    jw2 = jops.cosine_weight(ja, jz, COS_XI)
+    tw2 = tops.cosine_weight(ta, tz, COS_XI)
+    _assert_weights(tw2.numpy(), np.asarray(jw2), cos)
+
+
+@pytest.mark.parametrize("staleness", [0, 2])
+def test_weighting_module_matches_reference(staleness):
+    """``core/weighting.py``: the row cosine over flattened non-batch axes,
+    the floored weights and the pipeline attenuation ``w^(1+s)``."""
+    from repro.core import weighting as jwt
+    from repro_torch.core import weighting as twt
+    a, z, _ = _inputs(2, 37, 8, seed=11)
+    a3, z3 = a.reshape(37, 2, 4), z[1].reshape(37, 2, 4)
+    ta, tz = torch.from_numpy(a3), torch.from_numpy(z3)
+    cos = twt.row_cosine(ta, tz).numpy()
+    _assert_weights(cos, np.asarray(jwt.row_cosine(a3, z3)), cos)
+    jw = jwt.instance_weights(jnp.asarray(a3), jnp.asarray(z3), COS_XI)
+    tw = twt.instance_weights(ta, tz, COS_XI)
+    keep = _assert_weights(tw.numpy(), np.asarray(jw), cos)
+    dev = np.abs(twt.pipeline_attenuation(tw, staleness).numpy()
+                 - np.asarray(jwt.pipeline_attenuation(jw, staleness)))
+    assert dev[keep].max() <= ATOL
+    assert twt.xi_to_cos(60.0) == jwt.xi_to_cos(60.0)
+
+
+def test_k1_thresholds_some_rows():
+    """The inputs above exercise both sides of the gate."""
+    a, z, dz = _inputs(5, 256, 256, seed=5256)
+    w, _ = tops.fused_gather_weight(torch.tensor(1, dtype=torch.int32),
+                                    torch.from_numpy(a), torch.from_numpy(z),
+                                    torch.from_numpy(dz), COS_XI)
+    frac = float((w == 0).float().mean())
+    assert 0.1 < frac < 0.9, frac
+
+
+def test_cpu_wrappers_launch_nothing():
+    """On CPU tensors the wrappers run the plain versions: no launch is
+    counted (and no CUDA library is built)."""
+    _cuda.reset_launches()
+    a, z, dz = _inputs(2, 37, 8, seed=0)
+    s = torch.tensor(0, dtype=torch.int32)
+    tops.fused_gather_weight(s, torch.from_numpy(a), torch.from_numpy(z),
+                             torch.from_numpy(dz), COS_XI)
+    tops.fused_gather_weights(s, torch.from_numpy(a), torch.from_numpy(z),
+                              COS_XI)
+    tops.weighted_cotangent(torch.from_numpy(a), torch.from_numpy(z[0]),
+                            torch.from_numpy(dz[0]), COS_XI)
+    tops.cosine_weight(torch.from_numpy(a), torch.from_numpy(z[0]), COS_XI)
+    assert all(v == 0 for v in _cuda.LAUNCHES.values())

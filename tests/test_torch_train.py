@@ -1,0 +1,68 @@
+"""The port's training CLI on the CPU: a few rounds end to end, the
+flags of later slices refused, and no silent move to the CPU."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.launch import train
+
+torch.set_num_threads(1)
+
+SMALL = ["--device", "cpu", "--small", "--rounds", "4", "--n-train", "2048",
+         "--n-test", "512", "--batch-size", "64"]
+
+
+@pytest.mark.parametrize("arch,protocol,extra", [
+    ("wdl-criteo", "celu", []),
+    ("wdl-criteo", "celu", ["--no-cache-fusion"]),
+    ("dssm-avazu", "fedbcd", []),
+    ("wdl-criteo", "vanilla", []),
+])
+def test_cli_runs_rounds_on_cpu(arch, protocol, extra):
+    out = train.main(["--arch", arch, "--protocol", protocol] + SMALL
+                     + extra)
+    assert out["device"] == "cpu"
+    assert np.isfinite(out["final_loss"])
+    assert 0.0 <= out["final_auc"] <= 1.0
+    # fp32 wire: one (B, z_dim) Z up and one ∇Z down per round
+    assert out["comm_bytes"] == 4 * 2 * 64 * 32 * 4
+
+
+@pytest.mark.parametrize("flag", [
+    ["--pipeline-depth", "1"], ["--compression", "int8"],
+    ["--cache-dtype", "int8"], ["--opt-state-dtype", "int8"],
+    ["--optimizer", "sm3"], ["--fault-drop-prob", "0.1"],
+    ["--checkpoint", "x.npz"], ["--resume", "x.npz"],
+    ["--fault-straggler-prob", "0.1"], ["--fault-dropout", "1:0:5"],
+])
+def test_cli_refuses_flags_of_later_slices(flag):
+    with pytest.raises(SystemExit, match="not in the port yet"):
+        train.main(["--arch", "wdl-criteo"] + SMALL + flag)
+
+
+@pytest.mark.parametrize("flag", [
+    ["--fault-seed", "3"], ["--fault-max-retries", "1"],
+    ["--fault-straggler-rounds", "1"], ["--checkpoint-every", "10"],
+    ["--pipeline-lr-damping", "0.5"],
+])
+def test_cli_rejects_tuning_flags_of_later_slices(flag, capsys):
+    """The reference's flags that only tune a later slice's feature are
+    not defined here, so argparse rejects them rather than ignoring them."""
+    with pytest.raises(SystemExit) as e:
+        train.main(["--arch", "wdl-criteo"] + SMALL + flag)
+    assert e.value.code == 2
+    assert f"unrecognized arguments: {flag[0]}" in capsys.readouterr().err
+
+
+def test_cli_refuses_llm_arch():
+    with pytest.raises(SystemExit, match="slice 7"):
+        train.main(["--arch", "smollm-360m"] + SMALL)
+
+
+def test_default_device_is_cuda():
+    """Without ``--device`` the CLI asks for the card and raises when
+    there is none, rather than running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "wdl-criteo", "--small", "--rounds", "1"])
