@@ -9,16 +9,19 @@ Phases, each on its own printed lines (any failure exits non-zero):
   1. the card: name and power limit; TF32 off for matmuls and cuDNN;
   2. the build of the CUDA kernels from ``src/repro_torch/csrc``;
   3. each kernel against its plain PyTorch version on the card (K1 full
-     and weights-only, K2a, K2b) at the main path's shape, at an odd batch
-     and narrow rows, and at a wide F that runs the chunk loop; times
-     from CUDA events beside the least time the card could take;
+     and weights-only, K2a, K2b; K3 at int8 and int4 levels; K4 and K5
+     full and weights-only) at the main path's shapes, at an odd batch
+     and narrow (and odd) rows, and at a wide F that runs the chunk loop;
+     times from CUDA events beside the least time the card could take;
   4. the golden traces (``tests/golden``) replayed on the card from the
      reference's initial parameters, held to the tests' tolerance;
-  5. the main path: ``repro_torch.launch.train`` at WDL-Criteo's full
-     width (B = 256, R = W = 5, celu) with the kernels' launch counts,
-     DSSM-Avazu, the ``--no-cache-fusion`` path (K2), five full-width
-     rounds on the card against the CPU, and ms per round and per local
-     step;
+  5. the main paths: ``repro_torch.launch.train`` at WDL-Criteo's full
+     width (B = 256, R = W = 5, celu) with the kernels' launch counts:
+     the fp32 cache (K1), DSSM-Avazu, ``--no-cache-fusion`` (K2), the
+     int8 / int4 / bf16 caches (K3 + K4, K3 + K5, K1), the int8 wire and
+     the int8 cache under the int4x2 wire (K3); five full-width rounds on
+     the card against the CPU (fp32, and int8 cache + int8 wire on the
+     same uniforms); ms per round and per local step;
   6. a JSON line of per-kernel results, then the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -49,14 +52,27 @@ NEAR = 1e-6                       # rows this close to cos ξ may flip
 # and the two part after round 5.)  A gate that zeroed every weight moves
 # the loss by 3.3e-2 by round 3.
 CPU_CUDA_RTOL = 1e-3
+# The same over the int8 cache + int8 wire, both sides on the same
+# uniforms: stochastic rounding turns an ulp of difference in Z into a
+# whole code step now and then, so the runs part sooner.  This comparison
+# read 7.8e-4 at round 4 on an H100 (PERF.md), so the limit is about 4x
+# that; zeroing K4's weights moves the loss by 3.2e-2 at round 3 (CPU).
+QUANT_CPU_CUDA_RTOL = 3e-3
 SHAPES = [(5, 256, 256), (2, 37, 8), (2, 37, 13), (2, 64, 64 * 960)]
 MAIN_SHAPE = (5, 256, 256)
-REPLACES = {
-    "fused_sample_2d": "src/repro/kernels/fused_sample.py:125",
-    "cosine_weight_2d": "src/repro/kernels/cosine_weight.py:80",
-    "cosine_weights_2d": "src/repro/kernels/cosine_weight.py:56",
+WIRE_SHAPE = (512, 128)           # B · z_dim = 65,536 values in 128-tiles
+R = 5
+GATE = "src/repro_torch/csrc/cosine_gate.cu"
+KERNELS = {   # name -> (the TPU kernel it replaces, its source)
+    "fused_sample_2d": ("src/repro/kernels/fused_sample.py:125", GATE),
+    "cosine_weight_2d": ("src/repro/kernels/cosine_weight.py:80", GATE),
+    "cosine_weights_2d": ("src/repro/kernels/cosine_weight.py:56", GATE),
+    "quantize_sr_2d": ("src/repro/kernels/quantize.py:51",
+                       "src/repro_torch/csrc/quantize.cu"),
+    "fused_sample_q8_2d": ("src/repro/kernels/fused_sample.py:143", GATE),
+    "fused_sample_q4_2d": ("src/repro/kernels/fused_sample.py:232", GATE),
 }
-SOURCE = "src/repro_torch/csrc/cosine_gate.cu"
+DENSE_GATES = ("fused_sample_2d", "cosine_weight_2d", "cosine_weights_2d")
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
 
 
@@ -129,7 +145,7 @@ def phase_kernels(torch):
     cos_xi = xi_to_cos(60.0)
     thresh = cw.f32_threshold(cos_xi)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    results = {k: {"max_abs_err": 0.0} for k in REPLACES}
+    results = {k: {"max_abs_err": 0.0} for k in DENSE_GATES}
     for (W, B, F) in SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             def randn(*shape):
@@ -188,10 +204,148 @@ def phase_kernels(torch):
                       f"per call from Python {call * 1e3:.2f} us",
                       flush=True)
                 if (W, B, F) == MAIN_SHAPE and dtype == torch.float32 \
-                        and name in REPLACES:
+                        and name in DENSE_GATES:
                     results[name].update(ms=ms, plain_ms=plain_ms,
                                          bound_ms=bound_ms,
                                          bound_by=bound_by)
+    return results
+
+
+def _timed(torch, label, kern, plain, err, nbytes, flops):
+    """Time ``kern`` and ``plain`` on the card at this shape; print one
+    line; -> the numbers of the kernels' JSON line."""
+    ms = device_ms(torch, kern)
+    plain_ms = device_ms(torch, plain)
+    call = call_ms(torch, kern)
+    bound_ms, bound_by = bound(nbytes, flops)
+    print(f"[kernel] {label} max|err| {err:.3g}  device: kernel "
+          f"{ms * 1e3:.2f} us  plain {plain_ms * 1e3:.2f} us  bound "
+          f"{bound_ms * 1e3:.3f} us ({bound_by}, {nbytes} B); per call "
+          f"from Python {call * 1e3:.2f} us; library: none", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def phase_quant_kernels(torch):
+    """K3 against its plain version (codes equal, scales bitwise, on the
+    card and against the CPU) and K4 / K5 against theirs (within
+    KERNEL_TOL, rows near cos ξ excluded)."""
+    from repro_torch.core.weighting import xi_to_cos
+    from repro_torch.core.workset import pack_nibbles, sample_hbm_bytes
+    from repro_torch.kernels import cosine_weight as cw
+    from repro_torch.kernels import fused_sample as fs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quantize as qz
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    results = {k: {"max_abs_err": 0.0} for k in
+               ("quantize_sr_2d", "fused_sample_q8_2d", "fused_sample_q4_2d")}
+
+    # K3 at the insert shape (B, F), the wire shape, ragged and wide rows
+    for (T, L) in [MAIN_SHAPE[1:], WIRE_SHAPE, (37, 13), (37, 8),
+                   SHAPES[-1][1:]]:
+        x = torch.randn((T, L), generator=gen, device="cuda") \
+            * torch.rand((T, 1), generator=gen, device="cuda") * 10
+        x[0] = 0.0                      # an all-zero tile: the scale floor
+        u = torch.rand((T, L), generator=gen, device="cuda")
+        for levels in (127, 7):
+            q, sc = qz.quantize_sr_2d(x, u, levels)
+            q0, sc0 = qz.quantize_sr_plain(x, u, levels)
+            qc, scc = qz.quantize_sr_plain(x.cpu(), u.cpu(), levels)
+            torch.cuda.synchronize()
+            bad = int((q != q0).sum()) + int((q.cpu() != qc).sum())
+            check(bad == 0 and torch.equal(sc, sc0)
+                  and torch.equal(sc.cpu(), scc),
+                  f"quantize_sr_2d at {(T, L)} levels {levels}: {bad} codes "
+                  f"differ, scales bitwise {torch.equal(sc, sc0)} "
+                  f"{torch.equal(sc.cpu(), scc)}")
+            label = f"{'quantize_sr_2d':30s} T,L={T},{L} levels {levels:3d}"
+            if (T, L) in (MAIN_SHAPE[1:], WIRE_SHAPE) and levels == 127:
+                t = _timed(torch, label,
+                           lambda: qz.quantize_sr_2d(x, u, levels),
+                           lambda: qz.quantize_sr_plain(x, u, levels), 0.0,
+                           9 * T * L + 4 * T, 5 * T * L)
+                if (T, L) == MAIN_SHAPE[1:]:
+                    results["quantize_sr_2d"].update(t)
+            else:
+                print(f"[kernel] {label} codes equal, scales bitwise equal "
+                      f"(card and CPU)", flush=True)
+
+    # K4 / K5 over rings quantised as an insert quantises them
+    cos_xi = xi_to_cos(60.0)
+    thresh = cw.f32_threshold(cos_xi)
+    slot = torch.tensor([1], dtype=torch.int32, device="cuda")
+    for bits, name in ((8, "fused_sample_q8_2d"), (4, "fused_sample_q4_2d")):
+        full = ops.fused_gather_weight_q8 if bits == 8 \
+            else ops.fused_gather_weight_q4
+        w_only = ops.fused_gather_weights_q8 if bits == 8 \
+            else ops.fused_gather_weights_q4
+        for (W, B, F) in SHAPES:
+            def randn(*shape):
+                return torch.randn(shape, generator=gen, device="cuda")
+            a = randn(B, F)
+            z = randn(W, B, F)
+            z[1] = a * (torch.rand((B, 1), generator=gen, device="cuda")
+                        * 4 - 1) + z[1]
+            dz = randn(W, B, F)
+
+            def enc(r):
+                x = r.reshape(W * B, F)
+                q, sc = qz.quantize_sr_plain(
+                    x, torch.rand(x.shape, generator=gen, device="cuda"),
+                    127 if bits == 8 else 7)
+                if bits == 4:
+                    if F & 1:
+                        q = torch.cat([q, q.new_zeros((W * B, 1))], dim=1)
+                    q = pack_nibbles(q)
+                return (q.reshape(W, B, -1).contiguous(),
+                        sc.reshape(W, B).contiguous())
+            zq, zs = enc(z)
+            dzq, dzs = enc(dz)
+            a_pad = torch.nn.functional.pad(
+                a, (0, (2 * zq.shape[2] - F) if bits == 4 else 0))
+
+            def plain(q, sc, dq, ds):
+                w, cot = fs.fused_sample_quant_plain(
+                    bits, slot, a_pad, q, sc, dq, ds, cos_xi)
+                return w, None if cot is None else cot[:, :F]
+
+            def keep(q, sc):
+                deq = fs.dequant_rows(q[1], sc[1], bits)
+                return (cw.gate_weights_plain(a_pad, deq, -2.0)
+                        - thresh).abs() > NEAR
+            cases = [
+                ("", lambda: full(slot, a, zq, zs, dzq, dzs, cos_xi),
+                 lambda: plain(zq, zs, dzq, dzs), keep(zq, zs), "a"),
+                (" weights-only",      # Party B's: the ∇Z ring alone
+                 lambda: (w_only(slot, a, dzq, dzs, cos_xi), None),
+                 lambda: plain(dzq, dzs, None, None), keep(dzq, dzs), "b"),
+            ]
+            for tag, kern, plain_fn, rows, party in cases:
+                (w, cot), (w0, cot0) = kern(), plain_fn()
+                torch.cuda.synchronize()
+                err = (w - w0).abs()[rows].max().item()
+                if cot is not None:
+                    err = max(err, (cot - cot0).abs()[rows].max().item())
+                check(math.isfinite(err) and err <= KERNEL_TOL,
+                      f"{name}{tag} at {(W, B, F)}: max |err| {err}")
+                results[name]["max_abs_err"] = max(
+                    results[name]["max_abs_err"], err)
+                label = f"{name + tag:30s} W,B,F={W},{B},{F}"
+                if (W, B, F) != MAIN_SHAPE:
+                    print(f"[kernel] {label} max|err| {err:.3g}", flush=True)
+                    continue
+                dtype = "int8" if bits == 8 else "int4"
+                ex = {"z": a, "dz": a}
+                if party == "a":
+                    nbytes = sample_hbm_bytes(ex, dtype, True, "a") + 4
+                else:      # the stored dz, the ad-hoc rows, w, the slot
+                    nbytes = sample_hbm_bytes({"dz": a}, dtype) \
+                        + 4 * B * F + 4 * B + 4
+                t = _timed(torch, label, kern, plain_fn, err, nbytes,
+                           (8 if party == "a" else 7) * B * F)
+                if party == "a":
+                    results[name].update(t)
     return results
 
 
@@ -224,60 +378,105 @@ def train_args(arch, protocol="celu", rounds=50, device=None, **kw):
     return SimpleNamespace(**{**vars(args), **kw})
 
 
-def phase_main_path(torch, card):
+def _run(label, args, **kw):
+    """Train with the launch counts set to 0 just before; -> (result,
+    the counts of this run)."""
     from repro_torch.kernels import _cuda
     from repro_torch.launch.train import train_dlrm
+    _cuda.reset_launches()
+    out = train_dlrm(args, **kw)
+    counts = dict(_cuda.LAUNCHES)
+    print(f"[main] {label}: launches {counts}", flush=True)
+    check(math.isfinite(out["final_loss"]), f"{label}: loss not finite")
+    return out, counts
 
-    R = 5
+
+def _want(label, counts, **want):
+    """Every kernel's count is the wanted one (0 where none is given)."""
+    full = {k: want.get(k, 0) for k in counts}
+    check(counts == full, f"{label}: launches {counts}, want {full}")
+
+
+def _cpu_vs_cuda(label, gpu, cpu, rtol):
+    check([g[0] for g in gpu["history"]] == [2, 3, 4, 5]
+          and [c[0] for c in cpu["history"]] == [2, 3, 4, 5],
+          f"{label} cuda vs cpu: rounds 2-5 not all recorded")
+    devs = [abs(g[1] - c[1]) / abs(c[1])
+            for g, c in zip(gpu["history"], cpu["history"])]
+    print(f"[main] {label}, 5 full-width rounds cuda vs cpu: loss rel dev "
+          f"per round 2-5 {[float(f'{d:.3g}') for d in devs]} (tolerance "
+          f"{rtol})", flush=True)
+    check(max(devs) <= rtol, f"{label} cuda vs cpu loss deviation {devs}")
+
+
+def phase_main_path(torch, card):
+    from repro_torch.core.uniforms import GeneratorUniforms
+    from repro_torch.launch.train import train_dlrm
+
     counts = {}
     # WDL-Criteo at full width, the default fused ring sample (K1)
     rounds = 50
-    _cuda.reset_launches()
-    wdl = train_dlrm(train_args("wdl-criteo", rounds=rounds))
-    counts["fused_sample_2d"] = _cuda.LAUNCHES["fused_sample_2d"]
-    print(f"[main] wdl-criteo celu {rounds} rounds: launches "
-          f"{dict(_cuda.LAUNCHES)}", flush=True)
-    check(math.isfinite(wdl["final_loss"]), "wdl loss not finite")
-    check(_cuda.LAUNCHES["fused_sample_2d"] == 2 * R * rounds,
-          f"K1 launched {_cuda.LAUNCHES['fused_sample_2d']} times, "
-          f"want 2·R per round = {2 * R * rounds}")
-    check(_cuda.LAUNCHES["cosine_weight_2d"] == 0
-          and _cuda.LAUNCHES["cosine_weights_2d"] == 0,
-          "K2 launched on the fused path")
+    wdl, c = _run(f"wdl-criteo celu {rounds} rounds",
+                  train_args("wdl-criteo", rounds=rounds))
+    _want("fp32 cache", c, fused_sample_2d=2 * R * rounds)
+    counts["fused_sample_2d"] = c["fused_sample_2d"]
 
-    _cuda.reset_launches()
-    dssm = train_dlrm(train_args("dssm-avazu", rounds=5))
-    print(f"[main] dssm-avazu celu 5 rounds: launches "
-          f"{dict(_cuda.LAUNCHES)}", flush=True)
-    check(math.isfinite(dssm["final_loss"]), "dssm loss not finite")
-    check(_cuda.LAUNCHES["fused_sample_2d"] == 2 * R * 5, "dssm K1 count")
+    _, c = _run("dssm-avazu celu 5 rounds", train_args("dssm-avazu",
+                                                       rounds=5))
+    _want("dssm", c, fused_sample_2d=2 * R * 5)
 
     # the materialising path: K2a for Party A, K2b for Party B
-    _cuda.reset_launches()
-    unfused = train_dlrm(train_args("wdl-criteo", rounds=5,
-                                    no_cache_fusion=True))
-    counts["cosine_weight_2d"] = _cuda.LAUNCHES["cosine_weight_2d"]
-    counts["cosine_weights_2d"] = _cuda.LAUNCHES["cosine_weights_2d"]
-    print(f"[main] wdl-criteo celu --no-cache-fusion 5 rounds: launches "
-          f"{dict(_cuda.LAUNCHES)}", flush=True)
-    check(math.isfinite(unfused["final_loss"]), "unfused loss not finite")
-    check(_cuda.LAUNCHES["cosine_weight_2d"] == R * 5
-          and _cuda.LAUNCHES["cosine_weights_2d"] == R * 5
-          and _cuda.LAUNCHES["fused_sample_2d"] == 0,
-          f"K2a/K2b counts {dict(_cuda.LAUNCHES)}, want R per round each")
+    _, c = _run("wdl-criteo celu --no-cache-fusion 5 rounds",
+                train_args("wdl-criteo", rounds=5, no_cache_fusion=True))
+    _want("--no-cache-fusion", c, cosine_weight_2d=R * 5,
+          cosine_weights_2d=R * 5)
+    counts["cosine_weight_2d"] = c["cosine_weight_2d"]
+    counts["cosine_weights_2d"] = c["cosine_weights_2d"]
+
+    # the quantised caches: K3 on each of the 4 inserts of a round (z and
+    # dz of both parties), K4 / K5 on each of the 2·R samples; bf16 is K1's
+    quant = {}
+    for dtype, kernel in (("int8", "fused_sample_q8_2d"),
+                          ("int4", "fused_sample_q4_2d")):
+        quant[dtype], c = _run(
+            f"wdl-criteo celu --cache-dtype {dtype} {rounds} rounds",
+            train_args("wdl-criteo", rounds=rounds, cache_dtype=dtype))
+        _want(f"--cache-dtype {dtype}", c, quantize_sr_2d=4 * rounds,
+              **{kernel: 2 * R * rounds})
+        counts[kernel] = c[kernel]
+        if dtype == "int8":
+            counts["quantize_sr_2d"] = c["quantize_sr_2d"]
+    _, c = _run("wdl-criteo celu --cache-dtype bfloat16 5 rounds",
+                train_args("wdl-criteo", rounds=5, cache_dtype="bfloat16"))
+    _want("--cache-dtype bfloat16", c, fused_sample_2d=2 * R * 5)
+
+    # the compressed wire: K3 on the uplink Z and the downlink ∇Z
+    _, c = _run("wdl-criteo celu --compression int8 5 rounds",
+                train_args("wdl-criteo", rounds=5, compression="int8"))
+    _want("--compression int8", c, quantize_sr_2d=2 * 5,
+          fused_sample_2d=2 * R * 5)
+    _, c = _run("wdl-criteo celu --cache-dtype int8 --compression int4x2 "
+                "5 rounds", train_args("wdl-criteo", rounds=5,
+                                       cache_dtype="int8",
+                                       compression="int4x2"))
+    _want("--cache-dtype int8 --compression int4x2", c,
+          quantize_sr_2d=(4 + 4) * 5, fused_sample_q8_2d=2 * R * 5)
 
     # five full-width rounds on the card against the CPU
     gpu5 = train_dlrm(train_args("wdl-criteo", rounds=5))
     cpu5 = train_dlrm(train_args("wdl-criteo", rounds=5, device="cpu"))
-    check([g[0] for g in gpu5["history"]] == [2, 3, 4, 5]
-          and [c[0] for c in cpu5["history"]] == [2, 3, 4, 5],
-          "cuda vs cpu: rounds 2-5 not all recorded")
-    devs = [abs(g[1] - c[1]) / abs(c[1])
-            for g, c in zip(gpu5["history"], cpu5["history"])]
-    print(f"[main] 5 full-width rounds cuda vs cpu: loss rel dev per round "
-          f"2-5 {[float(f'{d:.3g}') for d in devs]} (tolerance "
-          f"{CPU_CUDA_RTOL})", flush=True)
-    check(max(devs) <= CPU_CUDA_RTOL, f"cuda vs cpu loss deviation {devs}")
+    _cpu_vs_cuda("fp32", gpu5, cpu5, CPU_CUDA_RTOL)
+    # ... and on the quantised cache and wire, both drawing the same
+    # uniforms on the CPU; two card runs, since the card's embedding
+    # gradients sum with atomics in no fixed order
+    kw = dict(rounds=5, cache_dtype="int8", compression="int8")
+    cpu5 = train_dlrm(train_args("wdl-criteo", device="cpu", **kw),
+                      uniforms=GeneratorUniforms(0, "cpu"))
+    for run in (1, 2):
+        gpu5 = train_dlrm(train_args("wdl-criteo", **kw),
+                          uniforms=GeneratorUniforms(0, "cuda", "cpu"))
+        _cpu_vs_cuda(f"int8 cache + int8 wire (card run {run})", gpu5, cpu5,
+                     QUANT_CPU_CUDA_RTOL)
 
     # time: the celu round against the vanilla round (no local updates)
     vanilla = train_dlrm(train_args("wdl-criteo", protocol="vanilla",
@@ -289,6 +488,10 @@ def phase_main_path(torch, card):
           f"{vanilla['steady_round_ms']:.3f} ms per round, so "
           f"{local_ms:.3f} ms per local step (both parties); card {card}",
           flush=True)
+    for dtype, out in quant.items():
+        print(f"[time] wdl-criteo full width celu --cache-dtype {dtype}: "
+              f"{out['steady_round_ms']:.3f} ms per round (fp32 cache "
+              f"{round_ms:.3f}); card {card}", flush=True)
 
     # the card's busy time per round, from a profiled run (the profiler
     # slows the host, not the kernels)
@@ -340,6 +543,7 @@ def main() -> None:
     # 3.-5.
     t0 = time.perf_counter()
     kernels = phase_kernels(torch)
+    kernels.update(phase_quant_kernels(torch))
     print(f"[phase] kernels {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     phase_goldens(torch)
@@ -350,10 +554,11 @@ def main() -> None:
 
     # 6. results
     rows = []
-    for name, r in kernels.items():
+    for name, (replaces, source) in KERNELS.items():
+        r = kernels[name]
         check(counts.get(name, 0) > 0, f"{name} never launched on its path")
-        rows.append({"name": name, "route": "cuda", "source": SOURCE,
-                     "replaces": REPLACES[name], "launches": counts[name],
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": counts[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None})

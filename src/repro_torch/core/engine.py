@@ -32,9 +32,15 @@ How the JAX engine maps onto PyTorch:
   * The Algorithm-2 gate always goes through the kernel wrappers
     (``kernels/ops.py``): on the card the CUDA kernel for every batch size
     (the TPU kernel's ``_fusable`` tiling gate has no counterpart), on the
-    CPU their plain versions.
+    CPU their plain versions.  The ring's storage form picks the kernel:
+    K1 for fp32 and bf16, K4 for int8, K5 for int4.
+  * Randomness is injected: the stochastic-rounding uniforms of the
+    compressed wire and of the quantised inserts come from a uniform
+    source (``core/uniforms.py``) under tags that name the reference's
+    key chain.  The state keeps the round number as a host int
+    (``state["round"]``) for the tags, so drawing costs no host sync.
 
-The pipelined scheduler, the compressed wire, DP and the quantised caches
+The pipelined scheduler, DP and the chaos engine's ``recover_dropped``
 are later slices of the port (ROADMAP.md) and raise here.
 """
 from __future__ import annotations
@@ -49,9 +55,12 @@ import torch
 from ..configs.base import CELUConfig
 from ..kernels import ops as kops
 from ..optim import Optimizer, apply_updates
+from .compression import IdentityCodec, make_codec_pair
+from .uniforms import GeneratorUniforms, insert_key, wire_key
 from .weighting import xi_to_cos
-from .workset import (tree_map, workset_draw, workset_entry, workset_init,
-                      workset_insert)
+from .workset import (CastLeaf, Quant4Leaf, QuantLeaf, decode_entry,
+                      take_slot, tree_map, workset_draw, workset_entry,
+                      workset_init, workset_insert)
 
 
 class KPartyTask(NamedTuple):
@@ -101,7 +110,7 @@ class SimWANTransport:
     def __init__(self, celu: CELUConfig):
         if celu.dp_sigma > 0.0:
             raise NotImplementedError(
-                "DP on the wire (dp_sigma > 0) comes with slice 3 of the "
+                "DP on the wire (dp_sigma > 0) comes with slice 3b of the "
                 "port (ROADMAP.md)")
         if celu.wire_dtype not in _WIRE_DTYPES:
             raise ValueError(f"wire_dtype must be one of "
@@ -109,6 +118,12 @@ class SimWANTransport:
                              f"{celu.wire_dtype!r}")
         self.celu = celu
         self.wire = _WIRE_DTYPES[celu.wire_dtype]
+
+    @property
+    def stateful_directions(self):
+        """Directions ("up"/"down") whose error-feedback residuals live in
+        ``state["transport"]`` (none: this transport is stateless)."""
+        return ()
 
     def init_state(self, z_examples: Sequence) -> Dict[str, Any]:
         return {}
@@ -118,9 +133,9 @@ class SimWANTransport:
             x = x.to(self.wire).to(x.dtype)
         return x
 
-    def send(self, rng, x, res=None, direction: str = "up"):
+    def send(self, key, x, res=None, direction: str = "up"):
         """The message released across the link -> (wire value, residual).
-        ``rng`` is the reference's DP key, unused without DP."""
+        ``key`` (a ``UniformKey``) is unused by the plain wire."""
         return self._wire_cast(x), res
 
     def message_bytes(self, z_shape) -> int:
@@ -140,15 +155,87 @@ class SimWANTransport:
                    for s in z_shapes)
 
 
+class CompressedWANTransport(SimWANTransport):
+    """Compressed wire (Compressed-VFL): every released message passes the
+    plain wire cast and then a per-direction codec of
+    :mod:`repro_torch.core.compression` under error feedback.
+
+    Lossy directions carry one fp32 residual per feature party in
+    ``state["transport"]`` (``{"up": [r_1..r_K], "down": [...]}``, built
+    by :meth:`init_state`); each send compresses ``x + r`` and keeps the
+    compression error as the next round's residual, so the decoded
+    messages telescope to the uncompressed sum.  The identity codec is
+    ``exact``: its send skips encode, so that wire is bitwise the plain
+    one and keeps no residual."""
+
+    def __init__(self, celu: CELUConfig, up_codec=None, down_codec=None):
+        super().__init__(celu)
+        up = up_codec if up_codec is not None else IdentityCodec()
+        self.codecs = {"up": up,
+                       "down": down_codec if down_codec is not None else up}
+
+    @property
+    def stateful_directions(self):
+        return tuple(d for d, c in self.codecs.items() if not c.lossless)
+
+    def init_state(self, z_examples: Sequence) -> Dict[str, Any]:
+        """Zero residuals, one per party per lossy direction, on the
+        device of the K cut-tensor examples."""
+        return {d: [torch.zeros(z.shape, dtype=torch.float32,
+                                device=z.device) for z in z_examples]
+                for d in self.stateful_directions}
+
+    def send(self, key, x, res=None, direction: str = "up"):
+        codec = self.codecs[direction]
+        x, _ = super().send(key, x, None, direction)
+        if getattr(codec, "exact", False):
+            return x, res
+        e = x.float()
+        if res is not None:
+            e = e + res
+        payload = codec.encode(key.fold(1), e)
+        y = codec.decode(payload, e)
+        return y.to(x.dtype), None if res is None else e - y
+
+    def uplink_bytes(self, z_shape) -> int:
+        return self.codecs["up"].wire_bytes(z_shape, self.wire)
+
+    def downlink_bytes(self, z_shape) -> int:
+        return self.codecs["down"].wire_bytes(z_shape, self.wire)
+
+    def recover_dropped(self, fresh: Dict[str, Any]) -> Dict[str, Any]:
+        raise NotImplementedError(
+            "recover_dropped (the chaos engine's lost exchanges) comes "
+            "with slice 6 of the port (ROADMAP.md)")
+
+    def scheduled(self, loss) -> "CompressedWANTransport":
+        """Offer one (smoothed) loss observation to each distinct codec's
+        adaptive hook (the top-k ``ratio_schedule``).  -> ``self`` when
+        nothing fired, else a new transport around the re-ratioed codecs;
+        the residuals in the round state are dense and carry over."""
+        # consult each DISTINCT codec once: a symmetric wire may alias one
+        # codec object in both directions
+        seen: Dict[int, Any] = {}
+        for c in self.codecs.values():
+            if id(c) not in seen:
+                seen[id(c)] = c.scheduled(loss) if hasattr(c, "scheduled") \
+                    else c
+        new = {d: seen[id(c)] for d, c in self.codecs.items()}
+        if all(new[d] is self.codecs[d] for d in self.codecs):
+            return self
+        return CompressedWANTransport(self.celu, new["up"], new["down"])
+
+
 def make_transport(celu: CELUConfig, compression: Optional[str] = None):
-    """Transport for the simulated WAN.  Only the plain wire (``""``) and
-    the identity codec, which is the same wire, exist in this slice."""
+    """Transport for the simulated WAN.  ``compression`` (falling back to
+    ``celu.compression``) is a codec spec of
+    ``core.compression.CODEC_SPECS`` or ``"up/down"``; empty -> the plain
+    :class:`SimWANTransport`."""
     name = celu.compression if compression is None else compression
-    if name in ("", "identity"):
+    if not name:
         return SimWANTransport(celu)
-    raise NotImplementedError(
-        f"compression={name!r}: the compressed wire comes with slice 3 of "
-        f"the port (ROADMAP.md)")
+    up, down = make_codec_pair(name)
+    return CompressedWANTransport(celu, up, down)
 
 
 # --------------------------------------------------------------------------
@@ -215,21 +302,44 @@ def local_grad_a(forward_a, params_a, entry, cos_xi: float, *,
                         weighting=weighting, mask=mask)
 
 
+def _ring_view(store):
+    """fp32 / bf16 storage leaf -> the ring tensor K1 reads."""
+    return store.v if isinstance(store, CastLeaf) else store
+
+
+def _fused_ring_sample(slot, z_new, z_store, dz_store, cos_xi: float):
+    """One-pass sample off the ring in its storage form: gather the slot,
+    dequantise, row cosine against the ad-hoc z, threshold, scale the
+    stale cotangent (K1 for fp32 / bf16, K4 for int8, K5 for int4).
+    -> (weights (B,), fp32 weighted cotangent in z_new's shape)."""
+    if isinstance(z_store, Quant4Leaf):
+        return kops.fused_gather_weight_q4(slot, z_new, z_store.q,
+                                           z_store.scale, dz_store.q,
+                                           dz_store.scale, cos_xi)
+    if isinstance(z_store, QuantLeaf):
+        return kops.fused_gather_weight_q8(slot, z_new, z_store.q,
+                                           z_store.scale, dz_store.q,
+                                           dz_store.scale, cos_xi)
+    return kops.fused_gather_weight(slot, z_new, _ring_view(z_store),
+                                    _ring_view(dz_store), cos_xi)
+
+
 def local_grad_a_cached(forward_a, params_a, ws, slot, cos_xi: float, *,
                         weighting: bool = True, cache_fused: bool = True,
                         mask=None):
     """Feature-party local update straight off the workset ring.  Only the
     party's own cached features are gathered; with ``cache_fused`` the cut
-    statistics ⟨Z, ∇Z⟩ go through the fused ring-sample kernel (K1) and
-    no copy of the entry is made.  Otherwise the entry is materialised and
-    weighted by K2a.  Returns (grads, weights)."""
+    statistics ⟨Z, ∇Z⟩ go through the fused ring-sample kernel of the
+    ring's storage form (K1, K4 or K5) and no copy of the entry is made.
+    Otherwise the entry is gathered, decoded and weighted by K2a.  Returns
+    (grads, weights)."""
     buf = ws["buf"]
     idx = slot.reshape(1).long()
     batch = tree_map(lambda b: _take(b, idx), buf["batch"])
     z_new = forward_a(params_a, batch)
     if weighting and cache_fused:
-        w, cot = kops.fused_gather_weight(slot, z_new.detach(), buf["z"],
-                                          buf["dz"], cos_xi)
+        w, cot = _fused_ring_sample(slot, z_new.detach(), buf["z"],
+                                    buf["dz"], cos_xi)
         return _backward_a(z_new, params_a, w, cot, mask)
     entry = workset_entry(ws, slot)
     return _grad_a_tail(z_new, params_a, entry["z"], entry["dz"], cos_xi,
@@ -268,26 +378,41 @@ def local_grad_b(loss_b, params_b, entry, cos_xi: float, *,
     return _weighted_grad_b(loss_b, params_b, zs, batch_b, w), w
 
 
+def _fused_ring_weights(slot, dz_new, dz_store, cos_xi: float):
+    """Weights-only fused sample for Party B: the slot's stale ∇Z_i read
+    straight off the ring in its storage form and row-cosined against the
+    ad-hoc derivative (K1, K4 or K5 with no cotangent)."""
+    if isinstance(dz_store, Quant4Leaf):
+        return kops.fused_gather_weights_q4(slot, dz_new, dz_store.q,
+                                            dz_store.scale, cos_xi)
+    if isinstance(dz_store, QuantLeaf):
+        return kops.fused_gather_weights_q8(slot, dz_new, dz_store.q,
+                                            dz_store.scale, cos_xi)
+    return kops.fused_gather_weights(slot, dz_new, _ring_view(dz_store),
+                                     cos_xi)
+
+
 def local_grad_b_cached(loss_b, params_b, ws, slot, cos_xi: float, *,
                         weighting: bool = True, cache_fused: bool = True,
                         mask=None):
     """Label-party local update straight off the workset ring.  The loss
-    consumes the cached Z list, so it is gathered; with ``cache_fused``
-    the ∇Z side is read by the weights-only ring kernel (K1) and never
-    gathered, otherwise it is materialised and weighted by K2b.  Returns
+    consumes the cached Z list, so it is gathered and decoded with plain
+    ops; with ``cache_fused`` the ∇Z side is read by the weights-only ring
+    kernel of the ring's storage form (K1, K4 or K5) and never gathered,
+    otherwise it is gathered, decoded and weighted by K2b.  Returns
     (grads, weights)."""
     buf = ws["buf"]
     idx = slot.reshape(1).long()
     batch_b = tree_map(lambda b: _take(b, idx), buf["batch"])
-    zs = [_take(z, idx) for z in buf["z"]]
+    zs = decode_entry(take_slot(buf["z"], slot))
     if weighting:
         dz_new = _ad_hoc_dz(loss_b, params_b, zs, batch_b)
         if cache_fused:
             stale = buf["dz"]
-            weigh = lambda i: kops.fused_gather_weights(  # noqa: E731
+            weigh = lambda i: _fused_ring_weights(  # noqa: E731
                 slot, dz_new[i], stale[i], cos_xi)
         else:
-            stale = [_take(d, idx) for d in buf["dz"]]
+            stale = decode_entry(take_slot(buf["dz"], slot))
             weigh = lambda i: staleness_weights(  # noqa: E731
                 dz_new[i], stale[i], cos_xi)
         w = weigh(0)
@@ -310,10 +435,16 @@ def _i32(device):
 @torch.no_grad()
 def init_state(task: KPartyTask, params: Dict[str, Any], opt: Optimizer,
                celu: CELUConfig, batches_a: Sequence[Any], batch_b,
-               transport=None, compression: Optional[str] = None):
+               transport=None, compression: Optional[str] = None,
+               uniforms=None):
     """Build the K-party training state on the device of ``params`` and
     the example batches, which size the workset rings.
-    ``params = {"a": [pa_1..pa_K], "b": pb}`` (modules)."""
+    ``params = {"a": [pa_1..pa_K], "b": pb}`` (modules).  ``transport`` /
+    ``compression`` must mirror what :func:`make_round` gets: the
+    transport sizes the error-feedback residuals of
+    ``state["transport"]``.  ``uniforms`` is the round's uniform source
+    (``core/uniforms.py``); the default draws from a ``torch.Generator``
+    on the state's device seeded with 0."""
     K = len(params["a"])
     z_like = [torch.zeros_like(task.forward_a(params["a"][i], batches_a[i]))
               for i in range(K)]
@@ -332,6 +463,9 @@ def init_state(task: KPartyTask, params: Dict[str, Any], opt: Optimizer,
         "ws": {"a": ws_a, "b": ws_b},
         "steps": {"a": [_i32(dev) for _ in range(K)], "b": _i32(dev)},
         "comm_rounds": _i32(dev),
+        "round": 0,              # comm_rounds as a host int, for the tags
+        "uniforms": (uniforms if uniforms is not None
+                     else GeneratorUniforms(0, dev)),
         "transport": (transport if transport is not None
                       else make_transport(celu, compression)
                       ).init_state(z_like),
@@ -356,12 +490,13 @@ def _make_stages(task: KPartyTask, opt: Optimizer, celu: CELUConfig, *,
                  n_local: int, tp):
     """The round's stages over the shared state layout:
 
-      * ``exchange_compute(params, tstate, batches_a, batch_b,
-        comm_rounds)`` — party forwards, the wire up (Z_i) and down
-        (∇Z_i), Party B's loss and every fresh gradient, without touching
-        the state;
-      * ``exchange_apply(state, fresh, batches_a, batch_b, batch_idx)`` —
-        fresh optimizer steps, workset inserts, counters;
+      * ``exchange_compute(params, tstate, batches_a, batch_b, round_,
+        uniforms)`` — party forwards, the wire up (Z_i) and down (∇Z_i),
+        Party B's loss and every fresh gradient, without touching the
+        state; -> the fresh values and the updated residuals;
+      * ``exchange_apply(state, fresh, batches_a, batch_b, batch_idx,
+        uniforms)`` — fresh optimizer steps, workset inserts, counters,
+        the residuals adopted;
       * ``local_scan(state)`` — the R staleness-weighted local updates
         per party (Algorithm 2)."""
     if celu.sampling not in ("round_robin", "consecutive"):
@@ -370,16 +505,30 @@ def _make_stages(task: KPartyTask, opt: Optimizer, celu: CELUConfig, *,
             f"slice 2 of the port (ROADMAP.md)")
     cos_xi = xi_to_cos(celu.xi_degrees)
 
-    def exchange_compute(params, tstate, batches_a, batch_b, comm_rounds):
+    def exchange_compute(params, tstate, batches_a, batch_b, round_,
+                         uniforms):
         pas, pb = params["a"], params["b"]
         K = len(pas)
+        missing = [d for d in tp.stateful_directions if d not in tstate]
+        if missing:
+            raise ValueError(
+                f"transport keeps error-feedback residuals for {missing} "
+                f"but the round state has none: pass the same transport "
+                f"(or compression spec) to init_state")
+        up_res = list(tstate["up"]) if "up" in tstate else [None] * K
+        down_res = list(tstate["down"]) if "down" in tstate else [None] * K
+
+        def key(j):     # wire send j of 2K: 2i up, 2i + 1 down
+            return wire_key(uniforms, round_, 2 * K, j)
+
         # uplinks: every A_i's forward -> Z_i, released in wire precision;
         # the wire value becomes a fresh leaf on Party B's side
         z_out, zs = [], []
         for i in range(K):
             z = task.forward_a(pas[i], batches_a[i])
             z_out.append(z)
-            zs.append(tp.send(None, z.detach(), None, "up")[0])
+            zi, up_res[i] = tp.send(key(2 * i), z.detach(), up_res[i], "up")
+            zs.append(zi)
         z_leaves = [z.detach().requires_grad_(True) for z in zs]
 
         # Party B: loss + grads wrt (params_b, all Z_i) in one pass
@@ -388,17 +537,25 @@ def _make_stages(task: KPartyTask, opt: Optimizer, celu: CELUConfig, *,
         pb_params = _params(pb)
         grads = torch.autograd.grad(loss, pb_params + z_leaves)
         g_b = grads[:len(pb_params)]
-        dzs = [tp.send(None, dz, None, "down")[0]
-               for dz in grads[len(pb_params):]]
+        dzs = list(grads[len(pb_params):])
+        for i in range(K):
+            dzs[i], down_res[i] = tp.send(key(2 * i + 1), dzs[i],
+                                          down_res[i], "down")
+        new_tstate = dict(tstate)
+        if "up" in tstate:
+            new_tstate["up"] = up_res
+        if "down" in tstate:
+            new_tstate["down"] = down_res
 
         # every A_i's backward with its (wire-precision) cotangent
         g_as = [torch.autograd.grad(z_out[i], _params(pas[i]),
                                     grad_outputs=dzs[i].to(z_out[i].dtype))
                 for i in range(K)]
         return {"zs": zs, "dzs": dzs, "g_as": g_as, "g_b": g_b,
-                "loss": loss.detach(), "tstate": tstate}
+                "loss": loss.detach(), "tstate": new_tstate}
 
-    def exchange_apply(state, fresh, batches_a, batch_b, batch_idx):
+    def exchange_apply(state, fresh, batches_a, batch_b, batch_idx,
+                       uniforms):
         pas, pb = state["params"]["a"], state["params"]["b"]
         K = len(pas)
         zs, dzs = fresh["zs"], fresh["dzs"]
@@ -407,16 +564,20 @@ def _make_stages(task: KPartyTask, opt: Optimizer, celu: CELUConfig, *,
                                              state["opt"]["a"][i])
         state["opt"]["b"] = _opt_step(opt, pb, fresh["g_b"],
                                       state["opt"]["b"])
+        # rounding uniforms of quantised tables: one key per party
+        round_ = state["round"]
         for i in range(K):
             workset_insert(state["ws"]["a"][i],
                            {"z": zs[i], "dz": dzs[i], "batch": batches_a[i]},
-                           batch_idx)
+                           batch_idx, key=insert_key(uniforms, round_, i))
         workset_insert(state["ws"]["b"],
-                       {"z": zs, "dz": dzs, "batch": batch_b}, batch_idx)
+                       {"z": zs, "dz": dzs, "batch": batch_b}, batch_idx,
+                       key=insert_key(uniforms, round_, K))
         for s in state["steps"]["a"]:
             s.add_(1)
         state["steps"]["b"].add_(1)
         state["comm_rounds"].add_(1)
+        state["round"] = round_ + 1
         state["transport"] = fresh["tstate"]
         return state, {"loss": fresh["loss"]}
 
@@ -482,8 +643,12 @@ def make_round(task: KPartyTask, opt: Optimizer, celu: CELUConfig, *,
     """fn(state, batches_a: list, batch_b, batch_idx) -> (state, metrics).
 
     ``local_steps`` defaults to R; Vanilla training = ``local_steps=0``.
-    The state is updated in place.  Metrics are device tensors: reading
-    one (``float(m["loss"])``) is the round's only host sync."""
+    ``transport`` defaults to :func:`make_transport` over ``celu`` (the
+    compressed wire when ``compression`` or ``celu.compression`` names a
+    codec).  The rounding uniforms come from the state's source
+    (``init_state(uniforms=...)``).  The state is updated in place.
+    Metrics are device tensors: reading one (``float(m["loss"])``) is the
+    round's only host sync."""
     if celu.pipeline_depth:
         raise NotImplementedError(
             "pipeline_depth > 0: the pipelined scheduler comes with slice 2 "
@@ -495,12 +660,13 @@ def make_round(task: KPartyTask, opt: Optimizer, celu: CELUConfig, *,
         task, opt, celu, n_local=n_local, tp=tp)
 
     def round_fn(state, batches_a, batch_b, batch_idx):
+        src = state["uniforms"]
         with torch.enable_grad():
             fresh = exchange_compute(state["params"],
                                      state.get("transport", {}), batches_a,
-                                     batch_b, state["comm_rounds"])
+                                     batch_b, state["round"], src)
             state, m = exchange_apply(state, fresh, batches_a, batch_b,
-                                      batch_idx)
+                                      batch_idx, src)
             state, lm = local_scan(state)
         m.update(lm)
         return state, m

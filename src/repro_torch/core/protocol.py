@@ -34,6 +34,8 @@ def _to_engine(state):
         "ws": {"a": [state["ws"]["a"]], "b": state["ws"]["b"]},
         "steps": {"a": [state["steps"]["a"]], "b": state["steps"]["b"]},
         "comm_rounds": state["comm_rounds"],
+        "round": state["round"],
+        "uniforms": state["uniforms"],
         "transport": state.get("transport", {}),
     }
 
@@ -45,6 +47,8 @@ def _from_engine(st):
         "ws": {"a": st["ws"]["a"][0], "b": st["ws"]["b"]},
         "steps": {"a": st["steps"]["a"][0], "b": st["steps"]["b"]},
         "comm_rounds": st["comm_rounds"],
+        "round": st["round"],
+        "uniforms": st["uniforms"],
         "transport": st.get("transport", {}),
     }
 

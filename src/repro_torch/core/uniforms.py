@@ -1,0 +1,69 @@
+"""The round's injected randomness: uniform sources and keys.
+
+The reference draws every stochastic-rounding uniform from a fixed
+``jax.random`` chain:
+
+  * the wire: ``split(fold_in(PRNGKey(17), comm_rounds), 2K)[j]`` for
+    send ``j`` (2i up, 2i + 1 down for feature party i), then
+    ``fold_in(·, 1)`` per encode and ``fold_in(·, i)`` per codec stage;
+  * the workset inserts: ``fold_in(fold_in(PRNGKey(0xCE1), comm_rounds),
+    party)`` (feature parties 0..K-1, Party B K), then
+    ``fold_in(·, leaf_index)`` over the entry's leaves in JAX's flattening
+    order (dict keys sorted).
+
+PyTorch cannot reproduce those bits, so the port takes the uniforms from a
+*uniform source*: a callable ``source(tag, shape)`` that returns a
+``shape`` float32 tensor in [0, 1) on the round's device.  The tag names
+the draw in the reference's terms — ``("wire", round, 2K, j, *folds)`` or
+``("insert", round, party, *folds)`` — so a parity test can hand in a
+source that computes the reference's uniforms from it.  The default source
+ignores the tag and draws from an explicit ``torch.Generator``.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Tuple
+
+import torch
+
+
+class GeneratorUniforms:
+    """The default source: a ``torch.Generator`` seeded from ``seed``.
+
+    Draws happen on ``draw_device`` (default: ``device``) and land on
+    ``device``; drawing on the CPU for a CUDA round gives the card the
+    uniforms a CPU run with the same seed sees."""
+
+    def __init__(self, seed: int, device, draw_device=None):
+        self.device = torch.device(device)
+        self.draw_device = self.device if draw_device is None \
+            else torch.device(draw_device)
+        self.gen = torch.Generator(device=self.draw_device)
+        self.gen.manual_seed(int(seed))
+
+    def __call__(self, tag: Tuple, shape) -> torch.Tensor:
+        u = torch.rand(tuple(shape), generator=self.gen,
+                       dtype=torch.float32, device=self.draw_device)
+        return u.to(self.device)
+
+
+class UniformKey(NamedTuple):
+    """A position in the reference's key chain: the counterpart of a
+    ``jax.random`` key that a codec folds and draws from."""
+    source: Callable
+    tag: Tuple
+
+    def fold(self, i: int) -> "UniformKey":
+        return UniformKey(self.source, self.tag + (int(i),))
+
+    def uniform(self, shape) -> torch.Tensor:
+        return self.source(self.tag, tuple(int(s) for s in shape))
+
+
+def wire_key(source, round_: int, n_sends: int, send: int) -> UniformKey:
+    """Key of wire send ``send`` of the ``n_sends`` (= 2K) of a round."""
+    return UniformKey(source, ("wire", round_, n_sends, send))
+
+
+def insert_key(source, round_: int, party: int) -> UniformKey:
+    """Key of ``party``'s workset insert in a round (Party B is K)."""
+    return UniformKey(source, ("insert", round_, party))

@@ -1,28 +1,43 @@
-// Algorithm-2 cosine gate for Hopper (sm_90a): one kernel for the TPU's
-// K1 and K2 Pallas kernels.
+// Algorithm-2 cosine gate for Hopper (sm_90a): one kernel, templated on
+// how a ring row is stored, for five of the TPU's Pallas entry points.
 //
 // Replaces
-//   K1  src/repro/kernels/fused_sample.py  fused_sample_2d   (_kernel_f32)
-//   K2a src/repro/kernels/cosine_weight.py cosine_weight_2d  (_kernel)
-//   K2b src/repro/kernels/cosine_weight.py cosine_weights_2d (_kernel_weights_only)
+//   K1  src/repro/kernels/fused_sample.py  fused_sample_2d    (_kernel_f32)
+//   K2a src/repro/kernels/cosine_weight.py cosine_weight_2d   (_kernel)
+//   K2b src/repro/kernels/cosine_weight.py cosine_weights_2d  (_kernel_weights_only)
+//   K4  src/repro/kernels/fused_sample.py  fused_sample_q8_2d (_kernel_q8)
+//   K5  src/repro/kernels/fused_sample.py  fused_sample_q4_2d (_kernel_q4)
 //
 // For every row r of the (B, F) operands:
 //   w[r]   = <a_r, z_r> / max(sqrt(|a_r|^2 * |z_r|^2), 1e-12), then 0 below thresh
 //   cot[r] = w[r] * dz_r                                       (fp32 out)
 // where z and dz are either materialised (B, F) rows (K2: slot == nullptr)
-// or slot *slot of a (n_slots, B, F) ring (K1).  The slot is read from
-// device memory by the kernel itself, so the caller never syncs to learn
-// it (the TPU kernel took it as a scalar-prefetch operand).  dz == nullptr
-// selects weights only (K2b, and K1 as Party B calls it).
+// or slot *slot of a (n_slots, B, F) ring (K1, K4, K5).  The slot is read
+// from device memory by the kernel itself, so the caller never syncs to
+// learn it (the TPU kernel took it as a scalar-prefetch operand).
+// dz == nullptr selects weights only (K2b, and the ring kernels as Party B
+// calls them).
 //
-// Bound: bytes.  The gate does about 7 flops per element against 12-16
+// Ring codecs (the Codec template argument):
+//   Dense<float>, Dense<bf16>  rows as they are (K1, K2);
+//   Q8   int8 codes and one fp32 scale per row: z = q * s          (K4);
+//   Q4   two int4 codes per byte, element 2j in the low nibble and
+//        2j + 1 in the high, each stored as code + 8, and one fp32
+//        scale per row: z = ((b & 0xF) - 8) * s, ((b >> 4) - 8) * s (K5).
+// Dequantisation happens element by element in registers, in the
+// reference's order (code to float, times the row scale), and feeds the
+// same three dot products; no dequantised copy of the ring exists.
+//
+// Bound: bytes.  The gate does about 7 flops per element against 4-16
 // bytes moved, far below the card's flop-per-byte ridge, so the least
 // time is (bytes read once + bytes written once) / 3.35 TB/s.  The design
-// reads each operand once with 16-byte loads (4 fp32 or 8 bf16 a lane)
-// and keeps the three dot products in registers: one warp owns one row,
-// sweeps F in chunks of 32 * kVec elements, reduces with warp shuffles,
-// then sweeps dz a second time for the cotangent.  The chunked loop serves
-// any F (256 on the paper's models, S * d at LLM geometry).
+// reads each operand once with 16-byte loads (4 fp32, 8 bf16, 16 int8 or
+// 32 int4 codes a lane) and keeps the three dot products in registers:
+// one warp owns one row, sweeps F in chunks of 32 * kVec elements,
+// reduces with warp shuffles, then sweeps dz a second time for the
+// cotangent.  The chunked loop serves any F (256 on the paper's models,
+// S * d at LLM geometry); an F or a pointer that does not allow 16-byte
+// loads takes the one-element-a-lane variant.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -88,39 +103,112 @@ __device__ __forceinline__ void store_f32(float* p, const float* v) {
   }
 }
 
+// A ring codec says how many storage units a row of F elements takes and
+// how elements [j, j + kVec) of a row come back as fp32.
+template <typename T>
+struct Dense {
+  using Elem = T;
+  static constexpr int kVec = 16 / sizeof(T);  // elements per 16 bytes
+  static constexpr bool kScaled = false;
+  __host__ __device__ static long long units(int F) { return F; }
+  template <int V>
+  __device__ static void load(const Elem* row, int j, float, float* out) {
+    load_f32<V>(row + j, out);
+  }
+};
+
+struct Q8 {
+  using Elem = int8_t;
+  static constexpr int kVec = 16;
+  static constexpr bool kScaled = true;
+  __host__ __device__ static long long units(int F) { return F; }
+  template <int V>
+  __device__ static void load(const Elem* row, int j, float s, float* out) {
+    if constexpr (V == 16) {
+      const int4 v = *reinterpret_cast<const int4*>(row + j);
+      const int8_t* c = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+      for (int k = 0; k < 16; ++k) out[k] = static_cast<float>(c[k]) * s;
+    } else {
+#pragma unroll
+      for (int k = 0; k < V; ++k) out[k] = static_cast<float>(row[j + k]) * s;
+    }
+  }
+};
+
+struct Q4 {
+  using Elem = uint8_t;
+  static constexpr int kVec = 32;
+  static constexpr bool kScaled = true;
+  __host__ __device__ static long long units(int F) { return F / 2; }
+  __device__ static float code(uint8_t b, int hi) {
+    return static_cast<float>(static_cast<int>(hi ? (b >> 4) : (b & 0xF)) - 8);
+  }
+  template <int V>
+  __device__ static void load(const Elem* row, int j, float s, float* out) {
+    if constexpr (V == 32) {
+      const uint4 v = *reinterpret_cast<const uint4*>(row + j / 2);
+      const uint8_t* b = reinterpret_cast<const uint8_t*>(&v);
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        out[2 * k] = code(b[k], 0) * s;
+        out[2 * k + 1] = code(b[k], 1) * s;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const int e = j + k;
+        out[k] = code(row[e >> 1], e & 1) * s;
+      }
+    }
+  }
+};
+
 // kVec elements per lane per chunk; the host picks kVec > 1 only when F
-// and every base pointer allow aligned 16-byte accesses.
-template <typename T, int kVec>
+// and every base pointer allow aligned 16-byte accesses.  zs / dzs are
+// the per-row scales of a scaled codec (indexed like the ring's rows).
+template <class C, int kVec>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 cosine_gate_kernel(const int* __restrict__ slot, int n_slots,
-                   long long slot_stride, const float* __restrict__ a,
-                   const T* __restrict__ z, const T* __restrict__ dz,
-                   float* __restrict__ w_out, float* __restrict__ cot, int B,
-                   int F, float thresh) {
+                   const float* __restrict__ a,
+                   const typename C::Elem* __restrict__ z,
+                   const float* __restrict__ zs,
+                   const typename C::Elem* __restrict__ dz,
+                   const float* __restrict__ dzs, float* __restrict__ w_out,
+                   float* __restrict__ cot, int B, int F, float thresh) {
+  using Elem = typename C::Elem;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row >= B) return;  // whole warp leaves together: shuffles stay full
-  long long base = 0;
+  const long long row_units = C::units(F);
+  long long srow = row;  // the row's index among the ring's (slot, row)s
   if (slot != nullptr) {
     const int s = __ldg(slot);
     if (s < 0 || s >= n_slots) __trap();  // a slot outside the ring
-    base = static_cast<long long>(s) * slot_stride;
+    srow += static_cast<long long>(s) * B;
   }
-  const long long roff = static_cast<long long>(row) * F;
-  const float* ar = a + roff;
-  const T* zr = z + base + roff;
+  const float* ar = a + static_cast<long long>(row) * F;
+  const Elem* zr = z + srow * row_units;
+  const float zscale = C::kScaled ? __ldg(zs + srow) : 1.f;
 
+  // each chunk's kVec products are summed apart before they join the
+  // lane's running sums: at a wide F a lane sees thousands of terms, and
+  // one long sequential sum would drift from the plain version's
   float num = 0.f, aa = 0.f, zz = 0.f;
   for (int j = lane * kVec; j < F; j += 32 * kVec) {
     float av[kVec], zv[kVec];
     load_f32<kVec>(ar + j, av);
-    load_f32<kVec>(zr + j, zv);
+    C::template load<kVec>(zr, j, zscale, zv);
+    float pn = 0.f, pa = 0.f, pz = 0.f;
 #pragma unroll
     for (int k = 0; k < kVec; ++k) {
-      num += av[k] * zv[k];
-      aa += av[k] * av[k];
-      zz += zv[k] * zv[k];
+      pn += av[k] * zv[k];
+      pa += av[k] * av[k];
+      pz += zv[k] * zv[k];
     }
+    num += pn;
+    aa += pa;
+    zz += pz;
   }
   num = warp_sum(num);
   aa = warp_sum(aa);
@@ -131,11 +219,12 @@ cosine_gate_kernel(const int* __restrict__ slot, int n_slots,
   if (lane == 0) w_out[row] = w;
   if (dz == nullptr) return;
 
-  const T* dr = dz + base + roff;
-  float* cr = cot + roff;
+  const Elem* dr = dz + srow * row_units;
+  const float dscale = C::kScaled ? __ldg(dzs + srow) : 1.f;
+  float* cr = cot + static_cast<long long>(row) * F;
   for (int j = lane * kVec; j < F; j += 32 * kVec) {
     float dv[kVec];
-    load_f32<kVec>(dr + j, dv);
+    C::template load<kVec>(dr, j, dscale, dv);
 #pragma unroll
     for (int k = 0; k < kVec; ++k) dv[k] *= w;
     store_f32<kVec>(cr + j, dv);
@@ -146,55 +235,80 @@ bool aligned16(const void* p) {
   return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-template <typename T, int kVec>
-void launch(const int* slot, int n_slots, long long slot_stride,
-            const float* a, const void* z, const void* dz, float* w,
+template <class C, int kVec>
+void launch(const int* slot, int n_slots, const float* a, const void* z,
+            const float* zs, const void* dz, const float* dzs, float* w,
             float* cot, int B, int F, float thresh, cudaStream_t stream) {
+  using Elem = typename C::Elem;
   const dim3 grid((B + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const dim3 block(32 * kWarpsPerBlock);
-  cosine_gate_kernel<T, kVec><<<grid, block, 0, stream>>>(
-      slot, n_slots, slot_stride, a, static_cast<const T*>(z),
-      static_cast<const T*>(dz), w, cot, B, F, thresh);
+  cosine_gate_kernel<C, kVec><<<grid, block, 0, stream>>>(
+      slot, n_slots, a, static_cast<const Elem*>(z), zs,
+      static_cast<const Elem*>(dz), dzs, w, cot, B, F, thresh);
 }
 
-template <typename T>
-void dispatch(const int* slot, int n_slots, long long slot_stride,
-              const float* a, const void* z, const void* dz, float* w,
-              float* cot, int B, int F, float thresh, cudaStream_t stream) {
-  constexpr int kVec = 16 / sizeof(T);
-  const bool vec = F % kVec == 0 && slot_stride % kVec == 0 &&
-                   aligned16(a) && aligned16(z) && aligned16(dz) &&
-                   aligned16(cot);
+// 16-byte loads need F to fill whole vectors (so every row, and every
+// slot, starts on a 16-byte boundary) and 16-byte aligned base pointers.
+template <class C>
+int dispatch(const int* slot, int n_slots, const float* a, const void* z,
+             const float* zs, const void* dz, const float* dzs, float* w,
+             float* cot, int B, int F, float thresh, cudaStream_t stream) {
+  const bool vec = F % C::kVec == 0 && aligned16(a) && aligned16(z) &&
+                   aligned16(dz) && aligned16(cot);
   if (vec)
-    launch<T, kVec>(slot, n_slots, slot_stride, a, z, dz, w, cot, B, F,
-                    thresh, stream);
+    launch<C, C::kVec>(slot, n_slots, a, z, zs, dz, dzs, w, cot, B, F,
+                       thresh, stream);
   else
-    launch<T, 1>(slot, n_slots, slot_stride, a, z, dz, w, cot, B, F, thresh,
+    launch<C, 1>(slot, n_slots, a, z, zs, dz, dzs, w, cot, B, F, thresh,
                  stream);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// ring_dtype: 0 = float32, 1 = bfloat16 (the z / dz operands; a, w and cot
-// are float32).  Returns the cudaError_t of the launch (0 on success).
+// K1 / K2.  ring_dtype: 0 = float32, 1 = bfloat16 (the z / dz operands;
+// a, w and cot are float32).  slot_stride must be B * F (one ring slot).
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int cosine_gate(const int* slot, int n_slots, long long slot_stride,
                            const float* a, const void* z, const void* dz,
                            float* w, float* cot, int B, int F, float thresh,
                            int ring_dtype, void* stream) {
-  if (B <= 0 || F <= 0 || (dz == nullptr) != (cot == nullptr))
+  if (B <= 0 || F <= 0 || (dz == nullptr) != (cot == nullptr) ||
+      (slot != nullptr && slot_stride != static_cast<long long>(B) * F))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ring_dtype == 0)
-    dispatch<float>(slot, n_slots, slot_stride, a, z, dz, w, cot, B, F,
-                    thresh, st);
-  else if (ring_dtype == 1)
-    dispatch<__nv_bfloat16>(slot, n_slots, slot_stride, a, z, dz, w, cot, B,
-                            F, thresh, st);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    return dispatch<Dense<float>>(slot, n_slots, a, z, nullptr, dz, nullptr,
+                                  w, cot, B, F, thresh, st);
+  if (ring_dtype == 1)
+    return dispatch<Dense<__nv_bfloat16>>(slot, n_slots, a, z, nullptr, dz,
+                                          nullptr, w, cot, B, F, thresh, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-extern "C" const char* cosine_gate_error_string(int status) {
+// K4 (bits = 8: int8 codes (n_slots, B, F)) and K5 (bits = 4: packed
+// uint8 (n_slots, B, F / 2), F even), each with fp32 row scales
+// (n_slots, B).  a is (B, F) fp32; dzq == nullptr gives weights only.
+extern "C" int cosine_gate_quant(const int* slot, int n_slots,
+                                 const float* a, const void* zq,
+                                 const float* zs, const void* dzq,
+                                 const float* dzs, float* w, float* cot,
+                                 int B, int F, float thresh, int bits,
+                                 void* stream) {
+  if (slot == nullptr || B <= 0 || F <= 0 ||
+      (dzq == nullptr) != (cot == nullptr) ||
+      (dzq != nullptr) != (dzs != nullptr) || zs == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bits == 8)
+    return dispatch<Q8>(slot, n_slots, a, zq, zs, dzq, dzs, w, cot, B, F,
+                        thresh, st);
+  if (bits == 4 && F % 2 == 0)
+    return dispatch<Q4>(slot, n_slots, a, zq, zs, dzq, dzs, w, cot, B, F,
+                        thresh, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" const char* kernel_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }

@@ -60,9 +60,13 @@ def _rows_metrics(m) -> dict:
 
 
 def two_party_trace(protocol: str, flat_params: dict, *, device=None,
-                    cache_fused: bool = True, rounds: int = 20) -> list:
+                    cache_fused: bool = True, rounds: int = 20,
+                    cache_dtype: str = "float32", compression: str = "",
+                    uniforms=None) -> list:
     """The two-party golden workload (``tests/test_engine.py::_workload``)
-    through the port -> rows in the golden JSON's schema."""
+    through the port -> rows in the golden JSON's schema.  ``cache_dtype``,
+    ``compression`` and ``uniforms`` (the rounding uniforms' source) vary
+    it beyond the goldens, which pin the defaults."""
     dev = resolve_device(device)
     cfg = TWO_PARTY_CFG
     data = make_tabular(TabularSpec("criteo", fields_a=4, fields_b=3,
@@ -72,7 +76,8 @@ def two_party_trace(protocol: str, flat_params: dict, *, device=None,
     params = init_fn(0, cfg, dev)
     load_flat(params["a"], subtree(flat_params, "two_party.a"))
     load_flat(params["b"], subtree(flat_params, "two_party.b"))
-    base = CELUConfig(R=3, W=3, xi_degrees=60.0, cache_fused=cache_fused)
+    base = CELUConfig(R=3, W=3, xi_degrees=60.0, cache_fused=cache_fused,
+                      cache_dtype=cache_dtype, compression=compression)
     ccfg, nloc = engine.preset_config(protocol, base)
     opt = make_optimizer("adagrad", 0.05)
     it = aligned_batches(data["train"], 64, seed=0)
@@ -80,7 +85,7 @@ def two_party_trace(protocol: str, flat_params: dict, *, device=None,
     etask = engine.lift_two_party(task)
     state = engine.init_state(etask, engine.lift_two_party_params(params),
                               opt, ccfg, [to_device(ba, dev)],
-                              to_device(bb, dev))
+                              to_device(bb, dev), uniforms=uniforms)
     rnd = engine.make_round(etask, opt, ccfg, local_steps=nloc)
     it = aligned_batches(data["train"], 64, seed=0)
     rows = []

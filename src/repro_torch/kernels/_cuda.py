@@ -1,11 +1,13 @@
 """Build and bind the hand-written CUDA kernels of the port.
 
-The sources live in ``repro_torch/csrc``.  At first use they are compiled
-with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface, which is loaded with ``ctypes`` (no PyTorch headers, so a build
-takes seconds).  The library lands in ``repro_torch/_build`` under a name
-that hashes the source and the flags, so an edited source is rebuilt and
-concurrent processes never load a half-written file.
+The sources live in ``repro_torch/csrc``.  At first use every ``*.cu``
+there is compiled with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source,
+all started together) and the objects are linked into one shared library
+with a plain C interface, which is loaded with ``ctypes`` (no PyTorch
+headers, so a build takes seconds).  The library lands in
+``repro_torch/_build`` under a name that hashes every source and the
+flags, so an edited source is rebuilt and concurrent processes never load
+a half-written file.
 
 Every wrapper that launches a kernel adds one to its entry in
 :data:`LAUNCHES`; a run reads the counts to show which kernels its path
@@ -27,17 +29,30 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCE = CSRC / "cosine_gate.cu"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
+COMPILE_FLAGS = ARCH_FLAGS + ("-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 # ring / operand dtype codes of the C interface
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = {"fused_sample_2d": 0, "cosine_weight_2d": 0,
-            "cosine_weights_2d": 0}
+            "cosine_weights_2d": 0, "quantize_sr_2d": 0,
+            "fused_sample_q8_2d": 0, "fused_sample_q4_2d": 0}
 
 _lib = None
+
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+# C entry points: argument types (every pointer and the stream as
+# c_void_p, or ctypes would pass them as 32-bit ints)
+_SIGNATURES = {
+    "cosine_gate": [_P, _I, _LL, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "cosine_gate_quant": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
+                          _I, _P],
+    "quantize_sr": [_P, _P, _P, _P, _I, _I, _F, _P],
+}
 
 
 def reset_launches() -> None:
@@ -57,10 +72,16 @@ def _nvcc() -> str:
     return path
 
 
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libcosine_gate_{digest[:16]}.so"
+    h = hashlib.sha256()
+    for src in sources():
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    h.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
 
 
 def build() -> dict:
@@ -73,21 +94,33 @@ def build() -> dict:
     if out.exists():
         return {"path": str(out), "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in sources()]
+        procs = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-c", "-o", obj,
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources(), objs)]
+        log = []
+        for src, proc in zip(sources(), procs):
+            text, _ = proc.communicate()
+            log.append(text)
+            if proc.returncode != 0:
+                for p in procs:
+                    p.kill()
+                    p.wait()
+                raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
+                                   f"{src}:\n{text}")
+        lib_tmp = os.path.join(tmp, out.name)
+        proc = subprocess.run([nvcc, *LINK_FLAGS, "-o", lib_tmp, *objs],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
-                               f"{SOURCE}:\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) linking "
+                               f"{out.name}:\n{proc.stdout}{proc.stderr}")
+        os.replace(lib_tmp, out)
     return {"path": str(out), "seconds": time.perf_counter() - t0,
-            "log": proc.stdout + proc.stderr}
+            "log": "".join(log) + proc.stdout + proc.stderr}
 
 
 def lib() -> ctypes.CDLL:
@@ -95,15 +128,12 @@ def lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         handle = ctypes.CDLL(build()["path"])
-        fn = handle.cosine_gate
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        handle.cosine_gate_error_string.argtypes = [ctypes.c_int]
-        handle.cosine_gate_error_string.restype = ctypes.c_char_p
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        handle.kernel_error_string.argtypes = [ctypes.c_int]
+        handle.kernel_error_string.restype = ctypes.c_char_p
         _lib = handle
     return _lib
 
@@ -112,20 +142,46 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def launch_cosine_gate(name: str, *, slot, n_slots: int, slot_stride: int,
-                       a, z, dz, w, cot, thresh: float) -> None:
-    """Launch ``csrc/cosine_gate.cu`` on the current stream of ``a``'s
-    device.  The caller has checked devices, dtypes, shapes and
-    contiguity and allocated ``w`` / ``cot``."""
-    B, F = a.shape
+def _launch(name: str, entry: str, device, *args) -> None:
+    """Call C entry point ``entry`` on the current stream of ``device``
+    (the stream is its last argument), raise on a nonzero status, and
+    count one launch of ``name``."""
     handle = lib()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        status = handle.cosine_gate(
-            _ptr(slot), n_slots, slot_stride, _ptr(a), _ptr(z), _ptr(dz),
-            _ptr(w), _ptr(cot), B, F, thresh, DTYPE_CODES[z.dtype], stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = getattr(handle, entry)(*args, stream)
     if status != 0:
-        msg = handle.cosine_gate_error_string(status).decode()
-        raise RuntimeError(f"{name}: cosine_gate launch failed: {msg} "
+        msg = handle.kernel_error_string(status).decode()
+        raise RuntimeError(f"{name}: {entry} launch failed: {msg} "
                            f"({status})")
     LAUNCHES[name] += 1
+
+
+def launch_cosine_gate(name: str, *, slot, n_slots: int, slot_stride: int,
+                       a, z, dz, w, cot, thresh: float) -> None:
+    """Launch the fp32/bf16 gate of ``csrc/cosine_gate.cu`` (K1, K2).  The
+    caller has checked devices, dtypes, shapes and contiguity and
+    allocated ``w`` / ``cot``."""
+    B, F = a.shape
+    _launch(name, "cosine_gate", a.device, _ptr(slot), n_slots, slot_stride,
+            _ptr(a), _ptr(z), _ptr(dz), _ptr(w), _ptr(cot), B, F, thresh,
+            DTYPE_CODES[z.dtype])
+
+
+def launch_cosine_gate_quant(name: str, *, bits: int, slot, n_slots: int,
+                             a, zq, zs, dzq, dzs, w, cot,
+                             thresh: float) -> None:
+    """Launch the int8 (``bits=8``, K4) or packed int4 (``bits=4``, K5)
+    ring gate of ``csrc/cosine_gate.cu``; ``a`` is (B, F) with F the
+    unpacked (even, for int4) row width."""
+    B, F = a.shape
+    _launch(name, "cosine_gate_quant", a.device, _ptr(slot), n_slots,
+            _ptr(a), _ptr(zq), _ptr(zs), _ptr(dzq), _ptr(dzs), _ptr(w),
+            _ptr(cot), B, F, thresh, bits)
+
+
+def launch_quantize_sr(name: str, *, x, u, q, scale, levels: float) -> None:
+    """Launch ``csrc/quantize.cu`` (K3) on checked (T, L) operands."""
+    T, L = x.shape
+    _launch(name, "quantize_sr", x.device, _ptr(x), _ptr(u), _ptr(q),
+            _ptr(scale), T, L, levels)

@@ -3,13 +3,16 @@
 
 Each takes the engine's shapes, flattens them to the (B, F) rows the
 kernel works on, and calls the kernel module's wrapper: on a CUDA tensor
-that launches ``csrc/cosine_gate.cu``; on a CPU tensor it runs the plain
-PyTorch version.
+that launches the kernel (``csrc/cosine_gate.cu``, ``csrc/quantize.cu``);
+on a CPU tensor it runs the plain PyTorch version.
 """
 from __future__ import annotations
 
+import torch.nn.functional as F
+
 from . import cosine_weight as _cw
 from . import fused_sample as _fs
+from . import quantize as _qz
 
 
 def _rows(x):
@@ -55,3 +58,55 @@ def fused_gather_weights(slot, ad_hoc, ring, cos_xi):
     w, _ = _fs.fused_sample_2d(slot, _rows(ad_hoc), _ring_rows(ring, B),
                                None, cos_xi)
     return w
+
+
+def fused_gather_weight_q8(slot, ad_hoc, zq, zscale, dzq, dzscale, cos_xi):
+    """Fused workset sample over the int8 ring (K4): gather → dequant →
+    cosine → threshold → cotangent scale.  zq/dzq: (W, B, F) int8,
+    zscale/dzscale: (W, B) fp32 row scales.  -> (weights (B,) f32,
+    weighted cotangent f32 in ad_hoc's shape)."""
+    w, cot = _fs.fused_sample_q8_2d(slot, _rows(ad_hoc.float()), zq, zscale,
+                                    dzq, dzscale, cos_xi)
+    return w, cot.reshape(ad_hoc.shape)
+
+
+def fused_gather_weights_q8(slot, ad_hoc, zq, zscale, cos_xi):
+    """Weights-only K4 (Party B): -> (B,) f32."""
+    w, _ = _fs.fused_sample_q8_2d(slot, _rows(ad_hoc.float()), zq, zscale,
+                                  None, None, cos_xi)
+    return w
+
+
+def _pad_to_packed(ad_hoc, zq):
+    """(B, ...) -> (B, 2P) fp32 rows, zero-padded to the packed width of
+    ``zq`` (W, B, P): the pad nibble of an odd row decodes to zero, so the
+    zero column adds nothing to the reductions."""
+    a2d = _rows(ad_hoc.float())
+    pad = 2 * zq.shape[2] - a2d.shape[1]
+    return F.pad(a2d, (0, pad)) if pad else a2d
+
+
+def fused_gather_weight_q4(slot, ad_hoc, zq, zscale, dzq, dzscale, cos_xi):
+    """Fused workset sample over the packed int4 ring (K5).  zq/dzq:
+    (W, B, ceil(F/2)) uint8, zscale/dzscale: (W, B) fp32 row scales.  For
+    odd F the wrapper pads ``ad_hoc`` with a zero column and slices the
+    pad column off the cotangent."""
+    w, cot = _fs.fused_sample_q4_2d(slot, _pad_to_packed(ad_hoc, zq), zq,
+                                    zscale, dzq, dzscale, cos_xi)
+    width = ad_hoc.numel() // ad_hoc.shape[0]
+    return w, cot[:, :width].reshape(ad_hoc.shape)
+
+
+def fused_gather_weights_q4(slot, ad_hoc, zq, zscale, cos_xi):
+    """Weights-only K5 (Party B): -> (B,) f32."""
+    w, _ = _fs.fused_sample_q4_2d(slot, _pad_to_packed(ad_hoc, zq), zq,
+                                  zscale, None, None, cos_xi)
+    return w
+
+
+def quantize_stochastic(x, u, levels):
+    """Per-tile absmax-scale stochastic-rounding quantiser (K3).
+    x, u: (T, L); levels: max code magnitude (127 = int8, 7 = int4).
+    -> (codes int8 (T, L), fp32 scales (T,))."""
+    return _qz.quantize_sr_2d(x.float().contiguous(), u.float().contiguous(),
+                              levels)

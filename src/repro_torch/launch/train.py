@@ -4,18 +4,21 @@
 ``--arch wdl-criteo | dssm-avazu`` trains on the synthetic vertically
 partitioned stream with the selected protocol (vanilla | fedbcd | celu)
 and reports AUC and communication accounting (rounds, bytes, simulated-WAN
-seconds).  It runs on the card unless ``--device cpu`` is given.
+seconds).  ``--cache-dtype`` sets the workset rings' at-rest precision
+(float32 | bfloat16 | int8 | int4) and ``--compression`` the wire codec
+(a ``core.compression.CODEC_SPECS`` name or ``up/down``).  It runs on the
+card unless ``--device cpu`` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch wdl-criteo \\
         --protocol celu --rounds 300 --R 5 --W 5 --xi 60
     PYTHONPATH=src python -m repro_torch.launch.train --arch wdl-criteo \\
-        --device cpu --small --rounds 20
+        --device cpu --small --rounds 10 --cache-dtype int4 --compression int8
 
 Flags of the reference that switch on what later slices of the port
-bring (pipelining, the compressed wire, quantised cache and optimizer
-state, chaos, checkpoints, the LLM archs) are refused with a message; the
-reference's flags that only tune those features (``--fault-seed``,
-``--checkpoint-every``, ...) are not defined, so argparse rejects them.
+bring (pipelining, DP, quantised optimizer state, chaos, checkpoints, the
+LLM archs) are refused with a message; the reference's flags that only
+tune those features (``--fault-seed``, ``--checkpoint-every``, ...) are
+not defined, so argparse rejects them.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from .. import resolve_device
 from ..configs import DLRM_IDS, get_config
 from ..configs.base import CELUConfig
 from ..core import engine
+from ..core.uniforms import GeneratorUniforms
 from ..core.workset import QUANT_KEYS, workset_nbytes
 from ..data import synthetic as synth
 from ..data import to_device
@@ -53,10 +57,6 @@ def refuse_unported(args) -> None:
         later.append(f"--arch {args.arch} (the LLM split models, slice 7)")
     if args.pipeline_depth:
         later.append("--pipeline-depth > 0 (slice 2)")
-    if args.compression:
-        later.append("--compression (slice 3)")
-    if args.cache_dtype != "float32":
-        later.append("--cache-dtype other than float32 (slice 4)")
     if args.opt_state_dtype != "float32" or args.optimizer == "sm3":
         later.append("--opt-state-dtype other than float32 and "
                      "--optimizer sm3 (slice 5)")
@@ -71,7 +71,10 @@ def refuse_unported(args) -> None:
                          + " (see ROADMAP.md; repro.launch.train has them)")
 
 
-def train_dlrm(args) -> Dict[str, Any]:
+def train_dlrm(args, uniforms=None) -> Dict[str, Any]:
+    """Train ``args.rounds`` rounds.  ``uniforms`` is the rounding uniforms'
+    source (``core/uniforms.py``); the default draws from a
+    ``torch.Generator`` on the device, seeded with ``--seed``."""
     refuse_unported(args)
     dev = resolve_device(args.device)
     cfg: DLRMConfig = get_config(args.arch)
@@ -87,7 +90,9 @@ def train_dlrm(args) -> Dict[str, Any]:
 
     base = CELUConfig(R=args.R, W=args.W, xi_degrees=args.xi,
                       weighting=not args.no_weighting,
-                      cache_fused=not args.no_cache_fusion)
+                      cache_fused=not args.no_cache_fusion,
+                      compression=args.compression,
+                      cache_dtype=args.cache_dtype)
     celu_cfg, n_local = engine.preset_config(args.protocol, base)
     params = init_fn(args.seed, cfg, dev)
     opt = make_optimizer(args.optimizer, args.lr)
@@ -97,21 +102,26 @@ def train_dlrm(args) -> Dict[str, Any]:
     _, ba0, bb0 = next(it)
     etask = engine.lift_two_party(task)
     transport = engine.make_transport(celu_cfg)
+    if uniforms is None:
+        uniforms = GeneratorUniforms(args.seed, dev)
     state = engine.init_state(etask, engine.lift_two_party_params(params),
                               opt, celu_cfg, [to_device(ba0, dev)],
-                              to_device(bb0, dev), transport=transport)
+                              to_device(bb0, dev), transport=transport,
+                              uniforms=uniforms)
     tables = state["ws"]["a"] + [state["ws"]["b"]]
     cache_stat_b = sum(workset_nbytes(w, QUANT_KEYS) for w in tables)
     cache_total_b = sum(workset_nbytes(w) for w in tables)
-    print(f"[cache] workset tables: {cache_total_b / 1e6:.2f} MB "
-          f"({cache_stat_b / 1e6:.2f} MB cut statistics at "
-          f"{celu_cfg.cache_dtype}; fused sample "
+    print(f"[cache] workset tables: {cache_total_b} B ({cache_stat_b} B "
+          f"cut statistics at {celu_cfg.cache_dtype}; fused sample "
           f"{'on' if celu_cfg.cache_fused else 'off'}; device {dev})",
           flush=True)
     rnd = engine.make_round(etask, opt, celu_cfg, local_steps=n_local,
                             transport=transport)
     z_shapes = [(args.batch_size, cfg.z_dim)]
     up_bytes, down_bytes = transport_round_updown(transport, z_shapes)
+    print(f"[wire] compression {args.compression or 'none'}: up "
+          f"{up_bytes} B, down {down_bytes} B per round "
+          f"({celu_cfg.wire_dtype} wire)", flush=True)
 
     te = data["test"]
     tea = to_device({"x_a": te["x_a"]}, dev)
@@ -198,12 +208,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="smaller DLRM dims for quick CPU runs")
     ap.add_argument("--n-train", type=int, default=32768)
     ap.add_argument("--n-test", type=int, default=8192)
+    ap.add_argument("--compression", default="",
+                    help="wire codec: identity | int8 | int4 | int4x2 | "
+                         "topk | topk_int8 | topk_int4 | int8_topk | "
+                         "int4_topk | <up>/<down> (default: the plain wire)")
+    ap.add_argument("--cache-dtype", default="float32",
+                    choices=("float32", "bfloat16", "int8", "int4"),
+                    help="at-rest precision of the workset rings' Z / ∇Z")
     later = ap.add_argument_group(
         "flags of later slices of the port (refused)")
     later.add_argument("--pipeline-depth", type=int, default=0)
-    later.add_argument("--compression", default="")
-    later.add_argument("--cache-dtype", default="float32",
-                       choices=("float32", "bfloat16", "int8", "int4"))
     later.add_argument("--opt-state-dtype", default="float32",
                        choices=("float32", "bfloat16", "int8"))
     later.add_argument("--fault-drop-prob", type=float, default=0.0)

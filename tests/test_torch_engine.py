@@ -290,10 +290,144 @@ def test_transport_and_wan_clock_match_reference(wire):
     clock = twan.WANClock().with_bandwidth(1e6, 2e6)
     assert twan.wan_seconds(up, down, clock=clock) == jwan.wan_seconds(
         up, down, clock=jwan.WANClock().with_bandwidth(1e6, 2e6))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tengine.make_transport(CELUConfig(), "int8")
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    # the compressed wire is in; DP and the chaos engine's recovery of a
+    # lost exchange stay refused, naming their slices
+    tp = tengine.make_transport(CELUConfig(wire_dtype=wire), "int8")
+    assert isinstance(tp, tengine.CompressedWANTransport)
+    with pytest.raises(NotImplementedError, match="slice 3b"):
         tengine.SimWANTransport(CELUConfig(dp_sigma=0.5))
+    with pytest.raises(NotImplementedError, match="slice 3b"):
+        tengine.make_transport(CELUConfig(dp_sigma=0.5), "int8")
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        tp.recover_dropped({})
+
+
+# Quantised cache and compressed wire, 5 rounds at the golden geometry,
+# against the reference fed the same uniforms.  Stochastic rounding turns
+# an ulp of difference in Z (float32 sums in another order) into a whole
+# code where floor(x / s + u) sits at an integer.  Measured on the CPU,
+# the largest deviations over the four cases are 1.75e-7 relative in loss
+# and 1.79e-7 in ``w_mean`` (no code flipped); the limits leave room for
+# a few flipped codes, each of which moves one element by one scale step.
+QUANT_LOSS_RTOL = 1e-5
+QUANT_W_MEAN_ATOL = 1e-5
+
+
+def _jax_two_party_trace(cache_dtype, compression, rounds):
+    """The two-party golden workload through the reference's engine, from
+    the fixture's initial parameters (drawn as the fixture draws them)."""
+    import jax.numpy as jnp
+    from repro.configs.base import CELUConfig as JCELU
+    from repro.core import engine as jengine
+    from repro.data.synthetic import (TabularSpec, aligned_batches,
+                                      make_tabular)
+    from repro.optim import make_optimizer as jmake_optimizer
+    c2 = golden.TWO_PARTY_CFG
+    cfg = JDLRMConfig(c2.model, c2.fields_a, c2.fields_b, c2.vocab,
+                      c2.embed_dim, c2.z_dim, tuple(c2.hidden))
+    init_fn, task, _ = jmake_dlrm(cfg)
+    with jax.threefry_partitionable(False):
+        params = init_fn(jax.random.PRNGKey(0), cfg)
+    data = make_tabular(TabularSpec("criteo", fields_a=4, fields_b=3,
+                                    vocab=32, n_train=2048, n_test=512), 0)
+    celu = JCELU(R=3, W=3, xi_degrees=60.0, cache_dtype=cache_dtype,
+                 compression=compression)
+    opt = jmake_optimizer("adagrad", 0.05)
+    asj = lambda d: {k: jnp.asarray(v) for k, v in d.items()}  # noqa: E731
+    it = aligned_batches(data["train"], 64, seed=0)
+    _, ba, bb = next(it)
+    etask = jengine.lift_two_party(task)
+    state = jengine.init_state(etask, jengine.lift_two_party_params(params),
+                               opt, celu, [asj(ba)], asj(bb))
+    rnd = jengine.make_round(etask, opt, celu)
+    it = aligned_batches(data["train"], 64, seed=0)
+    rows = []
+    for _ in range(rounds):
+        bi, ba, bb = next(it)
+        state, m = rnd(state, [asj(ba)], asj(bb), bi)
+        rows.append(golden._rows_metrics(m))
+    rows.append({"steps_a": int(state["steps"]["a"][0]),
+                 "steps_b": int(state["steps"]["b"]),
+                 "comm_rounds": int(state["comm_rounds"])})
+    return rows
+
+
+@pytest.mark.parametrize("compression", ["", "int8"])
+@pytest.mark.parametrize("cache_dtype", ["int8", "int4"])
+def test_quantised_rounds_match_reference_on_injected_uniforms(
+        cache_dtype, compression, params):
+    """The int8 / int4 cache (K3 inserts, K4 / K5 samples) and the int8
+    wire (K3 encodes, error feedback) over 5 celu rounds: the port, fed
+    the reference's uniforms, against the reference's engine."""
+    from test_torch_compression import jax_uniforms
+    want = _jax_two_party_trace(cache_dtype, compression, 5)
+    got = golden.two_party_trace("celu", params, device="cpu", rounds=5,
+                                 cache_dtype=cache_dtype,
+                                 compression=compression,
+                                 uniforms=jax_uniforms)
+    dev = golden.compare(got, want)
+    print(dev)
+    assert dev["counters_equal"], dev
+    assert dev["loss_rel"] <= QUANT_LOSS_RTOL, dev
+    assert dev["w_mean_abs"] <= QUANT_W_MEAN_ATOL, dev
+
+
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "int8", "int4"])
+def test_engine_hands_quant_kernels_operands_they_take(cache_dtype, params,
+                                                       monkeypatch):
+    """As above for the quantised paths: K3 on every insert and wire
+    encode, K1 (bf16), K4 (int8) or K5 (int4) on every fused sample."""
+    from repro_torch.kernels import fused_sample as fs
+    from repro_torch.kernels import quantize as qz
+    seen = []
+
+    def k3(x, u, levels):
+        qz.check_operands(x, u)
+        seen.append("k3")
+        return qz.quantize_sr_plain(x, u, levels)
+
+    def k1(slot, a, z, dz, cos_xi):
+        fs.check_ring(slot, a, z, dz)
+        seen.append("k1")
+        return fs.fused_sample_plain(slot, a, z, dz, cos_xi)
+
+    def quant(bits):
+        def k(slot, a, zq, zs, dzq, dzs, cos_xi):
+            fs.check_quant_ring(bits, slot, a, zq, zs, dzq, dzs)
+            seen.append(f"q{bits}")
+            return fs.fused_sample_quant_plain(bits, slot, a, zq, zs, dzq,
+                                               dzs, cos_xi)
+        return k
+
+    monkeypatch.setattr(qz, "quantize_sr_2d", k3)
+    monkeypatch.setattr(fs, "fused_sample_2d", k1)
+    monkeypatch.setattr(fs, "fused_sample_q8_2d", quant(8))
+    monkeypatch.setattr(fs, "fused_sample_q4_2d", quant(4))
+    golden.two_party_trace("celu", params, device="cpu", rounds=3,
+                           cache_dtype=cache_dtype, compression="int4x2")
+    kernel = {"bfloat16": "k1", "int8": "q8", "int4": "q4"}[cache_dtype]
+    assert set(seen) == {"k3", kernel}
+    # per round: 2 wire sends x 2 chain stages, plus 4 quantised inserts
+    assert seen.count("k3") == 3 * (4 + (0 if kernel == "k1" else 4))
+
+
+def test_identity_wire_and_unfused_quantised_cache_rounds(params):
+    """``--compression identity`` keeps the plain wire bitwise; the
+    unfused path decodes the entry and runs K2, as the fused one reads
+    the ring through K4."""
+    plain = golden.two_party_trace("celu", params, device="cpu", rounds=4)
+    ident = golden.two_party_trace("celu", params, device="cpu", rounds=4,
+                                   compression="identity")
+    assert plain == ident
+    fused = golden.two_party_trace("celu", params, device="cpu", rounds=4,
+                                   cache_dtype="int8")
+    unfused = golden.two_party_trace("celu", params, device="cpu",
+                                     rounds=4, cache_dtype="int8",
+                                     cache_fused=False)
+    dev = golden.compare(unfused, fused + [{}])
+    print(dev)
+    assert dev["counters_equal"] and dev["loss_rel"] <= 1e-6 \
+        and dev["w_mean_abs"] <= 1e-6, dev
 
 
 if __name__ == "__main__":

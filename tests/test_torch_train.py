@@ -29,8 +29,8 @@ def test_cli_runs_rounds_on_cpu(arch, protocol, extra):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--pipeline-depth", "1"], ["--compression", "int8"],
-    ["--cache-dtype", "int8"], ["--opt-state-dtype", "int8"],
+    ["--pipeline-depth", "1"], ["--pipeline-depth", "2"],
+    ["--opt-state-dtype", "bfloat16"], ["--opt-state-dtype", "int8"],
     ["--optimizer", "sm3"], ["--fault-drop-prob", "0.1"],
     ["--checkpoint", "x.npz"], ["--resume", "x.npz"],
     ["--fault-straggler-prob", "0.1"], ["--fault-dropout", "1:0:5"],

@@ -83,8 +83,11 @@ def test_scripted_inserts_and_draws_match_reference(W, R, strategy, draws):
 
 def test_unported_workset_paths_raise():
     e = _to_torch(_entry(np.random.default_rng(0)))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tws.workset_init(3, e, cache_dtype="int8")
+    with pytest.raises(ValueError, match="cache_dtype"):
+        tws.workset_init(3, e, cache_dtype="int2")
+    # a quantised table draws its rounding uniforms from a key
+    with pytest.raises(ValueError, match="needs a key"):
+        tws.workset_insert(tws.workset_init(3, e, cache_dtype="int8"), e, 0)
     ws = tws.workset_init(3, e)
     with pytest.raises(NotImplementedError, match="slice 2"):
         tws.workset_draw(ws, 2, "uniform")
