@@ -12,16 +12,22 @@ Phases, each on its own printed lines (any failure exits non-zero):
      and weights-only, K2a, K2b; K3 at int8 and int4 levels; K4 and K5
      full and weights-only) at the main path's shapes, at an odd batch
      and narrow (and odd) rows, and at a wide F that runs the chunk loop;
-     times from CUDA events beside the least time the card could take;
+     K7 and K8 bitwise at WDL-Criteo's leaf shapes; times from CUDA
+     events beside the least time the card could take;
   4. the golden traces (``tests/golden``) replayed on the card from the
-     reference's initial parameters, held to the tests' tolerance;
+     reference's initial parameters, held to the tests' tolerance, with
+     plain AdaGrad and once more through K7;
   5. the main paths: ``repro_torch.launch.train`` at WDL-Criteo's full
      width (B = 256, R = W = 5, celu) with the kernels' launch counts:
-     the fp32 cache (K1), DSSM-Avazu, ``--no-cache-fusion`` (K2), the
-     int8 / int4 / bf16 caches (K3 + K4, K3 + K5, K1), the int8 wire and
-     the int8 cache under the int4x2 wire (K3); five full-width rounds on
-     the card against the CPU (fp32, and int8 cache + int8 wire on the
-     same uniforms); ms per round and per local step;
+     the fp32 cache (K1) with fused AdaGrad (K7 on every update of every
+     tensor, in every run below unless named), DSSM-Avazu,
+     ``--no-cache-fusion`` (K2), the int8 / int4 / bf16 caches (K3 + K4,
+     K3 + K5, K1), the int8 wire and the int8 cache under the int4x2 wire
+     (K3), the int8 / bf16 optimizer states (K8, K7) and SM3 (neither);
+     five full-width rounds on the card against the CPU (fp32; int8
+     cache + int8 wire and int8 optimizer state on the same uniforms,
+     the latter beside a mutation run with zeroed updates); ms per round
+     and per local step, and for the four AdaGrad routes in turns;
   6. a JSON line of per-kernel results, then the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -58,11 +64,25 @@ CPU_CUDA_RTOL = 1e-3
 # read 7.8e-4 at round 4 on an H100 (PERF.md), so the limit is about 4x
 # that; zeroing K4's weights moves the loss by 3.2e-2 at round 3 (CPU).
 QUANT_CPU_CUDA_RTOL = 3e-3
+# The same over the int8 AdaGrad state (K8 on the card, its plain version
+# on the CPU), both sides on the same uniforms: a code flips where
+# r'/s' + u sits at an integer.  This comparison read 1.7e-4 at round 5
+# on an H100 (PERF.md), so the limit is about 6x that; a mutation run with
+# zeroed updates, made in every run, reads 1.3e-2 (round 4).
+OPT_CPU_CUDA_RTOL = 1e-3
 SHAPES = [(5, 256, 256), (2, 37, 8), (2, 37, 13), (2, 64, 64 * 960)]
 MAIN_SHAPE = (5, 256, 256)
 WIRE_SHAPE = (512, 128)           # B · z_dim = 65,536 values in 128-tiles
 R = 5
 GATE = "src/repro_torch/csrc/cosine_gate.cu"
+ADAGRAD = "src/repro_torch/csrc/fused_adagrad.cu"
+# K7 at WDL-Criteo's largest leaf (26 fields x 1024 x 16, the main shape),
+# one element, a ragged tail and one past a whole (8, 1024) tile; K8 at
+# the tilings of that leaf (main), the scalar bias, a bias and a
+# mid-sized weight
+K7_SIZES = [26 * 1024 * 16, 1, 1025, 8 * 1024 + 3]
+K8_CASES = [((416, 1024), (26 * 1024, 16)), ((8, 1), ()), ((8, 64), (512,)),
+            ((104, 1024), (104, 1024))]
 KERNELS = {   # name -> (the TPU kernel it replaces, its source)
     "fused_sample_2d": ("src/repro/kernels/fused_sample.py:125", GATE),
     "cosine_weight_2d": ("src/repro/kernels/cosine_weight.py:80", GATE),
@@ -71,6 +91,8 @@ KERNELS = {   # name -> (the TPU kernel it replaces, its source)
                        "src/repro_torch/csrc/quantize.cu"),
     "fused_sample_q8_2d": ("src/repro/kernels/fused_sample.py:143", GATE),
     "fused_sample_q4_2d": ("src/repro/kernels/fused_sample.py:232", GATE),
+    "fused_adagrad": ("src/repro/kernels/fused_adagrad.py:54", ADAGRAD),
+    "fused_adagrad_q8": ("src/repro/kernels/fused_adagrad.py:110", ADAGRAD),
 }
 DENSE_GATES = ("fused_sample_2d", "cosine_weight_2d", "cosine_weights_2d")
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
@@ -211,9 +233,10 @@ def phase_kernels(torch):
     return results
 
 
-def _timed(torch, label, kern, plain, err, nbytes, flops):
+def _timed(torch, label, kern, plain, err, nbytes, flops, library="none"):
     """Time ``kern`` and ``plain`` on the card at this shape; print one
-    line; -> the numbers of the kernels' JSON line."""
+    line (``library`` names the PyTorch call timed beside it); -> the
+    numbers of the kernels' JSON line."""
     ms = device_ms(torch, kern)
     plain_ms = device_ms(torch, plain)
     call = call_ms(torch, kern)
@@ -221,7 +244,7 @@ def _timed(torch, label, kern, plain, err, nbytes, flops):
     print(f"[kernel] {label} max|err| {err:.3g}  device: kernel "
           f"{ms * 1e3:.2f} us  plain {plain_ms * 1e3:.2f} us  bound "
           f"{bound_ms * 1e3:.3f} us ({bound_by}, {nbytes} B); per call "
-          f"from Python {call * 1e3:.2f} us; library: none", flush=True)
+          f"from Python {call * 1e3:.2f} us; library: {library}", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
 
@@ -349,24 +372,123 @@ def phase_quant_kernels(torch):
     return results
 
 
+def library_adagrad_ms(torch, g, a, lr, eps):
+    """ms of ``torch._fused_adagrad_`` (one fused PyTorch AdaGrad call; it
+    applies the step to a parameter instead of returning it) on the
+    card's tensors, or (None, why) where this PyTorch has none for CUDA."""
+    fn = getattr(torch, "_fused_adagrad_", None)
+    if fn is None:
+        return None, "torch._fused_adagrad_ does not exist"
+    p = torch.zeros_like(g)
+    acc = a.clone()
+    step = torch.zeros((), device=g.device)
+
+    def run():
+        fn([p], [g], [acc], [step], lr=lr, lr_decay=0.0, weight_decay=0.0,
+           eps=eps, maximize=False)
+    try:
+        run()
+        torch.cuda.synchronize()
+    except RuntimeError as e:       # no CUDA kernel registered for it
+        return None, f"torch._fused_adagrad_ on CUDA: {str(e)[:120]}"
+    return device_ms(torch, run), "torch._fused_adagrad_"
+
+
+def phase_adagrad_kernels(torch):
+    """K7 and K8 against their plain versions on the card, bitwise, at the
+    main path's leaf shapes; K7 against one fused PyTorch AdaGrad call
+    where this PyTorch has one."""
+    from repro_torch.kernels import fused_adagrad as fag
+    from repro_torch.optim.quantized import _tiling
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    lr, eps = 0.01, 1e-10
+    results = {"fused_adagrad": {"max_abs_err": 0.0},
+               "fused_adagrad_q8": {"max_abs_err": 0.0}}
+    for n in K7_SIZES:
+        g = torch.randn(n, generator=gen, device="cuda") * 0.1
+        a = torch.rand(n, generator=gen, device="cuda")
+        (u, a2), (u0, a20) = (fag.fused_adagrad(g, a, lr, eps),
+                              fag.fused_adagrad_plain(g, a, lr, eps))
+        uc, a2c = fag.fused_adagrad_plain(g.cpu(), a.cpu(), lr, eps)
+        torch.cuda.synchronize()
+        check(torch.equal(u, u0) and torch.equal(a2, a20),
+              f"fused_adagrad at n={n}: not bitwise equal to its plain "
+              f"version (max |du| {(u - u0).abs().max().item()})")
+        cpu_same = torch.equal(u.cpu(), uc) and torch.equal(a2.cpu(), a2c)
+        label = f"{'fused_adagrad':30s} n={n}"
+        if n != K7_SIZES[0]:
+            print(f"[kernel] {label} bitwise equal to its plain version "
+                  f"(CPU plain version bitwise equal: {cpu_same})",
+                  flush=True)
+            continue
+        lib_ms, lib_what = library_adagrad_ms(torch, g, a, lr, eps)
+        t = _timed(torch, label, lambda: fag.fused_adagrad(g, a, lr, eps),
+                   lambda: fag.fused_adagrad_plain(g, a, lr, eps), 0.0,
+                   16 * n, 6 * n, library=lib_what + (
+                       "" if lib_ms is None else f" {lib_ms * 1e3:.2f} us"))
+        print(f"[kernel] {label} bitwise equal to its plain version (CPU "
+              f"plain version bitwise equal: {cpu_same})", flush=True)
+        results["fused_adagrad"].update(t, library_ms=lib_ms)
+
+    for (R, C), shape in K8_CASES:
+        check(_tiling(math.prod(shape)) == (R, C), f"K8 tiling of {shape}")
+        g = torch.randn(shape, generator=gen, device="cuda") * 0.1
+        q = torch.randint(0, 128, (R, C), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        s = torch.rand((R, 1), generator=gen, device="cuda") * 1e-2
+        u = torch.rand((R, C), generator=gen, device="cuda")
+        out = fag.fused_adagrad_q8(g, q, s, u, lr, eps)
+        ref = fag.fused_adagrad_q8_plain(g, q, s, u, lr, eps)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(out, ref)),
+              f"fused_adagrad_q8 at {(R, C)}: not bitwise equal to its "
+              f"plain version ({int((out[1] != ref[1]).sum())} codes "
+              f"differ)")
+        label = f"{'fused_adagrad_q8':30s} R,C={R},{C}"
+        if (R, C) != K8_CASES[0][0]:
+            print(f"[kernel] {label} update, codes and scales bitwise "
+                  f"equal to its plain version", flush=True)
+            continue
+        t = _timed(torch, label,
+                   lambda: fag.fused_adagrad_q8(g, q, s, u, lr, eps),
+                   lambda: fag.fused_adagrad_q8_plain(g, q, s, u, lr, eps),
+                   0.0, 14 * R * C + 8 * R, 12 * R * C)
+        results["fused_adagrad_q8"].update(t, library_ms=None)
+    return results
+
+
 def phase_goldens(torch):
     from repro_torch import golden
+    from repro_torch.kernels import _cuda
     params = golden.load_params(GOLDEN_DIR)
     two = golden.load_golden(GOLDEN_DIR, "two_party_trace.json")
-    runs = [(p, True) for p in ("vanilla", "fedbcd", "celu")]
-    runs.append(("celu", False))
-    for protocol, fused in runs:
+    three = golden.load_golden(GOLDEN_DIR, "three_party_trace.json")["celu"]
+    runs = [(p, True, None) for p in ("vanilla", "fedbcd", "celu")]
+    runs.append(("celu", False, None))
+    # once more through the fused AdaGrad kernel (K7)
+    runs.append(("celu", True, {"use_pallas": True}))
+    for protocol, fused, opt_kw in runs:
+        _cuda.reset_launches()
         got = golden.two_party_trace(protocol, params, device="cuda",
-                                     cache_fused=fused)
+                                     cache_fused=fused, opt_kw=opt_kw)
         dev = golden.compare(got, two[protocol])
-        print(f"[golden] two-party {protocol:7s} cache_fused={fused}: "
-              f"{dev}", flush=True)
+        print(f"[golden] two-party {protocol:7s} cache_fused={fused} "
+              f"adagrad {'K7' if opt_kw else 'plain'}: {dev}; K7 launches "
+              f"{_cuda.LAUNCHES['fused_adagrad']}", flush=True)
         check(golden.within_tolerance(dev), f"golden {protocol} {dev}")
-    got = golden.three_party_trace(params, device="cuda")
-    dev = golden.compare(got, golden.load_golden(
-        GOLDEN_DIR, "three_party_trace.json")["celu"])
-    print(f"[golden] three-party celu cache_fused=True: {dev}", flush=True)
-    check(golden.within_tolerance(dev), f"golden three-party {dev}")
+        check((_cuda.LAUNCHES["fused_adagrad"] > 0) == bool(opt_kw),
+              f"golden {protocol}: K7 launches {_cuda.LAUNCHES}")
+    for opt_kw in (None, {"use_pallas": True}):
+        _cuda.reset_launches()
+        got = golden.three_party_trace(params, device="cuda", opt_kw=opt_kw)
+        dev = golden.compare(got, three)
+        print(f"[golden] three-party celu cache_fused=True adagrad "
+              f"{'K7' if opt_kw else 'plain'}: {dev}; K7 launches "
+              f"{_cuda.LAUNCHES['fused_adagrad']}", flush=True)
+        check(golden.within_tolerance(dev), f"golden three-party {dev}")
+        check((_cuda.LAUNCHES["fused_adagrad"] > 0) == bool(opt_kw),
+              f"golden three-party: K7 launches {_cuda.LAUNCHES}")
 
 
 def train_args(arch, protocol="celu", rounds=50, device=None, **kw):
@@ -376,6 +498,12 @@ def train_args(arch, protocol="celu", rounds=50, device=None, **kw):
         argv += ["--device", device]
     args = build_parser().parse_args(argv)
     return SimpleNamespace(**{**vars(args), **kw})
+
+
+def _tensors(out) -> int:
+    """Parameter tensors of every party of a trained state."""
+    params = out["state"]["params"]
+    return sum(len(list(m.parameters())) for m in params["a"] + [params["b"]])
 
 
 def _run(label, args, **kw):
@@ -398,6 +526,9 @@ def _want(label, counts, **want):
 
 
 def _cpu_vs_cuda(label, gpu, cpu, rtol):
+    """-> the largest relative loss deviation over rounds 2-5, checked
+    against ``rtol`` unless ``rtol`` is None (a mutation run, which the
+    caller holds to the other side of the limit)."""
     check([g[0] for g in gpu["history"]] == [2, 3, 4, 5]
           and [c[0] for c in cpu["history"]] == [2, 3, 4, 5],
           f"{label} cuda vs cpu: rounds 2-5 not all recorded")
@@ -406,30 +537,52 @@ def _cpu_vs_cuda(label, gpu, cpu, rtol):
     print(f"[main] {label}, 5 full-width rounds cuda vs cpu: loss rel dev "
           f"per round 2-5 {[float(f'{d:.3g}') for d in devs]} (tolerance "
           f"{rtol})", flush=True)
-    check(max(devs) <= rtol, f"{label} cuda vs cpu loss deviation {devs}")
+    if rtol is not None:
+        check(max(devs) <= rtol, f"{label} cuda vs cpu loss deviation {devs}")
+    return max(devs)
+
+
+def _zero_updates(opt):
+    """``opt`` with every update zeroed (the mutation run's optimizer)."""
+    from repro_torch.optim import Optimizer
+
+    def update(grads, state, params=None):
+        upd, state = opt.update(grads, state, params)
+        return [u * 0.0 for u in upd], state
+    return Optimizer(opt.init, update)
 
 
 def phase_main_path(torch, card):
     from repro_torch.core.uniforms import GeneratorUniforms
-    from repro_torch.launch.train import train_dlrm
+    from repro_torch.launch.train import make_opt, train_dlrm
+    from repro_torch.optim import make_optimizer
 
     counts = {}
-    # WDL-Criteo at full width, the default fused ring sample (K1)
+    upd = 1 + R              # optimizer updates per party tensor a round
+    # WDL-Criteo at full width, the default fused ring sample (K1) and
+    # fused AdaGrad (K7)
     rounds = 50
     wdl, c = _run(f"wdl-criteo celu {rounds} rounds",
                   train_args("wdl-criteo", rounds=rounds))
-    _want("fp32 cache", c, fused_sample_2d=2 * R * rounds)
+    n_wdl = _tensors(wdl)
+    check(n_wdl == 20, f"wdl-criteo has {n_wdl} parameter tensors, want 20")
+    _want("fp32 cache", c, fused_sample_2d=2 * R * rounds,
+          fused_adagrad=upd * n_wdl * rounds)
     counts["fused_sample_2d"] = c["fused_sample_2d"]
+    counts["fused_adagrad"] = c["fused_adagrad"]
 
-    _, c = _run("dssm-avazu celu 5 rounds", train_args("dssm-avazu",
-                                                       rounds=5))
-    _want("dssm", c, fused_sample_2d=2 * R * 5)
+    dssm, c = _run("dssm-avazu celu 5 rounds", train_args("dssm-avazu",
+                                                          rounds=5))
+    check(_tensors(dssm) == 16, f"dssm-avazu has {_tensors(dssm)} "
+          f"parameter tensors, want 16")
+    _want("dssm", c, fused_sample_2d=2 * R * 5,
+          fused_adagrad=upd * _tensors(dssm) * 5)
 
     # the materialising path: K2a for Party A, K2b for Party B
     _, c = _run("wdl-criteo celu --no-cache-fusion 5 rounds",
                 train_args("wdl-criteo", rounds=5, no_cache_fusion=True))
     _want("--no-cache-fusion", c, cosine_weight_2d=R * 5,
-          cosine_weights_2d=R * 5)
+          cosine_weights_2d=R * 5, fused_adagrad=upd * n_wdl * 5)
     counts["cosine_weight_2d"] = c["cosine_weight_2d"]
     counts["cosine_weights_2d"] = c["cosine_weights_2d"]
 
@@ -442,25 +595,45 @@ def phase_main_path(torch, card):
             f"wdl-criteo celu --cache-dtype {dtype} {rounds} rounds",
             train_args("wdl-criteo", rounds=rounds, cache_dtype=dtype))
         _want(f"--cache-dtype {dtype}", c, quantize_sr_2d=4 * rounds,
+              fused_adagrad=upd * n_wdl * rounds,
               **{kernel: 2 * R * rounds})
         counts[kernel] = c[kernel]
         if dtype == "int8":
             counts["quantize_sr_2d"] = c["quantize_sr_2d"]
     _, c = _run("wdl-criteo celu --cache-dtype bfloat16 5 rounds",
                 train_args("wdl-criteo", rounds=5, cache_dtype="bfloat16"))
-    _want("--cache-dtype bfloat16", c, fused_sample_2d=2 * R * 5)
+    _want("--cache-dtype bfloat16", c, fused_sample_2d=2 * R * 5,
+          fused_adagrad=upd * n_wdl * 5)
 
     # the compressed wire: K3 on the uplink Z and the downlink ∇Z
     _, c = _run("wdl-criteo celu --compression int8 5 rounds",
                 train_args("wdl-criteo", rounds=5, compression="int8"))
     _want("--compression int8", c, quantize_sr_2d=2 * 5,
-          fused_sample_2d=2 * R * 5)
+          fused_sample_2d=2 * R * 5, fused_adagrad=upd * n_wdl * 5)
     _, c = _run("wdl-criteo celu --cache-dtype int8 --compression int4x2 "
                 "5 rounds", train_args("wdl-criteo", rounds=5,
                                        cache_dtype="int8",
                                        compression="int4x2"))
     _want("--cache-dtype int8 --compression int4x2", c,
-          quantize_sr_2d=(4 + 4) * 5, fused_sample_q8_2d=2 * R * 5)
+          quantize_sr_2d=(4 + 4) * 5, fused_sample_q8_2d=2 * R * 5,
+          fused_adagrad=upd * n_wdl * 5)
+
+    # the optimizer states: K8 on every int8-state update, K7 on every
+    # bf16-state update (an upcast around it), neither for SM3
+    opt_int8, c = _run(f"wdl-criteo celu --opt-state-dtype int8 {rounds} "
+                       f"rounds", train_args("wdl-criteo", rounds=rounds,
+                                             opt_state_dtype="int8"))
+    _want("--opt-state-dtype int8", c, fused_sample_2d=2 * R * rounds,
+          fused_adagrad_q8=upd * n_wdl * rounds)
+    counts["fused_adagrad_q8"] = c["fused_adagrad_q8"]
+    _, c = _run("wdl-criteo celu --opt-state-dtype bfloat16 5 rounds",
+                train_args("wdl-criteo", rounds=5,
+                           opt_state_dtype="bfloat16"))
+    _want("--opt-state-dtype bfloat16", c, fused_sample_2d=2 * R * 5,
+          fused_adagrad=upd * n_wdl * 5)
+    _, c = _run("wdl-criteo celu --optimizer sm3 5 rounds",
+                train_args("wdl-criteo", rounds=5, optimizer="sm3"))
+    _want("--optimizer sm3", c, fused_sample_2d=2 * R * 5)
 
     # five full-width rounds on the card against the CPU
     gpu5 = train_dlrm(train_args("wdl-criteo", rounds=5))
@@ -477,10 +650,30 @@ def phase_main_path(torch, card):
                           uniforms=GeneratorUniforms(0, "cuda", "cpu"))
         _cpu_vs_cuda(f"int8 cache + int8 wire (card run {run})", gpu5, cpu5,
                      QUANT_CPU_CUDA_RTOL)
+    # ... and on the int8 optimizer state (K8), the same way; then a
+    # mutation run whose updates are zeroed must fall outside the limit
+    kw = dict(rounds=5, opt_state_dtype="int8")
+    cpu5 = train_dlrm(train_args("wdl-criteo", device="cpu", **kw),
+                      uniforms=GeneratorUniforms(0, "cpu"))
+    for run in (1, 2):
+        gpu5 = train_dlrm(train_args("wdl-criteo", **kw),
+                          uniforms=GeneratorUniforms(0, "cuda", "cpu"))
+        _cpu_vs_cuda(f"int8 optimizer state (card run {run})", gpu5, cpu5,
+                     OPT_CPU_CUDA_RTOL)
+    args = train_args("wdl-criteo", **kw)
+    src = GeneratorUniforms(0, "cuda", "cpu")
+    mutant = train_dlrm(args, uniforms=src,
+                        opt=_zero_updates(make_opt(args, src)))
+    dev = _cpu_vs_cuda("int8 optimizer state, updates zeroed (mutation)",
+                       mutant, cpu5, None)
+    check(dev > OPT_CPU_CUDA_RTOL, f"the zero-update mutation reads {dev}, "
+          f"inside the limit {OPT_CPU_CUDA_RTOL}")
 
     # time: the celu round against the vanilla round (no local updates)
-    vanilla = train_dlrm(train_args("wdl-criteo", protocol="vanilla",
-                                    rounds=20))
+    vanilla, c = _run("wdl-criteo vanilla 20 rounds",
+                      train_args("wdl-criteo", protocol="vanilla",
+                                 rounds=20))
+    _want("vanilla", c, fused_adagrad=n_wdl * 20)
     round_ms = wdl["steady_round_ms"]
     local_ms = (round_ms - vanilla["steady_round_ms"]) / R
     print(f"[time] wdl-criteo full width B=256 R=W=5 celu: "
@@ -492,25 +685,46 @@ def phase_main_path(torch, card):
         print(f"[time] wdl-criteo full width celu --cache-dtype {dtype}: "
               f"{out['steady_round_ms']:.3f} ms per round (fp32 cache "
               f"{round_ms:.3f}); card {card}", flush=True)
+    # the four AdaGrad routes in turns (plain, K7, int8 / K8, bf16 / K7,
+    # then back), 20 rounds each
+    routes = {"plain AdaGrad (6 launches a tensor)": {},
+              "K7 (--opt-state-dtype float32)": {},
+              "int8 state, K8": {"opt_state_dtype": "int8"},
+              "bf16 state, K7": {"opt_state_dtype": "bfloat16"}}
+    times = {k: [] for k in routes}
+    for name in list(routes) + list(routes)[::-1]:
+        args = train_args("wdl-criteo", rounds=20, **routes[name])
+        opt = make_optimizer("adagrad", args.lr) if name.startswith("plain") \
+            else None
+        times[name].append(train_dlrm(args, opt=opt)["steady_round_ms"])
+    for name, ms in times.items():
+        print(f"[time] wdl-criteo full width celu, AdaGrad route {name}: "
+              f"{ms[0]:.3f} and {ms[1]:.3f} ms per round; card {card}",
+              flush=True)
 
-    # the card's busy time per round, from a profiled run (the profiler
-    # slows the host, not the kernels)
+    # the card's busy time per round, from profiled runs of the plain and
+    # the K7 route (the profiler slows the host, not the kernels)
     from torch.profiler import ProfilerActivity, profile
     rounds = 20
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        train_dlrm(train_args("wdl-criteo", rounds=rounds))
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / rounds
-    print(f"[time] device busy {busy_ms:.3f} ms per round "
-          f"({len(kernels) / rounds:.0f} kernels per round, evaluation "
-          f"included) = {100 * busy_ms / round_ms:.1f}% of the "
-          f"{round_ms:.3f} ms round; card {card}", flush=True)
-    top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
-    for e in top[:8]:
-        print(f"[time]   {e.self_device_time_total / 1e3 / rounds:8.3f} ms "
-              f"per round  {e.count / rounds:6.1f} calls  {e.key[:70]}")
+    for name in ("plain AdaGrad", "K7"):
+        args = train_args("wdl-criteo", rounds=rounds)
+        opt = make_optimizer("adagrad", args.lr) if name != "K7" else None
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            train_dlrm(args, opt=opt)
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / rounds
+        print(f"[time] AdaGrad {name}: device busy {busy_ms:.3f} ms per "
+              f"round ({len(kernels) / rounds:.0f} kernels per round, "
+              f"evaluation included) = {100 * busy_ms / round_ms:.1f}% of "
+              f"the {round_ms:.3f} ms K7 round; card {card}", flush=True)
+        top = sorted(prof.key_averages(),
+                     key=lambda e: -e.self_device_time_total)
+        for e in top[:8]:
+            print(f"[time]   {e.self_device_time_total / 1e3 / rounds:8.3f} "
+                  f"ms per round  {e.count / rounds:6.1f} calls  "
+                  f"{e.key[:70]}")
     return counts
 
 
@@ -544,6 +758,7 @@ def main() -> None:
     t0 = time.perf_counter()
     kernels = phase_kernels(torch)
     kernels.update(phase_quant_kernels(torch))
+    kernels.update(phase_adagrad_kernels(torch))
     print(f"[phase] kernels {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     phase_goldens(torch)
@@ -561,7 +776,8 @@ def main() -> None:
                      "replaces": replaces, "launches": counts[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"], "library_ms": None})
+                     "bound_by": r["bound_by"],
+                     "library_ms": r.get("library_ms")})
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

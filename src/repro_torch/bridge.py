@@ -5,13 +5,24 @@ as numpy) flattens to dotted paths — ``{"tower": {"mlp": [{"w": ...}]}}``
 to ``tower.mlp.0.w`` — which are exactly the ``state_dict`` keys of the
 port's modules.  Tests start both frameworks from the same weights with
 :func:`load_tree`; :func:`to_tree` goes back.
+
+JAX flattens a pytree with dict keys sorted and list entries by index,
+which is not the order in which a module registers its parameters (a
+``Dense`` registers ``w`` before ``b``; JAX flattens ``b`` first).  The
+engine lists a party's parameters in JAX's order
+(:func:`reference_parameters`), so per-leaf optimizer state and the int8
+state's per-leaf rounding uniforms line up with the reference's leaf
+indices; :func:`load_opt_state` brings a reference optimizer state across.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from .optim.quantized import QuantAccum
 
 
 def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -26,6 +37,20 @@ def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     for k, v in items:
         out.update(flatten_tree(v, f"{prefix}.{k}" if prefix else str(k)))
     return out
+
+
+@functools.lru_cache(maxsize=4096)       # the engine sorts on every step
+def path_key(path: str) -> tuple:
+    """Sort key of a dotted path in JAX's flattening order: dict keys as
+    strings, list entries (all-digit components) by index."""
+    return tuple((0, int(c), "") if c.isdigit() else (1, 0, c)
+                 for c in path.split("."))
+
+
+def reference_parameters(module: torch.nn.Module) -> list:
+    """``module``'s parameters in the reference pytree's leaf order."""
+    return [p for _, p in sorted(module.named_parameters(),
+                                 key=lambda kv: path_key(kv[0]))]
 
 
 def load_tree(module: torch.nn.Module, tree) -> torch.nn.Module:
@@ -76,3 +101,38 @@ def to_tree(module: torch.nn.Module) -> Any:
             return [listify(node[str(i)]) for i in range(len(node))]
         return {k: listify(v) for k, v in node.items()}
     return listify(root)
+
+
+def _tensor(x, device) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":      # numpy has no bf16: go through fp32
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a, order="C")).to(device)
+
+
+def load_opt_state(state, device="cpu") -> dict:
+    """A reference AdaGrad / SM3 optimizer state, its arrays as numpy
+    (``jax.tree_util.tree_map(np.asarray, state)``), -> the port's state
+    on ``device``: a mirrored accumulator tree (fp32 / bf16 AdaGrad)
+    becomes a list in the reference's leaf order, a tuple of per-leaf
+    entries (int8 ``QuantAccum``, SM3's row / col dicts) a list of the
+    port's entries, and the int32 step ``t`` a host int."""
+    def entry(x):
+        if hasattr(x, "q") and hasattr(x, "scale"):
+            return QuantAccum(_tensor(x.q, device), _tensor(x.scale, device),
+                              x.shape)
+        if isinstance(x, dict):
+            return {k: _tensor(v, device) for k, v in x.items()}
+        return _tensor(x, device)
+
+    acc = state["accum"]
+    if isinstance(acc, tuple):
+        out = {"accum": [entry(x) for x in acc]}
+    else:
+        flat = flatten_tree(acc)
+        out = {"accum": [_tensor(flat[k], device)
+                         for k in sorted(flat, key=path_key)]}
+    if "t" in state:
+        out["t"] = int(np.asarray(state["t"]))
+    return out

@@ -52,6 +52,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, \
 import numpy as np
 import torch
 
+from ..bridge import reference_parameters
 from ..configs.base import CELUConfig
 from ..kernels import ops as kops
 from ..optim import Optimizer, apply_updates
@@ -263,7 +264,10 @@ def weighted_cotangent(ad_hoc, stale, dz, cos_xi: float
 # Local-update gradients (Algorithm 2)
 # --------------------------------------------------------------------------
 def _params(module) -> list:
-    return list(module.parameters())
+    """The module's parameters in the reference's leaf order: gradients,
+    per-leaf optimizer state and the int8 state's rounding uniforms (leaf
+    index ``i``) follow it."""
+    return reference_parameters(module)
 
 
 def _take(ws_leaf, idx):

@@ -9,15 +9,20 @@ The reference draws every stochastic-rounding uniform from a fixed
   * the workset inserts: ``fold_in(fold_in(PRNGKey(0xCE1), comm_rounds),
     party)`` (feature parties 0..K-1, Party B K), then
     ``fold_in(·, leaf_index)`` over the entry's leaves in JAX's flattening
-    order (dict keys sorted).
+    order (dict keys sorted);
+  * the int8 AdaGrad state's requantisation:
+    ``fold_in(fold_in(PRNGKey(0xAD49), t), leaf_index)``, with ``t`` the
+    optimizer state's update counter and the leaf index in JAX's
+    flattening order of the party's parameters.
 
 PyTorch cannot reproduce those bits, so the port takes the uniforms from a
 *uniform source*: a callable ``source(tag, shape)`` that returns a
 ``shape`` float32 tensor in [0, 1) on the round's device.  The tag names
-the draw in the reference's terms — ``("wire", round, 2K, j, *folds)`` or
-``("insert", round, party, *folds)`` — so a parity test can hand in a
-source that computes the reference's uniforms from it.  The default source
-ignores the tag and draws from an explicit ``torch.Generator``.
+the draw in the reference's terms — ``("wire", round, 2K, j, *folds)``,
+``("insert", round, party, *folds)`` or ``("optim", t, *folds)`` — so a
+parity test can hand in a source that computes the reference's uniforms
+from it.  The default source ignores the tag and draws from an explicit
+``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -67,3 +72,9 @@ def wire_key(source, round_: int, n_sends: int, send: int) -> UniformKey:
 def insert_key(source, round_: int, party: int) -> UniformKey:
     """Key of ``party``'s workset insert in a round (Party B is K)."""
     return UniformKey(source, ("insert", round_, party))
+
+
+def optim_key(source, t: int) -> UniformKey:
+    """Key of update ``t`` of an int8 AdaGrad state; fold in the leaf
+    index.  Party A's and Party B's states share the chain."""
+    return UniformKey(source, ("optim", t))

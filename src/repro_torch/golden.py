@@ -62,11 +62,14 @@ def _rows_metrics(m) -> dict:
 def two_party_trace(protocol: str, flat_params: dict, *, device=None,
                     cache_fused: bool = True, rounds: int = 20,
                     cache_dtype: str = "float32", compression: str = "",
-                    uniforms=None) -> list:
+                    uniforms=None, optimizer: str = "adagrad",
+                    opt_kw=None) -> list:
     """The two-party golden workload (``tests/test_engine.py::_workload``)
     through the port -> rows in the golden JSON's schema.  ``cache_dtype``,
-    ``compression`` and ``uniforms`` (the rounding uniforms' source) vary
-    it beyond the goldens, which pin the defaults."""
+    ``compression``, ``uniforms`` (the rounding uniforms' source),
+    ``optimizer`` and its keywords ``opt_kw`` (e.g. ``use_pallas=True``,
+    the fused AdaGrad kernel route) vary it beyond the goldens, which pin
+    the defaults."""
     dev = resolve_device(device)
     cfg = TWO_PARTY_CFG
     data = make_tabular(TabularSpec("criteo", fields_a=4, fields_b=3,
@@ -79,7 +82,7 @@ def two_party_trace(protocol: str, flat_params: dict, *, device=None,
     base = CELUConfig(R=3, W=3, xi_degrees=60.0, cache_fused=cache_fused,
                       cache_dtype=cache_dtype, compression=compression)
     ccfg, nloc = engine.preset_config(protocol, base)
-    opt = make_optimizer("adagrad", 0.05)
+    opt = make_optimizer(optimizer, 0.05, **(opt_kw or {}))
     it = aligned_batches(data["train"], 64, seed=0)
     _, ba, bb = next(it)
     etask = engine.lift_two_party(task)
@@ -114,8 +117,10 @@ def three_party_task() -> engine.KPartyTask:
 
 
 def three_party_trace(flat_params: dict, *, device=None,
-                      cache_fused: bool = True, rounds: int = 20) -> list:
-    """The three-party (K = 2 feature parties) golden workload."""
+                      cache_fused: bool = True, rounds: int = 20,
+                      opt_kw=None) -> list:
+    """The three-party (K = 2 feature parties) golden workload; ``opt_kw``
+    are AdaGrad's keywords."""
     dev = resolve_device(device)
     cfg = THREE_PARTY_CFG
     data = make_tabular(TabularSpec("t", fields_a=8, fields_b=4, vocab=64,
@@ -131,7 +136,7 @@ def three_party_trace(flat_params: dict, *, device=None,
     pb = pb.to(dev)
     task = three_party_task()
     celu = CELUConfig(R=2, W=2, xi_degrees=60.0, cache_fused=cache_fused)
-    opt = make_optimizer("adagrad", 0.02)
+    opt = make_optimizer("adagrad", 0.02, **(opt_kw or {}))
 
     def split(ba, bb):
         return ([to_device({"x_a": ba["x_a"][:, :4]}, dev),

@@ -39,7 +39,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = {"fused_sample_2d": 0, "cosine_weight_2d": 0,
             "cosine_weights_2d": 0, "quantize_sr_2d": 0,
-            "fused_sample_q8_2d": 0, "fused_sample_q4_2d": 0}
+            "fused_sample_q8_2d": 0, "fused_sample_q4_2d": 0,
+            "fused_adagrad": 0, "fused_adagrad_q8": 0}
 
 _lib = None
 
@@ -52,6 +53,9 @@ _SIGNATURES = {
     "cosine_gate_quant": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
                           _I, _P],
     "quantize_sr": [_P, _P, _P, _P, _I, _I, _F, _P],
+    "fused_adagrad": [_P, _P, _P, _P, _LL, _F, _F, _P],
+    "fused_adagrad_q8": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _F, _F,
+                         _P],
 }
 
 
@@ -185,3 +189,19 @@ def launch_quantize_sr(name: str, *, x, u, q, scale, levels: float) -> None:
     T, L = x.shape
     _launch(name, "quantize_sr", x.device, _ptr(x), _ptr(u), _ptr(q),
             _ptr(scale), T, L, levels)
+
+
+def launch_fused_adagrad(name: str, *, grad, accum, upd, accum_out,
+                         lr: float, eps: float) -> None:
+    """Launch K7 of ``csrc/fused_adagrad.cu`` on checked operands."""
+    _launch(name, "fused_adagrad", grad.device, _ptr(grad), _ptr(accum),
+            _ptr(upd), _ptr(accum_out), grad.numel(), lr, eps)
+
+
+def launch_fused_adagrad_q8(name: str, *, grad, q, scale, u, upd, q_out,
+                            scale_out, lr: float, eps: float) -> None:
+    """Launch K8 of ``csrc/fused_adagrad.cu`` on checked operands."""
+    R, C = q.shape
+    _launch(name, "fused_adagrad_q8", grad.device, _ptr(grad), _ptr(q),
+            _ptr(scale), _ptr(u), _ptr(upd), _ptr(q_out), _ptr(scale_out),
+            grad.numel(), R, C, lr, eps)

@@ -3,14 +3,16 @@
 
 Each takes the engine's shapes, flattens them to the (B, F) rows the
 kernel works on, and calls the kernel module's wrapper: on a CUDA tensor
-that launches the kernel (``csrc/cosine_gate.cu``, ``csrc/quantize.cu``);
-on a CPU tensor it runs the plain PyTorch version.
+that launches the kernel (``csrc/cosine_gate.cu``, ``csrc/quantize.cu``,
+``csrc/fused_adagrad.cu``); on a CPU tensor it runs the plain PyTorch
+version.
 """
 from __future__ import annotations
 
 import torch.nn.functional as F
 
 from . import cosine_weight as _cw
+from . import fused_adagrad as _ag
 from . import fused_sample as _fs
 from . import quantize as _qz
 
@@ -110,3 +112,22 @@ def quantize_stochastic(x, u, levels):
     -> (codes int8 (T, L), fp32 scales (T,))."""
     return _qz.quantize_sr_2d(x.float().contiguous(), u.float().contiguous(),
                               levels)
+
+
+def fused_adagrad(grad, accum, lr, eps):
+    """Fused AdaGrad step (K7): a' = a + g², u = -lr·g / (√a' + eps).
+    grad: any shape (cast to fp32); accum: fp32 of grad's shape.
+    -> (update fp32, new accumulator fp32)."""
+    return _ag.fused_adagrad(grad.float().contiguous(), accum.contiguous(),
+                             lr, eps)
+
+
+def fused_adagrad_q8(grad, accum_q, accum_scale, u, lr, eps):
+    """int8-at-rest AdaGrad step (K8): dequantise → accumulate → scale →
+    requantise in one pass.  grad: fp32 of at most R·C elements (the rest
+    of the (R, C) tiling is the zero pad: no padded copy is made);
+    accum_q: (R, C) int8 sqrt-space codes; accum_scale: (R, 1) fp32;
+    u: (R, C) uniforms.  -> (update fp32 in grad's shape, new codes, new
+    scales)."""
+    return _ag.fused_adagrad_q8(grad.float().contiguous(), accum_q,
+                                accum_scale, u.float().contiguous(), lr, eps)

@@ -6,19 +6,24 @@ partitioned stream with the selected protocol (vanilla | fedbcd | celu)
 and reports AUC and communication accounting (rounds, bytes, simulated-WAN
 seconds).  ``--cache-dtype`` sets the workset rings' at-rest precision
 (float32 | bfloat16 | int8 | int4) and ``--compression`` the wire codec
-(a ``core.compression.CODEC_SPECS`` name or ``up/down``).  It runs on the
-card unless ``--device cpu`` is given.
+(a ``core.compression.CODEC_SPECS`` name or ``up/down``).  AdaGrad takes
+the fused kernel route (K7; K8 for ``--opt-state-dtype int8``);
+``--opt-state-dtype`` sets its accumulator's at-rest precision (float32 |
+bfloat16 | int8) and ``--optimizer sm3`` the factored state.  It runs on
+the card unless ``--device cpu`` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch wdl-criteo \\
         --protocol celu --rounds 300 --R 5 --W 5 --xi 60
     PYTHONPATH=src python -m repro_torch.launch.train --arch wdl-criteo \\
         --device cpu --small --rounds 10 --cache-dtype int4 --compression int8
+    PYTHONPATH=src python -m repro_torch.launch.train --arch wdl-criteo \\
+        --device cpu --small --rounds 10 --opt-state-dtype int8
 
 Flags of the reference that switch on what later slices of the port
-bring (pipelining, DP, quantised optimizer state, chaos, checkpoints, the
-LLM archs) are refused with a message; the reference's flags that only
-tune those features (``--fault-seed``, ``--checkpoint-every``, ...) are
-not defined, so argparse rejects them.
+bring (pipelining, DP, chaos, checkpoints, the LLM archs) are refused
+with a message; the reference's flags that only tune those features
+(``--fault-seed``, ``--checkpoint-every``, ...) are not defined, so
+argparse rejects them.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from ..data import synthetic as synth
 from ..data import to_device
 from ..models.tabular import DLRMConfig, auc, make_dlrm
 from ..optim import make_optimizer
+from ..optim.quantized import opt_state_nbytes
 from .wan import WANClock, transport_round_updown
 
 DEFAULT_WAN = WANClock()
@@ -57,9 +63,6 @@ def refuse_unported(args) -> None:
         later.append(f"--arch {args.arch} (the LLM split models, slice 7)")
     if args.pipeline_depth:
         later.append("--pipeline-depth > 0 (slice 2)")
-    if args.opt_state_dtype != "float32" or args.optimizer == "sm3":
-        later.append("--opt-state-dtype other than float32 and "
-                     "--optimizer sm3 (slice 5)")
     if (args.fault_drop_prob or args.fault_straggler_prob
             or args.fault_dropout):
         later.append("--fault-* (slice 6)")
@@ -71,10 +74,29 @@ def refuse_unported(args) -> None:
                          + " (see ROADMAP.md; repro.launch.train has them)")
 
 
-def train_dlrm(args, uniforms=None) -> Dict[str, Any]:
+def make_opt(args, uniforms=None):
+    """Optimizer from --optimizer / --lr / --opt-state-dtype.  The state
+    dtype routes AdaGrad only (the paper's optimizer; sgd / adam / sm3
+    keep their own state).  AdaGrad takes the fused kernel route; the int8
+    state draws its rounding uniforms from ``uniforms``."""
+    kw = {}
+    if args.opt_state_dtype != "float32":
+        if args.optimizer != "adagrad":
+            raise SystemExit("--opt-state-dtype requires --optimizer "
+                             "adagrad (sm3 is already factored; sgd/adam "
+                             "keep fp32 state)")
+        kw["state_dtype"] = args.opt_state_dtype
+    if args.optimizer == "adagrad":
+        kw.update(use_pallas=True, uniforms=uniforms)
+    return make_optimizer(args.optimizer, args.lr, **kw)
+
+
+def train_dlrm(args, uniforms=None, opt=None) -> Dict[str, Any]:
     """Train ``args.rounds`` rounds.  ``uniforms`` is the rounding uniforms'
-    source (``core/uniforms.py``); the default draws from a
-    ``torch.Generator`` on the device, seeded with ``--seed``."""
+    source (``core/uniforms.py``) of the wire, the inserts and the int8
+    optimizer state; the default draws from a ``torch.Generator`` on the
+    device, seeded with ``--seed``.  ``opt`` replaces the optimizer the
+    flags describe."""
     refuse_unported(args)
     dev = resolve_device(args.device)
     cfg: DLRMConfig = get_config(args.arch)
@@ -95,15 +117,16 @@ def train_dlrm(args, uniforms=None) -> Dict[str, Any]:
                       cache_dtype=args.cache_dtype)
     celu_cfg, n_local = engine.preset_config(args.protocol, base)
     params = init_fn(args.seed, cfg, dev)
-    opt = make_optimizer(args.optimizer, args.lr)
+    if uniforms is None:
+        uniforms = GeneratorUniforms(args.seed, dev)
+    if opt is None:
+        opt = make_opt(args, uniforms)
 
     it = synth.aligned_batches(data["train"], args.batch_size,
                                seed=args.seed)
     _, ba0, bb0 = next(it)
     etask = engine.lift_two_party(task)
     transport = engine.make_transport(celu_cfg)
-    if uniforms is None:
-        uniforms = GeneratorUniforms(args.seed, dev)
     state = engine.init_state(etask, engine.lift_two_party_params(params),
                               opt, celu_cfg, [to_device(ba0, dev)],
                               to_device(bb0, dev), transport=transport,
@@ -114,6 +137,11 @@ def train_dlrm(args, uniforms=None) -> Dict[str, Any]:
     print(f"[cache] workset tables: {cache_total_b} B ({cache_stat_b} B "
           f"cut statistics at {celu_cfg.cache_dtype}; fused sample "
           f"{'on' if celu_cfg.cache_fused else 'off'}; device {dev})",
+          flush=True)
+    opt_b = [opt_state_nbytes(opt, list(p.parameters()))
+             for p in (params["a"], params["b"])]
+    print(f"[opt] {args.optimizer} state: Party A {opt_b[0]} B, Party B "
+          f"{opt_b[1]} B (--opt-state-dtype {args.opt_state_dtype})",
           flush=True)
     rnd = engine.make_round(etask, opt, celu_cfg, local_steps=n_local,
                             transport=transport)
@@ -215,11 +243,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cache-dtype", default="float32",
                     choices=("float32", "bfloat16", "int8", "int4"),
                     help="at-rest precision of the workset rings' Z / ∇Z")
+    ap.add_argument("--opt-state-dtype", default="float32",
+                    choices=("float32", "bfloat16", "int8"),
+                    help="at-rest precision of AdaGrad's accumulator")
     later = ap.add_argument_group(
         "flags of later slices of the port (refused)")
     later.add_argument("--pipeline-depth", type=int, default=0)
-    later.add_argument("--opt-state-dtype", default="float32",
-                       choices=("float32", "bfloat16", "int8"))
     later.add_argument("--fault-drop-prob", type=float, default=0.0)
     later.add_argument("--fault-straggler-prob", type=float, default=0.0)
     later.add_argument("--fault-dropout", action="append", default=[])

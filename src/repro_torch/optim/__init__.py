@@ -7,15 +7,28 @@ Port of ``repro/optim/__init__.py``.  ``Optimizer(init, update)``:
     are ADDED to params by ``apply_updates``.
 
 ``params`` and ``grads`` are matching lists of tensors (a module's
-``parameters()``).  ``torch.optim`` is not used: the engine scales each
-update by the draw's valid mask before applying it, and the arithmetic
-follows the reference op for op.  Accumulators are fp32.
+parameters, which the engine lists in the reference's leaf order).
+``torch.optim`` is not used: the engine scales each update by the draw's
+valid mask before applying it, and the arithmetic follows the reference
+op for op.  Accumulators are fp32 unless ``adagrad(state_dtype=...)``
+picks the bf16 or int8 state of :mod:`.quantized`;
+``make_optimizer("sm3", ...)`` is the factored accumulator.
+
+``adagrad(..., use_pallas=True)`` takes the hand-written kernel route:
+each update of each tensor is one launch of the fused AdaGrad kernel (K7,
+``kernels/fused_adagrad.py``) on the card, where the plain arithmetic
+takes six elementwise launches; on the CPU the kernel's plain version
+runs, the same arithmetic.  (The keyword is the reference's, whose kernel
+route was the Pallas kernel.)
 """
 from __future__ import annotations
 
 from typing import Callable, List, NamedTuple
 
 import torch
+
+from ..kernels import ops as kops
+from ..kernels.fused_adagrad import fused_adagrad_plain
 
 
 class Optimizer(NamedTuple):
@@ -31,15 +44,17 @@ OPT_STATE_DTYPES = ("float32", "bfloat16", "int8")
 
 
 def adagrad(lr: float, eps: float = 1e-10, *, use_pallas: bool = False,
-            state_dtype: str = "float32") -> Optimizer:
-    """a' = a + g², u = -lr·g / (√a' + eps)."""
+            state_dtype: str = "float32", uniforms=None) -> Optimizer:
+    """a' = a + g², u = -lr·g / (√a' + eps).  ``uniforms``: the source of
+    the int8 state's rounding uniforms (``optim.quantized``)."""
     if state_dtype not in OPT_STATE_DTYPES:
         raise ValueError(f"state_dtype must be one of {OPT_STATE_DTYPES}, "
                          f"got {state_dtype!r}")
-    if state_dtype != "float32" or use_pallas:
-        raise NotImplementedError(
-            "quantised AdaGrad state and the fused AdaGrad kernels (K7, "
-            "K8) come with slice 5 of the port (ROADMAP.md)")
+    if state_dtype != "float32":
+        from .quantized import adagrad_quantized
+        return adagrad_quantized(lr, eps, state_dtype=state_dtype,
+                                 use_pallas=use_pallas, uniforms=uniforms)
+    step = kops.fused_adagrad if use_pallas else fused_adagrad_plain
 
     def init(params):
         return {"accum": _zeros_like_f32(params)}
@@ -47,9 +62,8 @@ def adagrad(lr: float, eps: float = 1e-10, *, use_pallas: bool = False,
     def update(grads, state, params=None):
         upd, acc = [], []
         for g, a in zip(grads, state["accum"]):
-            gf = g.float()
-            a_new = a + gf * gf
-            upd.append(-lr * gf / (torch.sqrt(a_new) + eps))
+            u, a_new = step(g, a, lr, eps)
+            upd.append(u)
             acc.append(a_new)
         return upd, {"accum": acc}
 
@@ -106,8 +120,6 @@ def apply_updates(params: List[torch.Tensor], updates) -> None:
 
 
 def make_optimizer(name: str, lr: float, **kw) -> Optimizer:
-    if name == "sm3":
-        raise NotImplementedError(
-            "sm3 (factored AdaGrad state) comes with slice 5 of the port "
-            "(ROADMAP.md)")
-    return {"adagrad": adagrad, "sgd": sgd, "adam": adam}[name](lr, **kw)
+    from .quantized import sm3
+    return {"adagrad": adagrad, "sgd": sgd, "adam": adam,
+            "sm3": sm3}[name](lr, **kw)

@@ -32,8 +32,10 @@ def jax_key(tag):
     """The reference's ``jax.random`` key for a port uniform tag:
     ``("wire", round, 2K, j, *folds)`` — ``split(fold_in(PRNGKey(17),
     round), 2K)[j]``; ``("insert", round, party, *folds)`` —
-    ``fold_in(fold_in(PRNGKey(0xCE1), round), party)``; ``("seed", s,
-    *folds)`` — ``PRNGKey(s)``; then ``fold_in`` by each fold."""
+    ``fold_in(fold_in(PRNGKey(0xCE1), round), party)``; ``("optim", t,
+    *folds)`` — ``fold_in(PRNGKey(0xAD49), t)``, the int8 AdaGrad state's
+    requantisation; ``("seed", s, *folds)`` — ``PRNGKey(s)``; then
+    ``fold_in`` by each fold."""
     kind, *rest = tag
     if kind == "wire":
         rnd, n, j, *folds = rest
@@ -42,6 +44,9 @@ def jax_key(tag):
     elif kind == "insert":
         rnd, *folds = rest
         key = jax.random.fold_in(jax.random.PRNGKey(0xCE1), rnd)
+    elif kind == "optim":
+        t, *folds = rest
+        key = jax.random.fold_in(jax.random.PRNGKey(0xAD49), t)
     else:
         seed, *folds = rest
         key = jax.random.PRNGKey(seed)

@@ -4,7 +4,9 @@ Models: WDL and DSSM forward (Z_A), per-instance loss, predict, and the
 gradients of the mean loss (Party B's parameters and Z_A; Party A's
 parameters through the cotangent), from the reference's parameters
 bridged into the port.  Optimizers: AdaGrad, SGD (with and without
-momentum) and Adam over three steps on the same gradients.  Tolerance:
+momentum), Adam, AdaGrad's kernel route (``use_pallas``) and its bf16 and
+int8 states, and SM3, over three steps on the same gradients (the int8
+state on the reference's rounding uniforms).  Tolerance:
 float32 results of the same ops in another summation order, ``RTOL`` /
 ``ATOL``; DSSM normalises each Z by its norm (~1e-2 at init), which
 amplifies rounding in its gradients tenfold, hence ``DSSM_TOL``.
@@ -128,15 +130,21 @@ def test_bridge_round_trip():
 
 def _opt_cases():
     return [("adagrad", {}), ("sgd", {}), ("sgd", {"momentum": 0.9}),
-            ("adam", {})]
+            ("adam", {}), ("adagrad", {"use_pallas": True}),
+            ("adagrad", {"use_pallas": True, "state_dtype": "bfloat16"}),
+            ("adagrad", {"use_pallas": True, "state_dtype": "int8"}),
+            ("adagrad", {"state_dtype": "int8"}), ("sm3", {})]
 
 
 @pytest.mark.parametrize("name,kw", _opt_cases())
 def test_optimizer_updates_match_reference(name, kw):
+    from test_torch_compression import jax_uniforms
     rng = np.random.default_rng(0)
     shapes = [(4, 3), (7,), ()]
     params = [rng.standard_normal(s).astype(np.float32) for s in shapes]
     jopt = joptim.make_optimizer(name, 0.05, **kw)
+    if kw.get("state_dtype") == "int8":
+        kw = {**kw, "uniforms": jax_uniforms}
     topt = toptim.make_optimizer(name, 0.05, **kw)
     jparams = [jnp.asarray(p) for p in params]
     tparams = [torch.from_numpy(p.copy()) for p in params]
@@ -154,10 +162,3 @@ def test_optimizer_updates_match_reference(name, kw):
             _close(tupd[i].numpy(), jupd[i], f"{name} step {step} update {i}")
             _close(tparams[i].numpy(), jparams[i],
                    f"{name} step {step} param {i}")
-
-
-def test_unported_optimizer_paths_raise():
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        toptim.make_optimizer("sm3", 0.1)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        toptim.adagrad(0.1, state_dtype="int8")

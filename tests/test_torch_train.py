@@ -1,5 +1,6 @@
-"""The port's training CLI on the CPU: a few rounds end to end, the
-flags of later slices refused, and no silent move to the CPU."""
+"""The port's training CLI on the CPU: a few rounds end to end (every
+optimizer state), the flags of later slices refused, and no silent move to
+the CPU."""
 import numpy as np
 import pytest
 import torch
@@ -17,6 +18,10 @@ SMALL = ["--device", "cpu", "--small", "--rounds", "4", "--n-train", "2048",
     ("wdl-criteo", "celu", ["--no-cache-fusion"]),
     ("dssm-avazu", "fedbcd", []),
     ("wdl-criteo", "vanilla", []),
+    ("wdl-criteo", "celu", ["--opt-state-dtype", "bfloat16"]),
+    ("wdl-criteo", "celu", ["--opt-state-dtype", "int8"]),
+    ("dssm-avazu", "celu", ["--opt-state-dtype", "int8"]),
+    ("wdl-criteo", "celu", ["--optimizer", "sm3"]),
 ])
 def test_cli_runs_rounds_on_cpu(arch, protocol, extra):
     out = train.main(["--arch", arch, "--protocol", protocol] + SMALL
@@ -30,14 +35,48 @@ def test_cli_runs_rounds_on_cpu(arch, protocol, extra):
 
 @pytest.mark.parametrize("flag", [
     ["--pipeline-depth", "1"], ["--pipeline-depth", "2"],
-    ["--opt-state-dtype", "bfloat16"], ["--opt-state-dtype", "int8"],
-    ["--optimizer", "sm3"], ["--fault-drop-prob", "0.1"],
+    ["--fault-drop-prob", "0.1"],
     ["--checkpoint", "x.npz"], ["--resume", "x.npz"],
     ["--fault-straggler-prob", "0.1"], ["--fault-dropout", "1:0:5"],
 ])
 def test_cli_refuses_flags_of_later_slices(flag):
     with pytest.raises(SystemExit, match="not in the port yet"):
         train.main(["--arch", "wdl-criteo"] + SMALL + flag)
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adam", "sm3"])
+def test_cli_opt_state_dtype_needs_adagrad(optimizer):
+    """As the reference's ``make_opt``: the at-rest state dtype routes
+    AdaGrad only."""
+    with pytest.raises(SystemExit, match="requires --optimizer adagrad"):
+        train.main(["--arch", "wdl-criteo", "--optimizer", optimizer,
+                    "--opt-state-dtype", "int8"] + SMALL)
+
+
+@pytest.mark.parametrize("optimizer,state_dtype", [
+    ("adagrad", "float32"), ("adagrad", "bfloat16"), ("adagrad", "int8"),
+    ("sm3", "float32")])
+def test_cli_reports_opt_state_bytes(optimizer, state_dtype, capsys):
+    """The ``[opt]`` line counts both parties' optimizer state as the
+    reference's ``opt_state_nbytes`` does, at the ``--small`` widths."""
+    import dataclasses
+
+    import jax
+    from repro.configs import get_config
+    from repro.models.tabular import make_dlrm
+    from repro.optim import make_optimizer
+    from repro.optim.quantized import opt_state_nbytes
+    cfg = dataclasses.replace(get_config("wdl-criteo"), vocab=128,
+                              embed_dim=8, z_dim=32, hidden=(64, 32))
+    init_fn, _, _ = make_dlrm(cfg)
+    params = jax.eval_shape(lambda: init_fn(jax.random.PRNGKey(0), cfg))
+    kw = {} if state_dtype == "float32" else {"state_dtype": state_dtype}
+    jopt = make_optimizer(optimizer, 0.01, **kw)
+    want = [opt_state_nbytes(jopt, params[p]) for p in ("a", "b")]
+    train.main(["--arch", "wdl-criteo", "--optimizer", optimizer,
+                "--opt-state-dtype", state_dtype] + SMALL + ["--rounds", "1"])
+    out = capsys.readouterr().out
+    assert f"Party A {want[0]} B, Party B {want[1]} B" in out, (want, out)
 
 
 @pytest.mark.parametrize("flag", [
