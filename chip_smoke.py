@@ -28,7 +28,23 @@ Phases, each on its own printed lines (any failure exits non-zero):
      cache + int8 wire and int8 optimizer state on the same uniforms,
      the latter beside a mutation run with zeroed updates); ms per round
      and per local step, and for the four AdaGrad routes in turns;
-  6. a JSON line of per-kernel results, then the last line
+  6. the serving kernels against their plain versions: K6 and K11
+     bitwise at the serving shape (W = 4 ring slots, C = 8 lanes,
+     F = 960) and at a wide ring, K9 at the long-prompt shape
+     (1, 4096, 15, 64) bf16, causal, with a window of 1,024 and at head
+     dim 128, each element within a bf16 ulp of its own magnitude,
+     timed beside ``F.scaled_dot_product_attention``;
+  7. the serving path: ``repro_torch.launch.serve`` at smollm-360m's
+     full width (32 requests, 8 lanes, prompt 16, gen 16, closed burst)
+     with the int8 ring and wire (K6 on every ring read; two runs, equal
+     tokens and bitwise equal logits), the int4 ring (K11), the fp32
+     ring and wire against the sequential loop (each lane's logits at
+     every token against the loop's for its request, fed the same
+     tokens, and ``naive_generate``), and a 4,096-token prompt (K9 in
+     every attention layer of each prefill, the prefill's logits held
+     against the same prefill through the plain attention); launches
+     and ms per decode step;
+  8. a JSON line of per-kernel results, then the last line
      ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
@@ -36,6 +52,7 @@ when it is not run from a checkout of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -49,6 +66,7 @@ SRC = os.path.join(ROOT, "src")
 
 PEAK_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12           # H100 SXM fp32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12          # H100 SXM bf16 tensor cores, dense
 KERNEL_TOL = 3e-5                 # fp32 sums of up to 61,440 terms reordered
 NEAR = 1e-6                       # rows this close to cos ξ may flip
 # Loss over 5 full-width rounds, card against CPU: this comparison reads
@@ -93,7 +111,50 @@ KERNELS = {   # name -> (the TPU kernel it replaces, its source)
     "fused_sample_q4_2d": ("src/repro/kernels/fused_sample.py:232", GATE),
     "fused_adagrad": ("src/repro/kernels/fused_adagrad.py:54", ADAGRAD),
     "fused_adagrad_q8": ("src/repro/kernels/fused_adagrad.py:110", ADAGRAD),
+    "fused_dequant_q8_2d": ("src/repro/kernels/fused_sample.py:197", GATE),
+    "fused_dequant_q4_2d": ("src/repro/kernels/fused_sample.py:214", GATE),
+    "flash_attention": ("src/repro/kernels/flash_attention.py:87",
+                        "src/repro_torch/csrc/flash_attention.cu"),
 }
+# the serving path: smollm-360m at full width; the decode activation ring
+# is (ring slots W, lanes C, d)
+SERVE_ARGS = {"--requests": 32, "--capacity": 8, "--prompt-len": 16,
+              "--gen": 16, "--rate": 0}
+SERVE_RING = (4, 8, 960)
+WIDE_RING = (4, 64, 64 * 960)
+# K9: the long-prompt shape (B, S, H, hd) of smollm-360m, with a window
+# and at head dim 128.  Kernel and plain version both take the products
+# in fp32 and round the output to bf16 once, so an element may land one
+# bf16 ulp apart, and one ulp is at most 2^-7 of the element.  Each
+# element is held to its own magnitude: |out - ref| <= 2^-7 |ref| +
+# K9_ATOL, where K9_ATOL covers the fp32 difference between the online
+# and the dense sums at outputs near zero (some twenty fp32 ulps of the
+# largest input, about 5).  The bulk of a 4,096-key row's outputs are
+# about 0.03, so a key tile dropped from late rows (an error of about
+# 1e-3) cannot pass; ``chip_mutants.py`` builds two such faults and
+# checks that this phase fails on each.  On an H100 80GB HBM3 the worst
+# err / limit reads 0.97-0.98: one-ulp differences at the bottom of a
+# binade, where an ulp is 2^-7 of the value.
+K9_CASES = [((1, 4096, 15, 64), True, 0), ((1, 4096, 15, 64), True, 1024),
+            ((1, 4096, 15, 128), True, 0)]
+K9_REL_TOL = 2.0 ** -7
+K9_ATOL = 1e-5
+LONG_ARGS = {"--requests": 4, "--capacity": 2, "--prompt-len": 4096,
+             "--gen": 8, "--rate": 0}
+# The long prompt's prefill logits through K9 against the same prefill
+# through the plain attention on the card: both round each layer's
+# attention output to bf16, so a one-ulp difference in an element can
+# carry through the 32 layers.  On an H100 80GB HBM3 this reads 0.0234
+# with logits up to 2.6, so the limit is about 4x that.
+LONG_LOGIT_ATOL = 0.1
+# The fp32 engine against the sequential loop on the card: the lanes'
+# batched bf16 products may round differently from the loop's one-row
+# products, which moves an activation by a bf16 ulp now and then and can
+# carry through the 32 layers, as in the long prefill above; each lane's
+# logits are held to LANE_LOGIT_ATOL of the loop's, and a token may flip
+# where the loop's top-1 margin is below BATCH_MARGIN.
+LANE_LOGIT_ATOL = 0.1
+BATCH_MARGIN = 0.1
 DENSE_GATES = ("fused_sample_2d", "cosine_weight_2d", "cosine_weights_2d")
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
 
@@ -152,9 +213,9 @@ def device_ms(torch, fn, iters: int = 50) -> float:
     return _events_ms(torch, graph.replay, 5) / iters
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = PEAK_FP32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -233,14 +294,15 @@ def phase_kernels(torch):
     return results
 
 
-def _timed(torch, label, kern, plain, err, nbytes, flops, library="none"):
+def _timed(torch, label, kern, plain, err, nbytes, flops, library="none",
+           peak=PEAK_FP32_FLOPS, iters=50):
     """Time ``kern`` and ``plain`` on the card at this shape; print one
     line (``library`` names the PyTorch call timed beside it); -> the
     numbers of the kernels' JSON line."""
-    ms = device_ms(torch, kern)
-    plain_ms = device_ms(torch, plain)
-    call = call_ms(torch, kern)
-    bound_ms, bound_by = bound(nbytes, flops)
+    ms = device_ms(torch, kern, iters)
+    plain_ms = device_ms(torch, plain, iters)
+    call = call_ms(torch, kern, 4 * iters)
+    bound_ms, bound_by = bound(nbytes, flops, peak)
     print(f"[kernel] {label} max|err| {err:.3g}  device: kernel "
           f"{ms * 1e3:.2f} us  plain {plain_ms * 1e3:.2f} us  bound "
           f"{bound_ms * 1e3:.3f} us ({bound_by}, {nbytes} B); per call "
@@ -728,6 +790,417 @@ def phase_main_path(torch, card):
     return counts
 
 
+def phase_serve_kernels(torch):
+    """K6 and K11 against their plain versions, bitwise, at the serving
+    ring and a wide one; K9 against its plain version at the long-prompt
+    shapes, beside one ``F.scaled_dot_product_attention`` call."""
+    import torch.nn.functional as F
+    from repro_torch.core.workset import pack_nibbles
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_sample as fs
+    from repro_torch.kernels import quantize as qz
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    results = {}
+    slot = torch.tensor([2], dtype=torch.int32, device="cuda")
+    for bits, name, kernel in ((8, "fused_dequant_q8_2d",
+                                fs.fused_dequant_q8_2d),
+                               (4, "fused_dequant_q4_2d",
+                                fs.fused_dequant_q4_2d)):
+        results[name] = {"max_abs_err": 0.0, "library_ms": None}
+        for (W, C, F_) in (SERVE_RING, WIDE_RING):
+            x = torch.randn((W * C, F_), generator=gen, device="cuda")
+            q, sc = qz.quantize_sr_plain(
+                x, torch.rand(x.shape, generator=gen, device="cuda"),
+                127 if bits == 8 else 7)
+            if bits == 4:
+                q = pack_nibbles(q)
+            q = q.reshape(W, C, -1).contiguous()
+            sc = sc.reshape(W, C).contiguous()
+
+            def kern():
+                return kernel(slot, q, sc)
+
+            def plain():
+                return fs.fused_dequant_plain(bits, slot, q, sc)
+            out, ref = kern(), plain()
+            torch.cuda.synchronize()
+            check(torch.equal(out, ref), f"{name} at {(W, C, F_)}: not "
+                  f"bitwise equal to its plain version (max |err| "
+                  f"{(out - ref).abs().max().item()})")
+            label = f"{name:30s} W,C,F={W},{C},{F_}"
+            if (W, C, F_) != SERVE_RING:
+                print(f"[kernel] {label} bitwise equal to its plain "
+                      f"version", flush=True)
+                continue
+            # the slot's codes and scales read, the rows written, the slot
+            nbytes = q[0].numel() + 4 * C + 4 * C * F_ + 4
+            results[name].update(_timed(torch, label, kern, plain, 0.0,
+                                        nbytes, C * F_))
+            print(f"[kernel] {label} bitwise equal to its plain version",
+                  flush=True)
+
+    results["flash_attention"] = {"max_abs_err": 0.0}
+    for shape, causal, window in K9_CASES:
+        B, S, H, hd = shape
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+
+        def kern():
+            return fa.flash_attention(q, k, v, causal=causal, window=window)
+
+        def plain():
+            return fa.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window)
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        limit = K9_REL_TOL * ref.float().abs() + K9_ATOL
+        err = diff.max().item()
+        worst = (diff / limit).max().item()      # <= 1 everywhere to pass
+        over = int((diff > limit).sum())
+        check(math.isfinite(err) and over == 0,
+              f"flash_attention at {shape} causal={causal} window={window}: "
+              f"{over} elements beyond 2^-7 |ref| + {K9_ATOL} (max |err| "
+              f"{err}, largest |ref| {ref.float().abs().max().item()}, "
+              f"worst err / limit {worst:.3g})")
+        results["flash_attention"]["max_abs_err"] = max(
+            results["flash_attention"]["max_abs_err"], err)
+        label = (f"{'flash_attention':30s} B,S,H,hd={B},{S},{H},{hd} bf16 "
+                 f"causal={causal} window={window}")
+        nbytes = fa.nbytes(q)
+        flops = fa.flops(B, S, H, hd, causal, window)
+        lib_ms, lib = None, "none"
+        if window == 0:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+            def library():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True)
+            lib_ms = device_ms(torch, library, 10)
+            lib = f"F.scaled_dot_product_attention {lib_ms * 1e3:.2f} us"
+        t = _timed(torch, label, kern, plain, err, nbytes, flops,
+                   library=lib, peak=PEAK_BF16_FLOPS, iters=10)
+        print(f"[kernel] {label} max |err| {err:.3g}; every element "
+              f"within 2^-7 |ref| + {K9_ATOL:g} (worst err / limit "
+              f"{worst:.3g}, median |ref| "
+              f"{ref.float().abs().median().item():.3g}); "
+              f"{flops / t['ms'] / 1e9:.1f} TFLOP/s", flush=True)
+        if (shape, causal, window) == K9_CASES[0]:
+            results["flash_attention"].update(t, library_ms=lib_ms)
+    return results
+
+
+def _loop_logits(torch, params, cfg, batch, total_len, tokens):
+    """The sequential loop's (``naive_generate``'s functions, one row)
+    logits for each of a request's tokens, fed the engine's tokens
+    (teacher forcing) -> (n, V) fp32."""
+    from repro_torch.serve.engine import make_naive_fns
+    prefill, decode = make_naive_fns(cfg, total_len)
+    logits, caches = prefill(params, batch)
+    S = batch["tokens"].shape[1]
+    out = [logits[0, -1]]
+    for i in range(1, len(tokens)):
+        tok = torch.tensor([[int(tokens[i - 1])]], dtype=torch.int32,
+                           device=logits.device)
+        sb = {"token": tok,
+              "token_a": torch.remainder(tok, cfg.aux_vocab_size)}
+        logits, caches = decode(params, caches, sb, S + i - 1)
+        out.append(logits[0, -1])
+    return torch.stack(out)
+
+
+class _Recorder:
+    """Records, in call order and without a host sync, what the serving
+    engine computes: each admit's prompt and Party B prefill logits and
+    the lane it fills, and each decode step's lane positions and
+    logits."""
+
+    def __init__(self):
+        self.events = []
+
+    def patches(self):
+        from unittest import mock
+
+        from repro_torch.models import vfl
+        from repro_torch.serve import engine as E
+        prefill_b, decode_b = vfl.prefill_b, vfl.decode_step_b
+        clear = E._ring_clear_lane
+
+        def rec_prefill_b(params_b, cfg, z_a, batch, total_len=0):
+            logits, caches = prefill_b(params_b, cfg, z_a, batch, total_len)
+            self.events.append(["admit", batch["tokens"][0].clone(),
+                                logits[0, -1].clone(), None])
+            return logits, caches
+
+        def rec_clear(ws, lane):
+            self.events[-1][3] = lane
+            return clear(ws, lane)
+
+        def rec_decode_b(params_b, cfg, caches, token, z_a_t, pos):
+            logits, caches = decode_b(params_b, cfg, caches, token, z_a_t,
+                                      pos)
+            self.events.append(["step", pos.clone(), logits[:, 0].clone()])
+            return logits, caches
+        return [mock.patch.object(vfl, "prefill_b", rec_prefill_b),
+                mock.patch.object(vfl, "decode_step_b", rec_decode_b),
+                mock.patch.object(E, "_ring_clear_lane", rec_clear)]
+
+    def logits(self, torch, requests, prompt_len):
+        """-> {req_id: (n, V) the engine's logits for the request's
+        tokens}, each step's row taken from the lane the request held
+        (warm()'s scratch admits match no request)."""
+        by_prompt = {tuple(r.prompt.tolist()): r.req_id for r in requests}
+        owner, rows = {}, {}
+        for ev in self.events:
+            if ev[0] == "admit":
+                rid = by_prompt.get(tuple(ev[1].tolist()))
+                owner[ev[3]] = rid
+                if rid is not None:
+                    rows[rid] = [ev[2]]
+                continue
+            pos = ev[1].tolist()
+            for lane, rid in owner.items():
+                if rid is not None and \
+                        pos[lane] - prompt_len + 1 == len(rows[rid]):
+                    rows[rid].append(ev[2][lane])
+        return {rid: torch.stack(r) for rid, r in rows.items()}
+
+
+def phase_serving(torch, card):
+    """The serving CLI's path at smollm-360m's full width; -> the kernels'
+    launch counts on it."""
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve as cli
+    from repro_torch.models import layers as L
+    from repro_torch.models import vfl
+    from repro_torch.models.initializers import param_bytes, param_count
+    from repro_torch.serve import LoadSpec, naive_generate, synth_requests
+
+    cfg = get_config("smollm-360m")
+    params = vfl.init_all(0, cfg, "cuda")
+    print(f"[serve] {cfg.name} full width: {param_count(params):,} "
+          f"parameters, {param_bytes(params):,} B (bf16), split "
+          f"{cfg.vfl_split.layers_a}/{cfg.vfl_split.layers_b}/"
+          f"{cfg.vfl_split.layers_top} layers", flush=True)
+    counts = {}
+
+    def serve(label, base, **flags):
+        argv = ["--full"]
+        for k, v in base.items():
+            argv += [k, str(v)]
+        for k, v in flags.items():
+            argv += [f"--{k.replace('_', '-')}"] + ([] if v is True
+                                                     else [str(v)])
+        args = cli.build_parser().parse_args(argv)
+        _cuda.reset_launches()
+        comps, stats, eng = cli.serve_engine(args, cfg, params)
+        c = dict(_cuda.LAUNCHES)
+        steps = stats["decode_steps"]
+        walls = sorted(stats["step_walls"])
+        print(f"[serve] {label}: launches {c}; {steps} decode steps, "
+              f"{1e3 * walls[len(walls) // 2]:.3f} ms per step (median), "
+              f"{stats['req_per_s']:.2f} req/s, {stats['tok_per_s']:.1f} "
+              f"tok/s, p50 {stats['p50_ms']:.3f} / p99 "
+              f"{stats['p99_ms']:.3f} ms per token, wire "
+              f"{(stats['wire_up_bytes'] + stats['wire_down_bytes']) / stats['total_tokens']:.1f}"
+              f" B per token, ring {eng.ring_bytes} B; card {card}",
+              flush=True)
+        check(stats["n_requests"] == args.requests,
+              f"{label}: {stats['n_requests']} of {args.requests} served")
+        for comp in comps:
+            check(comp.tokens.dtype.kind == "i"
+                  and ((comp.tokens >= 0)
+                       & (comp.tokens < cfg.vocab_size)).all(),
+                  f"{label}: request {comp.req_id} tokens {comp.tokens}")
+        return comps, stats, eng, c
+
+    def want(label, c, **w):
+        full = {k: w.get(k, 0) for k in c}
+        check(c == full, f"{label}: launches {c}, want {full}")
+
+    # warm() runs one admit and one step of each kind (one exchange) on
+    # scratch state, the run R = 1 exchanges on every step; each admit
+    # sends its (S, d) prefill up through K3, each exchange step its lane
+    # rows (K3) and inserts them into the ring (K3)
+    def k3(admits, steps):
+        return admits + 1 + 2 * (steps + 1)
+
+    int8_runs = []
+    for run in (1, 2):
+        rec = _Recorder()
+        with contextlib.ExitStack() as stack:
+            for p in rec.patches():
+                stack.enter_context(p)
+            comps, stats, eng, c = serve(
+                f"int8 ring + int8 wire (run {run})", SERVE_ARGS)
+        steps = stats["decode_steps"]
+        want(f"int8 run {run}", c, fused_dequant_q8_2d=steps + 2,
+             quantize_sr_2d=k3(32, steps))
+        int8_runs.append((comps, rec.events))
+    counts["fused_dequant_q8_2d"] = c["fused_dequant_q8_2d"]
+    (comps1, ev1), (comps2, ev2) = int8_runs
+    for a, b in zip(comps1, comps2):
+        check(a.req_id == b.req_id and (a.tokens == b.tokens).all(),
+              f"int8 runs 1 and 2 differ at request {a.req_id}")
+    check(len(ev1) == len(ev2) and all(
+        torch.equal(x, y) for e1, e2 in zip(ev1, ev2)
+        for x, y in zip(e1[1:3], e2[1:3])),
+        "int8 runs 1 and 2: the engine's logits differ")
+    print(f"[serve] int8: two runs give identical tokens for all 32 "
+          f"requests and bitwise equal logits at all {len(ev1)} admits "
+          f"and decode steps", flush=True)
+
+    # launches and device work of one decode step (all 8 lanes)
+    from torch.profiler import ProfilerActivity, profile
+    step = eng._step[True]
+    for _ in range(2):
+        step(eng.params, eng.state, 0, 0, eng.uniforms)
+    torch.cuda.synchronize()
+    n = 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(eng.params, eng.state, 0, 0, eng.uniforms)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3 / n
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kernels) / 1e3 / n
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(eng.params, eng.state, 0, 0, eng.uniforms)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n
+    print(f"[serve] one int8 decode step, 8 lanes: {len(kernels) / n:.0f} "
+          f"kernel launches, {step_ms:.3f} ms on the host clock "
+          f"({prof_ms:.3f} profiled), device busy {busy:.3f} ms "
+          f"({100 * busy / step_ms:.1f}%); card {card}", flush=True)
+    top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    for e in top[:6]:
+        print(f"[serve]   {e.self_device_time_total / 1e3 / n:8.3f} ms per "
+              f"step  {e.count / n:6.1f} calls  {e.key[:70]}")
+
+    _, stats, _, c = serve("int4 ring + int8 wire", SERVE_ARGS,
+                           cache_dtype="int4")
+    steps = stats["decode_steps"]
+    want("int4 ring", c, fused_dequant_q4_2d=steps + 2,
+         quantize_sr_2d=k3(32, steps))
+    counts["fused_dequant_q4_2d"] = c["fused_dequant_q4_2d"]
+
+    # fp32 ring and wire: no kernel of this PR on the path; each lane's
+    # logits at every step against the sequential loop's for the same
+    # request, fed the same tokens
+    rec = _Recorder()
+    with contextlib.ExitStack() as stack:
+        for p in rec.patches():
+            stack.enter_context(p)
+        comps, stats, _, c = serve("fp32 ring + fp32 wire", SERVE_ARGS,
+                                   cache_dtype="float32", fp32_wire=True)
+    want("fp32 ring + fp32 wire", c)
+    spec = LoadSpec(n_requests=32, rate=0.0, prompt_len=16,
+                    max_new_tokens=16, min_new_tokens=4, seed=0)
+    reqs = {r.req_id: r for r in synth_requests(spec, cfg)}
+    eng_logits = rec.logits(torch, reqs.values(), spec.prompt_len)
+    loop = {}
+    for comp in comps:
+        r = reqs[comp.req_id]
+        batch = {"tokens": torch.as_tensor(r.prompt[None]).cuda(),
+                 "tokens_a": torch.as_tensor(r.prompt_a[None]).cuda()}
+        n = len(comp.tokens)
+        check(comp.req_id in eng_logits
+              and eng_logits[comp.req_id].shape[0] >= n,
+              f"fp32 request {comp.req_id}: the engine's logits were not "
+              f"recorded for its {n} tokens")
+        eng_logits[comp.req_id] = eng_logits[comp.req_id][:n]
+        loop[comp.req_id] = _loop_logits(torch, params, cfg, batch, 32,
+                                         comp.tokens)
+        if comp.req_id == 0:
+            naive = naive_generate(params, cfg, batch, n,
+                                   total_len=32)[0].tolist()
+    dev = max((eng_logits[i] - loop[i]).abs().max().item() for i in loop)
+    # a lane's logits lie nearer its own request's loop than any other
+    # request's at the same token: a lane mix-up, a wrong KV slot or a
+    # stale ring row would not
+    nearest_other = math.inf
+    for i in loop:
+        for j in loop:
+            m = min(len(loop[i]), len(loop[j]))
+            if i != j:
+                nearest_other = min(nearest_other, (
+                    eng_logits[i][:m] - loop[j][:m]).abs().amax(-1).min()
+                    .item())
+    flips = 0
+    for comp in comps:
+        top = torch.topk(loop[comp.req_id], 2, dim=-1).values
+        margin = (top[:, 0] - top[:, 1]).tolist()
+        want_tok = loop[comp.req_id].argmax(-1).tolist()
+        for t, (a, b) in enumerate(zip(comp.tokens.tolist(), want_tok)):
+            if a != b:
+                flips += 1
+                check(margin[t] < BATCH_MARGIN,
+                      f"fp32 engine request {comp.req_id} token {t}: "
+                      f"{a} where the loop's argmax is {b} by a margin "
+                      f"of {margin[t]}")
+    # naive_generate itself: greedy on its own tokens, it may part from
+    # the engine only where the loop's margin allows a flip
+    first = comps[0].tokens.tolist()
+    upto = next((t for t, (a, b) in enumerate(zip(first, naive)) if a != b),
+                len(first))
+    if upto < len(first):
+        top = torch.topk(loop[0][upto], 2).values
+        check(float(top[0] - top[1]) < BATCH_MARGIN,
+              f"naive_generate differs from the engine at request 0 "
+              f"token {upto}")
+    toks = [t for cp in comps for t in cp.tokens.tolist()]
+    total = len(toks)
+    print(f"[serve] fp32 engine against the sequential loop: each lane's "
+          f"logits at all {total} tokens within {dev:.4g} of its own "
+          f"request's (limit {LANE_LOGIT_ATOL}); the nearest other "
+          f"request's logits at least {nearest_other:.4g} away; {flips} "
+          f"tokens differ from the loop's argmax (each at a margin below "
+          f"{BATCH_MARGIN}); {len(set(toks))} distinct tokens; "
+          f"naive_generate equal to the engine on request 0 for {upto} "
+          f"of {len(first)} tokens", flush=True)
+    check(math.isfinite(dev) and dev <= LANE_LOGIT_ATOL,
+          f"fp32 engine logits deviate from the loop's by {dev}")
+    check(dev < nearest_other, f"fp32 engine: a lane's logits lie "
+          f"{nearest_other} from another request's, nearer than the "
+          f"{dev} from its own")
+
+    # a prompt past the blockwise threshold: K9 in every attention layer
+    # of every prefill (32 layers; warm() adds one admit)
+    comps, stats, _, c = serve("4,096-token prompts", LONG_ARGS)
+    steps = stats["decode_steps"]
+    n_layers = cfg.n_layers
+    want("long prompt", c, flash_attention=n_layers * (4 + 1),
+         fused_dequant_q8_2d=steps + 2, quantize_sr_2d=k3(4, steps))
+    counts["flash_attention"] = c["flash_attention"]
+    spec = LoadSpec(n_requests=4, rate=0.0, prompt_len=4096,
+                    max_new_tokens=8, min_new_tokens=2, seed=0)
+    r = synth_requests(spec, cfg)[0]
+    batch = {"tokens": torch.as_tensor(r.prompt[None]).cuda(),
+             "tokens_a": torch.as_tensor(r.prompt_a[None]).cuda()}
+    logits_k, _ = vfl.prefill(params, cfg, batch, 4096 + 8)
+    with mock.patch.object(L, "flash_attention", fa.flash_attention_plain):
+        logits_p, _ = vfl.prefill(params, cfg, batch, 4096 + 8)
+    torch.cuda.synchronize()
+    dev = (logits_k - logits_p).abs().max().item()
+    print(f"[serve] 4,096-token prefill logits, K9 against the plain "
+          f"attention on the card: max |dev| {dev:.4g} (limit "
+          f"{LONG_LOGIT_ATOL}; |logits| up to "
+          f"{logits_p.abs().max().item():.3g}), argmax equal "
+          f"{int(logits_k.argmax()) == int(logits_p.argmax())}", flush=True)
+    check(math.isfinite(dev) and dev <= LONG_LOGIT_ATOL,
+          f"long prefill logits deviate by {dev}")
+    return counts
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"run from a checkout of the repository: {SRC}/repro_torch "
@@ -767,7 +1240,16 @@ def main() -> None:
     counts = phase_main_path(torch, card)
     print(f"[phase] main path {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 6. results
+    # 6.-7. serving
+    t0 = time.perf_counter()
+    kernels.update(phase_serve_kernels(torch))
+    print(f"[phase] serving kernels {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    counts.update(phase_serving(torch, card))
+    print(f"[phase] serving {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 8. results
     rows = []
     for name, (replaces, source) in KERNELS.items():
         r = kernels[name]

@@ -104,11 +104,26 @@ def to_tree(module: torch.nn.Module) -> Any:
 
 
 def _tensor(x, device) -> torch.Tensor:
-    a = np.asarray(x)
-    if a.dtype.name == "bfloat16":      # numpy has no bf16: go through fp32
-        return torch.from_numpy(a.astype(np.float32)).to(
-            device=device, dtype=torch.bfloat16)
-    return torch.from_numpy(np.array(a, order="C")).to(device)
+    """An array (numpy, or the reference's, whose bf16 comes out as
+    ``ml_dtypes.bfloat16``) -> a tensor on ``device``, bitwise.  PyTorch
+    takes no numpy bf16, so its bits travel as int16."""
+    a = np.array(np.asarray(x), order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def tree_to_torch(tree, device="cpu"):
+    """A reference pytree of arrays (nested dicts / lists, e.g. the LLM
+    parameters of ``repro.models.vfl.init_all``) -> the same tree of
+    tensors on ``device``, leaf for leaf and bitwise: the port's LLM
+    functions take such trees."""
+    if isinstance(tree, dict):
+        return {k: tree_to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to_torch(v, device) for v in tree]
+    return _tensor(tree, device)
 
 
 def load_opt_state(state, device="cpu") -> dict:

@@ -1,0 +1,9 @@
+"""smollm-360m — llama-arch small [hf:HuggingFaceTB/SmolLM-360M]."""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="smollm-360m", family="dense",
+    n_layers=32, d_model=960, n_heads=15, n_kv_heads=5, d_ff=2560,
+    vocab_size=49152, head_dim=64,
+    source="hf:HuggingFaceTB/SmolLM-360M",
+)

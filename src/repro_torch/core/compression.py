@@ -113,6 +113,23 @@ class StochasticQuantCodec:
             q = pack_nibbles(q)
         return {"q": q, "scale": scale}
 
+    def roundtrip_rows(self, key, x):
+        """Each row of ``x`` (C, n) encoded and decoded on its own, as
+        ``decode(encode(k_c, x[c]))`` would, in one K3 launch: row c's
+        uniforms are row c of one (C, T, tile) draw from ``key`` (a
+        ``uniforms.lanes_key``, folded as one row's key would be).  The
+        int4 pack and unpack leave the codes as they are, so they are
+        skipped.  -> (C, n) fp32."""
+        C, n = x.shape
+        T = self._tiles(n)
+        x2d = F.pad(x.float(), (0, T * self.tile - n)).reshape(
+            C * T, self.tile)
+        u = key.uniform((C, T, self.tile)).to(x.device)
+        q, scale = kops.quantize_stochastic(
+            x2d, u.reshape(C * T, self.tile), self.levels)
+        y = q.float() * scale[:, None]
+        return y.reshape(C, T * self.tile)[:, :n]
+
     def decode(self, payload, like):
         q, scale = payload["q"], payload["scale"]
         if self.bits == 4:

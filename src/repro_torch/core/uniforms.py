@@ -9,7 +9,13 @@ The reference draws every stochastic-rounding uniform from a fixed
   * the workset inserts: ``fold_in(fold_in(PRNGKey(0xCE1), comm_rounds),
     party)`` (feature parties 0..K-1, Party B K), then
     ``fold_in(·, leaf_index)`` over the entry's leaves in JAX's flattening
-    order (dict keys sorted);
+    order (dict keys sorted); an insert given no key (the serving
+    engine's) derives it from the table clock, ``fold_in(PRNGKey(0xCE1),
+    time)``, then folds the leaf index;
+  * the serving engine: ``fold_in(PRNGKey(seed), n)`` for the engine's
+    n-th admit or decode step (the prefill uplink; ``fold_in(·, 1)`` for
+    the downlink), and ``split(·, C)[lane]`` of it for each lane's decode
+    uplink;
   * the int8 AdaGrad state's requantisation:
     ``fold_in(fold_in(PRNGKey(0xAD49), t), leaf_index)``, with ``t`` the
     optimizer state's update counter and the leaf index in JAX's
@@ -19,9 +25,13 @@ PyTorch cannot reproduce those bits, so the port takes the uniforms from a
 *uniform source*: a callable ``source(tag, shape)`` that returns a
 ``shape`` float32 tensor in [0, 1) on the round's device.  The tag names
 the draw in the reference's terms — ``("wire", round, 2K, j, *folds)``,
-``("insert", round, party, *folds)`` or ``("optim", t, *folds)`` — so a
-parity test can hand in a source that computes the reference's uniforms
-from it.  The default source ignores the tag and draws from an explicit
+``("insert", round, party, *folds)`` (``("insert", time, *folds)`` from
+the clock), ``("optim", t, *folds)``, ``("seed", seed, n, *folds)`` or
+``("lanes", seed, n, C, *folds)`` — so a parity test can hand in a source
+that computes the reference's uniforms from it.  A ``"lanes"`` draw is
+one batched draw for all C lanes: its shape leads with C, and row c is
+the draw of ``split(fold_in(PRNGKey(seed), n), C)[c]`` folded by
+``folds``.  The default source ignores the tag and draws from an explicit
 ``torch.Generator``.
 """
 from __future__ import annotations
@@ -78,3 +88,20 @@ def optim_key(source, t: int) -> UniformKey:
     """Key of update ``t`` of an int8 AdaGrad state; fold in the leaf
     index.  Party A's and Party B's states share the chain."""
     return UniformKey(source, ("optim", t))
+
+
+def clock_key(source, time: int) -> UniformKey:
+    """Key of a workset insert that was given none: the table clock's,
+    ``fold_in(PRNGKey(0xCE1), time)``; fold in the leaf index."""
+    return UniformKey(source, ("insert", time))
+
+
+def seed_key(source, seed: int, n: int) -> UniformKey:
+    """``fold_in(PRNGKey(seed), n)``: the serving engine's n-th key."""
+    return UniformKey(source, ("seed", seed, n))
+
+
+def lanes_key(source, seed: int, n: int, lanes: int) -> UniformKey:
+    """All of ``split(fold_in(PRNGKey(seed), n), lanes)`` at once: a draw
+    of shape (lanes, *shape) whose row c is lane c's."""
+    return UniformKey(source, ("lanes", seed, n, lanes))

@@ -330,7 +330,11 @@ def workset_insert(ws: Dict[str, Any], entry: Dict[str, Any],
     (stochastic rounding through K3, a bf16 cast, or as it is).  ``key``
     (a :class:`~repro_torch.core.uniforms.UniformKey`) gives the rounding
     uniforms of a quantised table, folded by each leaf's index in
-    :func:`tree_leaves` order; an fp32 or bf16 table needs none."""
+    :func:`tree_leaves` order; an fp32 or bf16 table needs none.  Where
+    the reference derives the key from the table clock (an insert given
+    none), the caller passes ``uniforms.clock_key(source, time)`` with its
+    host copy of ``ws["time"]``, so no insert reads the clock back from
+    the device."""
     W = ws["insert_time"].shape[0]
     t = ws["time"]
     idx = _index(torch.remainder(t, W))

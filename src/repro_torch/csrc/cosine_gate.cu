@@ -1,12 +1,16 @@
 // Algorithm-2 cosine gate for Hopper (sm_90a): one kernel, templated on
-// how a ring row is stored, for five of the TPU's Pallas entry points.
+// how a ring row is stored, for five of the TPU's Pallas entry points;
+// and the ring-slot dequantiser over the same int8 / int4 row codecs for
+// two more.
 //
 // Replaces
-//   K1  src/repro/kernels/fused_sample.py  fused_sample_2d    (_kernel_f32)
-//   K2a src/repro/kernels/cosine_weight.py cosine_weight_2d   (_kernel)
-//   K2b src/repro/kernels/cosine_weight.py cosine_weights_2d  (_kernel_weights_only)
-//   K4  src/repro/kernels/fused_sample.py  fused_sample_q8_2d (_kernel_q8)
-//   K5  src/repro/kernels/fused_sample.py  fused_sample_q4_2d (_kernel_q4)
+//   K1  src/repro/kernels/fused_sample.py  fused_sample_2d     (_kernel_f32)
+//   K2a src/repro/kernels/cosine_weight.py cosine_weight_2d    (_kernel)
+//   K2b src/repro/kernels/cosine_weight.py cosine_weights_2d   (_kernel_weights_only)
+//   K4  src/repro/kernels/fused_sample.py  fused_sample_q8_2d  (_kernel_q8)
+//   K5  src/repro/kernels/fused_sample.py  fused_sample_q4_2d  (_kernel_q4)
+//   K6  src/repro/kernels/fused_sample.py  fused_dequant_q8_2d (_kernel_dq8)
+//   K11 src/repro/kernels/fused_sample.py  fused_dequant_q4_2d (_kernel_dq4)
 //
 // For every row r of the (B, F) operands:
 //   w[r]   = <a_r, z_r> / max(sqrt(|a_r|^2 * |z_r|^2), 1e-12), then 0 below thresh
@@ -38,6 +42,17 @@
 // cotangent.  The chunked loop serves any F (256 on the paper's models,
 // S * d at LLM geometry); an F or a pointer that does not allow 16-byte
 // loads takes the one-element-a-lane variant.
+//
+// K6 / K11 (ring_dequant) gather ring slot *slot of an int8 or packed
+// int4 ring and write it dequantised, (B, F) fp32: the serving engine's
+// read of the decode activation ring.  Each element is the codec's
+// code * row scale, one multiply, so the kernel is bitwise its plain
+// version.  Bound: bytes (the slot's codes and scales read, F fp32 per
+// row written, no arithmetic to speak of); each thread decodes one
+// codec vector (16 int8 or 32 int4 codes) and writes it with 16-byte
+// stores, so every element gets a thread however few the rows.  At the
+// serving shape (W = 4, C = 8, F = 960) the slot is 38 KB: 11 ns of
+// bytes, so the launch itself is the cost.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -306,6 +321,72 @@ extern "C" int cosine_gate_quant(const int* slot, int n_slots,
   if (bits == 4 && F % 2 == 0)
     return dispatch<Q4>(slot, n_slots, a, zq, zs, dzq, dzs, w, cot, B, F,
                         thresh, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+namespace {
+
+// K6 / K11: out[r, :] = decode(ring[*slot, r, :]) for the B rows, kVec
+// elements a thread.
+template <class C, int kVec>
+__global__ void __launch_bounds__(256)
+ring_dequant_kernel(const int* __restrict__ slot, int n_slots,
+                    const typename C::Elem* __restrict__ zq,
+                    const float* __restrict__ zs, float* __restrict__ out,
+                    int B, int F) {
+  const long long vecs_per_row = F / kVec;
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (e >= vecs_per_row * B) return;
+  const int s = __ldg(slot);
+  if (s < 0 || s >= n_slots) __trap();  // a slot outside the ring
+  const int row = static_cast<int>(e / vecs_per_row);
+  const int j = static_cast<int>(e % vecs_per_row) * kVec;
+  const long long srow = static_cast<long long>(s) * B + row;
+  float x[kVec];
+  C::template load<kVec>(zq + srow * C::units(F), j, __ldg(zs + srow), x);
+  store_f32<kVec>(out + static_cast<long long>(row) * F + j, x);
+}
+
+template <class C, int kVec>
+int launch_dequant(const int* slot, int n_slots, const void* zq,
+                   const float* zs, float* out, int B, int F,
+                   cudaStream_t stream) {
+  const long long n = static_cast<long long>(B) * (F / kVec);
+  const int threads = 256;
+  const long long blocks = (n + threads - 1) / threads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  ring_dequant_kernel<C, kVec><<<static_cast<unsigned>(blocks), threads, 0,
+                                 stream>>>(
+      slot, n_slots, static_cast<const typename C::Elem*>(zq), zs, out, B, F);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class C>
+int dispatch_dequant(const int* slot, int n_slots, const void* zq,
+                     const float* zs, float* out, int B, int F,
+                     cudaStream_t stream) {
+  if (F % C::kVec == 0 && aligned16(zq) && aligned16(out))
+    return launch_dequant<C, C::kVec>(slot, n_slots, zq, zs, out, B, F,
+                                      stream);
+  return launch_dequant<C, 1>(slot, n_slots, zq, zs, out, B, F, stream);
+}
+
+}  // namespace
+
+// K6 (bits = 8: int8 codes (n_slots, B, F)) and K11 (bits = 4: packed
+// uint8 (n_slots, B, F / 2), F even), each with fp32 row scales
+// (n_slots, B): out (B, F) fp32 = ring slot *slot dequantised.
+extern "C" int ring_dequant(const int* slot, int n_slots, const void* zq,
+                            const float* zs, float* out, int B, int F,
+                            int bits, void* stream) {
+  if (slot == nullptr || zs == nullptr || B <= 0 || F <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bits == 8)
+    return dispatch_dequant<Q8>(slot, n_slots, zq, zs, out, B, F, st);
+  if (bits == 4 && F % 2 == 0)
+    return dispatch_dequant<Q4>(slot, n_slots, zq, zs, out, B, F, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,0 +1,199 @@
+// Flash attention forward for Hopper (sm_90a).
+//
+// Replaces
+//   K9  src/repro/kernels/flash_attention.py  flash_attention  (_kernel)
+//
+// For bf16 q, k, v of shape (B, S, H, hd) (KV heads repeated to H; hd 64
+// or 128, the model's head dims) and every query row i of every (b, h):
+//   o_i = sum_j softmax_j(s_ij) v_j,  s_ij = <q_i, k_j> * scale, masked
+// where key j is visible when j <= i (causal) and i - j < window
+// (window > 0); a masked score is -1e30, as on the TPU.  q and k are
+// converted to fp32 before the dot; the running max m, the running sum l
+// and the accumulator stay in fp32 (the online-softmax recurrence:
+// m' = max(m, max_j s_j), corr = exp(m - m'), l' = l corr + sum_j
+// exp(s_j - m'), acc' = acc corr + sum_j exp(s_j - m') v_j), and the
+// output acc / max(l, 1e-30) is written in q's dtype.
+//
+// Layout.  One block per (query tile of kBQ = 64 rows, b * H + h); the
+// block walks the key tiles of kBK = 32 rows that the mask leaves
+// non-empty (those right of the diagonal are skipped when causal, those
+// left of the window when window > 0), staging each K and V tile in
+// shared memory as fp32.  Each query row is owned by hd / 32 threads,
+// each holding 32 of its q values and 32 of its accumulator values in
+// registers; a row's partial dot products meet by warp shuffles.  A
+// thread's 32 values are eight float4 chunks interleaved with its
+// row-mates' (chunk c belongs to part c % (hd / 32)), so the lanes of a
+// warp read distinct banks or the same word of shared memory.  The
+// (B, S, H, hd) operands are read in place (row stride H * hd): no
+// transposed copy is made.
+//
+// Bound: operations.  The two products take 4 * hd flops per visible
+// (query, key) pair: 32.2 GFLOP at (1, 4096, 15, 64) causal, against
+// 31.5 MB of q, k, v and o.  That is 32.6 us at the bf16 tensor-core
+// peak (989 TFLOP/s).  This first version runs both products on the fp32
+// cores (67 TFLOP/s peak, so at least 480 us there) to keep the TPU
+// kernel's fp32 arithmetic without a tensor-core path; mma / wgmma with
+// a bf16 q kᵀ and cp.async / TMA staging are the route to the bound.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBQ = 64;         // query rows per block
+constexpr int kBK = 32;         // key rows per staged tile
+constexpr int kPart = 32;       // head dims per thread
+constexpr float kNegInf = -1e30f;
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  const float2 a = __bfloat1622float2(h[0]);
+  const float2 b = __bfloat1622float2(h[1]);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  __nv_bfloat162 h[2] = {__floats2bfloat162_rn(v.x, v.y),
+                         __floats2bfloat162_rn(v.z, v.w)};
+  *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(h);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kBQ * (HD / kPart))
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o, int S,
+                 int H, int causal, int window, float scale) {
+  constexpr int kTPR = HD / kPart;          // threads per query row
+  constexpr int kThreads = kBQ * kTPR;
+  constexpr int kChunks = HD / 4;           // float4 chunks per row
+  __shared__ float4 ks[kBK * kChunks];
+  __shared__ float4 vs[kBK * kChunks];
+
+  const int tid = threadIdx.x;
+  const int r = tid / kTPR;
+  const int part = tid % kTPR;
+  // the heaviest (last) query tiles start first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const long long pos_stride = static_cast<long long>(H) * HD;
+  const long long base = static_cast<long long>(b) * S * pos_stride +
+                         static_cast<long long>(h) * HD;
+  const int qpos = q0 + r;
+
+  float qv[kPart], acc[kPart];
+  const bf16* qrow = q + base + qpos * pos_stride;
+#pragma unroll
+  for (int i = 0; i < kPart / 4; ++i) {
+    const float4 x = load4(qrow + 4 * (part + kTPR * i));
+    qv[4 * i] = x.x;
+    qv[4 * i + 1] = x.y;
+    qv[4 * i + 2] = x.z;
+    qv[4 * i + 3] = x.w;
+  }
+#pragma unroll
+  for (int i = 0; i < kPart; ++i) acc[i] = 0.f;
+  float m = kNegInf, l = 0.f;
+
+  const int n_kb = S / kBK;
+  const int hi = causal ? min((q0 + kBQ + kBK - 1) / kBK, n_kb) : n_kb;
+  const int lo = window ? max(q0 - window, 0) / kBK : 0;
+  for (int kt = lo; kt < hi; ++kt) {
+    __syncthreads();  // every thread is done with the previous tile
+    for (int idx = tid; idx < kBK * kChunks; idx += kThreads) {
+      const int j = idx / kChunks, c = idx % kChunks;
+      const long long off = base + (kt * kBK + j) * pos_stride + 4 * c;
+      ks[idx] = load4(k + off);
+      vs[idx] = load4(v + off);
+    }
+    __syncthreads();
+
+    float s[kBK];
+    float tmax = kNegInf;
+#pragma unroll
+    for (int j = 0; j < kBK; ++j) {
+      float d = 0.f;
+#pragma unroll
+      for (int i = 0; i < kPart / 4; ++i) {
+        const float4 kk = ks[j * kChunks + part + kTPR * i];
+        d += qv[4 * i] * kk.x;
+        d += qv[4 * i + 1] * kk.y;
+        d += qv[4 * i + 2] * kk.z;
+        d += qv[4 * i + 3] * kk.w;
+      }
+#pragma unroll
+      for (int off = 1; off < kTPR; off <<= 1)
+        d += __shfl_xor_sync(0xffffffffu, d, off);
+      const int dist = qpos - (kt * kBK + j);
+      bool vis = true;
+      if (causal) vis = dist >= 0;
+      if (window) vis = vis && dist < window;
+      s[j] = vis ? d * scale : kNegInf;
+      tmax = fmaxf(tmax, s[j]);
+    }
+    const float m_new = fmaxf(m, tmax);
+    const float corr = expf(m - m_new);
+    float psum = 0.f;
+#pragma unroll
+    for (int i = 0; i < kPart; ++i) acc[i] *= corr;
+#pragma unroll
+    for (int j = 0; j < kBK; ++j) {
+      const float p = expf(s[j] - m_new);
+      psum += p;
+#pragma unroll
+      for (int i = 0; i < kPart / 4; ++i) {
+        const float4 vv = vs[j * kChunks + part + kTPR * i];
+        acc[4 * i] += p * vv.x;
+        acc[4 * i + 1] += p * vv.y;
+        acc[4 * i + 2] += p * vv.z;
+        acc[4 * i + 3] += p * vv.w;
+      }
+    }
+    l = l * corr + psum;
+    m = m_new;
+  }
+
+  const float denom = fmaxf(l, 1e-30f);
+  bf16* orow = o + base + qpos * pos_stride;
+#pragma unroll
+  for (int i = 0; i < kPart / 4; ++i)
+    store4(orow + 4 * (part + kTPR * i),
+           make_float4(acc[4 * i] / denom, acc[4 * i + 1] / denom,
+                       acc[4 * i + 2] / denom, acc[4 * i + 3] / denom));
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int S, int H, int causal, int window, float scale,
+           cudaStream_t stream) {
+  const dim3 grid(S / kBQ, B * H);
+  const dim3 block(kBQ * (HD / kPart));
+  flash_fwd_kernel<HD><<<grid, block, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, H, causal,
+      window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K9.  q, k, v, o: contiguous (B, S, H, hd) bfloat16, 16-byte aligned;
+// hd in {64, 128}; S a multiple of 64; window >= 0 (0 = none).  Returns
+// the cudaError_t of the launch.
+extern "C" int flash_attention_fwd(const void* q, const void* k,
+                                   const void* v, void* o, int B, int S,
+                                   int H, int hd, int causal, int window,
+                                   float scale, void* stream) {
+  if (B <= 0 || H <= 0 || S <= 0 || S % kBQ || window < 0 ||
+      B * H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 64)
+    return launch<64>(q, k, v, o, B, S, H, causal, window, scale, st);
+  if (hd == 128)
+    return launch<128>(q, k, v, o, B, S, H, causal, window, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

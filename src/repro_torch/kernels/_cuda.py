@@ -40,7 +40,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 LAUNCHES = {"fused_sample_2d": 0, "cosine_weight_2d": 0,
             "cosine_weights_2d": 0, "quantize_sr_2d": 0,
             "fused_sample_q8_2d": 0, "fused_sample_q4_2d": 0,
-            "fused_adagrad": 0, "fused_adagrad_q8": 0}
+            "fused_adagrad": 0, "fused_adagrad_q8": 0,
+            "fused_dequant_q8_2d": 0, "fused_dequant_q4_2d": 0,
+            "flash_attention": 0}
 
 _lib = None
 
@@ -56,6 +58,8 @@ _SIGNATURES = {
     "fused_adagrad": [_P, _P, _P, _P, _LL, _F, _F, _P],
     "fused_adagrad_q8": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _F, _F,
                          _P],
+    "ring_dequant": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
+    "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
 }
 
 
@@ -205,3 +209,22 @@ def launch_fused_adagrad_q8(name: str, *, grad, q, scale, u, upd, q_out,
     _launch(name, "fused_adagrad_q8", grad.device, _ptr(grad), _ptr(q),
             _ptr(scale), _ptr(u), _ptr(upd), _ptr(q_out), _ptr(scale_out),
             grad.numel(), R, C, lr, eps)
+
+
+def launch_ring_dequant(name: str, *, bits: int, slot, zq, zs, out) -> None:
+    """Launch K6 (``bits=8``) or K11 (``bits=4``) of
+    ``csrc/cosine_gate.cu``; ``out`` is (B, F) fp32 with F the unpacked
+    row width."""
+    B, F = out.shape
+    _launch(name, "ring_dequant", out.device, _ptr(slot), zq.shape[0],
+            _ptr(zq), _ptr(zs), _ptr(out), B, F, bits)
+
+
+def launch_flash_attention(name: str, *, q, k, v, out, causal: bool,
+                           window: int, scale: float) -> None:
+    """Launch K9 of ``csrc/flash_attention.cu`` on checked (B, S, H, hd)
+    operands."""
+    B, S, H, hd = q.shape
+    _launch(name, "flash_attention_fwd", q.device, _ptr(q), _ptr(k),
+            _ptr(v), _ptr(out), B, S, H, hd, int(causal), int(window),
+            scale)

@@ -21,6 +21,15 @@ the weights (and cotangent) written, at about 7 flops per element.  At the
 paper's W = 5, B = F = 256 that is 1.05 MB over an fp32 ring (0.31 us at
 3.35 TB/s), 658,432 B over the int8 ring (0.197 us) and 592,896 B over
 the int4 ring (0.177 us).
+
+K6 (``fused_dequant_q8_2d``, ``_kernel_dq8``) and K11
+(``fused_dequant_q4_2d``, ``_kernel_dq4``) gather one slot of an int8 or
+packed int4 ring and return it dequantised, (B, F) fp32, without the
+gate: the serving engine's read of its decode activation ring, once per
+decode step.  They share the ring codecs of ``csrc/cosine_gate.cu`` with
+K4 / K5 and are bitwise their plain versions (one multiply an element).
+Bytes bound them, and at the serving shape (W = 4, C = 8, F = 960) the
+launch is the cost.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ from . import _cuda
 from .cosine_weight import check_operands, f32_threshold, gate_weights_plain
 
 QUANT_NAMES = {8: "fused_sample_q8_2d", 4: "fused_sample_q4_2d"}
+DEQUANT_NAMES = {8: "fused_dequant_q8_2d", 4: "fused_dequant_q4_2d"}
 
 
 def fused_sample_plain(slot, ad_hoc, z_ring, dz_ring, cos_xi):
@@ -188,3 +198,66 @@ def fused_sample_q4_2d(slot, ad_hoc, zq, zscale, dzq, dzscale, cos_xi):
     (W, B, F / 2) uint8; F is even (the caller pads an odd row)."""
     return _fused_sample_quant(4, slot, ad_hoc, zq, zscale, dzq, dzscale,
                                cos_xi)
+
+
+# --------------------------------------------------------------------------
+# K6 / K11: one ring slot, dequantised
+# --------------------------------------------------------------------------
+def fused_dequant_plain(bits: int, slot, zq, zscale):
+    """Gather slot, dequantise: the CPU path and the oracle of K6
+    (``bits=8``) and K11 (``bits=4``).  -> (B, F) fp32, F = 2 P for a
+    packed (W, B, P) ring."""
+    idx = slot.reshape(1).long()
+    return dequant_rows(zq.index_select(0, idx)[0],
+                        zscale.index_select(0, idx)[0], bits)
+
+
+def check_dequant_ring(bits: int, slot, zq, zscale) -> None:
+    """K6 / K11's operand checks: contiguous (W, B, F) int8 or
+    (W, B, F / 2) uint8 codes with (W, B) fp32 row scales and a
+    one-element int32 slot, all on one device."""
+    name = DEQUANT_NAMES[bits]
+    code_dtype = torch.int8 if bits == 8 else torch.uint8
+    if zq.dtype != code_dtype or zq.dim() != 3 or 0 in zq.shape:
+        raise ValueError(f"{name}: codes must be non-empty (W, B, P) "
+                         f"{code_dtype}, got {tuple(zq.shape)} {zq.dtype}")
+    if zscale.dtype != torch.float32 \
+            or tuple(zscale.shape) != tuple(zq.shape[:2]):
+        raise ValueError(f"{name}: scales must be float32 "
+                         f"{tuple(zq.shape[:2])}, got "
+                         f"{tuple(zscale.shape)} {zscale.dtype}")
+    for t in (zq, zscale, slot):
+        if t.device != zq.device:
+            raise ValueError(f"{name}: operands on {t.device} and "
+                             f"{zq.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    if slot.dtype != torch.int32 or slot.numel() != 1:
+        raise ValueError(f"{name}: slot must be one int32, got "
+                         f"{slot.dtype} {tuple(slot.shape)}")
+
+
+def _fused_dequant(bits: int, slot, zq, zscale):
+    if zq.device.type == "cpu":
+        return fused_dequant_plain(bits, slot, zq, zscale)
+    check_dequant_ring(bits, slot, zq, zscale)
+    W, B, P = zq.shape
+    out = torch.empty((B, P if bits == 8 else 2 * P), dtype=torch.float32,
+                      device=zq.device)
+    _cuda.launch_ring_dequant(DEQUANT_NAMES[bits], bits=bits, slot=slot,
+                              zq=zq, zs=zscale, out=out)
+    return out
+
+
+def fused_dequant_q8_2d(slot, zq, zscale):
+    """K6.  slot: (1,) int32 on the ring's device; zq: (W, B, F) int8
+    codes; zscale: (W, B) fp32 row scales.  -> (B, F) fp32, the entry at
+    ``slot``."""
+    return _fused_dequant(8, slot, zq, zscale)
+
+
+def fused_dequant_q4_2d(slot, zq, zscale):
+    """K11.  As :func:`fused_dequant_q8_2d` over packed int4 codes
+    (W, B, P) uint8.  -> (B, 2 P) fp32 (the caller slices a pad
+    column)."""
+    return _fused_dequant(4, slot, zq, zscale)

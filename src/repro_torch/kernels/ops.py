@@ -5,7 +5,7 @@ Each takes the engine's shapes, flattens them to the (B, F) rows the
 kernel works on, and calls the kernel module's wrapper: on a CUDA tensor
 that launches the kernel (``csrc/cosine_gate.cu``, ``csrc/quantize.cu``,
 ``csrc/fused_adagrad.cu``); on a CPU tensor it runs the plain PyTorch
-version.
+version.  The model calls K9 (``kernels/flash_attention.py``) directly.
 """
 from __future__ import annotations
 
@@ -104,6 +104,21 @@ def fused_gather_weights_q4(slot, ad_hoc, zq, zscale, cos_xi):
     w, _ = _fs.fused_sample_q4_2d(slot, _pad_to_packed(ad_hoc, zq), zq,
                                   zscale, None, None, cos_xi)
     return w
+
+
+def fused_gather_dequant_q8(slot, zq, zscale):
+    """Gather + dequantise one int8 ring entry (K6; the serving
+    decode-cache read).  zq: (W, B, F) int8, zscale: (W, B) fp32 row
+    scales.  -> (B, F) fp32."""
+    return _fs.fused_dequant_q8_2d(slot.reshape(1), zq, zscale)
+
+
+def fused_gather_dequant_q4(slot, zq, zscale, width: int):
+    """Gather + unpack + dequantise one int4 nibble-packed ring entry
+    (K11).  zq: (W, B, ceil(F/2)) packed uint8, zscale: (W, B) fp32 row
+    scales, width: the true row width F (the pad nibble of an odd row is
+    sliced off).  -> (B, F) fp32."""
+    return _fs.fused_dequant_q4_2d(slot.reshape(1), zq, zscale)[:, :width]
 
 
 def quantize_stochastic(x, u, levels):

@@ -60,7 +60,8 @@ def refuse_unported(args) -> None:
     port does not have."""
     later = []
     if args.arch not in DLRM_IDS:
-        later.append(f"--arch {args.arch} (the LLM split models, slice 7)")
+        later.append(f"--arch {args.arch} (training the LLM split models, "
+                     f"slice 7b; repro_torch.launch.serve serves them)")
     if args.pipeline_depth:
         later.append("--pipeline-depth > 0 (slice 2)")
     if (args.fault_drop_prob or args.fault_straggler_prob

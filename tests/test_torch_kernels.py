@@ -152,3 +152,92 @@ def test_cpu_wrappers_launch_nothing():
                             torch.from_numpy(dz[0]), COS_XI)
     tops.cosine_weight(torch.from_numpy(a), torch.from_numpy(z[0]), COS_XI)
     assert all(v == 0 for v in _cuda.LAUNCHES.values())
+
+
+# --------------------------------------------------------------------------
+# K9: flash attention forward.  The plain version (what the wrapper runs
+# on the CPU) against the reference's dense oracle
+# (``ref.flash_attention_ref``) and the reference model's blockwise
+# online-softmax path (``layers._blockwise_sdpa``, the oracle the JAX
+# package names for its Pallas kernel), at the shapes and tolerances of
+# tests/test_kernels.py: 2e-4 in float32 (fp32 sums in another order),
+# 5e-2 in bfloat16 (the oracle rounds its scores and weights to bf16).
+# The Pallas kernel itself does not run in interpret mode under jax 0.9
+# (``pl.load`` is gone), as tests/test_kernels.py::test_flash_attention
+# shows, so it is not the comparison here.
+# --------------------------------------------------------------------------
+from repro.kernels import ref as jref                     # noqa: E402
+from repro.models import layers as jlayers                # noqa: E402
+from repro_torch.kernels import flash_attention as tfa    # noqa: E402
+
+
+def _qkv(shape, dtype, seed):
+    """The same normal draws for both sides; bf16 rounding happens once,
+    in JAX, and the torch side takes its bits."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(3):
+        j = jnp.asarray(rng.normal(size=shape), jnp.dtype(dtype))
+        out.append((j, torch.from_numpy(np.array(j.astype(jnp.float32)))
+                    .to(getattr(torch, dtype))))
+    return out
+
+
+@pytest.mark.parametrize("B,S,H,hd", [(1, 256, 2, 64), (2, 512, 1, 32),
+                                      (1, 1024, 2, 128)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 128),
+                                           (False, 0), (False, 128)])
+def test_k9_plain_matches_reference_oracles(B, S, H, hd, causal, window):
+    qkv = _qkv((B, S, H, hd), "float32", seed=S + hd)
+    jq, jk, jv = (x for x, _ in qkv)
+    pos = jnp.arange(S, dtype=jnp.int32)
+    r = jref.flash_attention_ref(jq, jk, jv, causal=causal, window=window)
+    bw = jlayers._blockwise_sdpa(jq, jk, jv, pos, pos, causal=causal,
+                                 window=window)
+    t = tfa.flash_attention(*(x for _, x in qkv), causal=causal,
+                             window=window).numpy()
+    dev_r, dev_b = (float(np.abs(t - np.asarray(x)).max()) for x in (r, bw))
+    print(f"K9 plain vs oracle {dev_r:.3g}, vs blockwise path {dev_b:.3g}")
+    assert dev_r <= 2e-4 and dev_b <= 2e-4
+
+
+def test_k9_plain_bf16_matches_reference_oracle():
+    qkv = _qkv((1, 256, 2, 64), "bfloat16", seed=7)
+    t = tfa.flash_attention(*(x for _, x in qkv))
+    assert t.dtype == torch.bfloat16
+    want = jref.flash_attention_ref(*(x for x, _ in qkv))
+    np.testing.assert_allclose(t.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 5),
+                                           (False, 0), (False, 5)])
+def test_k9_visible_pairs_counts_the_mask(causal, window):
+    """The work K9's bound counts is the mask's: every kept (query, key)
+    pair of one head."""
+    S = 37
+    pos = torch.arange(S)
+    kept = int(tfa.visible(pos, pos, causal, window).sum())
+    assert tfa.visible_pairs(S, causal, window) == kept
+
+
+@pytest.mark.parametrize("shape,dtype,window,match", [
+    ((1, 128, 2, 48), torch.bfloat16, 0, "head dim"),
+    ((1, 128, 2, 32), torch.bfloat16, 0, "head dim"),
+    ((1, 100, 2, 64), torch.bfloat16, 0, "multiple of 64"),
+    ((1, 128, 2, 64), torch.float16, 0, "bfloat16"),
+    ((1, 128, 2, 64), torch.float32, 0, "bfloat16"),
+    ((1, 128, 2, 64), torch.bfloat16, -1, "window"),
+])
+def test_k9_operand_checks(shape, dtype, window, match):
+    q = torch.zeros(shape, dtype=dtype)
+    with pytest.raises(ValueError, match=match):
+        tfa.check_operands(q, q, q, window)
+
+
+def test_k9_cpu_wrapper_launches_nothing():
+    _cuda.reset_launches()
+    q = torch.randn(1, 64, 2, 32)
+    tfa.flash_attention(q, q, q)
+    assert all(v == 0 for v in _cuda.LAUNCHES.values())
