@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Mutation check of ``chip_smoke.py``'s limit for K9 on one NVIDIA GPU.
+"""Mutation check of ``chip_smoke.py``'s per-element limits for K9 and
+K10 on one NVIDIA GPU.
 
 Builds the flash-attention forward (``src/repro_torch/csrc/
-flash_attention.cu``) with one small fault at a time (a key tile, or a
-single key, too few or too many for some rows of a 4,096-token prompt),
-runs the smoke's serving kernel phase on it and requires that phase to
-fail on K9:
+flash_attention.cu``) or backward (``flash_attention_bwd.cu``) with one
+small fault at a time (a key tile, or a single key, too few or too many
+for some rows of a 4,096-token sequence), runs the smoke's kernel phase
+of that kernel on it and requires that phase to fail on the kernel.
+K9, in the serving kernel phase:
 
   * ``window_tile_late``: the window's first key tile is skipped for the
     query tiles from row 3,584 on;
@@ -15,6 +17,18 @@ fail on K9:
     row's own key, for the query tiles from row 3,584 on;
   * ``window_edge``: an off-by-one in the window keeps one key too many,
     ``window`` positions behind each row.
+
+K10's dkv kernel, in the training kernel phase:
+
+  * ``dkv_diagonal_key_late``: the mask of the dkv kernel is shifted by
+    one for the key tiles from row 3,584 on, hiding each of those keys'
+    own query (the pair on the diagonal) from dk and dv;
+  * ``dkv_diagonal_tile_late``: the dkv kernel skips the diagonal query
+    tile of the key tiles from row 3,584 on;
+  * ``dkv_dv_diagonal_late``: for the key tiles from row 3,584 on, dv
+    alone misses each key's own query (dk keeps it);
+  * ``dkv_lse_batch_row0``: the dkv kernel reads the lse and D rows of
+    batch row 0 for every batch row, which only the B = 2 cases show.
 
     python3 chip_mutants.py
 
@@ -33,8 +47,10 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join("src", "repro_torch", "csrc", "flash_attention.cu")
+CSRC = os.path.join("src", "repro_torch", "csrc")
 LATE = 3584
+# name -> (source, line, mutated line); K9's are checked by the serving
+# kernel phase, K10's by the training kernel phase
 MUTANTS = {
     "window_tile_late": (
         "const int lo = window ? max(q0 - window, 0) / kBK : 0;",
@@ -50,10 +66,26 @@ MUTANTS = {
     "window_edge": (
         "if (window) vis = vis && dist < window;",
         "if (window) vis = vis && dist <= window;"),
+    "dkv_diagonal_key_late": (
+        "const int dist = qt * kTile + i - kpos;",
+        f"const int dist = qt * kTile + i - kpos - (k0 >= {LATE});"),
+    "dkv_diagonal_tile_late": (
+        "const int lo = causal ? k0 / kTile : 0;",
+        f"const int lo = causal ? k0 / kTile + (k0 >= {LATE}) : 0;"),
+    "dkv_dv_diagonal_late": (
+        "axpy4(dva + 4 * c, p, dd[c]);",
+        f"axpy4(dva + 4 * c, k0 >= {LATE} && dist == 0 ? 0.f : p, dd[c]);"),
+    "dkv_lse_batch_row0": (
+        "const long long row0 = static_cast<long long>(bh) * S;\n"
+        "  const int kpos = k0 + r;",
+        "const long long row0 = static_cast<long long>(h) * S;\n"
+        "  const int kpos = k0 + r;"),
 }
+K10_MUTANTS = ("dkv_diagonal_key_late", "dkv_diagonal_tile_late",
+               "dkv_dv_diagonal_late", "dkv_lse_batch_row0")
 RUN = ("import sys, torch; sys.path.insert(0, 'src'); "
        "torch.backends.cuda.matmul.allow_tf32 = False; "
-       "import chip_smoke; chip_smoke.phase_serve_kernels(torch)")
+       "import chip_smoke; chip_smoke.{}(torch)")
 
 
 def main() -> None:
@@ -63,25 +95,30 @@ def main() -> None:
     top = os.path.join(ROOT, "src", "repro_torch", "_build", "mutants")
     survived = []
     for name, (good, bad) in MUTANTS.items():
+        k10 = name in K10_MUTANTS
+        source = os.path.join(CSRC, "flash_attention_bwd.cu" if k10
+                              else "flash_attention.cu")
+        phase = "phase_train_kernels" if k10 else "phase_serve_kernels"
+        kernel = "flash_attention_bwd_dkv" if k10 else "flash_attention"
         d = os.path.join(top, name)
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(os.path.join(ROOT, "src"), os.path.join(d, "src"),
                         ignore=shutil.ignore_patterns("_build",
                                                       "__pycache__"))
         shutil.copy(os.path.join(ROOT, "chip_smoke.py"), d)
-        path = os.path.join(d, SOURCE)
+        path = os.path.join(d, source)
         with open(path) as f:
             text = f.read()
         if good not in text:
             sys.exit(f"chip_mutants: {name}: the line to mutate is gone "
-                     f"from {SOURCE}")
+                     f"from {source}")
         with open(path, "w") as f:
             f.write(text.replace(good, bad))
-        r = subprocess.run([sys.executable, "-c", RUN], cwd=d,
+        r = subprocess.run([sys.executable, "-c", RUN.format(phase)], cwd=d,
                            capture_output=True, text=True, timeout=600)
         line = next((ln for ln in (r.stdout + r.stderr).splitlines()
                      if "FAILED" in ln), "")
-        caught = r.returncode != 0 and "flash_attention" in line
+        caught = r.returncode != 0 and f"FAILED: {kernel} " in line
         print(f"[mutant] {name}: {'caught' if caught else 'PASSED'} "
               f"(rc {r.returncode}) {line}", flush=True)
         m = re.search(r"max \|err\| ([0-9.e+-]+), largest \|ref\| "
@@ -99,7 +136,7 @@ def main() -> None:
     shutil.rmtree(top, ignore_errors=True)
     if survived:
         sys.exit(f"chip_mutants: FAILED: {survived} passed the smoke's "
-                 f"K9 check")
+                 f"K9 / K10 checks")
     print("chip_mutants: every mutant caught")
 
 

@@ -44,7 +44,24 @@ Phases, each on its own printed lines (any failure exits non-zero):
      every attention layer of each prefill, the prefill's logits held
      against the same prefill through the plain attention); launches
      and ms per decode step;
-  8. a JSON line of per-kernel results, then the last line
+  8. the training kernels against their plain versions: K9-LSE (the
+     forward with the row log-sum-exp) and K10's dkv and dq kernels at
+     (1, 4096, 15, 64) bf16, causal, with a window of 1,024, at head dim
+     128 and in fp32, and at the training phase's (2, 4096, 15, 64) in
+     bf16 and fp32, each element within a limit of its own magnitude,
+     K9's output with the LSE pointer set bitwise its output without
+     it; timed beside the least time and SDPA's forward and backward;
+  9. the LLM training path: ``repro_torch.launch.train`` at smollm-360m's
+     full width (B = 2, S = 4,096, R = W = 2, 3 celu rounds, fp32 cache,
+     AdaGrad through K7, remat on) with the exact launch counts of
+     K9-LSE, K10, K9, K1 and K7 derived from the code, each round's loss,
+     ms per round, the card's busy time per round (profiler, rounds 2-3
+     of a second run) and the peak memory beside ``launch/budget.py``'s
+     budget; then one
+     ``launch/steps.py`` train step at B = 1, S = 4,096 through
+     K9-LSE / K10 against the same step through the plain attention,
+     loss and every gradient leaf held to a limit;
+ 10. a JSON line of per-kernel results, then the last line
      ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
@@ -115,6 +132,12 @@ KERNELS = {   # name -> (the TPU kernel it replaces, its source)
     "fused_dequant_q4_2d": ("src/repro/kernels/fused_sample.py:214", GATE),
     "flash_attention": ("src/repro/kernels/flash_attention.py:87",
                         "src/repro_torch/csrc/flash_attention.cu"),
+    "flash_attention_fwd_lse": ("src/repro/kernels/flash_attention_bwd.py:195",
+                                "src/repro_torch/csrc/flash_attention.cu"),
+    "flash_attention_bwd_dkv": ("src/repro/kernels/flash_attention_bwd.py:226",
+                                "src/repro_torch/csrc/flash_attention_bwd.cu"),
+    "flash_attention_bwd_dq": ("src/repro/kernels/flash_attention_bwd.py:244",
+                               "src/repro_torch/csrc/flash_attention_bwd.cu"),
 }
 # the serving path: smollm-360m at full width; the decode activation ring
 # is (ring slots W, lanes C, d)
@@ -155,6 +178,40 @@ LONG_LOGIT_ATOL = 0.1
 # where the loop's top-1 margin is below BATCH_MARGIN.
 LANE_LOGIT_ATOL = 0.1
 BATCH_MARGIN = 0.1
+# K9-LSE and K10 at smollm-360m's attention shape (B, S, H, hd) with
+# B = 1 (the timed row), with a window, at head dim 128, and at the
+# training phase's own B = 2 in bf16 and in fp32 (the label party's ad-hoc
+# ∇Z pass), so that batch rows past the first are held too.  Kernel and
+# plain version take the same inputs (the plain forward's o and lse for
+# K10), sum in fp32 in other orders and round once to the output dtype.
+# Each element is held to its own magnitude: |out - ref| <= REL |ref| +
+# ATOL, with REL one bf16 ulp (2^-7) for bf16 outputs, and for fp32
+# outputs and the fp32 lse a few fp32 ulps of summation-order difference
+# (2^-17); ATOL covers the fp32 differences at outputs near zero.
+K10_CASES = [((1, 4096, 15, 64), "bfloat16", 0),
+             ((1, 4096, 15, 64), "bfloat16", 1024),
+             ((1, 4096, 15, 128), "bfloat16", 0),
+             ((1, 4096, 15, 64), "float32", 0),
+             ((2, 4096, 15, 64), "bfloat16", 0),
+             ((2, 4096, 15, 64), "float32", 0)]
+K10_REL = {"bfloat16": 2.0 ** -7, "float32": 2.0 ** -17}
+K10_ATOL = {"bfloat16": 1e-5, "float32": 2e-6}
+LSE_REL, LSE_ATOL = 2.0 ** -17, 1e-5
+# K1 at the training path's cut tensor (W, B, S·d): the fp32 sums of
+# 3,932,160 products a row in other orders; the weights are cosines in
+# [-1, 1] and the cotangent is |dz| <= ~5 times a weight
+LLM_GATE_SHAPE = (2, 2, 4096 * 960)
+LLM_GATE_TOL = 1e-4
+# the training phase: smollm-360m at full width
+TRAIN_ARGS = {"batch_size": 2, "seq_len": 4096, "R": 2, "W": 2}
+TRAIN_ROUNDS = 3
+# The full-width train step through K9-LSE / K10 against the same step
+# through the plain attention on the card (B = 1, S = 4,096): both round
+# each layer's attention output and its gradients to bf16, so one-ulp
+# differences carry through the 32 layers.  The loss and each gradient
+# leaf's relative L2 error are held to these limits.
+GRAD_LOSS_ATOL = 1e-2
+GRAD_REL_L2 = 5e-2
 DENSE_GATES = ("fused_sample_2d", "cosine_weight_2d", "cosine_weights_2d")
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
 
@@ -1201,6 +1258,392 @@ def phase_serving(torch, card):
     return counts
 
 
+def _per_element(name, label, out, ref, rel, atol):
+    """Hold every element of ``out`` to |out - ref| <= rel |ref| + atol;
+    -> (max |err|, worst err / limit)."""
+    diff = (out.float() - ref.float()).abs()
+    limit = rel * ref.float().abs() + atol
+    err = diff.max().item()
+    worst = (diff / limit).max().item()
+    over = int((diff > limit).sum())
+    check(math.isfinite(err) and over == 0,
+          f"{name} {label}: {over} elements beyond {rel:.3g} |ref| + "
+          f"{atol:g} (max |err| {err}, largest |ref| "
+          f"{ref.float().abs().max().item()}, worst err / limit "
+          f"{worst:.3g})")
+    return err, worst
+
+
+def _grad_ms(torch, out, inputs, do, reps: int = 10) -> float:
+    """ms on the card per backward alone of a graph kept from one
+    forward: its kernels' device time, summed by the profiler (the host's
+    ``torch.autograd.grad`` calls, which can outlast the kernels, are not
+    timed)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        torch.autograd.grad(out, inputs, do, retain_graph=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            torch.autograd.grad(out, inputs, do, retain_graph=True)
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / 1e3 / reps
+
+
+def phase_train_kernels(torch):
+    """K9-LSE and K10 (dkv, dq) against their plain versions on the card,
+    each element within its own limit; K9's output bitwise the same with
+    and without the LSE pointer; times beside the least time, the plain
+    version and SDPA (forward; backward alone)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    names = ("flash_attention_fwd_lse", "flash_attention_bwd_dkv",
+             "flash_attention_bwd_dq")
+    results = {k: {"max_abs_err": 0.0, "library_ms": None} for k in names}
+    for shape, dt, window in K10_CASES:
+        B, S, H, hd = shape
+        dtype = getattr(torch, dt)
+        peak = PEAK_BF16_FLOPS if dt == "bfloat16" else PEAK_FP32_FLOPS
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(dtype) for _ in range(4))
+        kw = dict(causal=True, window=window)
+        rel, atol = K10_REL[dt], K10_ATOL[dt]
+        tag = f"B,S,H,hd={B},{S},{H},{hd} {dt} causal window={window}"
+
+        # K9-LSE
+        def fwd():
+            return fa.flash_attention_fwd_lse(q, k, v, **kw)
+
+        def fwd_plain():
+            return fa.flash_attention_fwd_lse_plain(q, k, v, **kw)
+        (o, lse), (o_ref, lse_ref) = fwd(), fwd_plain()
+        o_k9 = fa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(o, o_k9), f"flash_attention_fwd_lse {tag}: the "
+              f"output differs from K9's without the LSE pointer")
+        err_o, w_o = _per_element("flash_attention_fwd_lse", f"{tag} out",
+                                  o, o_ref, rel, atol)
+        err_l, w_l = _per_element("flash_attention_fwd_lse", f"{tag} lse",
+                                  lse, lse_ref, LSE_REL, LSE_ATOL)
+        err = max(err_o, err_l)
+
+        # K10 on the plain forward's o and lse (the same inputs both ways)
+        delta = fab.row_delta(o_ref, do)
+        args = (q, k, v, do, lse_ref, delta)
+
+        def dkv():
+            return fab.flash_attention_bwd_dkv(*args, **kw)
+
+        def dkv_plain():
+            return fab.flash_attention_bwd_dkv_plain(*args, **kw)
+
+        def dq():
+            return fab.flash_attention_bwd_dq(*args, **kw)
+
+        def dq_plain():
+            return fab.flash_attention_bwd_dq_plain(*args, **kw)
+        (dk, dv), (dk_ref, dv_ref) = dkv(), dkv_plain()
+        dq_, dq_ref = dq(), dq_plain()
+        torch.cuda.synchronize()
+        errs = {}
+        for label, got, ref, name in (("dk", dk, dk_ref, names[1]),
+                                      ("dv", dv, dv_ref, names[1]),
+                                      ("dq", dq_, dq_ref, names[2])):
+            e, w = _per_element(name, f"{tag} {label}", got, ref, rel, atol)
+            errs[label] = (e, w)
+            print(f"[kernel] {name:30s} {tag} {label}: max |err| {e:.3g}, "
+                  f"worst err / limit {w:.3g} (limit {rel:.3g} |ref| + "
+                  f"{atol:g}; median |ref| "
+                  f"{ref.float().abs().median().item():.3g}, largest "
+                  f"{ref.float().abs().max().item():.3g})", flush=True)
+        results[names[0]]["max_abs_err"] = max(
+            results[names[0]]["max_abs_err"], err)
+        results[names[1]]["max_abs_err"] = max(
+            results[names[1]]["max_abs_err"], errs["dk"][0], errs["dv"][0])
+        results[names[2]]["max_abs_err"] = max(
+            results[names[2]]["max_abs_err"], errs["dq"][0])
+        print(f"[kernel] {names[0]:30s} {tag}: out max |err| {err_o:.3g} "
+              f"(worst err / limit {w_o:.3g}), lse max |err| {err_l:.3g} "
+              f"(worst {w_l:.3g}, limit {LSE_REL:.3g} |lse| + "
+              f"{LSE_ATOL:g}); out bitwise K9's", flush=True)
+
+        # times; the library calls at the causal, unwindowed bf16 shapes
+        pairs = fa.visible_pairs(S, True, window)
+        esize = q.element_size()
+        lse_b = 4 * B * H * S
+        lib_f = lib_b = None
+        if window == 0 and dt == "bfloat16":
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                          for t in (q, k, v))
+
+            def library():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True)
+            with torch.no_grad():
+                lib_f = device_ms(torch, library, 10)
+            out = library()
+            lib_b = _grad_ms(torch, out, (qt, kt, vt), do.transpose(1, 2))
+            del out
+        t_f = _timed(torch, f"{names[0]:30s} {tag}", fwd, fwd_plain, err,
+                     fa.nbytes(q, with_lse=True),
+                     fa.flops(B, S, H, hd, True, window),
+                     library="none" if lib_f is None else
+                     f"F.scaled_dot_product_attention forward "
+                     f"{lib_f * 1e3:.2f} us", peak=peak, iters=10)
+        n = q.numel() * esize
+        t_kv = _timed(torch, f"{names[1]:30s} {tag}", dkv, dkv_plain,
+                      max(errs["dk"][0], errs["dv"][0]),
+                      6 * n + 2 * lse_b, 8 * hd * H * B * pairs,
+                      library="none", peak=peak, iters=10)
+        t_q = _timed(torch, f"{names[2]:30s} {tag}", dq, dq_plain,
+                     errs["dq"][0], 5 * n + 2 * lse_b,
+                     6 * hd * H * B * pairs, library="none", peak=peak,
+                     iters=10)
+        bwd_bound, by = bound(fab.nbytes(q), fab.flops(B, S, H, hd, True,
+                                                       window), peak)
+        both = t_kv["ms"] + t_q["ms"]
+        print(f"[kernel] K10 (dkv + dq) {tag}: {both * 1e3:.2f} us against "
+              f"the backward's bound {bwd_bound * 1e3:.2f} us ({by}; five "
+              f"products over {pairs * B * H} visible pairs); plain "
+              f"{(t_kv['plain_ms'] + t_q['plain_ms']) * 1e3:.2f} us; "
+              f"SDPA backward alone: "
+              f"{'none' if lib_b is None else f'{lib_b * 1e3:.2f} us'}",
+              flush=True)
+        if (shape, dt, window) == K10_CASES[0]:
+            results[names[0]].update(t_f, library_ms=lib_f)
+            # one SDPA backward computes dk, dv and dq: its time stands on
+            # the dkv row only, and the dq row has no library call of its own
+            results[names[1]].update(t_kv, library_ms=lib_b)
+            results[names[2]].update(t_q, library_ms=None)
+    _gate_at_llm_width(torch)
+    return results
+
+
+def _gate_at_llm_width(torch):
+    """K1 at the training path's cut tensor: ring rows of S·d = 3,932,160
+    bf16 values, B = 2 rows, the fp32 ad-hoc row, against its plain
+    version (weights within LLM_GATE_TOL) and timed beside its bound."""
+    from repro_torch.core.weighting import xi_to_cos
+    from repro_torch.kernels import fused_sample as fs
+
+    W, B, F = LLM_GATE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cos_xi = xi_to_cos(60.0)
+    a = torch.randn((B, F), generator=gen, device="cuda")
+    z = torch.randn((W, B, F), generator=gen, device="cuda")
+    z[1] = a * torch.tensor([[0.9], [-0.5]], device="cuda") + 0.5 * z[1]
+    z = z.to(torch.bfloat16)
+    dz = torch.randn((W, B, F), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    slot = torch.tensor([1], dtype=torch.int32, device="cuda")
+
+    def kern():
+        return fs.fused_sample_2d(slot, a, z, dz, cos_xi)
+
+    def plain():
+        return fs.fused_sample_plain(slot, a, z, dz, cos_xi)
+    (w, cot), (w0, cot0) = kern(), plain()
+    torch.cuda.synchronize()
+    err = max((w - w0).abs().max().item(), (cot - cot0).abs().max().item())
+    check(math.isfinite(err) and err <= LLM_GATE_TOL and w[1].item() == 0.0
+          and w[0].item() > 0.5, f"fused_sample_2d at {(W, B, F)}: "
+          f"weights {w.tolist()} against {w0.tolist()}, max |err| {err}")
+    # ad-hoc read, the slot's z and dz read, the cotangent written
+    _timed(torch, f"{'fused_sample_2d':30s} W,B,F={W},{B},{F} bf16 ring "
+           f"(the LLM cut tensor)", kern, plain, err,
+           4 * B * F + 2 * 2 * B * F + 4 * B * F + 4 * B + 4, 7 * B * F,
+           iters=10)
+
+
+def _llm_launches(cfg, R: int, rounds: int, remat: bool, n_tensors: int):
+    """The kernels' launches over ``rounds`` celu rounds of the LLM
+    split, derived from the engine's code.  Layers: Party A's La, Party
+    B's Lb (bottom) and Lt (top).  Each forward through a layer runs
+    K9-LSE once, each backward K10 (dkv and dq) once, and with remat each
+    backward first recomputes the layer's forward (K9-LSE again):
+
+      * exchange: A's and B's forwards; B's backward through all its
+        layers (its parameters and Z); A's backward;
+      * local update of A: forward, K1, backward;
+      * local update of B: the ad-hoc ∇Z pass, whose backward reaches the
+        top tower only (the gradient is taken with respect to Z), K1
+        (weights only), then the weighted pass, whose backward reaches
+        all of B's layers;
+      * ``init_state`` runs A's forward once without a gradient (K9).
+    """
+    La = cfg.vfl_split.layers_a
+    Lb, Lt = cfg.vfl_split.layers_b, cfg.vfl_split.layers_top
+    rec = int(remat)
+    ex_fwd = La + (Lb + Lt) + rec * ((Lb + Lt) + La)
+    ex_bwd = (Lb + Lt) + La
+    loc_fwd = (La * (1 + rec) + (Lb + Lt) + rec * Lt
+               + (Lb + Lt) * (1 + rec))
+    loc_bwd = La + Lt + (Lb + Lt)
+    k10 = rounds * (ex_bwd + R * loc_bwd)
+    return {"flash_attention_fwd_lse": rounds * (ex_fwd + R * loc_fwd),
+            "flash_attention_bwd_dkv": k10, "flash_attention_bwd_dq": k10,
+            "flash_attention": La, "fused_sample_2d": rounds * R * 2,
+            "fused_adagrad": rounds * (1 + R) * n_tensors}
+
+
+def _capture_grads():
+    """An optimizer that records the gradients it is given and applies
+    zero updates."""
+    from repro_torch.optim import Optimizer
+    seen = []
+
+    def update(grads, state, params=None):
+        seen.append([g.detach().float() for g in grads])
+        return [0.0 * g.float() for g in grads], state
+    return Optimizer(lambda p: {}, update), seen
+
+
+def phase_training(torch, card):
+    """The LLM training path at smollm-360m's full width; -> the kernels'
+    launch counts on it."""
+    from unittest import mock
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.launch import steps
+    from repro_torch.launch.budget import format_budget, party_hbm_budget
+    from repro_torch.launch.train import llm_params, train_llm
+    from repro_torch.models.vfl import PartyParams, init_all
+
+    cfg = get_config("smollm-360m")
+    args = train_args("smollm-360m", rounds=TRAIN_ROUNDS, **TRAIN_ARGS)
+    params = llm_params(cfg, args.seed, "cuda")
+    n_tensors = sum(len(list(p.parameters())) for p in params.values())
+    check(n_tensors == 32, f"smollm-360m has {n_tensors} parameter tensors "
+          f"over both parties, want 32")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    out = train_llm(args, params=params)
+    torch.cuda.synchronize()
+    counts = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[train] {cfg.name} full width, B={args.batch_size} "
+          f"S={args.seq_len} R={args.R} W={args.W} celu, {TRAIN_ROUNDS} "
+          f"rounds, remat on: launches {counts}", flush=True)
+    want = _llm_launches(cfg, args.R, TRAIN_ROUNDS, args.remat, n_tensors)
+    _want("smollm-360m training", counts, **want)
+    losses = out["losses"]
+    check(all(math.isfinite(x) for x in losses)
+          and abs(losses[0] - math.log(cfg.vocab_size)) < 1.0,
+          f"training losses {losses} (a random model starts near "
+          f"ln V = {math.log(cfg.vocab_size):.3f})")
+    ms = [1e3 * t for t in out["round_s"]]
+    budget = party_hbm_budget(cfg, batch_size=args.batch_size,
+                              seq_len=args.seq_len, W=args.W)
+    total = budget["hbm_total_bytes_a"] + budget["hbm_total_bytes_b"]
+    print(f"[train] losses per round {losses}; ms per round "
+          f"{[round(x, 3) for x in ms]} (rounds 2-{TRAIN_ROUNDS}: "
+          f"{sum(ms[1:]) / len(ms[1:]):.3f} ms); card {card}", flush=True)
+    print(f"[train] peak device memory {peak:,} B "
+          f"(torch.cuda.max_memory_allocated) against the budget's "
+          f"parameters + optimizer state + rings {total:,} B of both "
+          f"parties:\n{format_budget(cfg.name, budget)}", flush=True)
+    del out
+
+    # the card's busy time per round: one more run, with the profiler on
+    # for rounds 2-3 only (set-up and round 1 run before it starts)
+    from repro_torch.core import engine
+    rounds = 2
+    prof_args = train_args("smollm-360m", rounds=1 + rounds, **TRAIN_ARGS)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    make_round = engine.make_round
+
+    def profiled_round(*a, **kw):
+        rnd, calls = make_round(*a, **kw), [0]
+
+        def run(*ra, **rkw):
+            calls[0] += 1
+            if calls[0] == 2:
+                torch.cuda.synchronize()
+                prof.start()
+            return rnd(*ra, **rkw)
+        return run
+    with mock.patch.object(engine, "make_round", profiled_round):
+        prof_out = train_llm(prof_args, params=params)
+    torch.cuda.synchronize()
+    prof.stop()
+    wall = sum(prof_out["round_s"][1:])
+    del prof_out
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kernels) / 1e3 / rounds
+    print(f"[train] rounds 2-{1 + rounds} of a run profiled from round 2 on "
+          f"(set-up and round 1 not profiled): device busy {busy:.3f} ms per "
+          f"round in {len(kernels) / rounds:.0f} kernels, "
+          f"{1e3 * wall / rounds:.3f} ms per round on the host clock of the "
+          f"same rounds under the profiler "
+          f"({100 * busy * rounds / (1e3 * wall):.1f} % busy); card {card}",
+          flush=True)
+    top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    for e in top[:10]:
+        print(f"[train]   {e.self_device_time_total / 1e3 / rounds:9.3f} ms "
+              f"per round  {e.count / rounds:7.1f} calls  {e.key[:70]}")
+    del prof, params
+
+    # one full-width train step (B = 1, S = 4,096) through K9-LSE / K10
+    # against the same step through the plain attention, on the card
+    shape = ShapeConfig("train_4k", seq_len=4096, global_batch=1,
+                        kind="train")
+    batch = steps.concrete_batch(cfg, shape, seed=0, device="cuda")
+    grads = {}
+    for route in ("kernels", "plain"):
+        joint = PartyParams(init_all(1, cfg, "cuda"))
+        opt, seen = _capture_grads()
+        patches = [] if route == "kernels" else [
+            mock.patch.object(fab, "flash_attention_fwd_lse",
+                              fa.flash_attention_fwd_lse_plain),
+            mock.patch.object(fab, "flash_attention_bwd_dkv",
+                              fab.flash_attention_bwd_dkv_plain),
+            mock.patch.object(fab, "flash_attention_bwd_dq",
+                              fab.flash_attention_bwd_dq_plain)]
+        with contextlib.ExitStack() as stack:
+            for patch in patches:
+                stack.enter_context(patch)
+            _cuda.reset_launches()
+            _, _, loss = steps.make_train_step(cfg, opt)(joint, {}, batch)
+            torch.cuda.synchronize()
+        c = dict(_cuda.LAUNCHES)
+        layers = cfg.n_layers
+        _want(f"train step ({route})", c, **(
+            {"flash_attention_fwd_lse": 2 * layers,
+             "flash_attention_bwd_dkv": layers,
+             "flash_attention_bwd_dq": layers} if route == "kernels"
+            else {}))
+        grads[route] = (float(loss), seen[0])
+        del joint
+    (lk, gk), (lp, gp) = grads["kernels"], grads["plain"]
+    rel = [((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+           for a, b in zip(gk, gp)]
+    worst = max(rel)
+    print(f"[train] full-width train step (B=1, S=4096), K9-LSE / K10 "
+          f"against the plain attention on the card: loss {lk:.6f} / "
+          f"{lp:.6f} (|dev| {abs(lk - lp):.3g}, limit {GRAD_LOSS_ATOL}); "
+          f"{len(rel)} gradient leaves, relative L2 error worst "
+          f"{worst:.3g} (limit {GRAD_REL_L2}), median "
+          f"{sorted(rel)[len(rel) // 2]:.3g}", flush=True)
+    check(math.isfinite(lk) and abs(lk - lp) <= GRAD_LOSS_ATOL,
+          f"train step loss {lk} against {lp}")
+    check(worst <= GRAD_REL_L2, f"train step gradients: relative L2 "
+          f"errors {rel}")
+    return {k: counts[k] for k in want}
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"run from a checkout of the repository: {SRC}/repro_torch "
@@ -1249,7 +1692,16 @@ def main() -> None:
     counts.update(phase_serving(torch, card))
     print(f"[phase] serving {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 8. results
+    # 8.-9. training
+    t0 = time.perf_counter()
+    kernels.update(phase_train_kernels(torch))
+    print(f"[phase] training kernels {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    counts.update(phase_training(torch, card))
+    print(f"[phase] training {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 10. results
     rows = []
     for name, (replaces, source) in KERNELS.items():
         r = kernels[name]

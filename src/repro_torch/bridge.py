@@ -76,7 +76,7 @@ def load_flat(module: torch.nn.Module, flat: Dict[str, np.ndarray]
                        f"{sorted(set(params) - set(flat))} have no path")
     with torch.no_grad():
         for k, p in params.items():
-            v = torch.from_numpy(np.array(flat[k], order="C"))
+            v = _tensor(flat[k], "cpu")
             if tuple(v.shape) != tuple(p.shape):
                 raise ValueError(f"{k}: pytree shape {tuple(v.shape)} != "
                                  f"parameter shape {tuple(p.shape)}")

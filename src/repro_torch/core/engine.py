@@ -71,7 +71,8 @@ class KPartyTask(NamedTuple):
         forward_a(params_a_i, batch_a_i) -> Z_i
         loss_b(params_b, [Z_1..Z_K], batch_b) -> (per-instance loss, aux)
 
-    ``params_*`` are the parties' ``nn.Module``s."""
+    ``params_*`` are the parties' ``nn.Module``s (the LLM split's are
+    ``models.vfl.PartyParams``)."""
     forward_a: Callable[[Any, Any], torch.Tensor]
     loss_b: Callable[[Any, Sequence[torch.Tensor], Any],
                      Tuple[torch.Tensor, torch.Tensor]]
@@ -357,7 +358,11 @@ def _weighted_grad_b(loss_b, params_b, zs, batch_b, w):
 
 def _ad_hoc_dz(loss_b, params_b, zs, batch_b):
     """∇Z_i of the mean loss at the cached Z_i (paper footnote 2): the
-    first of Party B's two autograd passes, used only for the weights."""
+    first of Party B's two autograd passes, used only for the weights.
+    As in the reference, the cached Z_i enter in fp32, so a bf16 cut
+    tensor (the LLM's) runs the layers after the fusion in fp32, and the
+    gradient is taken with respect to Z alone: the backward reaches only
+    those layers."""
     zl = [z.float().detach().requires_grad_(True) for z in zs]
     li, _ = loss_b(params_b, zl, batch_b)
     return torch.autograd.grad(li.mean(), zl)

@@ -1,10 +1,12 @@
 // Flash attention forward for Hopper (sm_90a).
 //
 // Replaces
-//   K9  src/repro/kernels/flash_attention.py  flash_attention  (_kernel)
+//   K9      src/repro/kernels/flash_attention.py  flash_attention  (_kernel)
+//   K9-LSE  src/repro/kernels/flash_attention_bwd.py  _fwd  (_fwd_kernel)
 //
-// For bf16 q, k, v of shape (B, S, H, hd) (KV heads repeated to H; hd 64
-// or 128, the model's head dims) and every query row i of every (b, h):
+// For bf16 or fp32 q, k, v of shape (B, S, H, hd) (KV heads repeated to
+// H; hd 64 or 128, the model's head dims) and every query row i of every
+// (b, h):
 //   o_i = sum_j softmax_j(s_ij) v_j,  s_ij = <q_i, k_j> * scale, masked
 // where key j is visible when j <= i (causal) and i - j < window
 // (window > 0); a masked score is -1e30, as on the TPU.  q and k are
@@ -12,7 +14,11 @@
 // and the accumulator stay in fp32 (the online-softmax recurrence:
 // m' = max(m, max_j s_j), corr = exp(m - m'), l' = l corr + sum_j
 // exp(s_j - m'), acc' = acc corr + sum_j exp(s_j - m') v_j), and the
-// output acc / max(l, 1e-30) is written in q's dtype.
+// output acc / max(l, 1e-30) is written in q's dtype.  K9-LSE (the
+// training forward) also writes the row's log-sum-exp
+// lse_i = m + log(max(l, 1e-30)) in fp32 at (b * H + h) * S + i, the
+// residual of the backward (csrc/flash_attention_bwd.cu); with no LSE
+// pointer (serving) nothing else changes.
 //
 // Layout.  One block per (query tile of kBQ = 64 rows, b * H + h); the
 // block walks the key tiles of kBK = 32 rows that the mask leaves
@@ -47,6 +53,14 @@ constexpr float kNegInf = -1e30f;
 
 using bf16 = __nv_bfloat16;
 
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
 __device__ __forceinline__ float4 load4(const bf16* p) {
   const uint2 raw = *reinterpret_cast<const uint2*>(p);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -61,11 +75,12 @@ __device__ __forceinline__ void store4(bf16* p, float4 v) {
   *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(h);
 }
 
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(kBQ * (HD / kPart))
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int S,
-                 int H, int causal, int window, float scale) {
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int S, int H, int causal,
+                 int window, float scale) {
   constexpr int kTPR = HD / kPart;          // threads per query row
   constexpr int kThreads = kBQ * kTPR;
   constexpr int kChunks = HD / 4;           // float4 chunks per row
@@ -85,7 +100,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int qpos = q0 + r;
 
   float qv[kPart], acc[kPart];
-  const bf16* qrow = q + base + qpos * pos_stride;
+  const T* qrow = q + base + qpos * pos_stride;
 #pragma unroll
   for (int i = 0; i < kPart / 4; ++i) {
     const float4 x = load4(qrow + 4 * (part + kTPR * i));
@@ -157,43 +172,63 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   const float denom = fmaxf(l, 1e-30f);
-  bf16* orow = o + base + qpos * pos_stride;
+  T* orow = o + base + qpos * pos_stride;
 #pragma unroll
   for (int i = 0; i < kPart / 4; ++i)
     store4(orow + 4 * (part + kTPR * i),
            make_float4(acc[4 * i] / denom, acc[4 * i + 1] / denom,
                        acc[4 * i + 2] / denom, acc[4 * i + 3] / denom));
+  if (lse != nullptr && part == 0)
+    lse[static_cast<long long>(bh) * S + qpos] = m + logf(denom);
 }
 
-template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int causal, int window, float scale,
-           cudaStream_t stream) {
+template <typename T, int HD>
+int launch(const void* q, const void* k, const void* v, void* o,
+           float* lse, int B, int S, int H, int causal, int window,
+           float scale, cudaStream_t stream) {
   const dim3 grid(S / kBQ, B * H);
   const dim3 block(kBQ * (HD / kPart));
-  flash_fwd_kernel<HD><<<grid, block, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, H, causal,
+  flash_fwd_kernel<T, HD><<<grid, block, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, causal,
       window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* lse, int B, int S, int H, int hd, int causal,
+             int window, float scale, cudaStream_t st) {
+  if (hd == 64)
+    return launch<T, 64>(q, k, v, o, lse, B, S, H, causal, window, scale,
+                         st);
+  if (hd == 128)
+    return launch<T, 128>(q, k, v, o, lse, B, S, H, causal, window, scale,
+                          st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// K9.  q, k, v, o: contiguous (B, S, H, hd) bfloat16, 16-byte aligned;
-// hd in {64, 128}; S a multiple of 64; window >= 0 (0 = none).  Returns
-// the cudaError_t of the launch.
+// K9 and K9-LSE.  q, k, v, o: contiguous (B, S, H, hd) of one dtype
+// (dtype 0 = float32, 1 = bfloat16), 16-byte aligned; hd in {64, 128}; S
+// a multiple of 64; window >= 0 (0 = none).  lse: null (K9), or (B, H, S)
+// float32 (K9-LSE).  Returns the cudaError_t of the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int B, int S,
-                                   int H, int hd, int causal, int window,
-                                   float scale, void* stream) {
+                                   const void* v, void* o, void* lse,
+                                   int B, int S, int H, int hd, int causal,
+                                   int window, float scale, int dtype,
+                                   void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || S % kBQ || window < 0 ||
       B * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 64)
-    return launch<64>(q, k, v, o, B, S, H, causal, window, scale, st);
-  if (hd == 128)
-    return launch<128>(q, k, v, o, B, S, H, causal, window, scale, st);
+  float* l = static_cast<float*>(lse);
+  if (dtype == 0)
+    return dispatch<float>(q, k, v, o, l, B, S, H, hd, causal, window,
+                           scale, st);
+  if (dtype == 1)
+    return dispatch<bf16>(q, k, v, o, l, B, S, H, hd, causal, window,
+                          scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

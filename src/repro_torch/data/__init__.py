@@ -1,5 +1,5 @@
-"""Data of the port: the synthetic tabular stream (``data/synthetic.py``)
-and the move of a numpy batch onto the device."""
+"""Data of the port: the synthetic tabular and token streams
+(``data/synthetic.py``) and the move of a numpy batch onto the device."""
 from __future__ import annotations
 
 from typing import Dict

@@ -1,8 +1,8 @@
 """Seeded synthetic datasets, vertically partitioned across two parties.
 
-The tabular half of ``repro/data/synthetic.py``, copied so that the port
-imports nothing of the JAX package: it is numpy, so one seed gives the
-identical stream on both sides.
+``repro/data/synthetic.py`` (the tabular streams and the LLM token
+streams), copied so that the port imports nothing of the JAX package: it
+is numpy, so one seed gives the identical stream on both sides.
 
 The real Criteo / Avazu / D3 datasets are not available offline; we keep the
 *field layout* of the paper's Table 1 (26/13, 14/8, 25/18 categorical fields
@@ -84,4 +84,45 @@ def aligned_batches(data: Dict[str, np.ndarray], batch_size: int,
             yield (idx,
                    {"x_a": data["x_a"][rows]},
                    {"x_b": data["x_b"][rows], "y": data["y"][rows]})
+            idx += 1
+
+
+# --------------------------------------------------------------------------
+# Token streams for the LLM-backbone VFL runs
+# --------------------------------------------------------------------------
+def make_token_stream(n: int, seq_len: int, vocab: int, aux_vocab: int,
+                      seed: int = 0) -> Dict[str, np.ndarray]:
+    """Aligned (tokens, tokens_a, labels) with a planted bigram structure so
+    loss decreases under training."""
+    rng = np.random.default_rng(seed)
+    # Markov-ish stream: next token correlated with current
+    trans = rng.integers(0, vocab, size=(vocab,), dtype=np.int32)
+    toks = np.empty((n, seq_len + 1), np.int32)
+    toks[:, 0] = rng.integers(0, vocab, size=(n,))
+    for t in range(seq_len):
+        follow = rng.random((n,)) < 0.7
+        toks[:, t + 1] = np.where(follow, trans[toks[:, t]],
+                                  rng.integers(0, vocab, size=(n,)))
+    tokens = toks[:, :-1]
+    labels = toks[:, 1:]
+    tokens_a = ((tokens.astype(np.int64) * 2654435761) % aux_vocab
+                ).astype(np.int32)
+    return {"tokens": tokens, "tokens_a": tokens_a, "labels": labels}
+
+
+def token_batches(data: Dict[str, np.ndarray], batch_size: int,
+                  seed: int = 0):
+    """Yield (batch_idx, batch_a, batch_b) forever, reshuffling per epoch;
+    both parties see the same rows (the aligned stream)."""
+    n = data["tokens"].shape[0]
+    rng = np.random.default_rng(seed)
+    idx = 0
+    while True:
+        perm = rng.permutation(n)
+        for s in range(0, n - batch_size + 1, batch_size):
+            rows = perm[s:s + batch_size]
+            yield (idx,
+                   {"tokens_a": data["tokens_a"][rows]},
+                   {"tokens": data["tokens"][rows],
+                    "labels": data["labels"][rows]})
             idx += 1

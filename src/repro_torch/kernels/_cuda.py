@@ -42,7 +42,8 @@ LAUNCHES = {"fused_sample_2d": 0, "cosine_weight_2d": 0,
             "fused_sample_q8_2d": 0, "fused_sample_q4_2d": 0,
             "fused_adagrad": 0, "fused_adagrad_q8": 0,
             "fused_dequant_q8_2d": 0, "fused_dequant_q4_2d": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "flash_attention_fwd_lse": 0,
+            "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
 
 _lib = None
 
@@ -59,7 +60,12 @@ _SIGNATURES = {
     "fused_adagrad_q8": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _F, _F,
                          _P],
     "ring_dequant": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
-    "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                            _I, _P],
+    "flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _I, _F, _I, _P],
+    "flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _F, _I, _P],
 }
 
 
@@ -220,11 +226,28 @@ def launch_ring_dequant(name: str, *, bits: int, slot, zq, zs, out) -> None:
             _ptr(zq), _ptr(zs), _ptr(out), B, F, bits)
 
 
-def launch_flash_attention(name: str, *, q, k, v, out, causal: bool,
+def launch_flash_attention(name: str, *, q, k, v, out, lse, causal: bool,
                            window: int, scale: float) -> None:
-    """Launch K9 of ``csrc/flash_attention.cu`` on checked (B, S, H, hd)
-    operands."""
+    """Launch K9 (``lse`` None) or K9-LSE of ``csrc/flash_attention.cu`` on
+    checked (B, S, H, hd) operands."""
     B, S, H, hd = q.shape
     _launch(name, "flash_attention_fwd", q.device, _ptr(q), _ptr(k),
-            _ptr(v), _ptr(out), B, S, H, hd, int(causal), int(window),
-            scale)
+            _ptr(v), _ptr(out), _ptr(lse), B, S, H, hd, int(causal),
+            int(window), scale, DTYPE_CODES[q.dtype])
+
+
+def launch_flash_attention_bwd(name: str, *, q, k, v, do, lse, delta, dq,
+                               dk, dv, causal: bool, window: int,
+                               scale: float) -> None:
+    """Launch K10's dkv kernel (``dq`` None) or its dq kernel (``dk``,
+    ``dv`` None) of ``csrc/flash_attention_bwd.cu`` on checked operands."""
+    B, S, H, hd = q.shape
+    tail = (B, S, H, hd, int(causal), int(window), scale,
+            DTYPE_CODES[q.dtype])
+    if dq is None:
+        _launch(name, "flash_attention_bwd_dkv", q.device, _ptr(q), _ptr(k),
+                _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dk),
+                _ptr(dv), *tail)
+    else:
+        _launch(name, "flash_attention_bwd_dq", q.device, _ptr(q), _ptr(k),
+                _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq), *tail)

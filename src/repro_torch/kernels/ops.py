@@ -5,13 +5,19 @@ Each takes the engine's shapes, flattens them to the (B, F) rows the
 kernel works on, and calls the kernel module's wrapper: on a CUDA tensor
 that launches the kernel (``csrc/cosine_gate.cu``, ``csrc/quantize.cu``,
 ``csrc/fused_adagrad.cu``); on a CPU tensor it runs the plain PyTorch
-version.  The model calls K9 (``kernels/flash_attention.py``) directly.
+version.  The gates read the ad-hoc statistic in fp32: the LLM's cut
+tensor is bf16, and the reference casts it inside K1 / K2
+(``a_ref[...].astype(f32)``) and before K4 / K5, so the wrappers cast
+it here (exactly: bf16 is a subset of fp32).  The model calls K9
+(``kernels/flash_attention.py``) directly, and K9-LSE / K10 through
+:func:`flash_attention_trainable`.
 """
 from __future__ import annotations
 
 import torch.nn.functional as F
 
 from . import cosine_weight as _cw
+from . import flash_attention_bwd as _fab
 from . import fused_adagrad as _ag
 from . import fused_sample as _fs
 from . import quantize as _qz
@@ -24,15 +30,20 @@ def _rows(x):
     return x.reshape(x.shape[0], -1).contiguous()
 
 
+def _rows32(x):
+    """(B, ...) -> contiguous fp32 (B, F): the gates' ad-hoc operand."""
+    return _rows(x.float())
+
+
 def cosine_weight(ad_hoc, stale, cos_xi):
     """Algorithm-2 InsWeight: -> (B,) float32 weights (K2b)."""
-    return _cw.cosine_weights_2d(_rows(ad_hoc), _rows(stale), cos_xi)
+    return _cw.cosine_weights_2d(_rows32(ad_hoc), _rows(stale), cos_xi)
 
 
 def weighted_cotangent(ad_hoc, stale, dz, cos_xi):
     """Fused InsWeight + weights ⊙ ∇Z (K2a).  -> (weights (B,), weighted
     dz in dz's shape, fp32)."""
-    w, out = _cw.cosine_weight_2d(_rows(ad_hoc), _rows(stale), _rows(dz),
+    w, out = _cw.cosine_weight_2d(_rows32(ad_hoc), _rows(stale), _rows(dz),
                                   cos_xi)
     return w, out.reshape(dz.shape)
 
@@ -48,7 +59,8 @@ def fused_gather_weight(slot, ad_hoc, z_ring, dz_ring, cos_xi):
     (W,) + ad_hoc.shape.  -> (weights (B,) f32, weighted cotangent f32 in
     ad_hoc's shape)."""
     B = ad_hoc.shape[0]
-    w, cot = _fs.fused_sample_2d(slot, _rows(ad_hoc), _ring_rows(z_ring, B),
+    w, cot = _fs.fused_sample_2d(slot, _rows32(ad_hoc),
+                                 _ring_rows(z_ring, B),
                                  _ring_rows(dz_ring, B), cos_xi)
     return w, cot.reshape(ad_hoc.shape)
 
@@ -57,7 +69,7 @@ def fused_gather_weights(slot, ad_hoc, ring, cos_xi):
     """Weights-only K1 (Party B): the row cosine of ``ad_hoc`` against
     ring slot ``slot``, floored at cos ξ.  -> (B,) f32."""
     B = ad_hoc.shape[0]
-    w, _ = _fs.fused_sample_2d(slot, _rows(ad_hoc), _ring_rows(ring, B),
+    w, _ = _fs.fused_sample_2d(slot, _rows32(ad_hoc), _ring_rows(ring, B),
                                None, cos_xi)
     return w
 
@@ -67,14 +79,14 @@ def fused_gather_weight_q8(slot, ad_hoc, zq, zscale, dzq, dzscale, cos_xi):
     cosine → threshold → cotangent scale.  zq/dzq: (W, B, F) int8,
     zscale/dzscale: (W, B) fp32 row scales.  -> (weights (B,) f32,
     weighted cotangent f32 in ad_hoc's shape)."""
-    w, cot = _fs.fused_sample_q8_2d(slot, _rows(ad_hoc.float()), zq, zscale,
+    w, cot = _fs.fused_sample_q8_2d(slot, _rows32(ad_hoc), zq, zscale,
                                     dzq, dzscale, cos_xi)
     return w, cot.reshape(ad_hoc.shape)
 
 
 def fused_gather_weights_q8(slot, ad_hoc, zq, zscale, cos_xi):
     """Weights-only K4 (Party B): -> (B,) f32."""
-    w, _ = _fs.fused_sample_q8_2d(slot, _rows(ad_hoc.float()), zq, zscale,
+    w, _ = _fs.fused_sample_q8_2d(slot, _rows32(ad_hoc), zq, zscale,
                                   None, None, cos_xi)
     return w
 
@@ -83,7 +95,7 @@ def _pad_to_packed(ad_hoc, zq):
     """(B, ...) -> (B, 2P) fp32 rows, zero-padded to the packed width of
     ``zq`` (W, B, P): the pad nibble of an odd row decodes to zero, so the
     zero column adds nothing to the reductions."""
-    a2d = _rows(ad_hoc.float())
+    a2d = _rows32(ad_hoc)
     pad = 2 * zq.shape[2] - a2d.shape[1]
     return F.pad(a2d, (0, pad)) if pad else a2d
 
@@ -146,3 +158,11 @@ def fused_adagrad_q8(grad, accum_q, accum_scale, u, lr, eps):
     scales)."""
     return _ag.fused_adagrad_q8(grad.float().contiguous(), accum_q,
                                 accum_scale, u.float().contiguous(), lr, eps)
+
+
+def flash_attention_trainable(q, k, v, *, causal: bool = True,
+                              window: int = 0):
+    """Differentiable flash attention: K9-LSE forward, K10 backward
+    (``kernels/flash_attention_bwd.py``).  q, k, v: (B, S, H, hd), KV
+    heads repeated to H."""
+    return _fab.FlashAttentionFn.apply(q, k, v, causal, window)

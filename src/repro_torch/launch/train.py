@@ -1,12 +1,19 @@
-"""End-to-end VFL training entry point of the port (the DLRM half of
-``repro/launch/train.py``).
+"""End-to-end VFL training entry point of the port (``repro/launch/
+train.py``).
 
 ``--arch wdl-criteo | dssm-avazu`` trains on the synthetic vertically
 partitioned stream with the selected protocol (vanilla | fedbcd | celu)
 and reports AUC and communication accounting (rounds, bytes, simulated-WAN
-seconds).  ``--cache-dtype`` sets the workset rings' at-rest precision
-(float32 | bfloat16 | int8 | int4) and ``--compression`` the wire codec
-(a ``core.compression.CODEC_SPECS`` name or ``up/down``).  AdaGrad takes
+seconds).  ``--arch`` one of the dense LLM ids (smollm-360m, deepseek-7b,
+yi-34b, codeqwen1.5-7b) runs the same round over the split LLM on the
+synthetic token stream (``--batch-size``, ``--seq-len``; ``--reduced``
+for the small CPU geometry; ``--remat/--no-remat`` for the towers'
+activation checkpointing) and reports the loss; past 2,048 tokens its
+attention takes gradients through K9-LSE and K10.  The other LLM
+families come with slice 7c.  ``--cache-dtype`` sets the workset rings'
+at-rest precision (float32 | bfloat16 | int8 | int4) and
+``--compression`` the wire codec (a ``core.compression.CODEC_SPECS`` name
+or ``up/down``).  AdaGrad takes
 the fused kernel route (K7; K8 for ``--opt-state-dtype int8``);
 ``--opt-state-dtype`` sets its accumulator's at-rest precision (float32 |
 bfloat16 | int8) and ``--optimizer sm3`` the factored state.  It runs on
@@ -18,12 +25,14 @@ the card unless ``--device cpu`` is given.
         --device cpu --small --rounds 10 --cache-dtype int4 --compression int8
     PYTHONPATH=src python -m repro_torch.launch.train --arch wdl-criteo \\
         --device cpu --small --rounds 10 --opt-state-dtype int8
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
+        --device cpu --reduced --rounds 4 --batch-size 2 --seq-len 16
 
 Flags of the reference that switch on what later slices of the port
-bring (pipelining, DP, chaos, checkpoints, the LLM archs) are refused
-with a message; the reference's flags that only tune those features
-(``--fault-seed``, ``--checkpoint-every``, ...) are not defined, so
-argparse rejects them.
+bring (pipelining, DP, chaos, checkpoints, the other LLM families) are
+refused with a message; the reference's flags that only tune those
+features (``--fault-seed``, ``--checkpoint-every``, ...) are not defined,
+so argparse rejects them.
 """
 from __future__ import annotations
 
@@ -35,13 +44,15 @@ from typing import Any, Dict
 import torch
 
 from .. import resolve_device
-from ..configs import DLRM_IDS, get_config
-from ..configs.base import CELUConfig
+from ..configs import ARCH_IDS, DLRM_IDS, LATER_ARCH_IDS, get_config
+from ..configs.base import ArchConfig, CELUConfig
 from ..core import engine
+from ..core.protocol import VFLTask
 from ..core.uniforms import GeneratorUniforms
 from ..core.workset import QUANT_KEYS, workset_nbytes
 from ..data import synthetic as synth
 from ..data import to_device
+from ..models import vfl
 from ..models.tabular import DLRMConfig, auc, make_dlrm
 from ..optim import make_optimizer
 from ..optim.quantized import opt_state_nbytes
@@ -59,9 +70,17 @@ def refuse_unported(args) -> None:
     """Exit with a message on any flag whose feature this slice of the
     port does not have."""
     later = []
-    if args.arch not in DLRM_IDS:
-        later.append(f"--arch {args.arch} (training the LLM split models, "
-                     f"slice 7b; repro_torch.launch.serve serves them)")
+    family = LATER_ARCH_IDS.get(args.arch)
+    if family in ("vlm", "audio"):
+        raise SystemExit("protocol training demo uses text-family archs; "
+                         "vlm/audio exercise the serving path "
+                         "(launch.serve) and the dry-run")
+    if family is not None:
+        later.append(f"--arch {args.arch} (the {family} family, slice 7c)")
+    elif args.arch not in DLRM_IDS + ARCH_IDS:
+        raise SystemExit(f"repro_torch.launch.train: unknown arch "
+                         f"{args.arch!r}: the ids are "
+                         f"{DLRM_IDS + ARCH_IDS}")
     if args.pipeline_depth:
         later.append("--pipeline-depth > 0 (slice 2)")
     if (args.fault_drop_prob or args.fault_straggler_prob
@@ -212,6 +231,88 @@ def train_dlrm(args, uniforms=None, opt=None) -> Dict[str, Any]:
     return out
 
 
+def llm_task(cfg: ArchConfig, remat: bool = True) -> VFLTask:
+    """The two-party task over the LLM split (text family): the parties'
+    parameters are ``vfl.PartyParams``; ``remat`` toggles the towers'
+    activation checkpointing."""
+    def forward_a(pa, batch_a):
+        return vfl.forward_a(pa, cfg, batch_a, train=True, remat=remat)
+
+    def loss_b(pb, z_a, batch_b):
+        return vfl.per_instance_loss(pb, cfg, z_a, batch_b, train=True,
+                                     remat=remat)
+
+    return VFLTask(forward_a, loss_b)
+
+
+def llm_params(cfg: ArchConfig, seed: int, device):
+    """{"a", "b"} ``vfl.PartyParams`` drawn from ``seed`` on ``device``."""
+    tree = vfl.init_all(seed, cfg, device)
+    return {p: vfl.PartyParams(tree[p]) for p in ("a", "b")}
+
+
+def train_llm(args, params=None) -> Dict[str, Any]:
+    """Train the LLM split model ``args.rounds`` rounds on the synthetic
+    token stream.  ``params`` ({"a", "b"} ``vfl.PartyParams``, trained in
+    place) replaces the ones drawn from ``--seed``."""
+    refuse_unported(args)
+    dev = resolve_device(args.device)
+    cfg: ArchConfig = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    B, S = args.batch_size, args.seq_len
+    data = synth.make_token_stream(max(B * 8, 64), S, cfg.vocab_size,
+                                   cfg.aux_vocab_size, seed=args.seed)
+    task = llm_task(cfg, remat=args.remat)
+    base = CELUConfig(R=args.R, W=args.W, xi_degrees=args.xi,
+                      weighting=not args.no_weighting,
+                      cache_fused=not args.no_cache_fusion,
+                      compression=args.compression,
+                      cache_dtype=args.cache_dtype)
+    celu_cfg, n_local = engine.preset_config(args.protocol, base)
+    if params is None:
+        params = llm_params(cfg, args.seed, dev)
+    uniforms = GeneratorUniforms(args.seed, dev)
+    opt = make_opt(args, uniforms)
+
+    it = synth.token_batches(data, B, seed=args.seed)
+    _, ba0, bb0 = next(it)
+    etask = engine.lift_two_party(task)
+    transport = engine.make_transport(celu_cfg)
+    state = engine.init_state(etask, engine.lift_two_party_params(params),
+                              opt, celu_cfg, [to_device(ba0, dev)],
+                              to_device(bb0, dev), transport=transport,
+                              uniforms=uniforms)
+    rnd = engine.make_round(etask, opt, celu_cfg, local_steps=n_local,
+                            transport=transport)
+    z_shapes = [(B, S, cfg.d_model)]
+    up_bytes, down_bytes = transport_round_updown(transport, z_shapes)
+    print(f"[llm] {cfg.name}: B={B} S={S} R={celu_cfg.R} W={celu_cfg.W} "
+          f"{args.protocol}, remat {'on' if args.remat else 'off'}, "
+          f"device {dev}; wire up {up_bytes} B, down {down_bytes} B per "
+          f"round ({celu_cfg.wire_dtype} wire)", flush=True)
+    it = synth.token_batches(data, B, seed=args.seed)
+    losses, round_s = [], []
+    for i in range(args.rounds):
+        t0 = time.perf_counter()
+        bi, ba, bb = next(it)
+        state, m = rnd(state, [to_device(ba, dev)], to_device(bb, dev), bi)
+        _sync(dev)
+        round_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        if (i + 1) % max(1, args.rounds // 10) == 0:
+            print(f"round {i+1:4d} loss {losses[-1]:.4f} local_steps "
+                  f"{int(m['local_steps'])} w_mean "
+                  f"{float(m['w_mean']):.3f}", flush=True)
+    print(f"[done] {args.arch} {args.protocol}: "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    return {"arch": args.arch, "protocol": args.protocol,
+            "device": str(dev), "rounds": args.rounds, "n_local": n_local,
+            "losses": losses, "round_s": round_s,
+            "comm_bytes": args.rounds * (up_bytes + down_bytes),
+            "state": state}
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", required=True)
@@ -221,6 +322,8 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=("vanilla", "fedbcd", "celu"))
     ap.add_argument("--rounds", type=int, default=100)
     ap.add_argument("--batch-size", type=int, default=256)
+    ap.add_argument("--seq-len", type=int, default=64,
+                    help="LLM archs: tokens per instance")
     ap.add_argument("--R", type=int, default=5)
     ap.add_argument("--W", type=int, default=5)
     ap.add_argument("--xi", type=float, default=60.0)
@@ -235,6 +338,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--small", action="store_true",
                     help="smaller DLRM dims for quick CPU runs")
+    ap.add_argument("--reduced", action="store_true",
+                    help="LLM archs: the small CPU geometry of "
+                         "ArchConfig.reduced()")
+    ap.add_argument("--remat", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="LLM archs: activation-checkpoint each tower "
+                         "layer (recompute in the backward; --no-remat "
+                         "keeps all activations)")
     ap.add_argument("--n-train", type=int, default=32768)
     ap.add_argument("--n-test", type=int, default=8192)
     ap.add_argument("--compression", default="",
@@ -260,7 +371,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    out = train_dlrm(args)
+    out = (train_dlrm if args.arch in DLRM_IDS else train_llm)(args)
     out.pop("state")
     return out
 

@@ -16,7 +16,10 @@ The other families' block types of the reference (``moe``, ``hybrid``,
 
 Three execution modes share block code: full sequence, prefill (full
 sequence that also emits the decode caches) and decode (one token against
-the caches, which it updates in place).
+the caches, which it updates in place).  In training (``Ctx.train``) with
+``Ctx.remat`` each layer of the full-sequence forward runs under
+``torch.utils.checkpoint``, as the reference wraps its stage-scan body in
+``jax.checkpoint``: the backward recomputes the layer's activations.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from dataclasses import dataclass
 from typing import Any, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from . import layers as L
@@ -70,13 +74,17 @@ def block_init(gen, cfg: ArchConfig, btype: str, lead=()):
 @dataclass
 class Ctx:
     """What a block needs besides its parameters and input (the
-    reference's ``Ctx`` less the cross-attention memory and the training
-    switches, which come with slices 7c and 7b)."""
+    reference's ``Ctx`` less the cross-attention memory, which comes with
+    slice 7c)."""
     cfg: ArchConfig
     positions: Any = None          # (S,) int32 for full/prefill
     window: int = 0                # sliding window (0 = full)
     causal: bool = True
     pos: Any = None                # decode: int or (B,) int32
+    train: bool = False
+    # activation checkpointing of each layer (train only): the backward
+    # recomputes the layer instead of keeping its activations
+    remat: bool = True
 
 
 def block_apply_full(params, x, btype: str, ctx: Ctx):
@@ -160,15 +168,30 @@ def tower_make_cache(cfg: ArchConfig, stages, batch: int, capacity: int,
             for (pattern, repeat) in stages]
 
 
+def _layer_apply(sp, li: int, x, pattern, ctx: Ctx):
+    """Layer ``li`` of stage ``sp`` (every block of its pattern) ->
+    (x, aux)."""
+    p_layer = layer(sp, li)
+    aux = 0.0
+    for i, bt in enumerate(pattern):
+        x, a = block_apply_full(p_layer[f"b{i}"], x, bt, ctx)
+        aux = aux + a
+    return x, aux
+
+
 def tower_apply(params, x, cfg: ArchConfig, stages, ctx: Ctx):
     """Full-sequence forward.  Returns (x, aux)."""
+    remat = ctx.train and ctx.remat and torch.is_grad_enabled()
     aux = 0.0
     for sp, (pattern, repeat) in zip(params, stages):
         for li in range(repeat):
-            p_layer = layer(sp, li)
-            for i, bt in enumerate(pattern):
-                x, a = block_apply_full(p_layer[f"b{i}"], x, bt, ctx)
-                aux = aux + a
+            if remat:
+                x, a = checkpoint(_layer_apply, sp, li, x, pattern, ctx,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                x, a = _layer_apply(sp, li, x, pattern, ctx)
+            aux = aux + a
     return x, aux
 
 

@@ -4,16 +4,22 @@ Port of ``repro/models/layers.py`` (the dense family's part).  Pure
 functions over parameter dicts, with the reference's bf16 / fp32 cast
 points: norms, rotary angles and the softmax run in fp32; projections,
 the attention score product and the weighted value sum in the
-parameters' dtype.  Attention supports:
+activations' dtype.  A product of an fp32 activation and a bf16 weight
+runs in fp32, as ``jnp``'s promotion runs it (:func:`_mm`): the label
+party's ad-hoc ∇Z pass feeds its top tower an fp32 cut tensor.
+Attention supports:
 
   * full-sequence causal (optionally sliding-window) self-attention:
     up to ``BLOCKWISE_THRESHOLD`` tokens through the dense ``_sdpa``,
-    beyond it through the flash-attention forward kernel (K9,
-    ``kernels/flash_attention.py``), where the reference runs its
-    blockwise online-softmax oracle of that kernel
-    (``_blockwise_sdpa``).  K9 takes the score product in fp32, the
-    blockwise oracle rounds it to bf16 first, so long prompts differ
-    from the reference by that rounding;
+    beyond it through flash attention, where the reference runs its
+    blockwise online-softmax oracle of those kernels
+    (``_blockwise_sdpa``): the forward kernel (K9,
+    ``kernels/flash_attention.py``) when no gradient is taken, and
+    :class:`~repro_torch.kernels.flash_attention_bwd.FlashAttentionFn`
+    (K9-LSE forward, K10 backward) when one is.  The kernels take the
+    score product in fp32, the blockwise oracle rounds it to bf16
+    first, so long sequences differ from the reference by that
+    rounding;
   * one-token decode against a ring-buffer KV cache.
 
 Decode differs from the reference in two ways.  ``pos`` may differ per
@@ -29,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import flash_attention
+from ..kernels.ops import flash_attention_trainable
 from .initializers import PARAM_DTYPE, dense_init, ones_init, zeros_init
 
 # Sequences longer than this take the flash-attention kernel (the
@@ -38,6 +45,15 @@ BLOCKWISE_THRESHOLD = 2048
 KV_BLOCK = 1024
 NEG_INF = -1e30
 EMPTY_SLOT = -(2 ** 30)
+
+
+def _mm(x, w):
+    """``torch.matmul`` with ``jnp``'s promotion: operands of two float
+    dtypes are both cast to the wider one (PyTorch refuses the mix)."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return torch.matmul(x, w)
 
 
 def _f32(x: float, device) -> torch.Tensor:
@@ -109,7 +125,7 @@ def attention_init(gen, d_model: int, n_heads: int, n_kv: int,
 def _proj(x, w):
     """einsum("bsd,dhk->bshk", x, w) as one matmul."""
     d, h, k = w.shape
-    return torch.matmul(x, w.reshape(d, h * k)).reshape(
+    return _mm(x, w.reshape(d, h * k)).reshape(
         x.shape[:-1] + (h, k))
 
 
@@ -127,8 +143,7 @@ def _project_qkv(params, x):
 def _out_proj(out, wo):
     """einsum("bqhd,hdo->bqo", out, wo) as one matmul."""
     h, d, o = wo.shape
-    return torch.matmul(out.reshape(out.shape[:-2] + (h * d,)),
-                        wo.reshape(h * d, o))
+    return _mm(out.reshape(out.shape[:-2] + (h * d,)), wo.reshape(h * d, o))
 
 
 def _repeat_kv(k, n_heads: int):
@@ -165,8 +180,9 @@ def _causal_mask(q_pos, k_pos, window: int):
 def attention_apply(params, x, *, positions, theta: float = 10000.0,
                     causal: bool = True, window: int = 0):
     """Full-sequence self-attention.  ``positions`` are the tokens'
-    absolute positions ``arange(S)`` (the long path's kernel masks by
-    index)."""
+    absolute positions ``arange(S)`` (the long path's kernels mask by
+    index).  Past ``BLOCKWISE_THRESHOLD`` tokens a gradient, when one is
+    taken, goes through K10."""
     n_heads = params["wq"].shape[1]
     q, k, v = _project_qkv(params, x)
     S = x.shape[1]
@@ -180,7 +196,12 @@ def attention_apply(params, x, *, positions, theta: float = 10000.0,
                 f"a sequence longer than {BLOCKWISE_THRESHOLD} tokens must "
                 f"be a multiple of {KV_BLOCK} (the reference's blockwise "
                 f"path asserts it), got {S}")
-        out = flash_attention(q, k, v, causal=causal, window=window)
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+            out = flash_attention_trainable(q, k, v, causal=causal,
+                                            window=window)
+        else:
+            out = flash_attention(q, k, v, causal=causal, window=window)
     else:
         p = positions if positions.dim() == 1 else positions[0]
         if causal:
@@ -258,6 +279,6 @@ def mlp_init(gen, d_model: int, d_ff: int, lead=()):
 
 
 def mlp_apply(params, x):
-    g = F.silu(torch.matmul(x, params["wg"]).float()).to(x.dtype)
-    u = torch.matmul(x, params["wu"])
-    return torch.matmul(g * u, params["wd"])
+    g = F.silu(_mm(x, params["wg"]).float()).to(x.dtype)
+    u = _mm(x, params["wu"])
+    return _mm(g * u, params["wd"])

@@ -9,9 +9,16 @@ top towers.  The party boundary is the argument list: ``forward_a`` /
 Party B's halves take ``Z_A`` as an argument.
 
 The other families, the vlm / audio ones with cross-attention fusion
-among them, come with slice 7c (``backbone.tower_stages`` refuses them),
-and the training objective (``per_instance_loss``, ``joint_loss``) with
-slice 7b of the port (ROADMAP.md).  Decode updates the caches in place.
+among them, come with slice 7c (``backbone.tower_stages`` refuses them).
+Decode updates the caches in place.
+
+Training: ``per_instance_loss`` is Party B's objective and
+``joint_loss`` the vanilla one; ``train`` / ``remat`` switch on the
+towers' activation checkpointing.  The round engine takes each party's
+parameters as an ``nn.Module``: :class:`PartyParams` holds a party's
+nested tree with parameter paths equal to the reference's pytree paths;
+``forward_a``, ``forward_b``, ``per_instance_loss`` and ``joint_loss``
+take either a tree or a :class:`PartyParams`.
 """
 from __future__ import annotations
 
@@ -24,6 +31,37 @@ from . import layers as L
 from .backbone import (Ctx, tower_apply, tower_decode, tower_init,
                        tower_make_cache, tower_prefill, tower_stages)
 from .initializers import dense_init, embed_init
+
+class PartyParams(torch.nn.Module):
+    """A nested tree of tensors (dicts and lists, as the reference's
+    pytrees) held as parameters: ``tower.0.b0.attn.wq`` is
+    ``tree["tower"][0]["b0"]["attn"]["wq"]``, so ``named_parameters``
+    gives the reference's paths (``bridge.load_tree`` and
+    ``bridge.reference_parameters`` take it as they take any module).
+    :meth:`tree` is the nested view of the parameters themselves."""
+
+    def __init__(self, tree):
+        super().__init__()
+        self._is_list = isinstance(tree, (list, tuple))
+        items = list(enumerate(tree)) if self._is_list else \
+            list(tree.items())
+        self._keys = [str(k) for k, _ in items]
+        for k, v in items:
+            if isinstance(v, (dict, list, tuple)):
+                self.add_module(str(k), PartyParams(v))
+            else:
+                self.register_parameter(str(k), torch.nn.Parameter(v))
+
+    def tree(self):
+        out = [self._modules[k].tree() if k in self._modules
+               else self._parameters[k] for k in self._keys]
+        return out if self._is_list else dict(zip(self._keys, out))
+
+
+def as_tree(params):
+    """A :class:`PartyParams` or a tree -> the tree."""
+    return params.tree() if isinstance(params, PartyParams) else params
+
 
 def stages_a(cfg: ArchConfig):
     return tower_stages(cfg, cfg.vfl_split.layers_a)
@@ -76,18 +114,20 @@ def init_all(seed: int, cfg: ArchConfig, device="cpu"):
 # --------------------------------------------------------------------------
 # Forward
 # --------------------------------------------------------------------------
-def forward_a(params_a, cfg: ArchConfig, batch: Dict[str, Any]):
+def forward_a(params_a, cfg: ArchConfig, batch: Dict[str, Any],
+              train: bool = False, remat: bool = True):
     """-> Z_A (B, S, d)."""
+    params_a = as_tree(params_a)
     x = _embed(params_a["embed"], batch["tokens_a"])
     ctx = Ctx(cfg, positions=_arange(x.shape[1], x.device),
-              window=cfg.sliding_window)
+              window=cfg.sliding_window, train=train, remat=remat)
     x, _ = tower_apply(params_a["tower"], x, cfg, stages_a(cfg), ctx)
     return x
 
 
 def _logits(h, params_b, cfg: ArchConfig):
     h = L.rmsnorm(params_b["ln_f"], h, cfg.norm_eps)
-    logits = torch.matmul(h, params_b["head"]).float()
+    logits = L._mm(h, params_b["head"]).float()
     if cfg.padded_vocab != cfg.vocab_size:
         pad = cfg.padded_vocab - cfg.vocab_size
         mask = torch.cat([
@@ -100,18 +140,44 @@ def _logits(h, params_b, cfg: ArchConfig):
 
 
 def _fuse(x, z_a, params_b):
-    return x + torch.matmul(z_a, params_b["fuse_proj"])
+    """x + Z_A · fuse_proj; an fp32 Z_A (the ad-hoc ∇Z pass) makes the
+    sum, and the top tower after it, fp32, as in the reference."""
+    return x + L._mm(z_a, params_b["fuse_proj"])
 
 
-def forward_b(params_b, cfg: ArchConfig, z_a, batch: Dict[str, Any]):
+def forward_b(params_b, cfg: ArchConfig, z_a, batch: Dict[str, Any],
+              train: bool = False, remat: bool = True):
     """-> (logits, aux): Z_A enters by the split's additive fusion."""
+    params_b = as_tree(params_b)
     x = _embed(params_b["embed"], batch["tokens"])
     ctx = Ctx(cfg, positions=_arange(x.shape[1], x.device),
-              window=cfg.sliding_window)
+              window=cfg.sliding_window, train=train, remat=remat)
     x, aux1 = tower_apply(params_b["bottom"], x, cfg, stages_b(cfg), ctx)
     x = _fuse(x, z_a, params_b)
     x, aux2 = tower_apply(params_b["top"], x, cfg, stages_top(cfg), ctx)
     return _logits(x, params_b, cfg), aux1 + aux2
+
+
+def per_instance_loss(params_b, cfg: ArchConfig, z_a, batch,
+                      train: bool = True, remat: bool = True):
+    """Cross-entropy per instance (B,) and the aux loss: Party B's
+    objective.  As in the reference, logsumexp minus the label's logit
+    (read by a gather: the reference's one-hot sum adds only zeros to
+    it), averaged over the sequence."""
+    logits, aux = forward_b(params_b, cfg, z_a, batch, train=train,
+                            remat=remat)
+    lse = torch.logsumexp(logits, dim=-1)
+    labels = batch["labels"].long()
+    label_logit = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return (lse - label_logit).mean(dim=-1), aux
+
+
+def joint_loss(params, cfg: ArchConfig, batch, train: bool = True):
+    """The vanilla VFL objective (both parties in one program)."""
+    params = as_tree(params)
+    z_a = forward_a(params["a"], cfg, batch, train=train)
+    li, aux = per_instance_loss(params["b"], cfg, z_a, batch, train=train)
+    return li.mean() + aux
 
 
 # --------------------------------------------------------------------------

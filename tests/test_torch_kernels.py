@@ -227,7 +227,7 @@ def test_k9_visible_pairs_counts_the_mask(causal, window):
     ((1, 128, 2, 32), torch.bfloat16, 0, "head dim"),
     ((1, 100, 2, 64), torch.bfloat16, 0, "multiple of 64"),
     ((1, 128, 2, 64), torch.float16, 0, "bfloat16"),
-    ((1, 128, 2, 64), torch.float32, 0, "bfloat16"),
+    ((1, 128, 2, 64), torch.float64, 0, "bfloat16"),
     ((1, 128, 2, 64), torch.bfloat16, -1, "window"),
 ])
 def test_k9_operand_checks(shape, dtype, window, match):
@@ -240,4 +240,159 @@ def test_k9_cpu_wrapper_launches_nothing():
     _cuda.reset_launches()
     q = torch.randn(1, 64, 2, 32)
     tfa.flash_attention(q, q, q)
+    assert all(v == 0 for v in _cuda.LAUNCHES.values())
+
+
+# --------------------------------------------------------------------------
+# K9-LSE and K10: the training forward and the flash-attention backward.
+# The plain versions (what the wrappers run on the CPU) under
+# ``FlashAttentionFn`` against ``jax.grad`` of the reference's dense
+# oracle (``ref.flash_attention_ref``) at the shapes and tolerance of
+# tests/test_kernels.py::test_flash_vjp_forward_and_backward (5e-4; the
+# reference's Pallas VJP itself fails in interpret mode under jax 0.9);
+# against PyTorch's autograd through K9's plain version in fp32 (2e-6:
+# the same arithmetic, differentiated by hand); and
+# ``torch.autograd.gradcheck`` in fp64.
+# --------------------------------------------------------------------------
+import jax                                                # noqa: E402
+
+from repro_torch.kernels import flash_attention_bwd as tfab  # noqa: E402
+
+VJP_CASES = [(1, 256, 2, 64, True, 0), (2, 512, 1, 32, True, 128),
+             (1, 256, 2, 64, False, 0)]
+
+
+@pytest.mark.parametrize("B,S,H,hd,causal,window", VJP_CASES)
+def test_k10_plain_gradients_match_reference_oracle(B, S, H, hd, causal,
+                                                    window):
+    qkv = _qkv((B, S, H, hd), "float32", seed=S + hd + int(causal))
+    jq, jk, jv = (x for x, _ in qkv)
+    tq, tk, tv = (x.requires_grad_(True) for _, x in qkv)
+    f_r = lambda *a: jnp.sum(jnp.sin(jref.flash_attention_ref(  # noqa: E731
+        *a, causal=causal, window=window)))
+    gr = jax.grad(f_r, argnums=(0, 1, 2))(jq, jk, jv)
+    o = tops.flash_attention_trainable(tq, tk, tv, causal=causal,
+                                       window=window)
+    gt = torch.autograd.grad(torch.sin(o).sum(), (tq, tk, tv))
+    o_ref = jref.flash_attention_ref(jq, jk, jv, causal=causal,
+                                     window=window)
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(o_ref),
+                               rtol=2e-4, atol=2e-4)
+    for a, b, name in zip(gt, gr, "qkv"):
+        dev = float(np.abs(a.numpy() - np.asarray(b)).max())
+        print(f"d{name}: max |dev| {dev:.3g} (rtol = atol = 5e-4)")
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=5e-4,
+                                   atol=5e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("B,S,H,hd,causal,window", VJP_CASES)
+def test_k10_plain_matches_autograd_of_k9_plain(B, S, H, hd, causal,
+                                                window):
+    """The hand-written backward against PyTorch's autograd through the
+    forward's plain version, both in fp32."""
+    rng = np.random.default_rng(S)
+    base = [torch.from_numpy(rng.standard_normal((B, S, H, hd))
+                             .astype(np.float32)) for _ in range(3)]
+    do = torch.from_numpy(rng.standard_normal((B, S, H, hd))
+                          .astype(np.float32))
+    a = [t.clone().requires_grad_(True) for t in base]
+    b = [t.clone().requires_grad_(True) for t in base]
+    ga = torch.autograd.grad(tops.flash_attention_trainable(
+        *a, causal=causal, window=window), a, do)
+    gb = torch.autograd.grad(tfa.flash_attention_plain(
+        *b, causal=causal, window=window), b, do)
+    for x, y, name in zip(ga, gb, "qkv"):
+        dev = float((x - y).abs().max())
+        print(f"d{name}: max |dev| {dev:.3g} (limit 2e-6)")
+        assert dev <= 2e-6, name
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 7),
+                                           (False, 0), (False, 7)])
+def test_k10_gradcheck_fp64(causal, window):
+    rng = np.random.default_rng(11)
+    qkv = [torch.from_numpy(rng.standard_normal((2, 24, 2, 4)))
+           .requires_grad_(True) for _ in range(3)]
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: tops.flash_attention_trainable(
+            q, k, v, causal=causal, window=window),
+        qkv)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 100),
+                                           (False, 0), (False, 100)])
+def test_k9_lse_plain_is_logsumexp_of_masked_scores(causal, window):
+    """K9-LSE's plain version: its output is K9's, bitwise, and its lse
+    the logsumexp of the masked scaled scores (fp32, 1e-5)."""
+    q, k, v = (x for _, x in _qkv((2, 256, 3, 64), "float32", seed=3))
+    o, lse = tfa.flash_attention_fwd_lse(q, k, v, causal=causal,
+                                         window=window)
+    assert torch.equal(o, tfa.flash_attention(q, k, v, causal=causal,
+                                              window=window))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / np.sqrt(np.float32(64))
+    pos = torch.arange(256)
+    s = s.masked_fill(~tfa.visible(pos, pos, causal, window), -1e30)
+    want = torch.logsumexp(s, dim=-1)
+    assert lse.shape == (2, 3, 256) and lse.dtype == torch.float32
+    dev = float((lse - want).abs().max())
+    print(f"lse max |dev| {dev:.3g} (limit 1e-5)")
+    assert dev <= 1e-5
+
+
+def test_k9_lse_and_k10_take_bf16_and_return_its_dtype():
+    qkv = [x.requires_grad_(True)
+           for _, x in _qkv((1, 128, 2, 64), "bfloat16", seed=4)]
+    o = tops.flash_attention_trainable(*qkv)
+    assert o.dtype == torch.bfloat16
+    g = torch.autograd.grad(o.float().sum(), qkv)
+    assert all(x.dtype == torch.bfloat16 for x in g)
+
+
+@pytest.mark.parametrize("what,match", [
+    ("do_dtype", "do must be"), ("do_shape", "do must be"),
+    ("lse_shape", "lse must be"), ("delta_dtype", "delta must be"),
+    ("q_dtype", "bfloat16 or float32")])
+def test_k10_operand_checks(what, match):
+    q = torch.zeros((1, 128, 2, 64))
+    do, lse, delta = q.clone(), torch.zeros((1, 2, 128)), \
+        torch.zeros((1, 2, 128))
+    if what == "do_dtype":
+        do = do.to(torch.bfloat16)
+    elif what == "do_shape":
+        do = torch.zeros((1, 128, 2, 128))
+    elif what == "lse_shape":
+        lse = torch.zeros((1, 128, 2))
+    elif what == "delta_dtype":
+        delta = delta.double()
+    else:
+        q = q.half()
+    with pytest.raises(ValueError, match=match):
+        tfab.check_bwd_operands(tfab.DKV_NAME, q, q, q, do, lse, delta, 0)
+
+
+def test_k10_meta_tensors_get_shapes_only():
+    q = torch.empty((2, 4096, 15, 64), dtype=torch.bfloat16, device="meta")
+    lse = torch.empty((2, 15, 4096), device="meta")
+    o, l2 = tfa.flash_attention_fwd_lse(q, q, q)
+    dk, dv = tfab.flash_attention_bwd_dkv(q, q, q, q, lse, lse)
+    dq = tfab.flash_attention_bwd_dq(q, q, q, q, lse, lse)
+    for t in (o, dk, dv, dq):
+        assert t.device.type == "meta" and t.shape == q.shape \
+            and t.dtype == q.dtype
+    assert l2.shape == (2, 15, 4096) and l2.dtype == torch.float32
+
+
+def test_k10_flops_count_five_products_per_visible_pair():
+    """K10's bound: 80.55 GFLOP at (1, 4096, 15, 64) causal, 81.45 us at
+    989 TFLOP/s."""
+    fl = tfab.flops(1, 4096, 15, 64)
+    assert fl == 10 * 64 * 15 * 4096 * 4097 // 2 == 80_550_297_600
+    assert abs(fl / 989e12 * 1e6 - 81.45) < 0.01
+
+
+def test_k9_lse_and_k10_cpu_wrappers_launch_nothing():
+    _cuda.reset_launches()
+    q = torch.randn(1, 64, 2, 32, requires_grad=True)
+    o = tops.flash_attention_trainable(q, q, q)
+    torch.autograd.grad(o.sum(), q)
     assert all(v == 0 for v in _cuda.LAUNCHES.values())

@@ -94,8 +94,10 @@ def test_cli_rejects_tuning_flags_of_later_slices(flag, capsys):
 
 
 def test_cli_refuses_llm_arch():
+    """The dense LLM archs train here (tests/test_torch_llm_train.py);
+    the other families' come with slice 7c."""
     with pytest.raises(SystemExit, match="slice 7"):
-        train.main(["--arch", "smollm-360m"] + SMALL)
+        train.main(["--arch", "granite-moe-3b-a800m"] + SMALL)
 
 
 def test_default_device_is_cuda():
