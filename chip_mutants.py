@@ -18,7 +18,7 @@ K9, in the serving kernel phase:
   * ``window_edge``: an off-by-one in the window keeps one key too many,
     ``window`` positions behind each row.
 
-K10's dkv kernel, in the training kernel phase:
+K10's bf16 kernels, in the training kernel phase:
 
   * ``dkv_diagonal_key_late``: the mask of the dkv kernel is shifted by
     one for the key tiles from row 3,584 on, hiding each of those keys'
@@ -28,7 +28,13 @@ K10's dkv kernel, in the training kernel phase:
   * ``dkv_dv_diagonal_late``: for the key tiles from row 3,584 on, dv
     alone misses each key's own query (dk keeps it);
   * ``dkv_lse_batch_row0``: the dkv kernel reads the lse and D rows of
-    batch row 0 for every batch row, which only the B = 2 cases show.
+    batch row 0 for every batch row, which only the B = 2 cases show;
+  * ``dkv_p_lo_dropped``: for the key tiles from row 3,584 on, dv takes
+    p's bf16 high half alone (p rounded once to bf16, its low half
+    dropped), so the per-element limit must catch single rounding;
+  * ``dq_diagonal_key_late``: the mask of the dq kernel is shifted by one
+    for the query tiles from row 3,584 on, hiding each of those queries'
+    own key from dq.
 
     python3 chip_mutants.py
 
@@ -49,7 +55,7 @@ import sys
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join("src", "repro_torch", "csrc")
 LATE = 3584
-# name -> (source, line, mutated line); K9's are checked by the serving
+# name -> (line, mutated line); K9's are checked by the serving
 # kernel phase, K10's by the training kernel phase
 MUTANTS = {
     "window_tile_late": (
@@ -67,22 +73,31 @@ MUTANTS = {
         "if (window) vis = vis && dist < window;",
         "if (window) vis = vis && dist <= window;"),
     "dkv_diagonal_key_late": (
-        "const int dist = qt * kTile + i - kpos;",
-        f"const int dist = qt * kTile + i - kpos - (k0 >= {LATE});"),
+        "const int dist = qt * kN + qi - (key + 8 * (e >> 1));",
+        f"const int dist = qt * kN + qi - (key + 8 * (e >> 1))"
+        f" - (k0 >= {LATE});"),
     "dkv_diagonal_tile_late": (
-        "const int lo = causal ? k0 / kTile : 0;",
-        f"const int lo = causal ? k0 / kTile + (k0 >= {LATE}) : 0;"),
+        "const int lo = causal ? k0 / kN : 0;",
+        f"const int lo = causal ? k0 / kN + (k0 >= {LATE}) : 0;"),
     "dkv_dv_diagonal_late": (
-        "axpy4(dva + 4 * c, p, dd[c]);",
-        f"axpy4(dva + 4 * c, k0 >= {LATE} && dist == 0 ? 0.f : p, dd[c]);"),
+        "s[n][e] = p;",
+        f"s[n][e] = k0 >= {LATE} && dist == 0 ? 0.f : p;"),
     "dkv_lse_batch_row0": (
-        "const long long row0 = static_cast<long long>(bh) * S;\n"
-        "  const int kpos = k0 + r;",
-        "const long long row0 = static_cast<long long>(h) * S;\n"
-        "  const int kpos = k0 + r;"),
+        "const long long lrow = static_cast<long long>(bh) * S;",
+        "const long long lrow = static_cast<long long>(h) * S;"),
+    "dkv_p_lo_dropped": (
+        "split_frag(s[2 * kk], s[2 * kk + 1], ph, pl);",
+        f"split_frag(s[2 * kk], s[2 * kk + 1], ph, pl);"
+        f" if (k0 >= {LATE}) pl[0] = pl[1] = pl[2] = pl[3] = 0u;"),
+    "dq_diagonal_key_late": (
+        "const int dist = row + 8 * r - (kt * kN + 8 * n + 2 * t + (e & 1));",
+        f"const int dist = row + 8 * r - (kt * kN + 8 * n + 2 * t + (e & 1))"
+        f" - (q0 >= {LATE});"),
 }
-K10_MUTANTS = ("dkv_diagonal_key_late", "dkv_diagonal_tile_late",
-               "dkv_dv_diagonal_late", "dkv_lse_batch_row0")
+# K10's mutants: name -> the wrapper whose check must fail
+K10_MUTANTS = {name: "flash_attention_bwd_dq" if name.startswith("dq_")
+               else "flash_attention_bwd_dkv"
+               for name in MUTANTS if name.startswith(("dkv_", "dq_"))}
 RUN = ("import sys, torch; sys.path.insert(0, 'src'); "
        "torch.backends.cuda.matmul.allow_tf32 = False; "
        "import chip_smoke; chip_smoke.{}(torch)")
@@ -99,7 +114,7 @@ def main() -> None:
         source = os.path.join(CSRC, "flash_attention_bwd.cu" if k10
                               else "flash_attention.cu")
         phase = "phase_train_kernels" if k10 else "phase_serve_kernels"
-        kernel = "flash_attention_bwd_dkv" if k10 else "flash_attention"
+        kernel = K10_MUTANTS[name] if k10 else "flash_attention"
         d = os.path.join(top, name)
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(os.path.join(ROOT, "src"), os.path.join(d, "src"),
@@ -109,9 +124,9 @@ def main() -> None:
         path = os.path.join(d, source)
         with open(path) as f:
             text = f.read()
-        if good not in text:
-            sys.exit(f"chip_mutants: {name}: the line to mutate is gone "
-                     f"from {source}")
+        if text.count(good) != 1:
+            sys.exit(f"chip_mutants: {name}: the line to mutate is not in "
+                     f"{source} once but {text.count(good)} times")
         with open(path, "w") as f:
             f.write(text.replace(good, bad))
         r = subprocess.run([sys.executable, "-c", RUN.format(phase)], cwd=d,

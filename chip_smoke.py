@@ -7,7 +7,9 @@ GPU: the quickest proof that the port still builds, is right and starts.
 Phases, each on its own printed lines (any failure exits non-zero):
 
   1. the card: name and power limit; TF32 off for matmuls and cuDNN;
-  2. the build of the CUDA kernels from ``src/repro_torch/csrc``;
+  2. the build of the CUDA kernels from ``src/repro_torch/csrc``, with
+     each kernel's registers and spills (``-Xptxas -v``): K10's bf16
+     kernels may not spill;
   3. each kernel against its plain PyTorch version on the card (K1 full
      and weights-only, K2a, K2b; K3 at int8 and int4 levels; K4 and K5
      full and weights-only) at the main path's shapes, at an odd batch
@@ -47,10 +49,13 @@ Phases, each on its own printed lines (any failure exits non-zero):
   8. the training kernels against their plain versions: K9-LSE (the
      forward with the row log-sum-exp) and K10's dkv and dq kernels at
      (1, 4096, 15, 64) bf16, causal, with a window of 1,024, at head dim
-     128 and in fp32, and at the training phase's (2, 4096, 15, 64) in
-     bf16 and fp32, each element within a limit of its own magnitude,
-     K9's output with the LSE pointer set bitwise its output without
-     it; timed beside the least time and SDPA's forward and backward;
+     128 and in fp32, at the training phase's (2, 4096, 15, 64) in bf16
+     and fp32, and at the reduced model's (2, 3072, 4, 32), each element
+     within a limit of its own magnitude, K9's output with the LSE
+     pointer set bitwise its output without it, K10's outputs bitwise
+     the same on a second run; timed beside the least
+     time and SDPA's forward and backward; the tensor-core instructions
+     in the SASS of K10's bf16 kernels (none fails) and their TFLOP/s;
   9. the LLM training path: ``repro_torch.launch.train`` at smollm-360m's
      full width (B = 2, S = 4,096, R = W = 2, 3 celu rounds, fp32 cache,
      AdaGrad through K7, remat on) with the exact launch counts of
@@ -61,7 +66,12 @@ Phases, each on its own printed lines (any failure exits non-zero):
      ``launch/steps.py`` train step at B = 1, S = 4,096 through
      K9-LSE / K10 against the same step through the plain attention,
      loss and every gradient leaf held to a limit;
- 10. a JSON line of per-kernel results, then the last line
+ 10. the reduced smollm-360m (head dim 32) past 2,048 tokens: two celu
+     rounds of ``train_llm`` at B = 2, S = 3,072 and a train step, each
+     against the same run through the plain attention, and the serving
+     engine on 3,072-token prompts, the prefill's logits against the
+     plain attention's;
+ 11. a JSON line of per-kernel results, then the last line
      ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
@@ -73,6 +83,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -193,7 +204,13 @@ K10_CASES = [((1, 4096, 15, 64), "bfloat16", 0),
              ((1, 4096, 15, 128), "bfloat16", 0),
              ((1, 4096, 15, 64), "float32", 0),
              ((2, 4096, 15, 64), "bfloat16", 0),
-             ((2, 4096, 15, 64), "float32", 0)]
+             ((2, 4096, 15, 64), "float32", 0),
+             ((2, 3072, 4, 32), "bfloat16", 0)]
+# The last case is the reduced model's attention (head dim 32) past 2,048
+# tokens.  K10's bf16 kernels take p and ds into their tensor-core
+# products as bf16 hi + lo (csrc/flash_attention_bwd.cu), which keeps
+# every element within these limits (tests/test_torch_kernels.py::
+# test_k10_rounding_design models it on the CPU).
 K10_REL = {"bfloat16": 2.0 ** -7, "float32": 2.0 ** -17}
 K10_ATOL = {"bfloat16": 1e-5, "float32": 2e-6}
 LSE_REL, LSE_ATOL = 2.0 ** -17, 1e-5
@@ -212,6 +229,23 @@ TRAIN_ROUNDS = 3
 # leaf's relative L2 error are held to these limits.
 GRAD_LOSS_ATOL = 1e-2
 GRAD_REL_L2 = 5e-2
+# The reduced model (head dim 32; ``--reduced`` in training, the serving
+# CLI's default) past the 2,048-token threshold, so through K9, K9-LSE and
+# K10 at hd 32: two celu rounds of ``train_llm`` and a train step, each
+# held to the same run through the plain attention (losses to
+# GRAD_LOSS_ATOL, the step's gradient leaves to GRAD_REL_L2), and
+# 3,072-token prompts served, the prefill's logits held to
+# LONG_LOGIT_ATOL of the plain attention's.
+REDUCED_SEQ = 3072
+REDUCED_TRAIN_ARGS = {"batch_size": 2, "seq_len": REDUCED_SEQ, "R": 2,
+                      "W": 2, "reduced": True}
+REDUCED_ROUNDS = 2
+REDUCED_SERVE_ARGS = {"--requests": 4, "--capacity": 2,
+                      "--prompt-len": REDUCED_SEQ, "--gen": 8, "--rate": 0}
+# K10's bf16 kernels (csrc/flash_attention_bwd.cu): name of the wrapper ->
+# (the kernel's name in the library, the products it issues)
+K10_MMA = {"flash_attention_bwd_dkv": ("flash_bwd_dkv_mma", 6),
+           "flash_attention_bwd_dq": ("flash_bwd_dq_mma", 4)}
 DENSE_GATES = ("fused_sample_2d", "cosine_weight_2d", "cosine_weights_2d")
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
 
@@ -268,6 +302,66 @@ def device_ms(torch, fn, iters: int = 50) -> float:
     graph.replay()
     torch.cuda.synchronize()
     return _events_ms(torch, graph.replay, 5) / iters
+
+
+def kernel_label(mangled: str) -> str:
+    """A kernel's mangled name -> its name and integer template
+    arguments, e.g. ``flash_bwd_dkv_mma<64>`` or ``flash_fwd_kernel<bf16,64>``
+    (the mangled name when it is not a name in a namespace)."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    i = m.end() + int(m.group(1))
+    m = re.match(r"(\d+)", mangled[i:])
+    if not m:
+        return mangled
+    j = i + m.end()
+    name, rest = mangled[j:j + int(m.group(1))], mangled[j + int(m.group(1)):]
+    if not rest.startswith("I"):
+        return name
+    head = rest[:rest.find("EE") + 2]
+    args = re.findall(r"Li(\d+)E", head)
+    kind = head.split("Li")[0]
+    if kind.startswith("If"):
+        args.insert(0, "float")
+    elif "bfloat16" in kind:
+        args.insert(0, "bf16")
+    return f"{name}<{','.join(args)}>"
+
+
+def ptxas_usage(log: str) -> dict:
+    """``nvcc -Xptxas -v`` output -> {kernel label: (registers, spill
+    store bytes, spill load bytes)}."""
+    usage, cur, spill = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur, spill = kernel_label(m.group(1)), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            usage[cur] = (int(m.group(1)),) + spill
+            cur = None
+    return usage
+
+
+def sass_mma_counts(path: str) -> dict:
+    """{kernel label: tensor-core instructions (HMMA, HGMMA)} in the
+    SASS of the library at ``path`` (``cuobjdump -sass``)."""
+    from repro_torch.kernels import _cuda
+    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {}
+    for part in text.split("Function : ")[1:]:
+        name, body = part.split("\n", 1)
+        counts[kernel_label(name.strip())] = len(
+            re.findall(r"\bH(?:G)?MMA\b", body))
+    return counts
 
 
 def bound(nbytes: float, flops: float, peak: float = PEAK_FP32_FLOPS):
@@ -1350,6 +1444,12 @@ def phase_train_kernels(torch):
         (dk, dv), (dk_ref, dv_ref) = dkv(), dkv_plain()
         dq_, dq_ref = dq(), dq_plain()
         torch.cuda.synchronize()
+        # no atomics: a second run repeats every output bit for bit
+        (dk2, dv2), dq2 = dkv(), dq()
+        check(torch.equal(dk, dk2) and torch.equal(dv, dv2)
+              and torch.equal(dq_, dq2), f"K10 {tag}: a second run of the "
+              f"dkv and dq kernels differs from the first")
+        del dk2, dv2, dq2
         errs = {}
         for label, got, ref, name in (("dk", dk, dk_ref, names[1]),
                                       ("dv", dv, dv_ref, names[1]),
@@ -1370,7 +1470,8 @@ def phase_train_kernels(torch):
         print(f"[kernel] {names[0]:30s} {tag}: out max |err| {err_o:.3g} "
               f"(worst err / limit {w_o:.3g}), lse max |err| {err_l:.3g} "
               f"(worst {w_l:.3g}, limit {LSE_REL:.3g} |lse| + "
-              f"{LSE_ATOL:g}); out bitwise K9's", flush=True)
+              f"{LSE_ATOL:g}); out bitwise K9's; K10 bitwise the same on a "
+              f"second run", flush=True)
 
         # times; the library calls at the causal, unwindowed bf16 shapes
         pairs = fa.visible_pairs(S, True, window)
@@ -1420,8 +1521,40 @@ def phase_train_kernels(torch):
             # the dkv row only, and the dq row has no library call of its own
             results[names[1]].update(t_kv, library_ms=lib_b)
             results[names[2]].update(t_q, library_ms=None)
+    _k10_tensor_cores(results)
     _gate_at_llm_width(torch)
     return results
+
+
+def _k10_tensor_cores(results):
+    """K10's bf16 kernels run on the tensor cores: the HMMA / HGMMA
+    instructions in each one's SASS at hd 32, 64 and 128 (none fails), and
+    the rates at the timed shape (the first of K10_CASES) over the
+    products each issues and over the backward's five-product work."""
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    counts = sass_mma_counts(_cuda.build()["path"])
+    (B, S, H, hd), dt, window = K10_CASES[0]
+    tag = f"B,S,H,hd={B},{S},{H},{hd} {dt} causal window={window}"
+
+    def rate(products, ms):
+        return fab.flops(B, S, H, hd, True, window, products) / ms / 1e9
+    for name, (kernel, issued) in K10_MMA.items():
+        per_hd = {d: counts.get(f"{kernel}<{d}>", 0) for d in (32, 64, 128)}
+        ms = results[name]["ms"]
+        print(f"[kernel] {name:30s} bf16: tensor-core instructions in the "
+              f"SASS of {kernel} (cuobjdump -sass) at hd 32 / 64 / 128: "
+              f"{per_hd[32]} / {per_hd[64]} / {per_hd[128]}; {tag}: "
+              f"{ms * 1e3:.2f} us, the {issued} products it issues at "
+              f"{rate(issued, ms):.1f} TFLOP/s", flush=True)
+        check(all(per_hd.values()), f"{name}: {kernel} has no tensor-core "
+              f"instruction in its SASS at some head dim: {per_hd}")
+    ms = sum(results[n]["ms"] for n in K10_MMA)
+    print(f"[kernel] K10 (dkv + dq) bf16 {tag}: {ms * 1e3:.2f} us; the "
+          f"backward's five-product work at {rate(5, ms):.1f} TFLOP/s, the "
+          f"ten products issued at {rate(10, ms):.1f} TFLOP/s "
+          f"(peak {PEAK_BF16_FLOPS / 1e12:.0f})", flush=True)
 
 
 def _gate_at_llm_width(torch):
@@ -1511,14 +1644,9 @@ def phase_training(torch, card):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import _cuda
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import flash_attention_bwd as fab
-    from repro_torch.launch import steps
     from repro_torch.launch.budget import format_budget, party_hbm_budget
     from repro_torch.launch.train import llm_params, train_llm
-    from repro_torch.models.vfl import PartyParams, init_all
 
     cfg = get_config("smollm-360m")
     args = train_args("smollm-360m", rounds=TRAIN_ROUNDS, **TRAIN_ARGS)
@@ -1598,29 +1726,61 @@ def phase_training(torch, card):
 
     # one full-width train step (B = 1, S = 4,096) through K9-LSE / K10
     # against the same step through the plain attention, on the card
-    shape = ShapeConfig("train_4k", seq_len=4096, global_batch=1,
-                        kind="train")
-    batch = steps.concrete_batch(cfg, shape, seed=0, device="cuda")
-    grads = {}
-    for route in ("kernels", "plain"):
-        joint = PartyParams(init_all(1, cfg, "cuda"))
-        opt, seen = _capture_grads()
-        patches = [] if route == "kernels" else [
-            mock.patch.object(fab, "flash_attention_fwd_lse",
+    _step_vs_plain(torch, cfg, 4096, "full-width")
+    return {k: counts[k] for k in want}
+
+
+def _plain_attention(route: str) -> list:
+    """Patches that route the attention past 2,048 tokens (K9, K9-LSE,
+    K10) through the plain versions; none for ``route`` "kernels"."""
+    from unittest import mock
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.models import layers as L
+    if route == "kernels":
+        return []
+    return [mock.patch.object(fab, "flash_attention_fwd_lse",
                               fa.flash_attention_fwd_lse_plain),
             mock.patch.object(fab, "flash_attention_bwd_dkv",
                               fab.flash_attention_bwd_dkv_plain),
             mock.patch.object(fab, "flash_attention_bwd_dq",
-                              fab.flash_attention_bwd_dq_plain)]
+                              fab.flash_attention_bwd_dq_plain),
+            mock.patch.object(L, "flash_attention", fa.flash_attention_plain)]
+
+
+def _layers(cfg) -> int:
+    """Attention layers of the split model (both parties)."""
+    s = cfg.vfl_split
+    return s.layers_a + s.layers_b + s.layers_top
+
+
+def _step_vs_plain(torch, cfg, seq_len: int, label: str) -> None:
+    """One ``launch/steps.py`` train step (B = 1) through K9-LSE / K10
+    against the same step through the plain attention on the card: the
+    loss to GRAD_LOSS_ATOL, each gradient leaf to GRAD_REL_L2 relative
+    L2."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch import steps
+    from repro_torch.models.vfl import PartyParams, init_all
+
+    shape = ShapeConfig(f"train_{seq_len}", seq_len=seq_len, global_batch=1,
+                        kind="train")
+    batch = steps.concrete_batch(cfg, shape, seed=0, device="cuda")
+    layers = _layers(cfg)
+    grads = {}
+    for route in ("kernels", "plain"):
+        joint = PartyParams(init_all(1, cfg, "cuda"))
+        opt, seen = _capture_grads()
         with contextlib.ExitStack() as stack:
-            for patch in patches:
+            for patch in _plain_attention(route):
                 stack.enter_context(patch)
             _cuda.reset_launches()
             _, _, loss = steps.make_train_step(cfg, opt)(joint, {}, batch)
             torch.cuda.synchronize()
         c = dict(_cuda.LAUNCHES)
-        layers = cfg.n_layers
-        _want(f"train step ({route})", c, **(
+        _want(f"{label} train step ({route})", c, **(
             {"flash_attention_fwd_lse": 2 * layers,
              "flash_attention_bwd_dkv": layers,
              "flash_attention_bwd_dq": layers} if route == "kernels"
@@ -1631,17 +1791,98 @@ def phase_training(torch, card):
     rel = [((a - b).norm() / b.norm().clamp_min(1e-30)).item()
            for a, b in zip(gk, gp)]
     worst = max(rel)
-    print(f"[train] full-width train step (B=1, S=4096), K9-LSE / K10 "
-          f"against the plain attention on the card: loss {lk:.6f} / "
-          f"{lp:.6f} (|dev| {abs(lk - lp):.3g}, limit {GRAD_LOSS_ATOL}); "
-          f"{len(rel)} gradient leaves, relative L2 error worst "
-          f"{worst:.3g} (limit {GRAD_REL_L2}), median "
+    print(f"[train] {label} train step (B=1, S={seq_len}, hd "
+          f"{cfg.head_dim}), K9-LSE / K10 against the plain attention on "
+          f"the card: loss {lk:.6f} / {lp:.6f} (|dev| {abs(lk - lp):.3g}, "
+          f"limit {GRAD_LOSS_ATOL}); {len(rel)} gradient leaves, relative "
+          f"L2 error worst {worst:.3g} (limit {GRAD_REL_L2}), median "
           f"{sorted(rel)[len(rel) // 2]:.3g}", flush=True)
     check(math.isfinite(lk) and abs(lk - lp) <= GRAD_LOSS_ATOL,
-          f"train step loss {lk} against {lp}")
-    check(worst <= GRAD_REL_L2, f"train step gradients: relative L2 "
-          f"errors {rel}")
-    return {k: counts[k] for k in want}
+          f"{label} train step loss {lk} against {lp}")
+    check(worst <= GRAD_REL_L2, f"{label} train step gradients: relative "
+          f"L2 errors {rel}")
+
+
+def phase_reduced(torch, card):
+    """The reduced smollm-360m (head dim 32) past 2,048 tokens: two celu
+    rounds of ``train_llm`` and a train step, and the serving engine on
+    3,072-token prompts, each held to the plain attention; -> the
+    kernels' launch counts of the training run."""
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve as cli
+    from repro_torch.launch.train import llm_params, train_llm
+    from repro_torch.models import layers as L
+    from repro_torch.models import vfl
+    from repro_torch.serve import LoadSpec, synth_requests
+
+    cfg = get_config("smollm-360m").reduced()
+    check(cfg.head_dim == 32, f"reduced head dim {cfg.head_dim}, want 32")
+    args = train_args("smollm-360m", rounds=REDUCED_ROUNDS,
+                      **REDUCED_TRAIN_ARGS)
+    runs = {}
+    for route in ("kernels", "plain"):
+        params = llm_params(cfg, args.seed, "cuda")
+        n_tensors = sum(len(list(p.parameters())) for p in params.values())
+        with contextlib.ExitStack() as stack:
+            for patch in _plain_attention(route):
+                stack.enter_context(patch)
+            _cuda.reset_launches()
+            out = train_llm(args, params=params)
+            torch.cuda.synchronize()
+        runs[route] = (out["losses"], dict(_cuda.LAUNCHES))
+        del out, params
+    (lk, counts), (lp, c_plain) = runs["kernels"], runs["plain"]
+    want = _llm_launches(cfg, args.R, REDUCED_ROUNDS, args.remat, n_tensors)
+    _want("reduced training", counts, **want)
+    _want("reduced training (plain attention)", c_plain,
+          **{k: v for k, v in want.items() if not k.startswith("flash")})
+    dev = max(abs(a - b) for a, b in zip(lk, lp))
+    print(f"[reduced] {cfg.name} (hd {cfg.head_dim}), B={args.batch_size} "
+          f"S={args.seq_len} R={args.R} W={args.W} celu, {REDUCED_ROUNDS} "
+          f"rounds: launches {counts}; losses {lk} against {lp} through "
+          f"the plain attention (max |dev| {dev:.3g}, limit "
+          f"{GRAD_LOSS_ATOL})", flush=True)
+    check(all(math.isfinite(x) for x in lk) and dev <= GRAD_LOSS_ATOL,
+          f"reduced training losses {lk} against {lp}")
+    _step_vs_plain(torch, cfg, REDUCED_SEQ, "reduced")
+
+    # serving: K9 in every attention layer of each prefill (warm() adds
+    # one admit), the prefill's logits against the plain attention's
+    params = vfl.init_all(0, cfg, "cuda")
+    argv = [a for kv in REDUCED_SERVE_ARGS.items() for a in map(str, kv)]
+    _cuda.reset_launches()
+    comps, stats, _ = cli.serve_engine(cli.build_parser().parse_args(argv),
+                                       cfg, params)
+    c = dict(_cuda.LAUNCHES)
+    n_req = REDUCED_SERVE_ARGS["--requests"]
+    print(f"[reduced] serving {n_req} requests of {REDUCED_SEQ}-token "
+          f"prompts: {stats['decode_steps']} decode steps, launches {c}",
+          flush=True)
+    check(len(comps) == n_req and c["flash_attention"] == _layers(cfg)
+          * (n_req + 1), f"reduced serving: {len(comps)} requests done, "
+          f"K9 launches {c['flash_attention']}, want "
+          f"{_layers(cfg) * (n_req + 1)}")
+    spec = LoadSpec(n_requests=n_req, rate=0.0, prompt_len=REDUCED_SEQ,
+                    max_new_tokens=8, min_new_tokens=2, seed=0)
+    r = synth_requests(spec, cfg)[0]
+    batch = {"tokens": torch.as_tensor(r.prompt[None]).cuda(),
+             "tokens_a": torch.as_tensor(r.prompt_a[None]).cuda()}
+    logits_k, _ = vfl.prefill(params, cfg, batch, REDUCED_SEQ + 8)
+    with mock.patch.object(L, "flash_attention", fa.flash_attention_plain):
+        logits_p, _ = vfl.prefill(params, cfg, batch, REDUCED_SEQ + 8)
+    torch.cuda.synchronize()
+    dev = (logits_k - logits_p).abs().max().item()
+    print(f"[reduced] {REDUCED_SEQ}-token prefill logits, K9 against the "
+          f"plain attention on the card: max |dev| {dev:.4g} (limit "
+          f"{LONG_LOGIT_ATOL}; |logits| up to "
+          f"{logits_p.abs().max().item():.3g}); card {card}", flush=True)
+    check(math.isfinite(dev) and dev <= LONG_LOGIT_ATOL,
+          f"reduced prefill logits deviate by {dev}")
+    return counts
 
 
 def main() -> None:
@@ -1666,9 +1907,18 @@ def main() -> None:
     info = _cuda.build()
     _cuda.lib()
     print(f"[build] {info['path']} in {info['seconds']:.2f} s", flush=True)
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    usage = ptxas_usage(info["log"])
+    for label, (regs, st, ld) in sorted(usage.items()):
+        print(f"[build] {label}: {regs} registers, spill stores {st} B, "
+              f"spill loads {ld} B")
+    if info["log"]:
+        mma = {k: u for k, u in usage.items()
+               if k.split("<")[0] in [n for n, _ in K10_MMA.values()]}
+        check(len(mma) == 6 and all(u[1:] == (0, 0) for u in mma.values()),
+              f"K10's bf16 kernels at hd 32 / 64 / 128: ptxas reports "
+              f"{mma} (registers, spill bytes), want six and no spills")
+    else:
+        print("[build] the library was already built: no ptxas report")
 
     # 3.-5.
     t0 = time.perf_counter()
@@ -1701,7 +1951,13 @@ def main() -> None:
     counts.update(phase_training(torch, card))
     print(f"[phase] training {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 10. results
+    # 10. the reduced model
+    t0 = time.perf_counter()
+    phase_reduced(torch, card)
+    print(f"[phase] reduced model {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # 11. results
     rows = []
     for name, (replaces, source) in KERNELS.items():
         r = kernels[name]

@@ -5,8 +5,8 @@
 //   K9-LSE  src/repro/kernels/flash_attention_bwd.py  _fwd  (_fwd_kernel)
 //
 // For bf16 or fp32 q, k, v of shape (B, S, H, hd) (KV heads repeated to
-// H; hd 64 or 128, the model's head dims) and every query row i of every
-// (b, h):
+// H; hd 64 or 128, the model's head dims, or 32, the reduced model's)
+// and every query row i of every (b, h):
 //   o_i = sum_j softmax_j(s_ij) v_j,  s_ij = <q_i, k_j> * scale, masked
 // where key j is visible when j <= i (causal) and i - j < window
 // (window > 0); a masked score is -1e30, as on the TPU.  q and k are
@@ -24,12 +24,12 @@
 // block walks the key tiles of kBK = 32 rows that the mask leaves
 // non-empty (those right of the diagonal are skipped when causal, those
 // left of the window when window > 0), staging each K and V tile in
-// shared memory as fp32.  Each query row is owned by hd / 32 threads,
-// each holding 32 of its q values and 32 of its accumulator values in
-// registers; a row's partial dot products meet by warp shuffles.  A
-// thread's 32 values are eight float4 chunks interleaved with its
-// row-mates' (chunk c belongs to part c % (hd / 32)), so the lanes of a
-// warp read distinct banks or the same word of shared memory.  The
+// shared memory as fp32.  Each query row is owned by hd / 32 threads
+// (2 at hd 32), each holding 32 (16) of its q values and as many of its
+// accumulator values in registers; a row's partial dot products meet by
+// warp shuffles.  A thread's values are float4 chunks interleaved with
+// its row-mates' (chunk c belongs to part c % threads a row), so the
+// lanes of a warp read distinct banks or the same word of shared memory.  The
 // (B, S, H, hd) operands are read in place (row stride H * hd): no
 // transposed copy is made.
 //
@@ -48,7 +48,9 @@ namespace {
 
 constexpr int kBQ = 64;         // query rows per block
 constexpr int kBK = 32;         // key rows per staged tile
-constexpr int kPart = 32;       // head dims per thread
+// head dims per thread: 32, and 16 at hd 32 (two threads a row)
+template <int HD>
+__host__ __device__ constexpr int head_part() { return HD == 32 ? 16 : 32; }
 constexpr float kNegInf = -1e30f;
 
 using bf16 = __nv_bfloat16;
@@ -76,11 +78,12 @@ __device__ __forceinline__ void store4(bf16* p, float4 v) {
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(kBQ * (HD / kPart))
+__global__ void __launch_bounds__(kBQ * (HD / head_part<HD>()))
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int S, int H, int causal,
                  int window, float scale) {
+  constexpr int kPart = head_part<HD>();
   constexpr int kTPR = HD / kPart;          // threads per query row
   constexpr int kThreads = kBQ * kTPR;
   constexpr int kChunks = HD / 4;           // float4 chunks per row
@@ -187,7 +190,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
            float* lse, int B, int S, int H, int causal, int window,
            float scale, cudaStream_t stream) {
   const dim3 grid(S / kBQ, B * H);
-  const dim3 block(kBQ * (HD / kPart));
+  const dim3 block(kBQ * (HD / head_part<HD>()));
   flash_fwd_kernel<T, HD><<<grid, block, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, causal,
@@ -199,6 +202,9 @@ template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o,
              float* lse, int B, int S, int H, int hd, int causal,
              int window, float scale, cudaStream_t st) {
+  if (hd == 32)
+    return launch<T, 32>(q, k, v, o, lse, B, S, H, causal, window, scale,
+                         st);
   if (hd == 64)
     return launch<T, 64>(q, k, v, o, lse, B, S, H, causal, window, scale,
                          st);
@@ -211,9 +217,9 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // K9 and K9-LSE.  q, k, v, o: contiguous (B, S, H, hd) of one dtype
-// (dtype 0 = float32, 1 = bfloat16), 16-byte aligned; hd in {64, 128}; S
-// a multiple of 64; window >= 0 (0 = none).  lse: null (K9), or (B, H, S)
-// float32 (K9-LSE).  Returns the cudaError_t of the launch.
+// (dtype 0 = float32, 1 = bfloat16), 16-byte aligned; hd in {32, 64,
+// 128}; S a multiple of 64; window >= 0 (0 = none).  lse: null (K9), or
+// (B, H, S) float32 (K9-LSE).  Returns the cudaError_t of the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse,
                                    int B, int S, int H, int hd, int causal,

@@ -6,56 +6,538 @@
 //   K10 dq   src/repro/kernels/flash_attention_bwd.py  _bwd  (_dq_kernel)
 //
 // For q, k, v, do of shape (B, S, H, hd) in bf16 or fp32 (KV heads
-// repeated to H; hd 64 or 128), the forward's row log-sum-exp lse and
+// repeated to H; hd 32, 64 or 128), the forward's row log-sum-exp lse and
 // D = rowsum(do ∘ o), both (B, H, S) fp32, and every visible (query i,
 // key j) pair of every (b, h) (j <= i when causal, i - j < window when
 // window > 0, the forward's mask):
 //   p_ij  = exp(<q_i, k_j> * scale - lse_i)       (0 where masked)
 //   ds_ij = p_ij * (<do_i, v_j> - D_i) * scale
 //   dv_j  = sum_i p_ij do_i,  dk_j = sum_i ds_ij q_i,  dq_i = sum_j ds_ij k_j
-// with the operands converted to fp32 and every sum in fp32, as on the
-// TPU; the outputs are written in q's dtype.
+// with every sum in fp32; the outputs are written in q's dtype.  No
+// atomics: dk and dv come from one kernel, dq from another, each output
+// element summed by one thread in a fixed order, so a run repeats bitwise.
 //
-// Layout.  Both kernels reuse the forward's (csrc/flash_attention.cu):
-// a block owns kRows = 64 rows of one (b, h), each row held by hd / 16
-// threads with 16 of its values in registers, a row's partial dot
-// products meeting by warp shuffles; the other side is staged in
-// 32-row tiles in shared memory as fp32 (float4 chunks interleaved so a
-// warp's lanes read distinct banks or one word); (B, S, H, hd) is read in
-// place.
-//   * dkv: one block per (key tile of 64 rows, b * H + h).  Each thread
-//     holds its row's k, v and the dk, dv accumulators; the block walks
-//     the 32-row query tiles the mask leaves non-empty (from the diagonal
-//     on when causal, up to window positions past the tile when
-//     windowed), staging q, do, lse and D, and recomputes p per pair.
-//     The first key tiles, which most queries see, start first.
-//   * dq: one block per (query tile of 64 rows, b * H + h).  Each thread
-//     holds its row's q, do and the dq accumulator, lse_i and D_i; the
-//     block walks the 32-row key tiles the forward walks, staging k and
-//     v.  The last query tiles, which see most keys, start first.
+// bf16 (the model's dtype): tensor cores.  Every product is
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: bf16 operands,
+// exact products, fp32 accumulation.  s = q kᵀ and dp = do vᵀ take the
+// bf16 inputs as they are: exact products summed in fp32.  p and ds
+// are fp32 intermediates; a product needs them in bf16, and rounded once
+// (as FlashAttention-2 does) they put elements of dk, dv and dq up to
+// about 100 times past chip_smoke.py's per-element limit of one bf16 ulp
+// (modelled on the CPU by tests/test_torch_kernels.py::
+// test_k10_rounding_design).  So each is split, x = hi + lo with
+// hi = bf16(x) and lo = bf16(x - hi), and enters its product twice:
+// dv += p_hi do + p_lo do, and so on.  That keeps about 16 bits of p and
+// ds, and every element within the limit.  mma.sync and not wgmma: each
+// warp owns 16 rows and feeds p and ds from its own accumulators, as
+// registers, into the next products; wgmma's register operand needs a
+// warpgroup's 64-row tile and asynchronous fences around it, which a
+// later rewrite can take on.
+//   * dkv: one block of 4 warps per (key tile of 64 rows, b * H + h);
+//     warp w owns keys 16w..16w+15.  The block's k and v sit in shared
+//     memory, read into A fragments per tile; dk and dv are fp32
+//     accumulators in registers.  The block walks the query tiles the
+//     mask leaves non-empty (from the diagonal on when causal, up to
+//     window positions past the tile when windowed); per tile
+//       sᵀ = k qᵀ, dpᵀ = v doᵀ                          (2 products)
+//       pᵀ, dsᵀ in fp32 registers, split into hi + lo
+//       dv += pᵀ_hi do + pᵀ_lo do, dk += dsᵀ_hi q + dsᵀ_lo q   (4)
+//     The m16n8 accumulator of sᵀ is laid out as the m16k16 A operand,
+//     so p and ds go from the accumulators into the next products
+//     without shared memory.  Query tiles: 32 rows (64 at hd 32), so
+//     that dk, dv, sᵀ and dpᵀ stay in registers without spills, at three
+//     blocks an SM up to hd 64.  The first key tiles, which most queries
+//     see, start first.
+//   * dq: one block of 4 warps per (query tile of 64 rows, b * H + h);
+//     q, do (shared memory, and A fragments at hd <= 64), lse_i and D_i
+//     are held once; the block walks the 64-row key tiles (32 at hd
+//     128) the forward walks; per tile s = q kᵀ, dp = do vᵀ,
+//     dq += ds_hi k + ds_lo k (4 products).  The last query tiles, which
+//     see most keys, start first.
+//   The walked tiles (q and do, or k and v, with lse and D) are staged
+//   by cp.async into two shared-memory buffers, the next tile's copy in
+//   flight during this tile's products.  Shared rows are padded by 16
+//   bytes, so the 8 rows an ldmatrix reads fall in 8 distinct bank
+//   groups; operands are read with ldmatrix (A and the "col" B of
+//   s = q kᵀ) and ldmatrix.trans (the B of dv, dk, dq, whose rows are the
+//   summed index).  (B, S, H, hd) is read in place.
+//
+// fp32 (the label party's ad-hoc ∇Z pass): the fp32 cores, as on the
+// TPU (TF32 would change its numbers).  A block owns 64 rows of one
+// (b, h), each row held by hd / 16 threads in registers, a row's dot
+// products meeting by warp shuffles; the other side is staged in 32-row
+// fp32 tiles.  s and dp are recomputed in both kernels (7 products).
 //
 // Bound: operations.  The backward's work is five products of 2 * hd
-// flops per visible pair (s = q kᵀ, dp = do vᵀ, dv, dk, dq): at
-// (1, 4096, 15, 64) causal, 125,859,840 pairs and 80.55 GFLOP, so
-// 81.45 us at the bf16 tensor-core peak (989 TFLOP/s), against about
-// 63 MB of q, k, v, o, do, dq, dk, dv, lse and D (19 us at 3.35 TB/s).
-// This first version recomputes s and dp in both kernels (seven
-// products, not five) and runs them all on the fp32 cores (67 TFLOP/s
-// peak): it keeps the TPU kernel's fp32 arithmetic and sits far above
-// the bound.  Tensor-core products and staged loads (cp.async / TMA) are
-// the route to it.
+// flops per visible pair (s, dp, dv, dk, dq): at (1, 4096, 15, 64)
+// causal, 125,859,840 pairs and 80.55 GFLOP, so 81.45 us at the bf16
+// tensor-core peak (989 TFLOP/s), against about 63 MB of q, k, v, o, do,
+// dq, dk, dv, lse and D (19 us at 3.35 TB/s).  The bf16 kernels issue 10
+// products, 161.1 GFLOP (dkv 6, dq 4): the split doubles the three
+// products on p and ds, and s and dp are computed in both kernels, the
+// price of dq without atomics.  What still holds them back: that
+// recompute; mma.sync, which issues from each warp in turn where wgmma
+// (a warpgroup's asynchronous 64-row products, B from shared memory)
+// keeps the tensor cores fed; the fp32 work between the products (exp,
+// the mask, the hi / lo split) in the same warps; three blocks of four
+// warps an SM at most, each waiting on its own loads; the masked halves
+// of the diagonal tiles, computed and thrown away.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ bool visible(int dist, int causal, int window) {
+  bool vis = true;
+  if (causal) vis = dist >= 0;
+  if (window) vis = vis && dist < window;
+  return vis;
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kM = 16 * kWarps;     // rows a block owns, 16 a warp
+constexpr float kLog2e = 1.4426950408889634f;
+
+// shared-memory row of hd bf16 values, padded by 16 bytes
+template <int HD>
+__host__ __device__ constexpr int row_stride() { return HD + 8; }
+
+// query rows per tile the dkv kernel walks: 32, so that dk, dv, sᵀ and
+// dpᵀ fit 168 registers a thread (three blocks an SM) without spills at hd
+// 64 and fit at all at hd 128; 64 at hd 32
+template <int HD>
+__host__ __device__ constexpr int dkv_tile() { return HD == 32 ? 64 : 32; }
+
+// key rows per tile the dq kernel walks: 64, and 32 at hd 128 (measured
+// faster there)
+template <int HD>
+__host__ __device__ constexpr int dq_tile() { return HD == 128 ? 32 : 64; }
+
+template <int HD>
+constexpr int dkv_smem() {
+  // k, v; q, do x 2 buffers; lse, D x 2 buffers
+  return 2 * kM * row_stride<HD>() * 2 +
+         4 * dkv_tile<HD>() * row_stride<HD>() * 2 + 4 * dkv_tile<HD>() * 4;
+}
+
+template <int HD>
+constexpr int dq_smem() {
+  // q, do; k, v x 2 buffers
+  return 2 * kM * row_stride<HD>() * 2 +
+         4 * dq_tile<HD>() * row_stride<HD>() * 2;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
+// l / 8 and receives, of each, row l / 4, columns 2 (l % 4) + {0, 1}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// the same, transposed: lane l receives rows 2 (l % 4) + {0, 1}, column
+// l / 4 of each matrix
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// d (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// (x, y) -> hi = bf16(x, y), lo = bf16((x, y) - hi), packed as a b32
+// register of an A fragment (x in the low half)
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 f = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(x - f.x, y - f.y));
+}
+
+// two m16n8 accumulators (columns 0-7, 8-15) -> the m16k16 A fragment
+// of the same 16x16 values, as hi and lo halves
+__device__ __forceinline__ void split_frag(const float (&c0)[4],
+                                           const float (&c1)[4],
+                                           uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+  split2(c0[0], c0[1], hi[0], lo[0]);
+  split2(c0[2], c0[3], hi[1], lo[1]);
+  split2(c1[0], c1[1], hi[2], lo[2]);
+  split2(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// d += (hi + lo) b: the split operand's two products
+__device__ __forceinline__ void mma_split(float (&d)[4],
+                                          const uint32_t (&hi)[4],
+                                          const uint32_t (&lo)[4],
+                                          uint32_t b0, uint32_t b1) {
+  mma(d, hi, b0, b1);
+  mma(d, lo, b0, b1);
+}
+
+// the 16-byte chunks of `rows` rows of hd bf16 values from (B, S, H, hd)
+// into padded shared rows
+template <int HD>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
+                                           long long pos_stride, int rows,
+                                           int tid) {
+  constexpr int kChunks = HD / 8;
+  for (int idx = tid; idx < rows * kChunks; idx += kThreads) {
+    const int r = idx / kChunks, c = idx % kChunks;
+    cp_async16(dst + r * row_stride<HD>() + 8 * c,
+               src + r * pos_stride + 8 * c);
+  }
+}
+
+// one accumulator tile (16 rows of this warp x hd) -> (B, S, H, hd) bf16
+template <int HD>
+__device__ __forceinline__ void store_rows(bf16* dst, long long pos_stride,
+                                           const float (&acc)[HD / 8][4],
+                                           int g, int t) {
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      *reinterpret_cast<__nv_bfloat162*>(
+          dst + (g + 8 * half) * pos_stride + 8 * n + 2 * t) =
+          __floats2bfloat162_rn(acc[n][2 * half], acc[n][2 * half + 1]);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, bf16* __restrict__ dk,
+                  bf16* __restrict__ dv, int S, int H, int causal,
+                  int window, float scale) {
+  constexpr int kN = dkv_tile<HD>();   // query rows per tile
+  constexpr int kStr = row_stride<HD>();
+  constexpr int kKS = HD / 16;         // k-steps of s over hd
+  constexpr int kNT = kN / 8;          // n-tiles of s over the query tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + kM * kStr;
+  bf16* Qs = Vs + kM * kStr;           // 2 buffers
+  bf16* Os = Qs + 2 * kN * kStr;       // do, 2 buffers
+  float* Ls = reinterpret_cast<float*>(Os + 2 * kN * kStr);  // lse, 2
+  float* Dl = Ls + 2 * kN;             // D, 2 buffers
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * kM;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const long long pos_stride = static_cast<long long>(H) * HD;
+  const long long base = static_cast<long long>(b) * S * pos_stride +
+                         static_cast<long long>(h) * HD;
+  const long long lrow = static_cast<long long>(bh) * S;  // lse, D of (b, h)
+
+  const int n_qb = S / kN;
+  const int lo = causal ? k0 / kN : 0;
+  const int hi = window ? min((k0 + kM + window - 2) / kN + 1, n_qb)
+                        : n_qb;
+  auto stage = [=](int buf, int qt) {
+    const long long off = base + static_cast<long long>(qt) * kN * pos_stride;
+    stage_rows<HD>(Qs + buf * kN * kStr, q + off, pos_stride, kN, tid);
+    stage_rows<HD>(Os + buf * kN * kStr, dout + off, pos_stride, kN, tid);
+    for (int i = tid; i < kN; i += kThreads) {
+      cp_async4(Ls + buf * kN + i, lse + lrow + qt * kN + i);
+      cp_async4(Dl + buf * kN + i, delta + lrow + qt * kN + i);
+    }
+  };
+  const long long koff = base + static_cast<long long>(k0) * pos_stride;
+  stage_rows<HD>(Ks, k + koff, pos_stride, kM, tid);
+  stage_rows<HD>(Vs, v + koff, pos_stride, kM, tid);
+  if (lo < hi) stage(0, lo);
+  cp_async_commit();
+
+  // ldmatrix offsets: A (16 rows x 16 columns, row-major) and the
+  // transposed B read the same way; the "col" B (n rows x k columns)
+  const int a_off = (lane & 15) * kStr + (lane >> 4) * 8;
+  const int b_off = ((lane & 7) + ((lane >> 4) << 3)) * kStr +
+                    ((lane >> 3) & 1) * 8;
+  const bf16* kw = Ks + warp * 16 * kStr;
+  const bf16* vw = Vs + warp * 16 * kStr;
+
+  float dka[HD / 8][4], dva[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  const float sl2 = scale * kLog2e;
+  const int key = k0 + warp * 16 + g;   // this thread's keys: key, key + 8
+  for (int qt = lo; qt < hi; ++qt) {
+    const int buf = (qt - lo) & 1;
+    cp_async_wait_all();
+    __syncthreads();   // tile qt landed; every warp is done with buf ^ 1
+    if (qt + 1 < hi) stage(buf ^ 1, qt + 1);
+    cp_async_commit();
+    const bf16* qs = Qs + buf * kN * kStr;
+    const bf16* os = Os + buf * kN * kStr;
+    const float* ls = Ls + buf * kN;
+    const float* dl = Dl + buf * kN;
+
+    // sᵀ = k qᵀ and dpᵀ = v doᵀ: 16 keys x kN queries
+    float s[kNT][4], dp[kNT][4];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+      uint32_t ak[4], av[4];
+      ldsm_x4(ak, kw + a_off + 16 * ks);
+      ldsm_x4(av, vw + a_off + 16 * ks);
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        uint32_t bq[4], bo[4];
+        ldsm_x4(bq, qs + 16 * np * kStr + b_off + 16 * ks);
+        ldsm_x4(bo, os + 16 * np * kStr + b_off + 16 * ks);
+        mma(s[2 * np], ak, bq[0], bq[1]);
+        mma(s[2 * np + 1], ak, bq[2], bq[3]);
+        mma(dp[2 * np], av, bo[0], bo[1]);
+        mma(dp[2 * np + 1], av, bo[2], bo[3]);
+      }
+    }
+
+    // pᵀ into s, dsᵀ into dp (fp32)
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = 8 * n + 2 * t + (e & 1);
+        const int dist = qt * kN + qi - (key + 8 * (e >> 1));
+        const float p = visible(dist, causal, window)
+                            ? exp2f(s[n][e] * sl2 - ls[qi] * kLog2e)
+                            : 0.f;
+        dp[n][e] = p * (dp[n][e] - dl[qi]) * scale;
+        s[n][e] = p;
+      }
+
+    // dv += pᵀ do, dk += dsᵀ q, each operand split into hi + lo
+#pragma unroll
+    for (int kk = 0; kk < kN / 16; ++kk) {
+      uint32_t ph[4], pl[4], sh[4], sl[4];
+      split_frag(s[2 * kk], s[2 * kk + 1], ph, pl);
+      split_frag(dp[2 * kk], dp[2 * kk + 1], sh, sl);
+#pragma unroll
+      for (int j = 0; j < HD / 16; ++j) {
+        uint32_t bo[4], bq[4];
+        ldsm_x4_t(bo, os + 16 * kk * kStr + a_off + 16 * j);
+        ldsm_x4_t(bq, qs + 16 * kk * kStr + a_off + 16 * j);
+        mma_split(dva[2 * j], ph, pl, bo[0], bo[1]);
+        mma_split(dva[2 * j + 1], ph, pl, bo[2], bo[3]);
+        mma_split(dka[2 * j], sh, sl, bq[0], bq[1]);
+        mma_split(dka[2 * j + 1], sh, sl, bq[2], bq[3]);
+      }
+    }
+  }
+  const long long out = base + static_cast<long long>(k0 + warp * 16) *
+                                   pos_stride;
+  store_rows<HD>(dk + out, pos_stride, dka, g, t);
+  store_rows<HD>(dv + out, pos_stride, dva, g, t);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ dq,
+                 int S, int H, int causal, int window, float scale) {
+  constexpr int kN = dq_tile<HD>();    // key rows per tile
+  constexpr int kStr = row_stride<HD>();
+  constexpr int kKS = HD / 16;
+  constexpr int kNT = kN / 8;
+  constexpr bool kHold = HD <= 64;     // q, do fragments in registers
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Os = Qs + kM * kStr;           // do
+  bf16* Ks = Os + kM * kStr;           // 2 buffers
+  bf16* Vs = Ks + 2 * kN * kStr;       // 2 buffers
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // the heaviest (last) query tiles start first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kM;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const long long pos_stride = static_cast<long long>(H) * HD;
+  const long long base = static_cast<long long>(b) * S * pos_stride +
+                         static_cast<long long>(h) * HD;
+  const int row = q0 + warp * 16 + g;  // this thread's queries: row, row + 8
+  const long long lrow = static_cast<long long>(bh) * S + row;
+  const float l2[2] = {lse[lrow] * kLog2e, lse[lrow + 8] * kLog2e};
+  const float dd[2] = {delta[lrow], delta[lrow + 8]};
+
+  const int n_kb = S / kN;
+  const int hi = causal ? min((q0 + kM + kN - 1) / kN, n_kb) : n_kb;
+  const int lo = window ? max(q0 - window, 0) / kN : 0;
+  auto stage = [=](int buf, int kt) {
+    const long long off = base + static_cast<long long>(kt) * kN * pos_stride;
+    stage_rows<HD>(Ks + buf * kN * kStr, k + off, pos_stride, kN, tid);
+    stage_rows<HD>(Vs + buf * kN * kStr, v + off, pos_stride, kN, tid);
+  };
+  const long long qoff = base + static_cast<long long>(q0) * pos_stride;
+  stage_rows<HD>(Qs, q + qoff, pos_stride, kM, tid);
+  stage_rows<HD>(Os, dout + qoff, pos_stride, kM, tid);
+  if (lo < hi) stage(0, lo);
+  cp_async_commit();
+
+  const int a_off = (lane & 15) * kStr + (lane >> 4) * 8;
+  const int b_off = ((lane & 7) + ((lane >> 4) << 3)) * kStr +
+                    ((lane >> 3) & 1) * 8;
+  const bf16* qw = Qs + warp * 16 * kStr;
+  const bf16* ow = Os + warp * 16 * kStr;
+  uint32_t qf[kHold ? kKS : 1][4], of[kHold ? kKS : 1][4];
+  if constexpr (kHold) {
+    cp_async_wait_all();
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < (kHold ? kKS : 0); ++ks) {
+      ldsm_x4(qf[ks], qw + a_off + 16 * ks);
+      ldsm_x4(of[ks], ow + a_off + 16 * ks);
+    }
+  }
+
+  float dqa[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+
+  const float sl2 = scale * kLog2e;
+  for (int kt = lo; kt < hi; ++kt) {
+    const int buf = (kt - lo) & 1;
+    cp_async_wait_all();
+    __syncthreads();   // tile kt landed; every warp is done with buf ^ 1
+    if (kt + 1 < hi) stage(buf ^ 1, kt + 1);
+    cp_async_commit();
+    const bf16* kb = Ks + buf * kN * kStr;
+    const bf16* vs = Vs + buf * kN * kStr;
+
+    // s = q kᵀ and dp = do vᵀ: 16 queries x kN keys
+    float s[kNT][4], dp[kNT][4];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+      uint32_t aq[4], ao[4];
+      if constexpr (kHold) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          aq[i] = qf[kHold ? ks : 0][i];
+          ao[i] = of[kHold ? ks : 0][i];
+        }
+      } else {
+        ldsm_x4(aq, qw + a_off + 16 * ks);
+        ldsm_x4(ao, ow + a_off + 16 * ks);
+      }
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        uint32_t bk[4], bv[4];
+        ldsm_x4(bk, kb + 16 * np * kStr + b_off + 16 * ks);
+        ldsm_x4(bv, vs + 16 * np * kStr + b_off + 16 * ks);
+        mma(s[2 * np], aq, bk[0], bk[1]);
+        mma(s[2 * np + 1], aq, bk[2], bk[3]);
+        mma(dp[2 * np], ao, bv[0], bv[1]);
+        mma(dp[2 * np + 1], ao, bv[2], bv[3]);
+      }
+    }
+
+    // ds into s (fp32)
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int dist = row + 8 * r - (kt * kN + 8 * n + 2 * t + (e & 1));
+        const float p = visible(dist, causal, window)
+                            ? exp2f(s[n][e] * sl2 - l2[r]) : 0.f;
+        s[n][e] = p * (dp[n][e] - dd[r]) * scale;
+      }
+
+    // dq += ds k, ds split into hi + lo
+#pragma unroll
+    for (int kk = 0; kk < kN / 16; ++kk) {
+      uint32_t sh[4], sl[4];
+      split_frag(s[2 * kk], s[2 * kk + 1], sh, sl);
+#pragma unroll
+      for (int j = 0; j < HD / 16; ++j) {
+        uint32_t bk[4];
+        ldsm_x4_t(bk, kb + 16 * kk * kStr + a_off + 16 * j);
+        mma_split(dqa[2 * j], sh, sl, bk[0], bk[1]);
+        mma_split(dqa[2 * j + 1], sh, sl, bk[2], bk[3]);
+      }
+    }
+  }
+  store_rows<HD>(dq + base + static_cast<long long>(q0 + warp * 16) *
+                                 pos_stride,
+                 pos_stride, dqa, g, t);
+}
+
+// ---------------------------------------------------------------------------
+// fp32: the fp32 cores
+// ---------------------------------------------------------------------------
 constexpr int kRows = 64;       // rows a block owns
 constexpr int kTile = 32;       // rows of a staged tile
 constexpr int kPart = 16;       // head dims per thread
 constexpr int kVec = kPart / 4; // float4 chunks per thread
-
-using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -63,20 +545,6 @@ __device__ __forceinline__ float4 load4(const float* p) {
 
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ float4 load4(const bf16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 a = __bfloat1622float2(h[0]);
-  const float2 b = __bfloat1622float2(h[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store4(bf16* p, float4 v) {
-  __nv_bfloat162 h[2] = {__floats2bfloat162_rn(v.x, v.y),
-                         __floats2bfloat162_rn(v.z, v.w)};
-  *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(h);
 }
 
 template <int TPR>
@@ -102,17 +570,10 @@ __device__ __forceinline__ void axpy4(float* acc, float s, float4 x) {
   acc[3] += s * x.w;
 }
 
-__device__ __forceinline__ bool visible(int dist, int causal, int window) {
-  bool vis = true;
-  if (causal) vis = dist >= 0;
-  if (window) vis = vis && dist < window;
-  return vis;
-}
-
 // one row's kPart values of x (chunk i of this thread is chunk
 // part + TPR * i of the row) -> registers
-template <typename T, int TPR>
-__device__ __forceinline__ void load_part(const T* row, int part,
+template <int TPR>
+__device__ __forceinline__ void load_part(const float* row, int part,
                                           float* out) {
 #pragma unroll
   for (int i = 0; i < kVec; ++i) {
@@ -124,8 +585,8 @@ __device__ __forceinline__ void load_part(const T* row, int part,
   }
 }
 
-template <typename T, int TPR>
-__device__ __forceinline__ void store_part(T* row, int part,
+template <int TPR>
+__device__ __forceinline__ void store_part(float* row, int part,
                                            const float* acc) {
 #pragma unroll
   for (int i = 0; i < kVec; ++i)
@@ -134,16 +595,17 @@ __device__ __forceinline__ void store_part(T* row, int part,
                        acc[4 * i + 3]));
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kRows * (HD / kPart))
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int S, int H, int causal,
-                     int window, float scale) {
+flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v,
+                  const float* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, float* __restrict__ dk,
+                  float* __restrict__ dv, int S, int H, int causal,
+                  int window, float scale) {
   constexpr int kTPR = HD / kPart;          // threads per key row
-  constexpr int kThreads = kRows * kTPR;
+  constexpr int kThr = kRows * kTPR;
   constexpr int kChunks = HD / 4;           // float4 chunks per row
   __shared__ float4 qs[kTile * kChunks];
   __shared__ float4 dos[kTile * kChunks];
@@ -163,8 +625,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kpos = k0 + r;
 
   float kr[kPart], vr[kPart], dka[kPart], dva[kPart];
-  load_part<T, kTPR>(k + base + kpos * pos_stride, part, kr);
-  load_part<T, kTPR>(v + base + kpos * pos_stride, part, vr);
+  load_part<kTPR>(k + base + kpos * pos_stride, part, kr);
+  load_part<kTPR>(v + base + kpos * pos_stride, part, vr);
 #pragma unroll
   for (int i = 0; i < kPart; ++i) dka[i] = dva[i] = 0.f;
 
@@ -174,13 +636,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         : n_qb;
   for (int qt = lo; qt < hi; ++qt) {
     __syncthreads();  // every thread is done with the previous tile
-    for (int idx = tid; idx < kTile * kChunks; idx += kThreads) {
+    for (int idx = tid; idx < kTile * kChunks; idx += kThr) {
       const int i = idx / kChunks, c = idx % kChunks;
       const long long off = base + (qt * kTile + i) * pos_stride + 4 * c;
       qs[idx] = load4(q + off);
       dos[idx] = load4(dout + off);
     }
-    for (int i = tid; i < kTile; i += kThreads) {
+    for (int i = tid; i < kTile; i += kThr) {
       ls[i] = lse[row0 + qt * kTile + i];
       ds_row[i] = delta[row0 + qt * kTile + i];
     }
@@ -210,19 +672,19 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
   }
-  store_part<T, kTPR>(dk + base + kpos * pos_stride, part, dka);
-  store_part<T, kTPR>(dv + base + kpos * pos_stride, part, dva);
+  store_part<kTPR>(dk + base + kpos * pos_stride, part, dka);
+  store_part<kTPR>(dv + base + kpos * pos_stride, part, dva);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kRows * (HD / kPart))
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int S, int H, int causal, int window, float scale) {
+flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dq,
+                 int S, int H, int causal, int window, float scale) {
   constexpr int kTPR = HD / kPart;          // threads per query row
-  constexpr int kThreads = kRows * kTPR;
+  constexpr int kThr = kRows * kTPR;
   constexpr int kChunks = HD / 4;
   __shared__ float4 ks[kTile * kChunks];
   __shared__ float4 vs[kTile * kChunks];
@@ -242,8 +704,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float d_i = delta[static_cast<long long>(bh) * S + qpos];
 
   float qr[kPart], dor[kPart], dqa[kPart];
-  load_part<T, kTPR>(q + base + qpos * pos_stride, part, qr);
-  load_part<T, kTPR>(dout + base + qpos * pos_stride, part, dor);
+  load_part<kTPR>(q + base + qpos * pos_stride, part, qr);
+  load_part<kTPR>(dout + base + qpos * pos_stride, part, dor);
 #pragma unroll
   for (int i = 0; i < kPart; ++i) dqa[i] = 0.f;
 
@@ -253,7 +715,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lo = window ? max(q0 - window, 0) / kTile : 0;
   for (int kt = lo; kt < hi; ++kt) {
     __syncthreads();
-    for (int idx = tid; idx < kTile * kChunks; idx += kThreads) {
+    for (int idx = tid; idx < kTile * kChunks; idx += kThr) {
       const int j = idx / kChunks, c = idx % kChunks;
       const long long off = base + (kt * kTile + j) * pos_stride + 4 * c;
       ks[idx] = load4(k + off);
@@ -281,9 +743,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < kVec; ++c) axpy4(dqa + 4 * c, ds, kk[c]);
     }
   }
-  store_part<T, kTPR>(dq + base + qpos * pos_stride, part, dqa);
+  store_part<kTPR>(dq + base + qpos * pos_stride, part, dqa);
 }
 
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
@@ -292,21 +757,63 @@ struct Args {
   float scale;
 };
 
-template <typename T, int HD>
-int launch(bool dkv, const Args& a, cudaStream_t st) {
+// a kernel's dynamic shared memory above the default 48 KB: allowed once
+// per device before its first launch there
+template <typename K>
+int allow_smem(K kernel, int bytes, bool (&done)[64]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 64 && done[dev]) return 0;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 64) done[dev] = true;
+  return 0;
+}
+
+template <int HD>
+int launch_mma(bool dkv, const Args& a, cudaStream_t st) {
+  static bool dkv_done[64] = {}, dq_done[64] = {};
+  const dim3 grid(a.S / kM, a.B * a.H);
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+  const bf16* d = static_cast<const bf16*>(a.dout);
+  if (dkv) {
+    constexpr int bytes = dkv_smem<HD>();
+    const int e = allow_smem(flash_bwd_dkv_mma<HD>, bytes, dkv_done);
+    if (e) return e;
+    flash_bwd_dkv_mma<HD><<<grid, kThreads, bytes, st>>>(
+        q, k, v, d, a.lse, a.delta, static_cast<bf16*>(a.o1),
+        static_cast<bf16*>(a.o2), a.S, a.H, a.causal, a.window, a.scale);
+  } else {
+    constexpr int bytes = dq_smem<HD>();
+    const int e = allow_smem(flash_bwd_dq_mma<HD>, bytes, dq_done);
+    if (e) return e;
+    flash_bwd_dq_mma<HD><<<grid, kThreads, bytes, st>>>(
+        q, k, v, d, a.lse, a.delta, static_cast<bf16*>(a.o1), a.S, a.H,
+        a.causal, a.window, a.scale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int launch_f32(bool dkv, const Args& a, cudaStream_t st) {
   const dim3 grid(a.S / kRows, a.B * a.H);
   const dim3 block(kRows * (HD / kPart));
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* d = static_cast<const T*>(a.dout);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* d = static_cast<const float*>(a.dout);
   if (dkv)
-    flash_bwd_dkv_kernel<T, HD><<<grid, block, 0, st>>>(
-        q, k, v, d, a.lse, a.delta, static_cast<T*>(a.o1),
-        static_cast<T*>(a.o2), a.S, a.H, a.causal, a.window, a.scale);
+    flash_bwd_dkv_f32<HD><<<grid, block, 0, st>>>(
+        q, k, v, d, a.lse, a.delta, static_cast<float*>(a.o1),
+        static_cast<float*>(a.o2), a.S, a.H, a.causal, a.window, a.scale);
   else
-    flash_bwd_dq_kernel<T, HD><<<grid, block, 0, st>>>(
-        q, k, v, d, a.lse, a.delta, static_cast<T*>(a.o1), a.S, a.H,
+    flash_bwd_dq_f32<HD><<<grid, block, 0, st>>>(
+        q, k, v, d, a.lse, a.delta, static_cast<float*>(a.o1), a.S, a.H,
         a.causal, a.window, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -316,10 +823,12 @@ int run(bool dkv, const Args& a, int hd, int dtype, void* stream) {
       a.B * a.H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && hd == 64) return launch<float, 64>(dkv, a, st);
-  if (dtype == 0 && hd == 128) return launch<float, 128>(dkv, a, st);
-  if (dtype == 1 && hd == 64) return launch<bf16, 64>(dkv, a, st);
-  if (dtype == 1 && hd == 128) return launch<bf16, 128>(dkv, a, st);
+  if (dtype == 0 && hd == 32) return launch_f32<32>(dkv, a, st);
+  if (dtype == 0 && hd == 64) return launch_f32<64>(dkv, a, st);
+  if (dtype == 0 && hd == 128) return launch_f32<128>(dkv, a, st);
+  if (dtype == 1 && hd == 32) return launch_mma<32>(dkv, a, st);
+  if (dtype == 1 && hd == 64) return launch_mma<64>(dkv, a, st);
+  if (dtype == 1 && hd == 128) return launch_mma<128>(dkv, a, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -327,8 +836,8 @@ int run(bool dkv, const Args& a, int hd, int dtype, void* stream) {
 
 // K10 dkv.  q, k, v, dout, dk, dv: contiguous (B, S, H, hd) of one dtype
 // (0 = float32, 1 = bfloat16), 16-byte aligned; lse, delta: (B, H, S)
-// float32; hd in {64, 128}; S a multiple of 64; window >= 0 (0 = none).
-// Returns the cudaError_t of the launch.
+// float32; hd in {32, 64, 128}; S a multiple of 64; window >= 0 (0 =
+// none).  Returns the cudaError_t of the launch.
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,

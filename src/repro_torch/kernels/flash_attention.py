@@ -41,7 +41,7 @@ NAME = "flash_attention"
 LSE_NAME = "flash_attention_fwd_lse"
 DTYPES = (torch.bfloat16, torch.float32)   # operand dtypes of the kernel
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)          # head dims the kernel is built for
+HEAD_DIMS = (32, 64, 128)      # head dims the kernel is built for
 SEQ_TILE = 64                  # the kernel's query tile: S % SEQ_TILE == 0
 _PLAIN_Q_TILE = 512            # query rows per dense pass of the plain version
 

@@ -15,10 +15,13 @@ it outside its kernels):
   * the **dq kernel** walks, for each query tile, the key tiles and
     accumulates dq += ds·k.
 
-Both take bf16 or fp32 operands and hd 64 or 128, sum in fp32 and write
-q's dtype; the masks (causal, sliding window) and the skipped empty
-tiles are the forward's.  ``csrc/flash_attention_bwd.cu`` holds the two
-kernels; :func:`flash_attention_bwd_dkv_plain` and
+Both take bf16 or fp32 operands and hd 32, 64 or 128, sum in fp32 and
+write q's dtype; the masks (causal, sliding window) and the skipped empty
+tiles are the forward's.  In bf16 the products run on the tensor cores,
+with p and ds split into a bf16 high and low half so that each output
+element stays within a bf16 ulp of the fp32 backward; fp32 runs on the
+fp32 cores.  ``csrc/flash_attention_bwd.cu`` holds the kernels;
+:func:`flash_attention_bwd_dkv_plain` and
 :func:`flash_attention_bwd_dq_plain` are their plain versions (dense
 tiles of ``_PLAIN_Q_TILE`` query rows, fp32 inside), which the wrappers
 run for CPU tensors only.
@@ -33,9 +36,10 @@ Bound: operations.  The backward's work is five products of 2·hd flops
 per visible (query, key) pair (s, do·vᵀ, dv, dk, dq): at
 (1, 4096, 15, 64) causal that is 125,859,840 pairs, 80.55 GFLOP and
 81.45 us at the card's bf16 tensor-core peak, against about 63 MB of
-operands (19 us at 3.35 TB/s).  Alone, the dkv kernel computes four of
-those products and the dq kernel three (s and do·vᵀ in both):
-:func:`flops` counts either.
+operands (19 us at 3.35 TB/s).  Both kernels compute s and do·vᵀ; the
+bf16 ones issue each product on p or ds twice (its high and low half), so
+the dkv kernel issues six products and the dq kernel four, the fp32 ones
+four and three: :func:`flops` counts any of these.
 """
 from __future__ import annotations
 
@@ -189,8 +193,8 @@ class FlashAttentionFn(torch.autograd.Function):
 def flops(B: int, S: int, H: int, hd: int, causal: bool = True,
           window: int = 0, products: int = 5) -> int:
     """``products`` matrix products of 2·hd flops per visible pair: 5 for
-    the backward's work, 4 for the dkv kernel alone, 3 for the dq
-    kernel's."""
+    the backward's work; 6 (bf16) or 4 (fp32) issued by the dkv kernel,
+    4 or 3 by the dq kernel."""
     return 2 * products * hd * H * B * visible_pairs(S, causal, window)
 
 

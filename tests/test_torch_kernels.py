@@ -224,7 +224,7 @@ def test_k9_visible_pairs_counts_the_mask(causal, window):
 
 @pytest.mark.parametrize("shape,dtype,window,match", [
     ((1, 128, 2, 48), torch.bfloat16, 0, "head dim"),
-    ((1, 128, 2, 32), torch.bfloat16, 0, "head dim"),
+    ((1, 128, 2, 16), torch.bfloat16, 0, "head dim"),
     ((1, 100, 2, 64), torch.bfloat16, 0, "multiple of 64"),
     ((1, 128, 2, 64), torch.float16, 0, "bfloat16"),
     ((1, 128, 2, 64), torch.float64, 0, "bfloat16"),
@@ -234,6 +234,22 @@ def test_k9_operand_checks(shape, dtype, window, match):
     q = torch.zeros(shape, dtype=dtype)
     with pytest.raises(ValueError, match=match):
         tfa.check_operands(q, q, q, window)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_head_dim_32_passes_the_operand_checks(dtype):
+    """The reduced model's head dim (128 // 4 = 32) is one the kernels
+    are built for: K9's, K9-LSE's and K10's checks take it."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention_bwd as fab
+    shape = (2, 3072, 4, get_config("smollm-360m").reduced().head_dim)
+    assert shape[3] == 32 and 32 in tfa.HEAD_DIMS
+    q = torch.zeros(shape, dtype=dtype)
+    lse = torch.zeros((2, 4, 3072))
+    tfa.check_operands(q, q, q, 0)
+    for name in (fab.DKV_NAME, fab.DQ_NAME):
+        fab.check_bwd_operands(name, q, q, q, q.clone(), lse, lse.clone(),
+                               0)
 
 
 def test_k9_cpu_wrapper_launches_nothing():
@@ -396,3 +412,79 @@ def test_k9_lse_and_k10_cpu_wrappers_launch_nothing():
     o = tops.flash_attention_trainable(q, q, q)
     torch.autograd.grad(o.sum(), q)
     assert all(v == 0 for v in _cuda.LAUNCHES.values())
+
+
+# --------------------------------------------------------------------------
+# The rounding points of K10's bf16 kernels (csrc/flash_attention_bwd.cu),
+# modelled on the CPU: bf16 operands, s and dp as fp32 sums of exact
+# products, p and ds in fp32, each taken into its product as bf16 hi + lo
+# (hi = bf16(x), lo = bf16(x - hi)), fp32 sums, one rounding of the output
+# to bf16.  Every element must lie within chip_smoke's per-element limit
+# (|out - ref| <= K10_REL |ref| + K10_ATOL, ref the fp32 plain version
+# rounded to bf16), which the card holds the kernels to; with p and ds
+# rounded once to bf16, as FlashAttention-2 does, elements must not.
+# --------------------------------------------------------------------------
+def _chip_smoke():
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
+    import chip_smoke
+    return chip_smoke
+
+
+def _split(x):
+    hi = x.to(torch.bfloat16).float()
+    return hi + (x - hi).to(torch.bfloat16).float()
+
+
+def _single(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _k10_model(q, k, v, do, lse, delta, causal, window, rnd):
+    """K10's gradients with p and ds passed through ``rnd`` before their
+    products -> (dk, dv, dq) bf16."""
+    B, S, H, hd = q.shape
+    dk = torch.zeros((B, H, S, hd))
+    dv = torch.zeros_like(dk)
+    dq = torch.zeros_like(dk)
+    kf = k.float().transpose(1, 2)
+    for q0, q1, qt, dot, p, ds in tfab._tiles(q, k, v, do, lse, delta,
+                                              causal, window):
+        p, ds = rnd(p), rnd(ds)
+        dv += torch.matmul(p.transpose(-1, -2), dot)
+        dk += torch.matmul(ds.transpose(-1, -2), qt)
+        dq[:, :, q0:q1] = torch.matmul(ds, kf)
+    return tuple(t.transpose(1, 2).to(torch.bfloat16) for t in (dk, dv, dq))
+
+
+@pytest.mark.parametrize("shape,causal,window", [
+    ((1, 1024, 2, 64), True, 0), ((2, 512, 2, 32), True, 128)])
+def test_k10_rounding_design(shape, causal, window):
+    cs = _chip_smoke()
+    rel, atol = cs.K10_REL["bfloat16"], cs.K10_ATOL["bfloat16"]
+    rng = np.random.default_rng(16)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape)
+                                    .astype(np.float32)).to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = tfa.flash_attention_fwd_lse_plain(q, k, v, causal=causal,
+                                               window=window)
+    delta = tfab.row_delta(o, do)
+    args = (q, k, v, do, lse, delta)
+    kw = dict(causal=causal, window=window)
+    dk, dv = tfab.flash_attention_bwd_dkv_plain(*args, **kw)
+    refs = (dk, dv, tfab.flash_attention_bwd_dq_plain(*args, **kw))
+
+    def worst(outs):
+        ratios = []
+        for got, ref in zip(outs, refs):
+            diff = (got.float() - ref.float()).abs()
+            ratios.append(float((diff / (rel * ref.float().abs() + atol))
+                                .max()))
+        return ratios
+    split = worst(_k10_model(*args, causal, window, _split))
+    single = worst(_k10_model(*args, causal, window, _single))
+    print(f"worst err / limit (dk, dv, dq): hi + lo {split}, "
+          f"single rounding {single}")
+    assert max(split) <= 1.0
+    assert min(single) > 1.0
