@@ -7,7 +7,7 @@ flash_attention.cu``) or backward (``flash_attention_bwd.cu``) with one
 small fault at a time (a key tile, or a single key, too few or too many
 for some rows of a 4,096-token sequence), runs the smoke's kernel phase
 of that kernel on it and requires that phase to fail on the kernel.
-K9, in the serving kernel phase:
+K9's bf16 kernel (``flash_fwd_mma``), in the serving kernel phase:
 
   * ``window_tile_late``: the window's first key tile is skipped for the
     query tiles from row 3,584 on;
@@ -16,7 +16,10 @@ K9, in the serving kernel phase:
   * ``diagonal_key_late``: an off-by-one in the causal mask hides each
     row's own key, for the query tiles from row 3,584 on;
   * ``window_edge``: an off-by-one in the window keeps one key too many,
-    ``window`` positions behind each row.
+    ``window`` positions behind each row;
+  * ``k9_p_lo_dropped``: for the query tiles from row 3,584 on, o takes
+    p's bf16 high half alone (p rounded once to bf16, its low half
+    dropped), so the per-element limit must catch single rounding.
 
 K10's bf16 kernels, in the training kernel phase:
 
@@ -59,19 +62,23 @@ LATE = 3584
 # kernel phase, K10's by the training kernel phase
 MUTANTS = {
     "window_tile_late": (
-        "const int lo = window ? max(q0 - window, 0) / kBK : 0;",
-        f"const int lo = window ? max(q0 - window, 0) / kBK"
+        "const int lo = window ? max(q0 - window, 0) / kN : 0;",
+        f"const int lo = window ? max(q0 - window, 0) / kN"
         f" + (q0 >= {LATE}) : 0;"),
     "diagonal_tile_late": (
-        "const int hi = causal ? min((q0 + kBQ + kBK - 1) / kBK, n_kb) : n_kb;",
-        f"const int hi = causal ? min((q0 + kBQ + kBK - 1) / kBK, n_kb)"
+        "const int hi = causal ? min((q0 + kM + kN - 1) / kN, n_kb) : n_kb;",
+        f"const int hi = causal ? min((q0 + kM + kN - 1) / kN, n_kb)"
         f" - (q0 >= {LATE}) : n_kb;"),
     "diagonal_key_late": (
-        "if (causal) vis = dist >= 0;",
-        f"if (causal) vis = q0 >= {LATE} ? dist > 0 : dist >= 0;"),
+        "bool vis = !causal || dist >= 0;",
+        f"bool vis = !causal || (q0 >= {LATE} ? dist > 0 : dist >= 0);"),
     "window_edge": (
-        "if (window) vis = vis && dist < window;",
-        "if (window) vis = vis && dist <= window;"),
+        "vis = vis && (!window || dist < window);",
+        "vis = vis && (!window || dist <= window);"),
+    "k9_p_lo_dropped": (
+        "split_frag(s[2 * kk], s[2 * kk + 1], ph, pl);",
+        f"split_frag(s[2 * kk], s[2 * kk + 1], ph, pl);"
+        f" if (q0 >= {LATE}) pl[0] = pl[1] = pl[2] = pl[3] = 0u;"),
     "dkv_diagonal_key_late": (
         "const int dist = qt * kN + qi - (key + 8 * (e >> 1));",
         f"const int dist = qt * kN + qi - (key + 8 * (e >> 1))"
@@ -103,6 +110,26 @@ RUN = ("import sys, torch; sys.path.insert(0, 'src'); "
        "import chip_smoke; chip_smoke.{}(torch)")
 
 
+def mutated_copy(d: str, source: str, lines: list, name: str) -> None:
+    """A copy of ``src/`` and ``chip_smoke.py`` under ``d`` with each
+    (line, new line) of ``lines`` replaced in ``source`` (a path under
+    the root); exits if a line is not in the file exactly once."""
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(os.path.join(ROOT, "src"), os.path.join(d, "src"),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), d)
+    path = os.path.join(d, source)
+    with open(path) as f:
+        text = f.read()
+    for good, bad in lines:
+        if text.count(good) != 1:
+            sys.exit(f"{name}: the line to replace is not in {source} once "
+                     f"but {text.count(good)} times: {good!r}")
+        text = text.replace(good, bad)
+    with open(path, "w") as f:
+        f.write(text)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -116,19 +143,7 @@ def main() -> None:
         phase = "phase_train_kernels" if k10 else "phase_serve_kernels"
         kernel = K10_MUTANTS[name] if k10 else "flash_attention"
         d = os.path.join(top, name)
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(os.path.join(ROOT, "src"), os.path.join(d, "src"),
-                        ignore=shutil.ignore_patterns("_build",
-                                                      "__pycache__"))
-        shutil.copy(os.path.join(ROOT, "chip_smoke.py"), d)
-        path = os.path.join(d, source)
-        with open(path) as f:
-            text = f.read()
-        if text.count(good) != 1:
-            sys.exit(f"chip_mutants: {name}: the line to mutate is not in "
-                     f"{source} once but {text.count(good)} times")
-        with open(path, "w") as f:
-            f.write(text.replace(good, bad))
+        mutated_copy(d, source, [(good, bad)], name)
         r = subprocess.run([sys.executable, "-c", RUN.format(phase)], cwd=d,
                            capture_output=True, text=True, timeout=600)
         line = next((ln for ln in (r.stdout + r.stderr).splitlines()

@@ -8,8 +8,8 @@ Phases, each on its own printed lines (any failure exits non-zero):
 
   1. the card: name and power limit; TF32 off for matmuls and cuDNN;
   2. the build of the CUDA kernels from ``src/repro_torch/csrc``, with
-     each kernel's registers and spills (``-Xptxas -v``): K10's bf16
-     kernels may not spill;
+     each kernel's registers and spills (``-Xptxas -v``): the bf16
+     attention kernels of K9 and K10 may not spill;
   3. each kernel against its plain PyTorch version on the card (K1 full
      and weights-only, K2a, K2b; K3 at int8 and int4 levels; K4 and K5
      full and weights-only) at the main path's shapes, at an odd batch
@@ -33,9 +33,14 @@ Phases, each on its own printed lines (any failure exits non-zero):
   6. the serving kernels against their plain versions: K6 and K11
      bitwise at the serving shape (W = 4 ring slots, C = 8 lanes,
      F = 960) and at a wide ring, K9 at the long-prompt shape
-     (1, 4096, 15, 64) bf16, causal, with a window of 1,024 and at head
-     dim 128, each element within a bf16 ulp of its own magnitude,
-     timed beside ``F.scaled_dot_product_attention``;
+     (1, 4096, 15, 64) bf16, causal, with a window of 1,024, at head
+     dim 128 and at the reduced model's (2, 3072, 4, 32), and K9 and
+     K9-LSE at S = 320 (an odd number of 64-row tiles) at each head
+     dim, each element within a bf16 ulp of its own magnitude, timed beside
+     ``F.scaled_dot_product_attention``, with the rate of the two
+     products of its work and of the three it issues, and the
+     tensor-core instructions in the SASS of its bf16 kernel (none
+     fails);
   7. the serving path: ``repro_torch.launch.serve`` at smollm-360m's
      full width (32 requests, 8 lanes, prompt 16, gen 16, closed burst)
      with the int8 ring and wire (K6 on every ring read; two runs, equal
@@ -156,21 +161,30 @@ SERVE_ARGS = {"--requests": 32, "--capacity": 8, "--prompt-len": 16,
               "--gen": 16, "--rate": 0}
 SERVE_RING = (4, 8, 960)
 WIDE_RING = (4, 64, 64 * 960)
-# K9: the long-prompt shape (B, S, H, hd) of smollm-360m, with a window
-# and at head dim 128.  Kernel and plain version both take the products
-# in fp32 and round the output to bf16 once, so an element may land one
-# bf16 ulp apart, and one ulp is at most 2^-7 of the element.  Each
-# element is held to its own magnitude: |out - ref| <= 2^-7 |ref| +
-# K9_ATOL, where K9_ATOL covers the fp32 difference between the online
-# and the dense sums at outputs near zero (some twenty fp32 ulps of the
-# largest input, about 5).  The bulk of a 4,096-key row's outputs are
-# about 0.03, so a key tile dropped from late rows (an error of about
-# 1e-3) cannot pass; ``chip_mutants.py`` builds two such faults and
-# checks that this phase fails on each.  On an H100 80GB HBM3 the worst
-# err / limit reads 0.97-0.98: one-ulp differences at the bottom of a
-# binade, where an ulp is 2^-7 of the value.
+# K9: the long-prompt shape (B, S, H, hd) of smollm-360m, with a window,
+# at head dim 128 and at the reduced model's shape.  The plain version
+# takes both products in fp32; the bf16 kernel takes q kᵀ exactly and p
+# into p v as bf16 hi + lo (about 16 bits of p), and both round the
+# output to bf16 once, so an element may land one bf16 ulp apart, and one
+# ulp is at most 2^-7 of the element.  (p rounded once to bf16 would put
+# elements 34-70 times past this limit: tests/test_torch_kernels.py::
+# test_k9_rounding_design.)  Each element is held to its own magnitude:
+# |out - ref| <= 2^-7 |ref| + K9_ATOL, where K9_ATOL covers the fp32
+# difference between the online and the dense sums at outputs near zero
+# (some twenty fp32 ulps of the largest input, about 5).  The bulk of a
+# 4,096-key row's outputs are about 0.03, so a key tile dropped from late
+# rows (an error of about 1e-3) cannot pass; ``chip_mutants.py`` builds
+# such faults, and p rounded once on late rows, and checks that this
+# phase fails on each.  On an H100 80GB HBM3 the worst err / limit of the
+# tensor-core kernel reads 0.967-0.982: one-ulp differences at the bottom
+# of a binade, where an ulp is 2^-7 of the value.
 K9_CASES = [((1, 4096, 15, 64), True, 0), ((1, 4096, 15, 64), True, 1024),
-            ((1, 4096, 15, 128), True, 0)]
+            ((1, 4096, 15, 128), True, 0), ((2, 3072, 4, 32), True, 0)]
+# K9 and K9-LSE at S = 320, five 64-row tiles (S % 64 == 0 is all the
+# kernels ask), causal, with a window of 100, and without the causal mask,
+# at each head dim: out and lse held to the same limits
+K9_ODD_TILES = [((1, 320, 2, hd), causal, window) for hd in (32, 64, 128)
+                for causal, window in ((True, 0), (True, 100), (False, 100))]
 K9_REL_TOL = 2.0 ** -7
 K9_ATOL = 1e-5
 LONG_ARGS = {"--requests": 4, "--capacity": 2, "--prompt-len": 4096,
@@ -246,6 +260,10 @@ REDUCED_SERVE_ARGS = {"--requests": 4, "--capacity": 2,
 # (the kernel's name in the library, the products it issues)
 K10_MMA = {"flash_attention_bwd_dkv": ("flash_bwd_dkv_mma", 6),
            "flash_attention_bwd_dq": ("flash_bwd_dq_mma", 4)}
+# K9's (and K9-LSE's) bf16 kernel (csrc/flash_attention.cu): its name in
+# the library and the products it issues (s = q kᵀ, p_hi v, p_lo v),
+# against the two (s, p v) of its work
+K9_MMA = ("flash_fwd_mma", 3)
 DENSE_GATES = ("fused_sample_2d", "cosine_weight_2d", "cosine_weights_2d")
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
 
@@ -1036,10 +1054,52 @@ def phase_serve_kernels(torch):
               f"within 2^-7 |ref| + {K9_ATOL:g} (worst err / limit "
               f"{worst:.3g}, median |ref| "
               f"{ref.float().abs().median().item():.3g}); "
-              f"{flops / t['ms'] / 1e9:.1f} TFLOP/s", flush=True)
+              f"{t['ms'] * 1e3:.2f} us: the two products of its work at "
+              f"{flops / t['ms'] / 1e9:.1f} TFLOP/s, the {K9_MMA[1]} it "
+              f"issues at {K9_MMA[1] / 2 * flops / t['ms'] / 1e9:.1f} "
+              f"TFLOP/s (peak {PEAK_BF16_FLOPS / 1e12:.0f})", flush=True)
         if (shape, causal, window) == K9_CASES[0]:
             results["flash_attention"].update(t, library_ms=lib_ms)
+    for shape, causal, window in K9_ODD_TILES:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        kw = dict(causal=causal, window=window)
+        tag = (f"B,S,H,hd={','.join(map(str, shape))} causal={causal} "
+               f"window={window}")
+        o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
+        o_k9 = fa.flash_attention(q, k, v, **kw)
+        o_ref, lse_ref = fa.flash_attention_fwd_lse_plain(q, k, v, **kw)
+        check(torch.equal(o, o_k9), f"flash_attention_fwd_lse {tag}: the "
+              f"output differs from K9's without the LSE pointer")
+        _, w_o = _per_element("flash_attention", f"{tag} out", o_k9, o_ref,
+                              K9_REL_TOL, K9_ATOL)
+        _, w_l = _per_element("flash_attention_fwd_lse", f"{tag} lse", lse,
+                              lse_ref, LSE_REL, LSE_ATOL)
+        print(f"[kernel] {'flash_attention':30s} {tag}: worst err / limit "
+              f"out {w_o:.3g}, lse {w_l:.3g}; K9-LSE's out bitwise K9's",
+              flush=True)
+    _k9_tensor_cores()
     return results
+
+
+def _mma_per_hd(name: str, kernel: str) -> dict:
+    """{hd: HMMA / HGMMA instructions in the SASS of ``kernel<hd>``} at hd
+    32, 64 and 128; fails if one has none (``name`` the wrapper)."""
+    from repro_torch.kernels import _cuda
+
+    counts = sass_mma_counts(_cuda.build()["path"])
+    per_hd = {d: counts.get(f"{kernel}<{d}>", 0) for d in (32, 64, 128)}
+    check(all(per_hd.values()), f"{name}: {kernel} has no tensor-core "
+          f"instruction in its SASS at some head dim: {per_hd}")
+    return per_hd
+
+
+def _k9_tensor_cores():
+    """K9's bf16 kernel runs on the tensor cores at hd 32, 64 and 128."""
+    per_hd = _mma_per_hd("flash_attention", K9_MMA[0])
+    print(f"[kernel] {'flash_attention':30s} bf16: tensor-core instructions "
+          f"in the SASS of {K9_MMA[0]} (cuobjdump -sass) at hd 32 / 64 / "
+          f"128: {per_hd[32]} / {per_hd[64]} / {per_hd[128]}", flush=True)
 
 
 def _loop_logits(torch, params, cfg, batch, total_len, tokens):
@@ -1531,25 +1591,21 @@ def _k10_tensor_cores(results):
     instructions in each one's SASS at hd 32, 64 and 128 (none fails), and
     the rates at the timed shape (the first of K10_CASES) over the
     products each issues and over the backward's five-product work."""
-    from repro_torch.kernels import _cuda
     from repro_torch.kernels import flash_attention_bwd as fab
 
-    counts = sass_mma_counts(_cuda.build()["path"])
     (B, S, H, hd), dt, window = K10_CASES[0]
     tag = f"B,S,H,hd={B},{S},{H},{hd} {dt} causal window={window}"
 
     def rate(products, ms):
         return fab.flops(B, S, H, hd, True, window, products) / ms / 1e9
     for name, (kernel, issued) in K10_MMA.items():
-        per_hd = {d: counts.get(f"{kernel}<{d}>", 0) for d in (32, 64, 128)}
+        per_hd = _mma_per_hd(name, kernel)
         ms = results[name]["ms"]
         print(f"[kernel] {name:30s} bf16: tensor-core instructions in the "
               f"SASS of {kernel} (cuobjdump -sass) at hd 32 / 64 / 128: "
               f"{per_hd[32]} / {per_hd[64]} / {per_hd[128]}; {tag}: "
               f"{ms * 1e3:.2f} us, the {issued} products it issues at "
               f"{rate(issued, ms):.1f} TFLOP/s", flush=True)
-        check(all(per_hd.values()), f"{name}: {kernel} has no tensor-core "
-              f"instruction in its SASS at some head dim: {per_hd}")
     ms = sum(results[n]["ms"] for n in K10_MMA)
     print(f"[kernel] K10 (dkv + dq) bf16 {tag}: {ms * 1e3:.2f} us; the "
           f"backward's five-product work at {rate(5, ms):.1f} TFLOP/s, the "
@@ -1912,11 +1968,13 @@ def main() -> None:
         print(f"[build] {label}: {regs} registers, spill stores {st} B, "
               f"spill loads {ld} B")
     if info["log"]:
-        mma = {k: u for k, u in usage.items()
-               if k.split("<")[0] in [n for n, _ in K10_MMA.values()]}
-        check(len(mma) == 6 and all(u[1:] == (0, 0) for u in mma.values()),
-              f"K10's bf16 kernels at hd 32 / 64 / 128: ptxas reports "
-              f"{mma} (registers, spill bytes), want six and no spills")
+        names = [K9_MMA[0]] + [n for n, _ in K10_MMA.values()]
+        mma = {k: u for k, u in usage.items() if k.split("<")[0] in names}
+        check(len(mma) == 3 * len(names)
+              and all(u[1:] == (0, 0) for u in mma.values()),
+              f"the bf16 attention kernels of K9 and K10 at hd 32 / 64 / "
+              f"128: ptxas reports {mma} (registers, spill bytes), want "
+              f"{3 * len(names)} and no spills")
     else:
         print("[build] the library was already built: no ptxas report")
 

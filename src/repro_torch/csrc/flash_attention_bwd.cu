@@ -18,8 +18,9 @@
 // element summed by one thread in a fixed order, so a run repeats bitwise.
 //
 // bf16 (the model's dtype): tensor cores.  Every product is
-// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: bf16 operands,
-// exact products, fp32 accumulation.  s = q kᵀ and dp = do vᵀ take the
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 (attention_mma.cuh,
+// shared with the forward): bf16 operands, exact products, fp32
+// accumulation.  s = q kᵀ and dp = do vᵀ take the
 // bf16 inputs as they are: exact products summed in fp32.  p and ds
 // are fp32 intermediates; a product needs them in bf16, and rounded once
 // (as FlashAttention-2 does) they put elements of dk, dv and dq up to
@@ -86,9 +87,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_mma.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace attn;
 
 __device__ __forceinline__ bool visible(int dist, int causal, int window) {
   bool vis = true;
@@ -100,15 +103,6 @@ __device__ __forceinline__ bool visible(int dist, int causal, int window) {
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kM = 16 * kWarps;     // rows a block owns, 16 a warp
-constexpr float kLog2e = 1.4426950408889634f;
-
-// shared-memory row of hd bf16 values, padded by 16 bytes
-template <int HD>
-__host__ __device__ constexpr int row_stride() { return HD + 8; }
-
 // query rows per tile the dkv kernel walks: 32, so that dk, dv, sᵀ and
 // dpᵀ fit 168 registers a thread (three blocks an SM) without spills at hd
 // 64 and fit at all at hd 128; 64 at hd 32
@@ -132,126 +126,6 @@ constexpr int dq_smem() {
   // q, do; k, v x 2 buffers
   return 2 * kM * row_stride<HD>() * 2 +
          4 * dq_tile<HD>() * row_stride<HD>() * 2;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
-// l / 8 and receives, of each, row l / 4, columns 2 (l % 4) + {0, 1}
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// the same, transposed: lane l receives rows 2 (l % 4) + {0, 1}, column
-// l / 4 of each matrix
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// d (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// (x, y) -> hi = bf16(x, y), lo = bf16((x, y) - hi), packed as a b32
-// register of an A fragment (x in the low half)
-__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 f = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(x - f.x, y - f.y));
-}
-
-// two m16n8 accumulators (columns 0-7, 8-15) -> the m16k16 A fragment
-// of the same 16x16 values, as hi and lo halves
-__device__ __forceinline__ void split_frag(const float (&c0)[4],
-                                           const float (&c1)[4],
-                                           uint32_t (&hi)[4],
-                                           uint32_t (&lo)[4]) {
-  split2(c0[0], c0[1], hi[0], lo[0]);
-  split2(c0[2], c0[3], hi[1], lo[1]);
-  split2(c1[0], c1[1], hi[2], lo[2]);
-  split2(c1[2], c1[3], hi[3], lo[3]);
-}
-
-// d += (hi + lo) b: the split operand's two products
-__device__ __forceinline__ void mma_split(float (&d)[4],
-                                          const uint32_t (&hi)[4],
-                                          const uint32_t (&lo)[4],
-                                          uint32_t b0, uint32_t b1) {
-  mma(d, hi, b0, b1);
-  mma(d, lo, b0, b1);
-}
-
-// the 16-byte chunks of `rows` rows of hd bf16 values from (B, S, H, hd)
-// into padded shared rows
-template <int HD>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
-                                           long long pos_stride, int rows,
-                                           int tid) {
-  constexpr int kChunks = HD / 8;
-  for (int idx = tid; idx < rows * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = idx % kChunks;
-    cp_async16(dst + r * row_stride<HD>() + 8 * c,
-               src + r * pos_stride + 8 * c);
-  }
-}
-
-// one accumulator tile (16 rows of this warp x hd) -> (B, S, H, hd) bf16
-template <int HD>
-__device__ __forceinline__ void store_rows(bf16* dst, long long pos_stride,
-                                           const float (&acc)[HD / 8][4],
-                                           int g, int t) {
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-    for (int half = 0; half < 2; ++half)
-      *reinterpret_cast<__nv_bfloat162*>(
-          dst + (g + 8 * half) * pos_stride + 8 * n + 2 * t) =
-          __floats2bfloat162_rn(acc[n][2 * half], acc[n][2 * half + 1]);
 }
 
 template <int HD>
@@ -756,22 +630,6 @@ struct Args {
   int B, S, H, causal, window;
   float scale;
 };
-
-// a kernel's dynamic shared memory above the default 48 KB: allowed once
-// per device before its first launch there
-template <typename K>
-int allow_smem(K kernel, int bytes, bool (&done)[64]) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev < 64 && done[dev]) return 0;
-  e = cudaFuncSetAttribute(kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev < 64) done[dev] = true;
-  return 0;
-}
 
 template <int HD>
 int launch_mma(bool dkv, const Args& a, cudaStream_t st) {

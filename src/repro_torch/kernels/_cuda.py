@@ -4,10 +4,11 @@ The sources live in ``repro_torch/csrc``.  At first use every ``*.cu``
 there is compiled with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source,
 all started together) and the objects are linked into one shared library
 with a plain C interface, which is loaded with ``ctypes`` (no PyTorch
-headers, so a build takes seconds).  The library lands in
-``repro_torch/_build`` under a name that hashes every source and the
-flags, so an edited source is rebuilt and concurrent processes never load
-a half-written file.
+headers, so a build takes seconds).  The ``*.cuh`` headers there are
+included by the sources, not compiled on their own.  The library lands in
+``repro_torch/_build`` under a name that hashes every source, every
+header and the flags, so an edited source or header is rebuilt and
+concurrent processes never load a half-written file.
 
 Every wrapper that launches a kernel adds one to its entry in
 :data:`LAUNCHES`; a run reads the counts to show which kernels its path
@@ -87,12 +88,18 @@ def _nvcc() -> str:
 
 
 def sources() -> list:
+    """The ``*.cu`` files: each is compiled to one object."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list:
+    """The ``*.cuh`` files the sources include."""
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     h.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"

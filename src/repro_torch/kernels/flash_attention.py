@@ -9,9 +9,9 @@ which also returns each row's log-sum-exp for the backward (K10,
 ``csrc/flash_attention.cu``, with the LSE pointer null for K9.  For q,
 k, v of shape (B, S, H, hd) in bf16 or fp32, with the KV heads already
 repeated to H, it computes softmax(q kᵀ · hd^-½ + mask) v with
-the scores, the running max and sum and the accumulator in fp32 (q and k
-are converted to fp32 before the dot, as on the TPU), and writes the
-output in q's dtype.  The mask is causal (key position ≤ query position)
+the scores, the running max and sum and the accumulator in fp32 (the
+products of q and k are exact, as on the TPU, where q and k are converted
+to fp32 before the dot), and writes the output in q's dtype.  The mask is causal (key position ≤ query position)
 and, with ``window > 0``, also drops keys ``window`` or more positions
 behind the query; ``causal=False`` keeps only the window.  Tiles that the
 mask empties entirely are skipped.
@@ -27,8 +27,12 @@ memory budget of ``launch/budget.py`` traces the model that way).
 Bound: operations.  At the long-prompt shape (1, 4096, 15, 64), causal,
 the two products take 4·hd·H·S(S+1)/2 = 32.2 GFLOP against 31.5 MB read
 and written, so 32.6 us at the card's bf16 tensor-core peak and 9.4 us
-for the bytes.  This first kernel runs both products on the fp32 cores
-(see the source's note), so it sits far above that bound.
+for the bytes.  The bf16 kernel runs its products on the tensor cores
+(``mma.sync``) and takes p into p v as bf16 hi + lo, so it issues three
+products, 48.3 GFLOP; the fp32 kernel (the label party's ad-hoc ∇Z pass)
+runs on the fp32 cores, 67 TFLOP/s at peak.  The source's note says why
+``mma.sync`` and not yet ``wgmma`` with TMA, and what still holds the
+kernel back.
 """
 from __future__ import annotations
 

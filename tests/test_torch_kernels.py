@@ -488,3 +488,82 @@ def test_k10_rounding_design(shape, causal, window):
           f"single rounding {single}")
     assert max(split) <= 1.0
     assert min(single) > 1.0
+
+
+# --------------------------------------------------------------------------
+# The rounding points of K9's bf16 kernel (csrc/flash_attention.cu),
+# modelled on the CPU: bf16 operands, s = q kᵀ as fp32 sums of exact
+# products, the online softmax over key tiles of 64 (the running max, corr
+# and the sum l in fp32, l summed from the fp32 p), p taken into p v as
+# bf16 hi + lo, fp32 sums, and one rounding of acc / max(l, 1e-30) to
+# bf16.  Every element must lie within chip_smoke's per-element limit
+# (|out - ref| <= K9_REL_TOL |ref| + K9_ATOL, ref K9-LSE's plain version),
+# which the card holds the kernel to; with p rounded once to bf16, as
+# FlashAttention-2 does, elements must not.
+# --------------------------------------------------------------------------
+def _k9_model(q, k, v, causal, window, rnd, tile=64):
+    """K9's output with p passed through ``rnd`` before p v -> bf16."""
+    B, S, H, hd = q.shape
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+    scale = tfa.softmax_scale(hd)
+    pos = torch.arange(S)
+    m = torch.full((B, H, S, 1), tfa.NEG_INF)
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, hd))
+    for k0 in range(0, S, tile):
+        kt, vt = kf[:, :, k0:k0 + tile], vf[:, :, k0:k0 + tile]
+        s = torch.matmul(qf, kt.transpose(-1, -2)) * scale
+        s = s.masked_fill(~tfa.visible(pos, pos[k0:k0 + tile], causal,
+                                       window), tfa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + torch.matmul(rnd(p), vt)
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape,causal,window", [
+    ((1, 1024, 2, 64), True, 0), ((1, 1024, 2, 128), True, 0),
+    ((2, 512, 2, 32), True, 128)])
+def test_k9_rounding_design(shape, causal, window):
+    cs = _chip_smoke()
+    rng = np.random.default_rng(17)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape)
+                                .astype(np.float32)).to(torch.bfloat16)
+               for _ in range(3))
+    ref, _ = tfa.flash_attention_fwd_lse_plain(q, k, v, causal=causal,
+                                               window=window)
+
+    def worst(out):
+        diff = (out.float() - ref.float()).abs()
+        return float((diff / (cs.K9_REL_TOL * ref.float().abs()
+                              + cs.K9_ATOL)).max())
+    split = worst(_k9_model(q, k, v, causal, window, _split))
+    single = worst(_k9_model(q, k, v, causal, window, _single))
+    print(f"worst err / limit: hi + lo {split:.3g}, single rounding "
+          f"{single:.3g}")
+    assert split <= 1.0
+    assert single > 1.0
+
+
+# --------------------------------------------------------------------------
+# The kernel library's name hashes the headers the sources include
+# (csrc/*.cuh) as well as the sources, so an edited header is rebuilt.
+# --------------------------------------------------------------------------
+def test_library_path_changes_with_each_header(tmp_path, monkeypatch):
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_cuda.CSRC, csrc)
+    monkeypatch.setattr(_cuda, "CSRC", csrc)
+    headers = _cuda.headers()
+    assert headers and all(h.suffix == ".cuh" for h in headers)
+    assert all(h.suffix == ".cu" for h in _cuda.sources())
+    base = _cuda.library_path()
+    for path in headers + _cuda.sources():
+        text = path.read_bytes()
+        path.write_bytes(text + b"\n")
+        assert _cuda.library_path() != base, path.name
+        path.write_bytes(text)
+        assert _cuda.library_path() == base
