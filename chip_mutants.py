@@ -39,6 +39,14 @@ K10's bf16 kernels, in the training kernel phase:
     for the query tiles from row 3,584 on, hiding each of those queries'
     own key from dq.
 
+K10's fp32 kernels (``flash_bwd_dkv_f32mma``, ``flash_bwd_dq_f32mma``),
+which take every operand as three bf16 parts, in the same phase:
+
+  * ``dkv_f32_split_dropped``: for the key tiles from row 3,584 on, dv
+    takes p's first bf16 part alone (p rounded once to bf16);
+  * ``dq_f32_split_dropped``: for the query tiles from row 3,584 on, dq
+    takes ds's first bf16 part alone.
+
     python3 chip_mutants.py
 
 Each mutant is a copy of ``src/`` and ``chip_smoke.py`` under
@@ -100,6 +108,14 @@ MUTANTS = {
         "const int dist = row + 8 * r - (kt * kN + 8 * n + 2 * t + (e & 1));",
         f"const int dist = row + 8 * r - (kt * kN + 8 * n + 2 * t + (e & 1))"
         f" - (q0 >= {LATE});"),
+    "dkv_f32_split_dropped": (
+        "split3_frag(sb[2 * kk], sb[2 * kk + 1], pf[kk]);",
+        f"split3_frag(sb[2 * kk], sb[2 * kk + 1], pf[kk]); if (k0 >= {LATE})"
+        f" for (int i = 0; i < 4; ++i) pf[kk][1][i] = pf[kk][2][i] = 0u;"),
+    "dq_f32_split_dropped": (
+        "split3_frag(sc[2 * kk], sc[2 * kk + 1], dsf[kk]);",
+        f"split3_frag(sc[2 * kk], sc[2 * kk + 1], dsf[kk]); if (q0 >= {LATE})"
+        f" for (int i = 0; i < 4; ++i) dsf[kk][1][i] = dsf[kk][2][i] = 0u;"),
 }
 # K10's mutants: name -> the wrapper whose check must fail
 K10_MUTANTS = {name: "flash_attention_bwd_dq" if name.startswith("dq_")
@@ -113,21 +129,22 @@ RUN = ("import sys, torch; sys.path.insert(0, 'src'); "
 def mutated_copy(d: str, source: str, lines: list, name: str) -> None:
     """A copy of ``src/`` and ``chip_smoke.py`` under ``d`` with each
     (line, new line) of ``lines`` replaced in ``source`` (a path under
-    the root); exits if a line is not in the file exactly once."""
+    the root), or in the path a third element names; exits if a line is
+    not in its file exactly once."""
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(os.path.join(ROOT, "src"), os.path.join(d, "src"),
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     shutil.copy(os.path.join(ROOT, "chip_smoke.py"), d)
-    path = os.path.join(d, source)
-    with open(path) as f:
-        text = f.read()
-    for good, bad in lines:
+    for good, bad, *where in lines:
+        path = os.path.join(d, where[0] if where else source)
+        with open(path) as f:
+            text = f.read()
         if text.count(good) != 1:
-            sys.exit(f"{name}: the line to replace is not in {source} once "
-                     f"but {text.count(good)} times: {good!r}")
-        text = text.replace(good, bad)
-    with open(path, "w") as f:
-        f.write(text)
+            sys.exit(f"{name}: the line to replace is not in "
+                     f"{os.path.relpath(path, d)} once but "
+                     f"{text.count(good)} times: {good!r}")
+        with open(path, "w") as f:
+            f.write(text.replace(good, bad))
 
 
 def main() -> None:

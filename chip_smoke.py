@@ -8,8 +8,9 @@ Phases, each on its own printed lines (any failure exits non-zero):
 
   1. the card: name and power limit; TF32 off for matmuls and cuDNN;
   2. the build of the CUDA kernels from ``src/repro_torch/csrc``, with
-     each kernel's registers and spills (``-Xptxas -v``): the bf16
-     attention kernels of K9 and K10 may not spill;
+     each kernel's registers and spills (``-Xptxas -v``): the
+     tensor-core attention kernels of K9 and K10 (bf16, and K10's fp32)
+     may not spill;
   3. each kernel against its plain PyTorch version on the card (K1 full
      and weights-only, K2a, K2b; K3 at int8 and int4 levels; K4 and K5
      full and weights-only) at the main path's shapes, at an odd batch
@@ -55,12 +56,18 @@ Phases, each on its own printed lines (any failure exits non-zero):
      forward with the row log-sum-exp) and K10's dkv and dq kernels at
      (1, 4096, 15, 64) bf16, causal, with a window of 1,024, at head dim
      128 and in fp32, at the training phase's (2, 4096, 15, 64) in bf16
-     and fp32, and at the reduced model's (2, 3072, 4, 32), each element
-     within a limit of its own magnitude, K9's output with the LSE
-     pointer set bitwise its output without it, K10's outputs bitwise
-     the same on a second run; timed beside the least
-     time and SDPA's forward and backward; the tensor-core instructions
-     in the SASS of K10's bf16 kernels (none fails) and their TFLOP/s;
+     and fp32, at (1, 4096, 15, 128) fp32 and at the reduced model's
+     (2, 3072, 4, 32) in bf16 and fp32, and K10 at S = 320 (an odd
+     number of 64-row tiles) in both dtypes at each head dim, each
+     element within a limit of its own magnitude (K10's fp32 cases at
+     S = 320 against the fp64 plain version); every fp32 case of K10 on
+     four more draws, and on all five against the fp64 plain version
+     too; K9's output with the LSE pointer set bitwise its output
+     without it, K10's outputs bitwise the same on a second run; timed
+     beside the least time and SDPA's forward and backward (bf16, and
+     fp32 with TF32 off, naming the kernels SDPA ran); the tensor-core
+     instructions in the SASS of K10's bf16 and fp32 kernels (none
+     fails) and their TFLOP/s;
   9. the LLM training path: ``repro_torch.launch.train`` at smollm-360m's
      full width (B = 2, S = 4,096, R = W = 2, 3 celu rounds, fp32 cache,
      AdaGrad through K7, remat on) with the exact launch counts of
@@ -100,6 +107,8 @@ SRC = os.path.join(ROOT, "src")
 PEAK_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12           # H100 SXM fp32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12          # H100 SXM bf16 tensor cores, dense
+# fp32-accurate products on the tensor cores: six bf16 products each
+PEAK_SPLIT_FLOPS = PEAK_BF16_FLOPS / 6
 KERNEL_TOL = 3e-5                 # fp32 sums of up to 61,440 terms reordered
 NEAR = 1e-6                       # rows this close to cos ξ may flip
 # Loss over 5 full-width rounds, card against CPU: this comparison reads
@@ -219,14 +228,35 @@ K10_CASES = [((1, 4096, 15, 64), "bfloat16", 0),
              ((1, 4096, 15, 64), "float32", 0),
              ((2, 4096, 15, 64), "bfloat16", 0),
              ((2, 4096, 15, 64), "float32", 0),
-             ((2, 3072, 4, 32), "bfloat16", 0)]
-# The last case is the reduced model's attention (head dim 32) past 2,048
-# tokens.  K10's bf16 kernels take p and ds into their tensor-core
-# products as bf16 hi + lo (csrc/flash_attention_bwd.cu), which keeps
+             ((2, 3072, 4, 32), "bfloat16", 0),
+             ((1, 4096, 15, 128), "float32", 0),
+             ((2, 3072, 4, 32), "float32", 0)]
+# The (2, 3072, 4, 32) cases are the reduced model's attention (head dim
+# 32) past 2,048 tokens, whose ad-hoc ∇Z pass takes fp32.  K10's bf16
+# kernels take p and ds into their tensor-core products as bf16 hi + lo,
+# its fp32 kernels take every operand of every product as three bf16
+# parts, six products for each (csrc/flash_attention_bwd.cu); either keeps
 # every element within these limits (tests/test_torch_kernels.py::
-# test_k10_rounding_design models it on the CPU).
+# test_k10_rounding_design and test_k10_f32_split_design model them on
+# the CPU).
 K10_REL = {"bfloat16": 2.0 ** -7, "float32": 2.0 ** -17}
 K10_ATOL = {"bfloat16": 1e-5, "float32": 2e-6}
+# K10 at S = 320, five 64-row tiles (S % 64 == 0 is all the kernels ask,
+# and the fp32 kernels walk 32- or 16-row tiles), in both dtypes at each
+# head dim, causal, with a window of 100, and without the causal mask.
+# The fp32 cases are held against the fp64 plain version only (on five
+# draws, the fp32 plain version's distance printed beside): on the
+# smoke's draw at hd 128 with the window the fp32 plain version is itself
+# past the limit against fp64 (PERF.md §7 q6).
+K10_ODD_TILES = [((1, 320, 2, hd), dt, causal, window)
+                 for dt in ("float32", "bfloat16") for hd in (32, 64, 128)
+                 for causal, window in ((True, 0), (True, 100),
+                                        (False, 100))]
+# Every fp32 case is also run on four more draws, and on each of the five
+# (the smoke's own draw first) K10 is held to the same limits against the
+# fp64 plain version on the same inputs (the fp32 plain version's own
+# distance from it is printed beside)
+K10_F32_SEEDS = (11, 12, 13, 14)
 LSE_REL, LSE_ATOL = 2.0 ** -17, 1e-5
 # K1 at the training path's cut tensor (W, B, S·d): the fp32 sums of
 # 3,932,160 products a row in other orders; the weights are cosines in
@@ -260,6 +290,9 @@ REDUCED_SERVE_ARGS = {"--requests": 4, "--capacity": 2,
 # (the kernel's name in the library, the products it issues)
 K10_MMA = {"flash_attention_bwd_dkv": ("flash_bwd_dkv_mma", 6),
            "flash_attention_bwd_dq": ("flash_bwd_dq_mma", 4)}
+# K10's fp32 kernels: the same, in bf16 products (six per fp32 product)
+K10_F32_MMA = {"flash_attention_bwd_dkv": ("flash_bwd_dkv_f32mma", 24),
+               "flash_attention_bwd_dq": ("flash_bwd_dq_f32mma", 18)}
 # K9's (and K9-LSE's) bf16 kernel (csrc/flash_attention.cu): its name in
 # the library and the products it issues (s = q kᵀ, p_hi v, p_lo v),
 # against the two (s, p v) of its work
@@ -1412,11 +1445,18 @@ def phase_serving(torch, card):
     return counts
 
 
+def _err_limit(out, ref, rel, atol):
+    """-> (|out - ref|, rel |ref| + atol) per element, in fp64 when either
+    is fp64, else in fp32."""
+    wide = 8 in (out.element_size(), ref.element_size())
+    out, ref = (x.double() if wide else x.float() for x in (out, ref))
+    return (out - ref).abs(), rel * ref.abs() + atol
+
+
 def _per_element(name, label, out, ref, rel, atol):
     """Hold every element of ``out`` to |out - ref| <= rel |ref| + atol;
     -> (max |err|, worst err / limit)."""
-    diff = (out.float() - ref.float()).abs()
-    limit = rel * ref.float().abs() + atol
+    diff, limit = _err_limit(out, ref, rel, atol)
     err = diff.max().item()
     worst = (diff / limit).max().item()
     over = int((diff > limit).sum())
@@ -1428,27 +1468,123 @@ def _per_element(name, label, out, ref, rel, atol):
     return err, worst
 
 
-def _grad_ms(torch, out, inputs, do, reps: int = 10) -> float:
-    """ms on the card per backward alone of a graph kept from one
-    forward: its kernels' device time, summed by the profiler (the host's
-    ``torch.autograd.grad`` calls, which can outlast the kernels, are not
-    timed)."""
+def _profiled(torch, fn, reps: int = 10):
+    """-> (ms on the card per call of ``fn``: its kernels' device time,
+    summed by the profiler over ``reps`` calls after two more, so that the
+    host's calls, which can outlast the kernels, are not timed; the names
+    of the CUDA kernels it ran)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
-        torch.autograd.grad(out, inputs, do, retain_graph=True)
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            torch.autograd.grad(out, inputs, do, retain_graph=True)
+            fn()
         torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA) \
-        / 1e3 / reps
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.device_time_total for e in kernels) / 1e3 / reps,
+            ", ".join(sorted({e.name[:90] for e in kernels})))
+
+
+def _sdpa_backend(torch, q, k, v) -> str:
+    """The backend PyTorch's dispatcher picks for causal SDPA on these
+    operands (``torch._fused_sdp_choice``)."""
+    from torch.nn.attention import SDPBackend
+    choice = int(torch._fused_sdp_choice(q, k, v, is_causal=True))
+    return next((name for name, b in SDPBackend.__members__.items()
+                 if int(b) == choice), str(choice))
+
+
+K10_OUTS = ("dk", "dv", "dq")
+
+
+def _k10_name(label: str) -> str:
+    """The wrapper that computes K10's output ``label``."""
+    return "flash_attention_bwd_dq" if label == "dq" \
+        else "flash_attention_bwd_dkv"
+
+
+def _k10_operands(torch, gen, shape, dtype, kw):
+    """q, k, v, do drawn from ``gen`` in ``dtype``, with the plain
+    forward's lse and D = rowsum(do ∘ o): K10's operands."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(dtype) for _ in range(4))
+    o, lse = fa.flash_attention_fwd_lse_plain(q, k, v, **kw)
+    return q, k, v, do, lse, fab.row_delta(o, do)
+
+
+def _k10(args, kw, plain=False):
+    """K10's kernels (or their plain versions) on ``args`` -> (dk, dv,
+    dq)."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    if plain:
+        dk, dv = fab.flash_attention_bwd_dkv_plain(*args, **kw)
+        return dk, dv, fab.flash_attention_bwd_dq_plain(*args, **kw)
+    dk, dv = fab.flash_attention_bwd_dkv(*args, **kw)
+    return dk, dv, fab.flash_attention_bwd_dq(*args, **kw)
+
+
+def _k10_against_fp64(tag, args, kw, outs, refs) -> None:
+    """Print, for K10's fp32 outputs ``outs`` on ``args``, the worst err /
+    limit against the fp32 plain version (``refs``) and against the fp64
+    plain version on the same inputs, and the fp32 plain version's own
+    against fp64; then hold ``outs`` to the fp32 limit against fp64."""
+    rel, atol = K10_REL["float32"], K10_ATOL["float32"]
+    exact = _k10(tuple(t.double() for t in args), kw, plain=True)
+    parts = []
+    for label, got, ref, ex in zip(K10_OUTS, outs, refs, exact):
+        worst = [(d / lim).max().item() for d, lim in
+                 (_err_limit(got, ref, rel, atol),
+                  _err_limit(got, ex, rel, atol),
+                  _err_limit(ref, ex, rel, atol))]
+        parts.append(f"{label} " + " / ".join(f"{w:.3g}" for w in worst))
+    print(f"[kernel] K10 fp32 {tag}: worst err / limit, the kernel against "
+          f"the fp32 plain version / the kernel against fp64 / the fp32 "
+          f"plain version against fp64: {'; '.join(parts)}", flush=True)
+    for label, got, ex in zip(K10_OUTS, outs, exact):
+        _per_element(_k10_name(label), f"{tag} {label} against the fp64 "
+                     f"plain version", got, ex, rel, atol)
+
+
+def _k10_f32_draws(torch, shape, kw, tag) -> None:
+    """K10's fp32 kernels on the draws of K10_F32_SEEDS at ``shape``,
+    each held against the fp64 plain version."""
+    for seed in K10_F32_SEEDS:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        args = _k10_operands(torch, gen, shape, torch.float32, kw)
+        _k10_against_fp64(f"{tag} seed {seed}", args, kw, _k10(args, kw),
+                          _k10(args, kw, plain=True))
+
+
+def _k10_odd_tiles(torch, gen) -> None:
+    """K10 at K10_ODD_TILES, each element within its dtype's limit: bf16
+    against the plain version, fp32 against the fp64 plain version on
+    five draws (see K10_ODD_TILES)."""
+    for shape, dt, causal, window in K10_ODD_TILES:
+        kw = dict(causal=causal, window=window)
+        tag = (f"B,S,H,hd={','.join(map(str, shape))} {dt} "
+               f"causal={causal} window={window}")
+        args = _k10_operands(torch, gen, shape, getattr(torch, dt), kw)
+        outs, refs = _k10(args, kw), _k10(args, kw, plain=True)
+        if dt == "float32":
+            _k10_against_fp64(tag, args, kw, outs, refs)
+            _k10_f32_draws(torch, shape, kw, tag)
+            continue
+        worst = [_per_element(_k10_name(label), f"{tag} {label}", got, ref,
+                              K10_REL[dt], K10_ATOL[dt])[1]
+                 for label, got, ref in zip(K10_OUTS, outs, refs)]
+        print(f"[kernel] K10 {tag}: worst err / limit dk {worst[0]:.3g}, "
+              f"dv {worst[1]:.3g}, dq {worst[2]:.3g}", flush=True)
 
 
 def phase_train_kernels(torch):
     """K9-LSE and K10 (dkv, dq) against their plain versions on the card,
-    each element within its own limit; K9's output bitwise the same with
+    each element within its own limit, and K10's fp32 kernels against the
+    fp64 plain version on five draws; K9's output bitwise the same with
     and without the LSE pointer; times beside the least time, the plain
     version and SDPA (forward; backward alone)."""
     import torch.nn.functional as F
@@ -1459,10 +1595,13 @@ def phase_train_kernels(torch):
     names = ("flash_attention_fwd_lse", "flash_attention_bwd_dkv",
              "flash_attention_bwd_dq")
     results = {k: {"max_abs_err": 0.0, "library_ms": None} for k in names}
+    times = {}
     for shape, dt, window in K10_CASES:
         B, S, H, hd = shape
         dtype = getattr(torch, dt)
-        peak = PEAK_BF16_FLOPS if dt == "bfloat16" else PEAK_FP32_FLOPS
+        # the least time at the bf16 tensor-core peak, or for fp32 at the
+        # tensor cores' fp32-accurate rate (six bf16 products each)
+        peak = PEAK_BF16_FLOPS if dt == "bfloat16" else PEAK_SPLIT_FLOPS
         q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
                        .to(dtype) for _ in range(4))
         kw = dict(causal=True, window=window)
@@ -1487,8 +1626,7 @@ def phase_train_kernels(torch):
         err = max(err_o, err_l)
 
         # K10 on the plain forward's o and lse (the same inputs both ways)
-        delta = fab.row_delta(o_ref, do)
-        args = (q, k, v, do, lse_ref, delta)
+        args = (q, k, v, do, lse_ref, fab.row_delta(o_ref, do))
 
         def dkv():
             return fab.flash_attention_bwd_dkv(*args, **kw)
@@ -1501,26 +1639,27 @@ def phase_train_kernels(torch):
 
         def dq_plain():
             return fab.flash_attention_bwd_dq_plain(*args, **kw)
-        (dk, dv), (dk_ref, dv_ref) = dkv(), dkv_plain()
-        dq_, dq_ref = dq(), dq_plain()
+        outs, refs = _k10(args, kw), _k10(args, kw, plain=True)
         torch.cuda.synchronize()
         # no atomics: a second run repeats every output bit for bit
-        (dk2, dv2), dq2 = dkv(), dq()
-        check(torch.equal(dk, dk2) and torch.equal(dv, dv2)
-              and torch.equal(dq_, dq2), f"K10 {tag}: a second run of the "
-              f"dkv and dq kernels differs from the first")
-        del dk2, dv2, dq2
+        check(all(torch.equal(a, b) for a, b in zip(outs, _k10(args, kw))),
+              f"K10 {tag}: a second run of the dkv and dq kernels differs "
+              f"from the first")
+        if dt == "float32":
+            _k10_against_fp64(tag, args, kw, outs, refs)
         errs = {}
-        for label, got, ref, name in (("dk", dk, dk_ref, names[1]),
-                                      ("dv", dv, dv_ref, names[1]),
-                                      ("dq", dq_, dq_ref, names[2])):
-            e, w = _per_element(name, f"{tag} {label}", got, ref, rel, atol)
+        for label, got, ref in zip(K10_OUTS, outs, refs):
+            e, w = _per_element(_k10_name(label), f"{tag} {label}", got,
+                                ref, rel, atol)
             errs[label] = (e, w)
-            print(f"[kernel] {name:30s} {tag} {label}: max |err| {e:.3g}, "
-                  f"worst err / limit {w:.3g} (limit {rel:.3g} |ref| + "
-                  f"{atol:g}; median |ref| "
+            print(f"[kernel] {_k10_name(label):30s} {tag} {label}: max "
+                  f"|err| {e:.3g}, worst err / limit {w:.3g} (limit "
+                  f"{rel:.3g} |ref| + {atol:g}; median |ref| "
                   f"{ref.float().abs().median().item():.3g}, largest "
                   f"{ref.float().abs().max().item():.3g})", flush=True)
+        if dt == "float32":
+            _k10_f32_draws(torch, shape, kw, tag)
+        del outs, refs
         results[names[0]]["max_abs_err"] = max(
             results[names[0]]["max_abs_err"], err)
         results[names[1]]["max_abs_err"] = max(
@@ -1533,23 +1672,34 @@ def phase_train_kernels(torch):
               f"{LSE_ATOL:g}); out bitwise K9's; K10 bitwise the same on a "
               f"second run", flush=True)
 
-        # times; the library calls at the causal, unwindowed bf16 shapes
+        # times; SDPA at the causal, unwindowed shapes (fp32 with TF32 off)
         pairs = fa.visible_pairs(S, True, window)
         esize = q.element_size()
         lse_b = 4 * B * H * S
         lib_f = lib_b = None
-        if window == 0 and dt == "bfloat16":
+        if window == 0:
             qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                           for t in (q, k, v))
+            do_t = do.transpose(1, 2)
 
             def library():
                 return F.scaled_dot_product_attention(qt, kt, vt,
                                                       is_causal=True)
             with torch.no_grad():
                 lib_f = device_ms(torch, library, 10)
+                fwd_names = _profiled(torch, library)[1]
             out = library()
-            lib_b = _grad_ms(torch, out, (qt, kt, vt), do.transpose(1, 2))
+            # the backward alone, of a graph kept from one forward
+            lib_b, bwd_names = _profiled(torch, lambda: torch.autograd.grad(
+                out, (qt, kt, vt), do_t, retain_graph=True))
             del out
+            print(f"[kernel] F.scaled_dot_product_attention {tag}: backend "
+                  f"{_sdpa_backend(torch, qt, kt, vt)}; forward "
+                  f"{lib_f * 1e3:.2f} us (kernels: "
+                  f"{fwd_names or 'not captured by the profiler'}); "
+                  f"backward alone {lib_b * 1e3:.2f} us (kernels: "
+                  f"{bwd_names or 'not captured by the profiler'})",
+                  flush=True)
         t_f = _timed(torch, f"{names[0]:30s} {tag}", fwd, fwd_plain, err,
                      fa.nbytes(q, with_lse=True),
                      fa.flops(B, S, H, hd, True, window),
@@ -1565,12 +1715,18 @@ def phase_train_kernels(torch):
                      errs["dq"][0], 5 * n + 2 * lse_b,
                      6 * hd * H * B * pairs, library="none", peak=peak,
                      iters=10)
-        bwd_bound, by = bound(fab.nbytes(q), fab.flops(B, S, H, hd, True,
-                                                       window), peak)
+        times[(shape, dt, window)] = {names[1]: t_kv["ms"],
+                                      names[2]: t_q["ms"]}
+        bwd_flops = fab.flops(B, S, H, hd, True, window)
+        bwd_bound, by = bound(fab.nbytes(q), bwd_flops, peak)
+        fp32_cores = "" if dt == "bfloat16" else (
+            f", {bound(fab.nbytes(q), bwd_flops)[0] * 1e3:.2f} us at the "
+            f"fp32 cores' {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s")
         both = t_kv["ms"] + t_q["ms"]
         print(f"[kernel] K10 (dkv + dq) {tag}: {both * 1e3:.2f} us against "
-              f"the backward's bound {bwd_bound * 1e3:.2f} us ({by}; five "
-              f"products over {pairs * B * H} visible pairs); plain "
+              f"the backward's bound {bwd_bound * 1e3:.2f} us ({by} at "
+              f"{peak / 1e12:.1f} TFLOP/s{fp32_cores}; five products over "
+              f"{pairs * B * H} visible pairs); plain "
               f"{(t_kv['plain_ms'] + t_q['plain_ms']) * 1e3:.2f} us; "
               f"SDPA backward alone: "
               f"{'none' if lib_b is None else f'{lib_b * 1e3:.2f} us'}",
@@ -1581,36 +1737,41 @@ def phase_train_kernels(torch):
             # the dkv row only, and the dq row has no library call of its own
             results[names[1]].update(t_kv, library_ms=lib_b)
             results[names[2]].update(t_q, library_ms=None)
-    _k10_tensor_cores(results)
+    _k10_odd_tiles(torch, gen)
+    _k10_tensor_cores(times)
     _gate_at_llm_width(torch)
     return results
 
 
-def _k10_tensor_cores(results):
-    """K10's bf16 kernels run on the tensor cores: the HMMA / HGMMA
-    instructions in each one's SASS at hd 32, 64 and 128 (none fails), and
-    the rates at the timed shape (the first of K10_CASES) over the
-    products each issues and over the backward's five-product work."""
+def _k10_tensor_cores(times):
+    """K10's bf16 and fp32 kernels run on the tensor cores: the HMMA /
+    HGMMA instructions in each one's SASS at hd 32, 64 and 128 (none
+    fails), and the rates at each dtype's first shape of K10_CASES over
+    the products each issues and over the backward's five-product work."""
     from repro_torch.kernels import flash_attention_bwd as fab
 
-    (B, S, H, hd), dt, window = K10_CASES[0]
-    tag = f"B,S,H,hd={B},{S},{H},{hd} {dt} causal window={window}"
+    for dt, kernels in (("bfloat16", K10_MMA), ("float32", K10_F32_MMA)):
+        case = next(c for c in K10_CASES if c[1] == dt)
+        (B, S, H, hd), _, window = case
+        tag = f"B,S,H,hd={B},{S},{H},{hd} {dt} causal window={window}"
 
-    def rate(products, ms):
-        return fab.flops(B, S, H, hd, True, window, products) / ms / 1e9
-    for name, (kernel, issued) in K10_MMA.items():
-        per_hd = _mma_per_hd(name, kernel)
-        ms = results[name]["ms"]
-        print(f"[kernel] {name:30s} bf16: tensor-core instructions in the "
-              f"SASS of {kernel} (cuobjdump -sass) at hd 32 / 64 / 128: "
-              f"{per_hd[32]} / {per_hd[64]} / {per_hd[128]}; {tag}: "
-              f"{ms * 1e3:.2f} us, the {issued} products it issues at "
-              f"{rate(issued, ms):.1f} TFLOP/s", flush=True)
-    ms = sum(results[n]["ms"] for n in K10_MMA)
-    print(f"[kernel] K10 (dkv + dq) bf16 {tag}: {ms * 1e3:.2f} us; the "
-          f"backward's five-product work at {rate(5, ms):.1f} TFLOP/s, the "
-          f"ten products issued at {rate(10, ms):.1f} TFLOP/s "
-          f"(peak {PEAK_BF16_FLOPS / 1e12:.0f})", flush=True)
+        def rate(products, ms):
+            return fab.flops(B, S, H, hd, True, window, products) / ms / 1e9
+        for name, (kernel, issued) in kernels.items():
+            per_hd = _mma_per_hd(name, kernel)
+            ms = times[case][name]
+            print(f"[kernel] {name:30s} {dt}: tensor-core instructions in "
+                  f"the SASS of {kernel} (cuobjdump -sass) at hd 32 / 64 / "
+                  f"128: {per_hd[32]} / {per_hd[64]} / {per_hd[128]}; "
+                  f"{tag}: {ms * 1e3:.2f} us, the {issued} bf16 products it "
+                  f"issues at {rate(issued, ms):.1f} TFLOP/s", flush=True)
+        ms = sum(times[case].values())
+        issued = sum(n for _, n in kernels.values())
+        print(f"[kernel] K10 (dkv + dq) {dt} {tag}: {ms * 1e3:.2f} us; the "
+              f"backward's five-product work at {rate(5, ms):.1f} TFLOP/s, "
+              f"the {issued} bf16 products issued at "
+              f"{rate(issued, ms):.1f} TFLOP/s (peak "
+              f"{PEAK_BF16_FLOPS / 1e12:.0f})", flush=True)
 
 
 def _gate_at_llm_width(torch):
@@ -1778,6 +1939,16 @@ def phase_training(torch, card):
     for e in top[:10]:
         print(f"[train]   {e.self_device_time_total / 1e3 / rounds:9.3f} ms "
               f"per round  {e.count / rounds:7.1f} calls  {e.key[:70]}")
+    attn = {}
+    for e in top:
+        m = re.search(r"(flash_\w+)<", e.key)
+        if m and e.self_device_time_total:
+            row = attn.setdefault(m.group(1), [0.0, 0.0])
+            row[0] += e.self_device_time_total / 1e3 / rounds
+            row[1] += e.count / rounds
+    print("[train] the attention kernels per round: " + "; ".join(
+        f"{k} {ms:.3f} ms in {n:.0f} launches"
+        for k, (ms, n) in sorted(attn.items())), flush=True)
     del prof, params
 
     # one full-width train step (B = 1, S = 4,096) through K9-LSE / K10
@@ -1968,13 +2139,14 @@ def main() -> None:
         print(f"[build] {label}: {regs} registers, spill stores {st} B, "
               f"spill loads {ld} B")
     if info["log"]:
-        names = [K9_MMA[0]] + [n for n, _ in K10_MMA.values()]
+        names = [K9_MMA[0]] + [n for n, _ in K10_MMA.values()] + [
+            n for n, _ in K10_F32_MMA.values()]
         mma = {k: u for k, u in usage.items() if k.split("<")[0] in names}
         check(len(mma) == 3 * len(names)
               and all(u[1:] == (0, 0) for u in mma.values()),
-              f"the bf16 attention kernels of K9 and K10 at hd 32 / 64 / "
-              f"128: ptxas reports {mma} (registers, spill bytes), want "
-              f"{3 * len(names)} and no spills")
+              f"the tensor-core attention kernels of K9 and K10 at hd 32 / "
+              f"64 / 128: ptxas reports {mma} (registers, spill bytes), "
+              f"want {3 * len(names)} and no spills")
     else:
         print("[build] the library was already built: no ptxas report")
 

@@ -1,16 +1,24 @@
 #!/usr/bin/env python3
-"""Times source variants of K9's bf16 kernel (``flash_fwd_mma`` in
-``src/repro_torch/csrc/flash_attention.cu``) on one NVIDIA GPU.
+"""Times source variants of the attention kernels on one NVIDIA GPU: K9's
+bf16 kernel (``flash_fwd_mma`` in ``src/repro_torch/csrc/
+flash_attention.cu``) and K10's fp32 kernels (``flash_bwd_dkv_f32mma``,
+``flash_bwd_dq_f32mma`` in ``flash_attention_bwd.cu``).
 
 Each variant is a copy of ``src/`` and ``chip_smoke.py`` with some lines
-of the kernel's source replaced (``chip_mutants.mutated_copy``), built in
-a process of its own.  That process times K9 (device µs per call, CUDA
-graph and events, as ``chip_smoke.py`` times it) at the shapes of
-``chip_smoke.K9_CASES``, holds every element of each output to the
-smoke's limit, and prints one line a shape with ptxas's registers and
-spills of the kernel.  The tree as it
-stands runs first and last, so that the spread between two runs of the
-same code shows beside the variants.
+of a kernel's source replaced (``chip_mutants.mutated_copy``), built in
+a process of its own.  That process times the kernel (device µs per
+call, CUDA graph and events, as ``chip_smoke.py`` times it) and prints
+one line a shape with ptxas's registers and spills of the kernel:
+
+  * K9 at the shapes of ``chip_smoke.K9_CASES``, every element of each
+    output held to the smoke's limit (a variant past it fails);
+  * K10's fp32 kernels at the fp32 shapes of ``chip_smoke.K10_CASES``,
+    with the worst err / limit of dk, dv and dq against the fp64 plain
+    version on the same inputs (printed, not held: some variants exist
+    to show what a design choice does to the numbers).
+
+The tree as it stands runs first and last in each group, so that the
+spread between two runs of the same code shows beside the variants.
 
     python3 chip_variants.py               # every variant
     python3 chip_variants.py NAME [NAME]   # the tree and the named ones
@@ -27,10 +35,10 @@ import sys
 import chip_mutants
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join("src", "repro_torch", "csrc", "flash_attention.cu")
-# name -> [(line, new line)] in SOURCE: each undoes one choice of the
-# kernel's design
-VARIANTS = {
+CSRC = os.path.join("src", "repro_torch", "csrc")
+# name -> [(line, new line)] in flash_attention.cu: each undoes one choice
+# of K9's design
+K9_VARIANTS = {
     # key tiles of 64 rows at hd 128 too (the kernel: 32 there)
     "key_tile_64_at_hd128": [
         ("constexpr int fwd_tile() { return HD == 128 ? 32 : 64; }",
@@ -49,7 +57,120 @@ VARIANTS = {
          "  const int q0 = (gridDim.x - 1 - blockIdx.x) * kM;"),
         ("const dim3 grid(B * H, S / kM);", "const dim3 grid(S / kM, B * H);")],
 }
-RUN = """
+# the dq kernel's s and dp, one after the other and together
+DQ_S_THEN_DP = """\
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+      uint32_t aq[3][4];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        ldsm_x4(aq[i], qw + i * kHeld + a_off + 16 * ks);
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        uint32_t bk[3][4];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          ldsm_x4(bk[i], Kp + i * kWalk + 16 * np * kStr + b_off + 16 * ks);
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          mma6(sc[2 * np + half], sc2[2 * np + half], aq, bk, half);
+      }
+    }
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+      uint32_t ao[3][4];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        ldsm_x4(ao[i], ow + i * kHeld + a_off + 16 * ks);
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        uint32_t bv[3][4];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          ldsm_x4(bv[i], Vp + i * kWalk + 16 * np * kStr + b_off + 16 * ks);
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          mma6(dc[2 * np + half], dc2[2 * np + half], ao, bv, half);
+      }
+    }
+"""
+DQ_S_AND_DP = """\
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+      uint32_t aq[3][4], ao[3][4];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        ldsm_x4(aq[i], qw + i * kHeld + a_off + 16 * ks);
+        ldsm_x4(ao[i], ow + i * kHeld + a_off + 16 * ks);
+      }
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        uint32_t bk[3][4], bv[3][4];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          ldsm_x4(bk[i], Kp + i * kWalk + 16 * np * kStr + b_off + 16 * ks);
+          ldsm_x4(bv[i], Vp + i * kWalk + 16 * np * kStr + b_off + 16 * ks);
+        }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          mma6(sc[2 * np + half], sc2[2 * np + half], aq, bk, half);
+          mma6(dc[2 * np + half], dc2[2 * np + half], ao, bv, half);
+        }
+      }
+    }
+"""
+# name -> [(line, new line)] in flash_attention_bwd.cu: each undoes one
+# choice of the design of K10's fp32 kernels
+K10_F32_VARIANTS = {
+    # tiles of 16 rows in both kernels at every head dim (the kernels: 32,
+    # and 16 at hd 128)
+    "f32_tile_16": [
+        ("constexpr int f32_tile() { return HD == 128 ? 16 : 32; }",
+         "constexpr int f32_tile() { return 16; }")],
+    # tiles of 32 rows at every head dim
+    "f32_tile_32": [
+        ("constexpr int f32_tile() { return HD == 128 ? 16 : 32; }",
+         "constexpr int f32_tile() { return 32; }")],
+    # the dkv kernel declared with no minimum of blocks an SM (the kernel:
+    # two, which lets ptxas take up to 255 registers a thread)
+    "dkv_f32_one_block": [
+        ("__global__ void __launch_bounds__(kThreads, 2)\n"
+         "flash_bwd_dkv_f32mma(",
+         "__global__ void __launch_bounds__(kThreads)\n"
+         "flash_bwd_dkv_f32mma(")],
+    # s and dp of the dq kernel in one loop over the k-steps (the kernel:
+    # s, then dp)
+    "dq_f32_s_dp_together": [
+        (DQ_S_THEN_DP, DQ_S_AND_DP)],
+    # s and dp of the dkv kernel summed in one accumulator, the small
+    # products first in each k-step (the kernel: a big and a small sum)
+    "dkv_f32_one_sum": [
+        ("mma6(sb[2 * np + half], ss[2 * np + half], ak, bq, half);",
+         "mma6_sum(sb[2 * np + half], ak, bq, half);"),
+        ("mma6(pb[2 * np + half], ps[2 * np + half], av, bo, half);",
+         "mma6_sum(pb[2 * np + half], av, bo, half);")],
+    # the big part of s and dp (both kernels) summed over the k-steps in
+    # the tensor cores' accumulator (the kernel: each k-step's from zero,
+    # added in fp32)
+    "f32_big_chained": [
+        ("  float t[4] = {0.f, 0.f, 0.f, 0.f};\n"
+         "  mma(t, a[0], b[0][2 * half], b[0][2 * half + 1]);\n"
+         "#pragma unroll\n"
+         "  for (int e = 0; e < 4; ++e) big[e] += t[e];",
+         "  mma(big, a[0], b[0][2 * half], b[0][2 * half + 1]);",
+         os.path.join(CSRC, "attention_mma.cuh"))],
+    # dv and dk of the dkv kernel summed in the tensor cores' accumulators
+    # over the whole walk (the kernel: each tile's share summed on its
+    # own, then added in fp32)
+    "dkv_f32_no_tile_sums": [
+        ("mma6_sum(lv[half], pf[kk], bo, half);",
+         "mma6_sum(dva[2 * j + half], pf[kk], bo, half);"),
+        ("mma6_sum(lk[half], df[kk], bq, half);",
+         "mma6_sum(dka[2 * j + half], df[kk], bq, half);"),
+        ("dva[2 * j + half][e] += lv[half][e];", ""),
+        ("dka[2 * j + half][e] += lk[half][e];", "")],
+}
+K9_RUN = """
 import sys, torch
 sys.path.insert(0, 'src')
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -74,31 +195,70 @@ for shape, causal, window in chip_smoke.K9_CASES:
           f'spill bytes) {usage.get(f"flash_fwd_mma<{shape[3]}>")}',
           flush=True)
 """
+K10_F32_RUN = """
+import sys, torch
+sys.path.insert(0, 'src')
+torch.backends.cuda.matmul.allow_tf32 = False
+import chip_smoke
+from repro_torch.kernels import _cuda
+from repro_torch.kernels import flash_attention_bwd as fab
+usage = chip_smoke.ptxas_usage(_cuda.build()['log'])
+gen = torch.Generator(device='cuda').manual_seed(5)
+rel, atol = chip_smoke.K10_REL['float32'], chip_smoke.K10_ATOL['float32']
+for shape, dt, window in chip_smoke.K10_CASES:
+    if dt != 'float32':
+        continue
+    kw = dict(causal=True, window=window)
+    args = chip_smoke._k10_operands(torch, gen, shape, torch.float32, kw)
+    outs = chip_smoke._k10(args, kw)
+    exact = chip_smoke._k10(tuple(t.double() for t in args), kw, plain=True)
+    worst = [(d / lim).max().item() for d, lim in
+             (chip_smoke._err_limit(o, e, rel, atol)
+              for o, e in zip(outs, exact))]
+    ms = [chip_smoke.device_ms(torch, lambda: f(*args, **kw), 10)
+          for f in (fab.flash_attention_bwd_dkv, fab.flash_attention_bwd_dq)]
+    hd = shape[3]
+    print(f'{shape}: dkv {ms[0] * 1e3:.2f} us, dq {ms[1] * 1e3:.2f} us; '
+          f'worst err / limit against fp64 (dk, dv, dq) '
+          f'{", ".join(f"{w:.3g}" for w in worst)}; (registers, spill '
+          f'bytes) dkv {usage.get(f"flash_bwd_dkv_f32mma<{hd}>")}, dq '
+          f'{usage.get(f"flash_bwd_dq_f32mma<{hd}>")}', flush=True)
+"""
+# group -> (source under CSRC, variants, the run of each)
+GROUPS = {"k9": ("flash_attention.cu", K9_VARIANTS, K9_RUN),
+          "k10_f32": ("flash_attention_bwd.cu", K10_F32_VARIANTS,
+                      K10_F32_RUN)}
 
 
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_variants: no CUDA device is available")
-    names = sys.argv[1:] or list(VARIANTS)
-    unknown = [n for n in names if n not in VARIANTS]
+    known = {n: g for g, (_, vs, _) in GROUPS.items() for n in vs}
+    names = sys.argv[1:] or list(known)
+    unknown = [n for n in names if n not in known]
     if unknown:
         sys.exit(f"chip_variants: no variant {unknown}; "
-                 f"known: {list(VARIANTS)}")
+                 f"known: {list(known)}")
     top = os.path.join(ROOT, "src", "repro_torch", "_build", "variants")
     failed = []
-    for name in ["tree"] + names + ["tree"]:
-        d = os.path.join(top, name)
-        chip_mutants.mutated_copy(d, SOURCE, VARIANTS.get(name, []), name)
-        r = subprocess.run([sys.executable, "-c", RUN], cwd=d,
-                           capture_output=True, text=True, timeout=600)
-        for line in r.stdout.splitlines():
-            print(f"[variant] {name}: {line}", flush=True)
-        if r.returncode != 0:
-            print(f"[variant] {name}: FAILED (rc {r.returncode}): "
-                  f"{r.stderr[-2000:]}", flush=True)
-            failed.append(name)
-        shutil.rmtree(d, ignore_errors=True)
+    for group, (source, variants, run) in GROUPS.items():
+        chosen = [n for n in names if known[n] == group]
+        if not chosen:
+            continue
+        for name in ["tree"] + chosen + ["tree"]:
+            d = os.path.join(top, name)
+            chip_mutants.mutated_copy(d, os.path.join(CSRC, source),
+                                      variants.get(name, []), name)
+            r = subprocess.run([sys.executable, "-c", run], cwd=d,
+                               capture_output=True, text=True, timeout=600)
+            for line in r.stdout.splitlines():
+                print(f"[variant] {group} {name}: {line}", flush=True)
+            if r.returncode != 0:
+                print(f"[variant] {group} {name}: FAILED (rc "
+                      f"{r.returncode}): {r.stderr[-2000:]}", flush=True)
+                failed.append(name)
+            shutil.rmtree(d, ignore_errors=True)
     shutil.rmtree(top, ignore_errors=True)
     if failed:
         sys.exit(f"chip_variants: FAILED: {failed}")

@@ -1,8 +1,10 @@
-// Device helpers of the bf16 tensor-core attention kernels
+// Device helpers of the tensor-core attention kernels
 // (flash_attention.cu: K9 / K9-LSE; flash_attention_bwd.cu: K10):
 // cp.async staging into padded shared rows, ldmatrix, the
-// m16n8k16 bf16 mma with fp32 accumulation, and the bf16 hi + lo split of
-// an fp32 operand that enters a product from the accumulators.
+// m16n8k16 bf16 mma with fp32 accumulation, the bf16 hi + lo split of
+// an fp32 operand that enters a product from the accumulators, and the
+// three-part bf16 split with its six products, which K10's fp32 kernels
+// take for an fp32-accurate product.
 //
 // Every kernel that includes this runs blocks of kWarps warps, warp w
 // owning rows 16w..16w+15 of the block's tile of kM rows.  Only the *.cu
@@ -117,6 +119,74 @@ __device__ __forceinline__ void mma_split(float (&d)[4],
                                           uint32_t b0, uint32_t b1) {
   mma(d, hi, b0, b1);
   mma(d, lo, b0, b1);
+}
+
+// (x, y) -> three bf16 parts, x = x1 + x2 + x3 with x1 = bf16(x),
+// x2 = bf16(x - x1), x3 = bf16(x - x1 - x2), packed as b32 registers (x
+// in the low half).  Both differences are exact in fp32 and the three
+// parts' 8 + 8 + 8 significand bits hold fp32's 24, so the sum is x.
+__device__ __forceinline__ void split3(float x, float y, uint32_t& p1,
+                                       uint32_t& p2, uint32_t& p3) {
+  const __nv_bfloat162 h1 = __floats2bfloat162_rn(x, y);
+  const float2 f1 = __bfloat1622float2(h1);
+  const float rx = x - f1.x, ry = y - f1.y;
+  const __nv_bfloat162 h2 = __floats2bfloat162_rn(rx, ry);
+  const float2 f2 = __bfloat1622float2(h2);
+  p1 = bits(h1);
+  p2 = bits(h2);
+  p3 = bits(__floats2bfloat162_rn(rx - f2.x, ry - f2.y));
+}
+
+// two m16n8 accumulators (columns 0-7, 8-15) -> the m16k16 A fragment
+// of the same 16x16 values, as three parts p[0] + p[1] + p[2]
+__device__ __forceinline__ void split3_frag(const float (&c0)[4],
+                                            const float (&c1)[4],
+                                            uint32_t (&p)[3][4]) {
+  split3(c0[0], c0[1], p[0][0], p[1][0], p[2][0]);
+  split3(c0[2], c0[3], p[0][1], p[1][1], p[2][1]);
+  split3(c1[0], c1[1], p[0][2], p[1][2], p[2][2]);
+  split3(c1[2], c1[3], p[0][3], p[1][3], p[2][3]);
+}
+
+// The six products of a b with a and b in three parts (a2 b3, a3 b2 and
+// a3 b3, below 2^-24 of |a| |b|, are dropped).  a: A fragments; b: the
+// parts' B registers of an x4 ldmatrix, of which n-tile `half` (0 or 1)
+// is taken.  The tensor cores align a product's terms to the accumulator
+// and drop the bits below it, so the big term a1 b1 is kept out of long
+// chains.
+//   small += a1 b2 + a2 b1 + a1 b3 + a2 b2 + a3 b1
+__device__ __forceinline__ void mma5_small(float (&small)[4],
+                                           const uint32_t (&a)[3][4],
+                                           const uint32_t (&b)[3][4],
+                                           int half) {
+  const int i = 2 * half;
+  mma(small, a[0], b[1][i], b[1][i + 1]);
+  mma(small, a[1], b[0][i], b[0][i + 1]);
+  mma(small, a[0], b[2][i], b[2][i + 1]);
+  mma(small, a[1], b[1][i], b[1][i + 1]);
+  mma(small, a[2], b[0][i], b[0][i + 1]);
+}
+
+//   small += the five small products; big += a1 b1, summed from zero and
+//   added in fp32 (for sums over many k-steps)
+__device__ __forceinline__ void mma6(float (&big)[4], float (&small)[4],
+                                     const uint32_t (&a)[3][4],
+                                     const uint32_t (&b)[3][4], int half) {
+  mma5_small(small, a, b, half);
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma(t, a[0], b[0][2 * half], b[0][2 * half + 1]);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) big[e] += t[e];
+}
+
+//   acc += a b, all six products in acc, the small ones first (for a
+//   tile's share of an output, summed from zero)
+__device__ __forceinline__ void mma6_sum(float (&acc)[4],
+                                         const uint32_t (&a)[3][4],
+                                         const uint32_t (&b)[3][4],
+                                         int half) {
+  mma5_small(acc, a, b, half);
+  mma(acc, a[0], b[0][2 * half], b[0][2 * half + 1]);
 }
 
 // the 16-byte chunks of `rows` rows of hd bf16 values from (B, S, H, hd)

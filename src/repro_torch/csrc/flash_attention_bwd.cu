@@ -63,11 +63,36 @@
 //   s = q kᵀ) and ldmatrix.trans (the B of dv, dk, dq, whose rows are the
 //   summed index).  (B, S, H, hd) is read in place.
 //
-// fp32 (the label party's ad-hoc ∇Z pass): the fp32 cores, as on the
-// TPU (TF32 would change its numbers).  A block owns 64 rows of one
-// (b, h), each row held by hd / 16 threads in registers, a row's dot
-// products meeting by warp shuffles; the other side is staged in 32-row
-// fp32 tiles.  s and dp are recomputed in both kernels (7 products).
+// fp32 (the label party's ad-hoc ∇Z pass): tensor cores too, at fp32
+// accuracy.  A single TF32 or bf16 rounding of an operand would put
+// elements hundreds of times past chip_smoke.py's fp32 limit (2^-17 |ref|
+// + 2e-6), and a two-part bf16 split (lo lo dropped) 5-20 times past it
+// (tests/test_torch_kernels.py::test_k10_f32_split_design).  So every
+// fp32 operand is split into three bf16 parts, x = x1 + x2 + x3 with
+// x1 = bf16(x), x2 = bf16(x - x1), x3 = bf16(x - x1 - x2), which is exact
+// (8 + 8 + 8 significand bits), and a b is taken as six bf16 products,
+// a1 b2 + a2 b1 + a1 b3 + a2 b2 + a3 b1 then a1 b1 (attention_mma.cuh;
+// the dropped a2 b3 + a3 b2 + a3 b3 lie below 2^-24 of |a| |b|).  The
+// tensor cores' accumulation is not fp32's round to nearest (the terms
+// are aligned to the accumulator and the bits below it dropped), so no
+// long sum of big terms runs in one accumulator: s and dp are summed as
+// a small part and a big one, each k-step's x1 y1 from zero and added in
+// fp32, and the two added before the exp; each tile's share of dk, dv or
+// dq is summed from zero and then added to the fp32 accumulator.  The
+// layouts are the bf16 kernels', with three parts of every operand in
+// shared memory; the walked tile arrives as fp32 by cp.async (the next
+// one in flight during this tile's products) and is split into its parts
+// there once per block, and the held rows are split from device memory
+// at the start:
+//   * dkv: held k, v (64 keys); walked q, do, lse, D in 32-row tiles (16
+//     at hd 128) (sᵀ, then dpᵀ, then dv and dk), so that the
+//     accumulators fit the registers; 24 bf16 products per pair.
+//   * dq: held q, do (64 queries); walked k, v in 32-row tiles (16 at hd
+//     128); 18 bf16 products per pair.
+//   Both run the grid with b * H + h fastest, so the heaviest tiles of
+//   every (b, h) start first; two blocks an SM up to hd 64 (shared
+//   memory and registers), one at hd 128.  chip_variants.py times the
+//   tile and register choices and shows what the two sums above prevent.
 //
 // Bound: operations.  The backward's work is five products of 2 * hd
 // flops per visible pair (s, dp, dv, dk, dq): at (1, 4096, 15, 64)
@@ -76,13 +101,16 @@
 // dq, dk, dv, lse and D (19 us at 3.35 TB/s).  The bf16 kernels issue 10
 // products, 161.1 GFLOP (dkv 6, dq 4): the split doubles the three
 // products on p and ds, and s and dp are computed in both kernels, the
-// price of dq without atomics.  What still holds them back: that
-// recompute; mma.sync, which issues from each warp in turn where wgmma
-// (a warpgroup's asynchronous 64-row products, B from shared memory)
-// keeps the tensor cores fed; the fp32 work between the products (exp,
-// the mask, the hi / lo split) in the same warps; three blocks of four
-// warps an SM at most, each waiting on its own loads; the masked halves
-// of the diagonal tiles, computed and thrown away.
+// price of dq without atomics.  The fp32 work at fp32 accuracy is bound
+// by six bf16 products per product (about 165 TFLOP/s, 489 us) and the
+// fp32 kernels issue 42 (dkv 24, dq 18).  What still holds them back:
+// that recompute; mma.sync, which issues from each warp in turn where
+// wgmma (a warpgroup's asynchronous 64-row products, B from shared
+// memory) keeps the tensor cores fed; the fp32 work between the products
+// (exp, the mask, the splits) in the same warps; few blocks of four warps
+// an SM (three for bf16 up to hd 64, two for fp32, one for fp32 at hd
+// 128), each waiting on its own loads and splits; the masked halves of
+// the diagonal tiles, computed and thrown away.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -406,218 +434,410 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// fp32: the fp32 cores
+// fp32: tensor cores, every operand in three bf16 parts
 // ---------------------------------------------------------------------------
-constexpr int kRows = 64;       // rows a block owns
-constexpr int kTile = 32;       // rows of a staged tile
-constexpr int kPart = 16;       // head dims per thread
-constexpr int kVec = kPart / 4; // float4 chunks per thread
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-template <int TPR>
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 1; off < TPR; off <<= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__device__ __forceinline__ float dot4(float4 a, const float* b) {
-  float d = a.x * b[0];
-  d += a.y * b[1];
-  d += a.z * b[2];
-  d += a.w * b[3];
-  return d;
-}
-
-__device__ __forceinline__ void axpy4(float* acc, float s, float4 x) {
-  acc[0] += s * x.x;
-  acc[1] += s * x.y;
-  acc[2] += s * x.z;
-  acc[3] += s * x.w;
-}
-
-// one row's kPart values of x (chunk i of this thread is chunk
-// part + TPR * i of the row) -> registers
-template <int TPR>
-__device__ __forceinline__ void load_part(const float* row, int part,
-                                          float* out) {
-#pragma unroll
-  for (int i = 0; i < kVec; ++i) {
-    const float4 x = load4(row + 4 * (part + TPR * i));
-    out[4 * i] = x.x;
-    out[4 * i + 1] = x.y;
-    out[4 * i + 2] = x.z;
-    out[4 * i + 3] = x.w;
-  }
-}
-
-template <int TPR>
-__device__ __forceinline__ void store_part(float* row, int part,
-                                           const float* acc) {
-#pragma unroll
-  for (int i = 0; i < kVec; ++i)
-    store4(row + 4 * (part + TPR * i),
-           make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2],
-                       acc[4 * i + 3]));
-}
-
+// rows per tile the fp32 kernels walk (queries in dkv, keys in dq): 32,
+// and 16 at hd 128, so that the accumulators, s and dp (each as a big
+// and a small sum) and the parts of p and ds fit the registers without
+// spills
 template <int HD>
-__global__ void __launch_bounds__(kRows * (HD / kPart))
-flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v,
-                  const float* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta, float* __restrict__ dk,
-                  float* __restrict__ dv, int S, int H, int causal,
-                  int window, float scale) {
-  constexpr int kTPR = HD / kPart;          // threads per key row
-  constexpr int kThr = kRows * kTPR;
-  constexpr int kChunks = HD / 4;           // float4 chunks per row
-  __shared__ float4 qs[kTile * kChunks];
-  __shared__ float4 dos[kTile * kChunks];
-  __shared__ float ls[kTile];
-  __shared__ float ds_row[kTile];
+__host__ __device__ constexpr int f32_tile() { return HD == 128 ? 16 : 32; }
 
-  const int tid = threadIdx.x;
-  const int r = tid / kTPR;
-  const int part = tid % kTPR;
-  const int k0 = blockIdx.x * kRows;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const long long pos_stride = static_cast<long long>(H) * HD;
-  const long long base = static_cast<long long>(b) * S * pos_stride +
-                         static_cast<long long>(h) * HD;
-  const long long row0 = static_cast<long long>(bh) * S;
-  const int kpos = k0 + r;
-
-  float kr[kPart], vr[kPart], dka[kPart], dva[kPart];
-  load_part<kTPR>(k + base + kpos * pos_stride, part, kr);
-  load_part<kTPR>(v + base + kpos * pos_stride, part, vr);
-#pragma unroll
-  for (int i = 0; i < kPart; ++i) dka[i] = dva[i] = 0.f;
-
-  const int n_qb = S / kTile;
-  const int lo = causal ? k0 / kTile : 0;
-  const int hi = window ? min((k0 + kRows + window - 2) / kTile + 1, n_qb)
-                        : n_qb;
-  for (int qt = lo; qt < hi; ++qt) {
-    __syncthreads();  // every thread is done with the previous tile
-    for (int idx = tid; idx < kTile * kChunks; idx += kThr) {
-      const int i = idx / kChunks, c = idx % kChunks;
-      const long long off = base + (qt * kTile + i) * pos_stride + 4 * c;
-      qs[idx] = load4(q + off);
-      dos[idx] = load4(dout + off);
-    }
-    for (int i = tid; i < kTile; i += kThr) {
-      ls[i] = lse[row0 + qt * kTile + i];
-      ds_row[i] = delta[row0 + qt * kTile + i];
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int i = 0; i < kTile; ++i) {
-      float4 qq[kVec], dd[kVec];
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int c = 0; c < kVec; ++c) {
-        qq[c] = qs[i * kChunks + part + kTPR * c];
-        dd[c] = dos[i * kChunks + part + kTPR * c];
-        s += dot4(qq[c], kr + 4 * c);
-        dp += dot4(dd[c], vr + 4 * c);
-      }
-      s = row_sum<kTPR>(s);
-      dp = row_sum<kTPR>(dp);
-      const int dist = qt * kTile + i - kpos;
-      const float p = visible(dist, causal, window)
-                          ? expf(s * scale - ls[i]) : 0.f;
-      const float ds = p * (dp - ds_row[i]) * scale;
-#pragma unroll
-      for (int c = 0; c < kVec; ++c) {
-        axpy4(dva + 4 * c, p, dd[c]);
-        axpy4(dka + 4 * c, ds, qq[c]);
-      }
-    }
-  }
-  store_part<kTPR>(dk + base + kpos * pos_stride, part, dka);
-  store_part<kTPR>(dv + base + kpos * pos_stride, part, dva);
+template <int HD, bool kRowStats>
+constexpr int f32_smem() {
+  // the held operands' parts (2 x 3 x kM rows), the walked tile's (2 x 3
+  // x f32_tile rows), the next walked tile in fp32 (2 x f32_tile rows);
+  // with kRowStats lse, D x 2 buffers
+  constexpr int n = f32_tile<HD>();
+  return 2 * 3 * (kM + n) * row_stride<HD>() * 2 + 2 * n * HD * 4 +
+         (kRowStats ? 4 * n * 4 : 0);
 }
 
+// the 16-byte chunks of `rows` fp32 rows of (B, S, H, hd) into shared
+// rows of hd floats
 template <int HD>
-__global__ void __launch_bounds__(kRows * (HD / kPart))
-flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, float* __restrict__ dq,
-                 int S, int H, int causal, int window, float scale) {
-  constexpr int kTPR = HD / kPart;          // threads per query row
-  constexpr int kThr = kRows * kTPR;
+__device__ __forceinline__ void stage_f32(float* dst, const float* src,
+                                          long long pos_stride, int rows,
+                                          int tid) {
   constexpr int kChunks = HD / 4;
-  __shared__ float4 ks[kTile * kChunks];
-  __shared__ float4 vs[kTile * kChunks];
+  for (int idx = tid; idx < rows * kChunks; idx += kThreads) {
+    const int r = idx / kChunks, c = idx % kChunks;
+    cp_async16(dst + r * HD + 4 * c, src + r * pos_stride + 4 * c);
+  }
+}
 
-  const int tid = threadIdx.x;
-  const int r = tid / kTPR;
-  const int part = tid % kTPR;
-  // the heaviest (last) query tiles start first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
-  const int bh = blockIdx.y;
+// `rows` fp32 rows of hd values (global or shared, `stride` floats apart)
+// -> their three bf16 parts in padded shared rows, part i at dst + i * part
+template <int HD>
+__device__ __forceinline__ void split_rows(bf16* dst, int part,
+                                           const float* src, long long stride,
+                                           int rows, int tid) {
+  constexpr int kChunks = HD / 4;
+  for (int idx = tid; idx < rows * kChunks; idx += kThreads) {
+    const int r = idx / kChunks, c = idx % kChunks;
+    const float4 x = *reinterpret_cast<const float4*>(src + r * stride + 4 * c);
+    uint32_t xy[3], zw[3];
+    split3(x.x, x.y, xy[0], xy[1], xy[2]);
+    split3(x.z, x.w, zw[0], zw[1], zw[2]);
+    bf16* d = dst + r * row_stride<HD>() + 4 * c;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      *reinterpret_cast<uint2*>(d + i * part) = make_uint2(xy[i], zw[i]);
+  }
+}
+
+// one accumulator tile (16 rows of this warp x hd) -> (B, S, H, hd) fp32
+template <int HD>
+__device__ __forceinline__ void store_rows_f32(float* dst,
+                                               long long pos_stride,
+                                               const float (&acc)[HD / 8][4],
+                                               int g, int t) {
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      *reinterpret_cast<float2*>(dst + (g + 8 * half) * pos_stride + 8 * n +
+                                 2 * t) =
+          make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
+}
+
+// declared for two blocks an SM (what its shared memory allows at hd
+// 64): with no minimum ptxas caps hd 32 at 168 registers and spills
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_dkv_f32mma(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int S, int H, int causal,
+                     int window, float scale) {
+  constexpr int kN = f32_tile<HD>();   // query rows per tile
+  constexpr int kStr = row_stride<HD>();
+  constexpr int kKS = HD / 16;         // k-steps of s over hd
+  constexpr int kNT = kN / 8;          // n-tiles of s over the query tile
+  constexpr int kHeld = kM * kStr;     // one part of k or v
+  constexpr int kWalk = kN * kStr;     // one part of the tile's q or do
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Kp = reinterpret_cast<bf16*>(smem);   // k's three parts
+  bf16* Vp = Kp + 3 * kHeld;
+  bf16* Qp = Vp + 3 * kHeld;           // the tile's q, three parts
+  bf16* Op = Qp + 3 * kWalk;           // the tile's do, three parts
+  float* Qf = reinterpret_cast<float*>(Op + 3 * kWalk);  // next q, fp32
+  float* Of = Qf + kN * HD;            // next do, fp32
+  float* Ls = Of + kN * HD;            // lse, 2 buffers
+  float* Dl = Ls + 2 * kN;             // D, 2 buffers
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // the first key tiles of every (b, h), which most queries see, start
+  // first
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kM;
   const int b = bh / H, h = bh % H;
   const long long pos_stride = static_cast<long long>(H) * HD;
   const long long base = static_cast<long long>(b) * S * pos_stride +
                          static_cast<long long>(h) * HD;
-  const int qpos = q0 + r;
-  const float lse_i = lse[static_cast<long long>(bh) * S + qpos];
-  const float d_i = delta[static_cast<long long>(bh) * S + qpos];
+  const float* lse_bh = lse + static_cast<long long>(bh) * S;
+  const float* d_bh = delta + static_cast<long long>(bh) * S;
 
-  float qr[kPart], dor[kPart], dqa[kPart];
-  load_part<kTPR>(q + base + qpos * pos_stride, part, qr);
-  load_part<kTPR>(dout + base + qpos * pos_stride, part, dor);
-#pragma unroll
-  for (int i = 0; i < kPart; ++i) dqa[i] = 0.f;
-
-  const int n_kb = S / kTile;
-  const int hi = causal ? min((q0 + kRows + kTile - 1) / kTile, n_kb)
-                        : n_kb;
-  const int lo = window ? max(q0 - window, 0) / kTile : 0;
-  for (int kt = lo; kt < hi; ++kt) {
-    __syncthreads();
-    for (int idx = tid; idx < kTile * kChunks; idx += kThr) {
-      const int j = idx / kChunks, c = idx % kChunks;
-      const long long off = base + (kt * kTile + j) * pos_stride + 4 * c;
-      ks[idx] = load4(k + off);
-      vs[idx] = load4(v + off);
+  const int n_qt = S / kN;
+  const int qt0 = causal ? k0 / kN : 0;
+  const int qt1 = window ? min((k0 + kM + window - 2) / kN + 1, n_qt)
+                         : n_qt;
+  auto stage = [=](int buf, int qt) {
+    const long long off = base + static_cast<long long>(qt) * kN * pos_stride;
+    stage_f32<HD>(Qf, q + off, pos_stride, kN, tid);
+    stage_f32<HD>(Of, dout + off, pos_stride, kN, tid);
+    for (int i = tid; i < kN; i += kThreads) {
+      cp_async4(Ls + buf * kN + i, lse_bh + qt * kN + i);
+      cp_async4(Dl + buf * kN + i, d_bh + qt * kN + i);
     }
-    __syncthreads();
+  };
+  if (qt0 < qt1) stage(0, qt0);
+  cp_async_commit();
+  const long long koff = base + static_cast<long long>(k0) * pos_stride;
+  split_rows<HD>(Kp, kHeld, k + koff, pos_stride, kM, tid);
+  split_rows<HD>(Vp, kHeld, v + koff, pos_stride, kM, tid);
 
-#pragma unroll 2
-    for (int j = 0; j < kTile; ++j) {
-      float4 kk[kVec];
-      float s = 0.f, dp = 0.f;
+  const int a_off = (lane & 15) * kStr + (lane >> 4) * 8;
+  const int b_off = ((lane & 7) + ((lane >> 4) << 3)) * kStr +
+                    ((lane >> 3) & 1) * 8;
+  const bf16* kw = Kp + warp * 16 * kStr;
+  const bf16* vw = Vp + warp * 16 * kStr;
+
+  float dka[HD / 8][4], dva[HD / 8][4];
 #pragma unroll
-      for (int c = 0; c < kVec; ++c) {
-        kk[c] = ks[j * kChunks + part + kTPR * c];
-        s += dot4(kk[c], qr + 4 * c);
-        dp += dot4(vs[j * kChunks + part + kTPR * c], dor + 4 * c);
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  const int kj = k0 + warp * 16 + g;   // this thread's keys: kj, kj + 8
+  for (int qt = qt0; qt < qt1; ++qt) {
+    const int buf = (qt - qt0) & 1;
+    cp_async_wait_all();
+    __syncthreads();   // tile qt landed; every warp is done with qt - 1
+    split_rows<HD>(Qp, kWalk, Qf, HD, kN, tid);
+    split_rows<HD>(Op, kWalk, Of, HD, kN, tid);
+    __syncthreads();   // the parts are in place; Qf and Of are free
+    if (qt + 1 < qt1) stage(buf ^ 1, qt + 1);
+    cp_async_commit();
+    const float* ls = Ls + buf * kN;
+    const float* dl = Dl + buf * kN;
+
+    // sᵀ = k qᵀ, then dpᵀ = v doᵀ, 16 keys x kN queries, each as a big
+    // (x1 y1) and a small sum
+    float sb[kNT][4], ss[kNT][4], pb[kNT][4], ps[kNT][4];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sb[n][e] = ss[n][e] = pb[n][e] = ps[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+      uint32_t ak[3][4];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        ldsm_x4(ak[i], kw + i * kHeld + a_off + 16 * ks);
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        uint32_t bq[3][4];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          ldsm_x4(bq[i], Qp + i * kWalk + 16 * np * kStr + b_off + 16 * ks);
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          mma6(sb[2 * np + half], ss[2 * np + half], ak, bq, half);
       }
-      s = row_sum<kTPR>(s);
-      dp = row_sum<kTPR>(dp);
-      const int dist = qpos - (kt * kTile + j);
-      const float p = visible(dist, causal, window)
-                          ? expf(s * scale - lse_i) : 0.f;
-      const float ds = p * (dp - d_i) * scale;
+    }
 #pragma unroll
-      for (int c = 0; c < kVec; ++c) axpy4(dqa + 4 * c, ds, kk[c]);
+    for (int ks = 0; ks < kKS; ++ks) {
+      uint32_t av[3][4];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        ldsm_x4(av[i], vw + i * kHeld + a_off + 16 * ks);
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        uint32_t bo[3][4];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          ldsm_x4(bo[i], Op + i * kWalk + 16 * np * kStr + b_off + 16 * ks);
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          mma6(pb[2 * np + half], ps[2 * np + half], av, bo, half);
+      }
+    }
+
+    // pᵀ into sb, dsᵀ into pb (fp32)
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = 8 * n + 2 * t + (e & 1);
+        const int gap = qt * kN + qi - kj - 8 * (e >> 1);
+        const float p = visible(gap, causal, window)
+                            ? expf((sb[n][e] + ss[n][e]) * scale - ls[qi])
+                            : 0.f;
+        pb[n][e] = p * ((pb[n][e] + ps[n][e]) - dl[qi]) * scale;
+        sb[n][e] = p;
+      }
+
+    // dv += pᵀ do, dk += dsᵀ q, p and ds in three parts; each 16 columns'
+    // share of the tile is summed on its own and then added
+    uint32_t pf[kN / 16][3][4], df[kN / 16][3][4];
+#pragma unroll
+    for (int kk = 0; kk < kN / 16; ++kk) {
+      split3_frag(sb[2 * kk], sb[2 * kk + 1], pf[kk]);
+      split3_frag(pb[2 * kk], pb[2 * kk + 1], df[kk]);
+    }
+#pragma unroll
+    for (int j = 0; j < HD / 16; ++j) {
+      float lv[2][4] = {}, lk[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk) {
+        uint32_t bo[3][4], bq[3][4];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          ldsm_x4_t(bo[i], Op + i * kWalk + 16 * kk * kStr + a_off + 16 * j);
+          ldsm_x4_t(bq[i], Qp + i * kWalk + 16 * kk * kStr + a_off + 16 * j);
+        }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          mma6_sum(lv[half], pf[kk], bo, half);
+          mma6_sum(lk[half], df[kk], bq, half);
+        }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dva[2 * j + half][e] += lv[half][e];
+          dka[2 * j + half][e] += lk[half][e];
+        }
     }
   }
-  store_part<kTPR>(dq + base + qpos * pos_stride, part, dqa);
+  const long long out = base + static_cast<long long>(k0 + warp * 16) *
+                                   pos_stride;
+  store_rows_f32<HD>(dk + out, pos_stride, dka, g, t);
+  store_rows_f32<HD>(dv + out, pos_stride, dva, g, t);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_f32mma(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    int S, int H, int causal, int window, float scale) {
+  constexpr int kN = f32_tile<HD>();   // key rows per tile
+  constexpr int kStr = row_stride<HD>();
+  constexpr int kKS = HD / 16;
+  constexpr int kNT = kN / 8;
+  constexpr int kHeld = kM * kStr;     // one part of q or do
+  constexpr int kWalk = kN * kStr;     // one part of the tile's k or v
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qp = reinterpret_cast<bf16*>(smem);   // q's three parts
+  bf16* Op = Qp + 3 * kHeld;           // do's
+  bf16* Kp = Op + 3 * kHeld;           // the tile's k, three parts
+  bf16* Vp = Kp + 3 * kWalk;           // the tile's v, three parts
+  float* Kf = reinterpret_cast<float*>(Vp + 3 * kWalk);  // next k, fp32
+  float* Vf = Kf + kN * HD;            // next v, fp32
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // the heaviest (last) query tiles of every (b, h) start first
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kM;
+  const int b = bh / H, h = bh % H;
+  const long long pos_stride = static_cast<long long>(H) * HD;
+  const long long base = static_cast<long long>(b) * S * pos_stride +
+                         static_cast<long long>(h) * HD;
+  const int qi = q0 + warp * 16 + g;   // this thread's queries: qi, qi + 8
+  const long long at = static_cast<long long>(bh) * S + qi;
+  const float lse_q[2] = {lse[at], lse[at + 8]};
+  const float d_q[2] = {delta[at], delta[at + 8]};
+
+  const int n_kt = S / kN;
+  const int kt1 = causal ? min((q0 + kM + kN - 1) / kN, n_kt) : n_kt;
+  const int kt0 = window ? max(q0 - window, 0) / kN : 0;
+  auto stage = [=](int kt) {
+    const long long off = base + static_cast<long long>(kt) * kN * pos_stride;
+    stage_f32<HD>(Kf, k + off, pos_stride, kN, tid);
+    stage_f32<HD>(Vf, v + off, pos_stride, kN, tid);
+  };
+  if (kt0 < kt1) stage(kt0);
+  cp_async_commit();
+  const long long qoff = base + static_cast<long long>(q0) * pos_stride;
+  split_rows<HD>(Qp, kHeld, q + qoff, pos_stride, kM, tid);
+  split_rows<HD>(Op, kHeld, dout + qoff, pos_stride, kM, tid);
+
+  const int a_off = (lane & 15) * kStr + (lane >> 4) * 8;
+  const int b_off = ((lane & 7) + ((lane >> 4) << 3)) * kStr +
+                    ((lane >> 3) & 1) * 8;
+  const bf16* qw = Qp + warp * 16 * kStr;
+  const bf16* ow = Op + warp * 16 * kStr;
+
+  float dqa[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    cp_async_wait_all();
+    __syncthreads();   // tile kt landed; every warp is done with kt - 1
+    split_rows<HD>(Kp, kWalk, Kf, HD, kN, tid);
+    split_rows<HD>(Vp, kWalk, Vf, HD, kN, tid);
+    __syncthreads();   // the parts are in place; Kf and Vf are free
+    if (kt + 1 < kt1) stage(kt + 1);
+    cp_async_commit();
+
+    // s = q kᵀ, then dp = do vᵀ, 16 queries x kN keys, each as a big and
+    // a small sum
+    float sc[kNT][4], sc2[kNT][4], dc[kNT][4], dc2[kNT][4];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[n][e] = sc2[n][e] = dc[n][e] = dc2[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+      uint32_t aq[3][4];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        ldsm_x4(aq[i], qw + i * kHeld + a_off + 16 * ks);
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        uint32_t bk[3][4];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          ldsm_x4(bk[i], Kp + i * kWalk + 16 * np * kStr + b_off + 16 * ks);
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          mma6(sc[2 * np + half], sc2[2 * np + half], aq, bk, half);
+      }
+    }
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+      uint32_t ao[3][4];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        ldsm_x4(ao[i], ow + i * kHeld + a_off + 16 * ks);
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        uint32_t bv[3][4];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          ldsm_x4(bv[i], Vp + i * kWalk + 16 * np * kStr + b_off + 16 * ks);
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          mma6(dc[2 * np + half], dc2[2 * np + half], ao, bv, half);
+      }
+    }
+
+    // ds into sc (fp32)
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int gap = qi + 8 * r - kt * kN - 8 * n - 2 * t - (e & 1);
+        const float p = visible(gap, causal, window)
+                            ? expf((sc[n][e] + sc2[n][e]) * scale - lse_q[r])
+                            : 0.f;
+        sc[n][e] = p * ((dc[n][e] + dc2[n][e]) - d_q[r]) * scale;
+      }
+
+    // dq += ds k, ds in three parts; per 16 columns the tile's share is
+    // summed on its own and then added
+    uint32_t dsf[kN / 16][3][4];
+#pragma unroll
+    for (int kk = 0; kk < kN / 16; ++kk) {
+      split3_frag(sc[2 * kk], sc[2 * kk + 1], dsf[kk]);
+    }
+#pragma unroll
+    for (int j = 0; j < HD / 16; ++j) {
+      float lq[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk) {
+        uint32_t bk[3][4];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          ldsm_x4_t(bk[i], Kp + i * kWalk + 16 * kk * kStr + a_off + 16 * j);
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          mma6_sum(lq[half], dsf[kk], bk, half);
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dqa[2 * j + half][e] += lq[half][e];
+    }
+  }
+  store_rows_f32<HD>(dq + base + static_cast<long long>(q0 + warp * 16) *
+                                     pos_stride,
+                     pos_stride, dqa, g, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -658,32 +878,39 @@ int launch_mma(bool dkv, const Args& a, cudaStream_t st) {
 }
 
 template <int HD>
-int launch_f32(bool dkv, const Args& a, cudaStream_t st) {
-  const dim3 grid(a.S / kRows, a.B * a.H);
-  const dim3 block(kRows * (HD / kPart));
+int launch_f32mma(bool dkv, const Args& a, cudaStream_t st) {
+  static bool dkv_done[64] = {}, dq_done[64] = {};
+  const dim3 grid(a.B * a.H, a.S / kM);
   const float* q = static_cast<const float*>(a.q);
   const float* k = static_cast<const float*>(a.k);
   const float* v = static_cast<const float*>(a.v);
   const float* d = static_cast<const float*>(a.dout);
-  if (dkv)
-    flash_bwd_dkv_f32<HD><<<grid, block, 0, st>>>(
+  if (dkv) {
+    constexpr int bytes = f32_smem<HD, true>();
+    const int e = allow_smem(flash_bwd_dkv_f32mma<HD>, bytes, dkv_done);
+    if (e) return e;
+    flash_bwd_dkv_f32mma<HD><<<grid, kThreads, bytes, st>>>(
         q, k, v, d, a.lse, a.delta, static_cast<float*>(a.o1),
         static_cast<float*>(a.o2), a.S, a.H, a.causal, a.window, a.scale);
-  else
-    flash_bwd_dq_f32<HD><<<grid, block, 0, st>>>(
+  } else {
+    constexpr int bytes = f32_smem<HD, false>();
+    const int e = allow_smem(flash_bwd_dq_f32mma<HD>, bytes, dq_done);
+    if (e) return e;
+    flash_bwd_dq_f32mma<HD><<<grid, kThreads, bytes, st>>>(
         q, k, v, d, a.lse, a.delta, static_cast<float*>(a.o1), a.S, a.H,
         a.causal, a.window, a.scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 int run(bool dkv, const Args& a, int hd, int dtype, void* stream) {
-  if (a.B <= 0 || a.H <= 0 || a.S <= 0 || a.S % kRows || a.window < 0 ||
+  if (a.B <= 0 || a.H <= 0 || a.S <= 0 || a.S % kM || a.window < 0 ||
       a.B * a.H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && hd == 32) return launch_f32<32>(dkv, a, st);
-  if (dtype == 0 && hd == 64) return launch_f32<64>(dkv, a, st);
-  if (dtype == 0 && hd == 128) return launch_f32<128>(dkv, a, st);
+  if (dtype == 0 && hd == 32) return launch_f32mma<32>(dkv, a, st);
+  if (dtype == 0 && hd == 64) return launch_f32mma<64>(dkv, a, st);
+  if (dtype == 0 && hd == 128) return launch_f32mma<128>(dkv, a, st);
   if (dtype == 1 && hd == 32) return launch_mma<32>(dkv, a, st);
   if (dtype == 1 && hd == 64) return launch_mma<64>(dkv, a, st);
   if (dtype == 1 && hd == 128) return launch_mma<128>(dkv, a, st);

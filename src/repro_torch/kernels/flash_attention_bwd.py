@@ -17,10 +17,12 @@ it outside its kernels):
 
 Both take bf16 or fp32 operands and hd 32, 64 or 128, sum in fp32 and
 write q's dtype; the masks (causal, sliding window) and the skipped empty
-tiles are the forward's.  In bf16 the products run on the tensor cores,
-with p and ds split into a bf16 high and low half so that each output
-element stays within a bf16 ulp of the fp32 backward; fp32 runs on the
-fp32 cores.  ``csrc/flash_attention_bwd.cu`` holds the kernels;
+tiles are the forward's.  The products run on the tensor cores: in bf16
+with p and ds split into a bf16 high and low half, so that each output
+element stays within a bf16 ulp of the fp32 backward; in fp32 with every
+operand split into three bf16 parts and each product taken as six bf16
+products, which keeps fp32's accuracy.  ``csrc/flash_attention_bwd.cu``
+holds the kernels;
 :func:`flash_attention_bwd_dkv_plain` and
 :func:`flash_attention_bwd_dq_plain` are their plain versions (dense
 tiles of ``_PLAIN_Q_TILE`` query rows, fp32 inside), which the wrappers
@@ -38,8 +40,9 @@ per visible (query, key) pair (s, do·vᵀ, dv, dk, dq): at
 81.45 us at the card's bf16 tensor-core peak, against about 63 MB of
 operands (19 us at 3.35 TB/s).  Both kernels compute s and do·vᵀ; the
 bf16 ones issue each product on p or ds twice (its high and low half), so
-the dkv kernel issues six products and the dq kernel four, the fp32 ones
-four and three: :func:`flops` counts any of these.
+the dkv kernel issues six products and the dq kernel four; the fp32 ones
+issue six bf16 products for each of their four and three, 24 and 18:
+:func:`flops` counts any of these.
 """
 from __future__ import annotations
 
@@ -193,8 +196,8 @@ class FlashAttentionFn(torch.autograd.Function):
 def flops(B: int, S: int, H: int, hd: int, causal: bool = True,
           window: int = 0, products: int = 5) -> int:
     """``products`` matrix products of 2·hd flops per visible pair: 5 for
-    the backward's work; 6 (bf16) or 4 (fp32) issued by the dkv kernel,
-    4 or 3 by the dq kernel."""
+    the backward's work; 6 (bf16) or 24 (fp32, in bf16 products) issued
+    by the dkv kernel, 4 or 18 by the dq kernel."""
     return 2 * products * hd * H * B * visible_pairs(S, causal, window)
 
 

@@ -491,6 +491,114 @@ def test_k10_rounding_design(shape, causal, window):
 
 
 # --------------------------------------------------------------------------
+# The rounding points of K10's fp32 kernels (csrc/flash_attention_bwd.cu,
+# flash_bwd_dkv_f32mma / flash_bwd_dq_f32mma), modelled on the CPU: every
+# fp32 operand of every product (q, k, v, do; p and ds from fp32) is split
+# into three bf16 parts, x = x1 + x2 + x3 with x1 = bf16(x), x2 =
+# bf16(x - x1), x3 = bf16(x - x1 - x2), and a b is taken as six bf16
+# products, a1 b1 summed apart from a1 b2 + a2 b1 + a1 b3 + a2 b2 + a3 b1,
+# in fp32; dk, dv and dq are summed per walked tile of the kernel's rows
+# and the tile sums added in fp32.  Every element must lie within
+# chip_smoke's fp32 limit (|out - ref| <= K10_REL |ref| + K10_ATOL, ref
+# the fp32 plain version); with a single TF32 rounding of each operand,
+# or a two-part bf16 split (lo lo dropped), elements must not.
+# --------------------------------------------------------------------------
+def _bf16_parts(x, n):
+    """x -> n bf16 parts as fp32, each the bf16 rounding of what the parts
+    before it leave."""
+    parts = []
+    for _ in range(n):
+        parts.append(x.to(torch.bfloat16).float())
+        x = x - parts[-1]
+    return parts
+
+
+def _mm_split3(a, b):
+    a1, a2, a3 = _bf16_parts(a, 3)
+    b1, b2, b3 = _bf16_parts(b, 3)
+    small = a1 @ b2 + a2 @ b1 + a1 @ b3 + a2 @ b2 + a3 @ b1
+    return a1 @ b1 + small
+
+
+def _mm_split2(a, b):
+    a1, a2 = _bf16_parts(a, 2)
+    b1, b2 = _bf16_parts(b, 2)
+    return a1 @ b1 + (a1 @ b2 + a2 @ b1)
+
+
+def _tf32(x):
+    """fp32 -> TF32 (10 mantissa bits), rounded half away from zero, as
+    cvt.rna.tf32.f32 does."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _k10_f32_model(q, k, v, do, lse, delta, causal, window, mm, tile):
+    """K10's fp32 gradients with every product taken by ``mm`` and the
+    outputs summed over walked tiles of ``tile`` rows -> (dk, dv, dq)."""
+    B, S, H, hd = q.shape
+    qf, kf, vf, dof = (t.transpose(1, 2) for t in (q, k, v, do))
+    pos = torch.arange(S)
+    s = mm(qf, kf.transpose(-1, -2))
+    dp = mm(dof, vf.transpose(-1, -2))
+    p = torch.where(tfa.visible(pos, pos, causal, window),
+                    torch.exp(s * tfa.softmax_scale(hd) - lse[..., None]),
+                    0.0)
+    ds = p * (dp - delta[..., None]) * tfa.softmax_scale(hd)
+    dk, dv, dq = (torch.zeros_like(qf) for _ in range(3))
+    for t0 in range(0, S, tile):
+        rows = slice(t0, t0 + tile)
+        dv += mm(p[..., rows, :].transpose(-1, -2), dof[..., rows, :])
+        dk += mm(ds[..., rows, :].transpose(-1, -2), qf[..., rows, :])
+        dq += mm(ds[..., :, rows], kf[..., rows, :])
+    return tuple(t.transpose(1, 2).contiguous() for t in (dk, dv, dq))
+
+
+@pytest.mark.parametrize("shape,causal,window,tile", [
+    ((1, 1024, 2, 64), True, 0, 32), ((1, 512, 2, 128), True, 0, 16),
+    ((2, 512, 2, 32), True, 128, 32)])
+def test_k10_f32_split_design(shape, causal, window, tile):
+    cs = _chip_smoke()
+    rel, atol = cs.K10_REL["float32"], cs.K10_ATOL["float32"]
+    rng = np.random.default_rng(16)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape)
+                                    .astype(np.float32)) for _ in range(4))
+    x = torch.cat([t.flatten() for t in (q, k, v, do)])
+    assert torch.equal(sum(_bf16_parts(x, 3)), x)   # the split is exact
+    o, lse = tfa.flash_attention_fwd_lse_plain(q, k, v, causal=causal,
+                                               window=window)
+    delta = tfab.row_delta(o, do)
+    kw = dict(causal=causal, window=window)
+
+    def plain(*args):
+        return (*tfab.flash_attention_bwd_dkv_plain(*args, **kw),
+                tfab.flash_attention_bwd_dq_plain(*args, **kw))
+    args = (q, k, v, do, lse, delta)
+    refs = plain(*args)
+    exact = plain(*(t.double() for t in args))
+
+    def worst(outs, against=refs):
+        return [round(float(((got.double() - ref.double()).abs()
+                             / (rel * ref.double().abs() + atol)).max()), 3)
+                for got, ref in zip(outs, against)]
+    model = {name: _k10_f32_model(*args, causal, window, mm, tile)
+             for name, mm in (("split3", _mm_split3), ("tf32", _mm_tf32),
+                              ("split2", _mm_split2))}
+    ratios = {name: worst(out) for name, out in model.items()}
+    print(f"worst err / limit (dk, dv, dq) against the fp32 plain version: "
+          f"{ratios}; against fp64: three-part split "
+          f"{worst(model['split3'], exact)}, the fp32 plain version "
+          f"{worst(refs, exact)}")
+    assert max(ratios["split3"]) <= 1.0
+    assert max(worst(model["split3"], exact)) <= 1.0
+    assert min(ratios["tf32"]) > 1.0
+    assert min(ratios["split2"]) > 1.0
+
+
+# --------------------------------------------------------------------------
 # The rounding points of K9's bf16 kernel (csrc/flash_attention.cu),
 # modelled on the CPU: bf16 operands, s = q kᵀ as fp32 sums of exact
 # products, the online softmax over key tiles of 64 (the running max, corr
