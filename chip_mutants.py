@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Mutation check of ``chip_smoke.py``'s per-element limits for K9 and
-K10 on one NVIDIA GPU.
+K10, and of its check of K1 at the LLM width, on one NVIDIA GPU.
 
 Builds the flash-attention forward (``src/repro_torch/csrc/
-flash_attention.cu``) or backward (``flash_attention_bwd.cu``) with one
-small fault at a time (a key tile, or a single key, too few or too many
-for some rows of a 4,096-token sequence), runs the smoke's kernel phase
-of that kernel on it and requires that phase to fail on the kernel.
+flash_attention.cu``) or backward (``flash_attention_bwd.cu``), or the
+gate (``cosine_gate.cu``), with one small fault at a time (a key tile, or
+a single key, too few or too many for some rows of a 4,096-token
+sequence; an operand rounded once; a chunk of a row left out), runs the
+smoke's check of that kernel on it and requires it to fail on the
+kernel.
 K9's bf16 kernel (``flash_fwd_mma``), in the serving kernel phase:
 
   * ``window_tile_late``: the window's first key tile is skipped for the
@@ -47,7 +49,18 @@ which take every operand as three bf16 parts, in the same phase:
   * ``dq_f32_split_dropped``: for the query tiles from row 3,584 on, dq
     takes ds's first bf16 part alone.
 
-    python3 chip_mutants.py
+K9-LSE's fp32 kernel (``flash_fwd_f32mma``), in the same phase:
+
+  * ``k9_f32_split_dropped``: for the query tiles from row 3,584 on, o
+    takes p's first bf16 part alone (its second and third zeroed).
+
+K1's split-row path (``csrc/cosine_gate.cu``), in the smoke's check at
+the LLM cut tensor (``_gate_at_llm_width``):
+
+  * ``gate_chunk_dropped``: pass 1 skips the first chunk of each row.
+
+    python3 chip_mutants.py               # every mutant
+    python3 chip_mutants.py NAME [NAME]   # the named ones
 
 Each mutant is a copy of ``src/`` and ``chip_smoke.py`` under
 ``src/repro_torch/_build/mutants/`` (removed afterwards).  Prints each
@@ -116,11 +129,34 @@ MUTANTS = {
         "split3_frag(sc[2 * kk], sc[2 * kk + 1], dsf[kk]);",
         f"split3_frag(sc[2 * kk], sc[2 * kk + 1], dsf[kk]); if (q0 >= {LATE})"
         f" for (int i = 0; i < 4; ++i) dsf[kk][1][i] = dsf[kk][2][i] = 0u;"),
+    "k9_f32_split_dropped": (
+        "split3_frag(sb[2 * kk], sb[2 * kk + 1], pf[kk]);",
+        f"split3_frag(sb[2 * kk], sb[2 * kk + 1], pf[kk]); if (q0 >= {LATE})"
+        f" for (int i = 0; i < 4; ++i) pf[kk][1][i] = pf[kk][2][i] = 0u;"),
+    "gate_chunk_dropped": (
+        "    gate_sums<C, kVec>(ar, zr, zscale, j, num, aa, zz);\n"
+        "  block_sums(num, aa, zz);",
+        "    if (c != 0) gate_sums<C, kVec>(ar, zr, zscale, j, num, aa, zz);\n"
+        "  block_sums(num, aa, zz);"),
 }
 # K10's mutants: name -> the wrapper whose check must fail
 K10_MUTANTS = {name: "flash_attention_bwd_dq" if name.startswith("dq_")
                else "flash_attention_bwd_dkv"
                for name in MUTANTS if name.startswith(("dkv_", "dq_"))}
+# every mutant: name -> (its source under CSRC, the smoke's function that
+# must fail on it, the wrapper its failure names); K9's bf16 mutants are
+# checked by the serving kernel phase
+TARGETS = {
+    "k9_f32_split_dropped": ("flash_attention.cu", "phase_train_kernels",
+                             "flash_attention_fwd_lse"),
+    "gate_chunk_dropped": ("cosine_gate.cu", "_gate_at_llm_width",
+                           "fused_sample_2d"),
+    **{name: ("flash_attention_bwd.cu", "phase_train_kernels", kernel)
+       for name, kernel in K10_MUTANTS.items()},
+}
+for _name in MUTANTS:
+    TARGETS.setdefault(_name, ("flash_attention.cu", "phase_serve_kernels",
+                               "flash_attention"))
 RUN = ("import sys, torch; sys.path.insert(0, 'src'); "
        "torch.backends.cuda.matmul.allow_tf32 = False; "
        "import chip_smoke; chip_smoke.{}(torch)")
@@ -151,16 +187,18 @@ def main() -> None:
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_mutants: no CUDA device is available")
+    names = sys.argv[1:] or list(MUTANTS)
+    unknown = [n for n in names if n not in MUTANTS]
+    if unknown:
+        sys.exit(f"chip_mutants: no mutant {unknown}; known: "
+                 f"{list(MUTANTS)}")
     top = os.path.join(ROOT, "src", "repro_torch", "_build", "mutants")
     survived = []
-    for name, (good, bad) in MUTANTS.items():
-        k10 = name in K10_MUTANTS
-        source = os.path.join(CSRC, "flash_attention_bwd.cu" if k10
-                              else "flash_attention.cu")
-        phase = "phase_train_kernels" if k10 else "phase_serve_kernels"
-        kernel = K10_MUTANTS[name] if k10 else "flash_attention"
+    for name in names:
+        good, bad = MUTANTS[name]
+        source, phase, kernel = TARGETS[name]
         d = os.path.join(top, name)
-        mutated_copy(d, source, [(good, bad)], name)
+        mutated_copy(d, os.path.join(CSRC, source), [(good, bad)], name)
         r = subprocess.run([sys.executable, "-c", RUN.format(phase)], cwd=d,
                            capture_output=True, text=True, timeout=600)
         line = next((ln for ln in (r.stdout + r.stderr).splitlines()
@@ -183,7 +221,7 @@ def main() -> None:
     shutil.rmtree(top, ignore_errors=True)
     if survived:
         sys.exit(f"chip_mutants: FAILED: {survived} passed the smoke's "
-                 f"K9 / K10 checks")
+                 f"K9 / K10 / K1 checks")
     print("chip_mutants: every mutant caught")
 
 

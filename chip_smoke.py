@@ -9,12 +9,12 @@ Phases, each on its own printed lines (any failure exits non-zero):
   1. the card: name and power limit; TF32 off for matmuls and cuDNN;
   2. the build of the CUDA kernels from ``src/repro_torch/csrc``, with
      each kernel's registers and spills (``-Xptxas -v``): the
-     tensor-core attention kernels of K9 and K10 (bf16, and K10's fp32)
-     may not spill;
+     tensor-core attention kernels (K9's bf16 and fp32, K10's bf16 and
+     fp32) may not spill;
   3. each kernel against its plain PyTorch version on the card (K1 full
      and weights-only, K2a, K2b; K3 at int8 and int4 levels; K4 and K5
      full and weights-only) at the main path's shapes, at an odd batch
-     and narrow (and odd) rows, and at a wide F that runs the chunk loop;
+     and narrow (and odd) rows, and at a wide F (the split-row path);
      K7 and K8 bitwise at WDL-Criteo's leaf shapes; times from CUDA
      events beside the least time the card could take;
   4. the golden traces (``tests/golden``) replayed on the card from the
@@ -57,17 +57,22 @@ Phases, each on its own printed lines (any failure exits non-zero):
      (1, 4096, 15, 64) bf16, causal, with a window of 1,024, at head dim
      128 and in fp32, at the training phase's (2, 4096, 15, 64) in bf16
      and fp32, at (1, 4096, 15, 128) fp32 and at the reduced model's
-     (2, 3072, 4, 32) in bf16 and fp32, and K10 at S = 320 (an odd
-     number of 64-row tiles) in both dtypes at each head dim, each
+     (2, 3072, 4, 32) in bf16 and fp32, K9-LSE in fp32 at S = 320 at
+     each head dim (causal, windowed, non-causal) and K10 at S = 320 (an
+     odd number of 64-row tiles) in both dtypes at each head dim, each
      element within a limit of its own magnitude (K10's fp32 cases at
-     S = 320 against the fp64 plain version); every fp32 case of K10 on
-     four more draws, and on all five against the fp64 plain version
-     too; K9's output with the LSE pointer set bitwise its output
-     without it, K10's outputs bitwise the same on a second run; timed
-     beside the least time and SDPA's forward and backward (bf16, and
-     fp32 with TF32 off, naming the kernels SDPA ran); the tensor-core
-     instructions in the SASS of K10's bf16 and fp32 kernels (none
-     fails) and their TFLOP/s;
+     S = 320 against the fp64 plain version); every fp32 case of K9-LSE
+     and K10 on four more draws, and on all five against the fp64 plain
+     version too; K9's output with the LSE pointer set bitwise its
+     output without it, K10's outputs bitwise the same on a second run;
+     timed beside the least time and SDPA's forward and backward (bf16,
+     and fp32 with TF32 off, naming the kernels SDPA ran); the
+     tensor-core instructions in the SASS of K9-LSE's fp32 kernel and of
+     K10's bf16 and fp32 kernels (none fails) and their TFLOP/s, K9-LSE's
+     fp32 beside SDPA's fp32 forward; K1 on its split-row path at the
+     LLM cut tensor (2, 2, 3,932,160) and a wide ragged row (2, 3,
+     1,000,003), full and weights-only, against its plain version,
+     bitwise the same on a second run, timed beside its bound;
   9. the LLM training path: ``repro_torch.launch.train`` at smollm-360m's
      full width (B = 2, S = 4,096, R = W = 2, 3 celu rounds, fp32 cache,
      AdaGrad through K7, remat on) with the exact launch counts of
@@ -258,10 +263,17 @@ K10_ODD_TILES = [((1, 320, 2, hd), dt, causal, window)
 # distance from it is printed beside)
 K10_F32_SEEDS = (11, 12, 13, 14)
 LSE_REL, LSE_ATOL = 2.0 ** -17, 1e-5
+# K9-LSE's fp32 outputs and their limits (rel, atol): out as K10's fp32
+# outputs, lse as every lse
+K9_F32_LIMITS = (("out", K10_REL["float32"], K10_ATOL["float32"]),
+                 ("lse", LSE_REL, LSE_ATOL))
 # K1 at the training path's cut tensor (W, B, S·d): the fp32 sums of
 # 3,932,160 products a row in other orders; the weights are cosines in
-# [-1, 1] and the cotangent is |dz| <= ~5 times a weight
+# [-1, 1] and the cotangent is |dz| <= ~5 times a weight.  Also at a wide
+# ragged row (F odd: one element a lane), both on the split-row path.
 LLM_GATE_SHAPE = (2, 2, 4096 * 960)
+RAGGED_GATE_SHAPE = (2, 3, 1_000_003)
+GATE_SINK = 960                   # the first token's d values of a row
 LLM_GATE_TOL = 1e-4
 # the training phase: smollm-360m at full width
 TRAIN_ARGS = {"batch_size": 2, "seq_len": 4096, "R": 2, "W": 2}
@@ -297,6 +309,8 @@ K10_F32_MMA = {"flash_attention_bwd_dkv": ("flash_bwd_dkv_f32mma", 24),
 # the library and the products it issues (s = q kᵀ, p_hi v, p_lo v),
 # against the two (s, p v) of its work
 K9_MMA = ("flash_fwd_mma", 3)
+# its fp32 kernel: the same, in bf16 products (six per fp32 product)
+K9_F32_MMA = ("flash_fwd_f32mma", 12)
 DENSE_GATES = ("fused_sample_2d", "cosine_weight_2d", "cosine_weights_2d")
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
 
@@ -1581,6 +1595,101 @@ def _k10_odd_tiles(torch, gen) -> None:
               f"dv {worst[1]:.3g}, dq {worst[2]:.3g}", flush=True)
 
 
+def _k9_f32_against_fp64(tag, qkv, kw, outs, refs) -> None:
+    """Print, for K9-LSE's fp32 (out, lse) ``outs`` on ``qkv``, the worst
+    err / limit against the fp32 plain version (``refs``) and against the
+    fp64 plain version on the same inputs, and the fp32 plain version's
+    own against fp64; then hold ``outs`` to their limits against fp64."""
+    from repro_torch.kernels import flash_attention as fa
+    exact = fa.flash_attention_fwd_lse_plain(*(t.double() for t in qkv),
+                                             **kw)
+    parts = []
+    for (label, rel, atol), got, ref, ex in zip(K9_F32_LIMITS, outs, refs,
+                                                exact):
+        worst = [(d / lim).max().item() for d, lim in
+                 (_err_limit(got, ref, rel, atol),
+                  _err_limit(got, ex, rel, atol),
+                  _err_limit(ref, ex, rel, atol))]
+        parts.append(f"{label} " + " / ".join(f"{w:.3g}" for w in worst))
+    print(f"[kernel] K9-LSE fp32 {tag}: worst err / limit, the kernel "
+          f"against the fp32 plain version / the kernel against fp64 / the "
+          f"fp32 plain version against fp64: {'; '.join(parts)}",
+          flush=True)
+    for (label, rel, atol), got, ex in zip(K9_F32_LIMITS, outs, exact):
+        _per_element("flash_attention_fwd_lse", f"{tag} {label} against "
+                     f"the fp64 plain version", got, ex, rel, atol)
+
+
+def _k9_f32_draws(torch, shape, kw, tag) -> None:
+    """K9-LSE's fp32 kernel on the draws of K10_F32_SEEDS at ``shape``,
+    each held against the fp64 plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    for seed in K10_F32_SEEDS:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        qkv = tuple(torch.randn(shape, generator=gen, device="cuda")
+                    for _ in range(3))
+        _k9_f32_against_fp64(f"{tag} seed {seed}", qkv, kw,
+                             fa.flash_attention_fwd_lse(*qkv, **kw),
+                             fa.flash_attention_fwd_lse_plain(*qkv, **kw))
+
+
+def _k9_f32_odd_tiles(torch, gen) -> None:
+    """K9-LSE's fp32 kernel at the shapes of K9_ODD_TILES (S = 320):
+    out and lse per element against the fp32 plain version, and on five
+    draws against the fp64 plain version; out bitwise K9's."""
+    from repro_torch.kernels import flash_attention as fa
+    for shape, causal, window in K9_ODD_TILES:
+        kw = dict(causal=causal, window=window)
+        tag = (f"B,S,H,hd={','.join(map(str, shape))} float32 "
+               f"causal={causal} window={window}")
+        qkv = tuple(torch.randn(shape, generator=gen, device="cuda")
+                    for _ in range(3))
+        outs = fa.flash_attention_fwd_lse(*qkv, **kw)
+        refs = fa.flash_attention_fwd_lse_plain(*qkv, **kw)
+        check(torch.equal(outs[0], fa.flash_attention(*qkv, **kw)),
+              f"flash_attention_fwd_lse {tag}: the output differs from "
+              f"K9's without the LSE pointer")
+        worst = [_per_element("flash_attention_fwd_lse", f"{tag} {label}",
+                              got, ref, rel, atol)[1]
+                 for (label, rel, atol), got, ref in
+                 zip(K9_F32_LIMITS, outs, refs)]
+        print(f"[kernel] K9-LSE {tag}: worst err / limit out "
+              f"{worst[0]:.3g}, lse {worst[1]:.3g}; out bitwise K9's",
+              flush=True)
+        _k9_f32_against_fp64(tag, qkv, kw, outs, refs)
+        _k9_f32_draws(torch, shape, kw, tag)
+
+
+def _k9_f32_tensor_cores(times) -> None:
+    """K9-LSE's fp32 kernel runs on the tensor cores: the HMMA / HGMMA
+    instructions in its SASS at hd 32, 64 and 128 (none fails), and at
+    each fp32 case of K10_CASES its rate over the two products of its
+    work and over the 12 bf16 products it issues, beside SDPA's fp32
+    forward."""
+    from repro_torch.kernels import flash_attention as fa
+    name, (kernel, issued) = "flash_attention_fwd_lse", K9_F32_MMA
+    per_hd = _mma_per_hd(name, kernel)
+    print(f"[kernel] {name:30s} float32: tensor-core instructions in the "
+          f"SASS of {kernel} (cuobjdump -sass) at hd 32 / 64 / 128: "
+          f"{per_hd[32]} / {per_hd[64]} / {per_hd[128]}", flush=True)
+    for (shape, dt, window), t in times.items():
+        if dt != "float32":
+            continue
+        B, S, H, hd = shape
+        flops = fa.flops(B, S, H, hd, True, window)
+        ms, lib = t[name], t["sdpa"]
+        sdpa = "none" if lib is None else (
+            f"{lib * 1e3:.2f} us ({flops / lib / 1e9:.1f} TFLOP/s of the "
+            f"work; kernel / SDPA {ms / lib:.3f})")
+        print(f"[kernel] {name:30s} B,S,H,hd={B},{S},{H},{hd} float32 "
+              f"causal window={window}: {ms * 1e3:.2f} us, the two products "
+              f"of its work at {flops / ms / 1e9:.1f} TFLOP/s, the "
+              f"{issued} bf16 products it issues at "
+              f"{issued / 2 * flops / ms / 1e9:.1f} TFLOP/s (peak "
+              f"{PEAK_BF16_FLOPS / 1e12:.0f}); SDPA's fp32 forward {sdpa}",
+              flush=True)
+
+
 def phase_train_kernels(torch):
     """K9-LSE and K10 (dkv, dq) against their plain versions on the card,
     each element within its own limit, and K10's fp32 kernels against the
@@ -1624,6 +1733,10 @@ def phase_train_kernels(torch):
         err_l, w_l = _per_element("flash_attention_fwd_lse", f"{tag} lse",
                                   lse, lse_ref, LSE_REL, LSE_ATOL)
         err = max(err_o, err_l)
+        if dt == "float32":
+            _k9_f32_against_fp64(tag, (q, k, v), kw, (o, lse),
+                                 (o_ref, lse_ref))
+            _k9_f32_draws(torch, shape, kw, tag)
 
         # K10 on the plain forward's o and lse (the same inputs both ways)
         args = (q, k, v, do, lse_ref, fab.row_delta(o_ref, do))
@@ -1715,8 +1828,9 @@ def phase_train_kernels(torch):
                      errs["dq"][0], 5 * n + 2 * lse_b,
                      6 * hd * H * B * pairs, library="none", peak=peak,
                      iters=10)
-        times[(shape, dt, window)] = {names[1]: t_kv["ms"],
-                                      names[2]: t_q["ms"]}
+        times[(shape, dt, window)] = {names[0]: t_f["ms"],
+                                      names[1]: t_kv["ms"],
+                                      names[2]: t_q["ms"], "sdpa": lib_f}
         bwd_flops = fab.flops(B, S, H, hd, True, window)
         bwd_bound, by = bound(fab.nbytes(q), bwd_flops, peak)
         fp32_cores = "" if dt == "bfloat16" else (
@@ -1737,7 +1851,9 @@ def phase_train_kernels(torch):
             # the dkv row only, and the dq row has no library call of its own
             results[names[1]].update(t_kv, library_ms=lib_b)
             results[names[2]].update(t_q, library_ms=None)
+    _k9_f32_odd_tiles(torch, gen)
     _k10_odd_tiles(torch, gen)
+    _k9_f32_tensor_cores(times)
     _k10_tensor_cores(times)
     _gate_at_llm_width(torch)
     return results
@@ -1765,7 +1881,7 @@ def _k10_tensor_cores(times):
                   f"128: {per_hd[32]} / {per_hd[64]} / {per_hd[128]}; "
                   f"{tag}: {ms * 1e3:.2f} us, the {issued} bf16 products it "
                   f"issues at {rate(issued, ms):.1f} TFLOP/s", flush=True)
-        ms = sum(times[case].values())
+        ms = sum(times[case][name] for name in kernels)
         issued = sum(n for _, n in kernels.values())
         print(f"[kernel] K10 (dkv + dq) {dt} {tag}: {ms * 1e3:.2f} us; the "
               f"backward's five-product work at {rate(5, ms):.1f} TFLOP/s, "
@@ -1775,39 +1891,69 @@ def _k10_tensor_cores(times):
 
 
 def _gate_at_llm_width(torch):
-    """K1 at the training path's cut tensor: ring rows of S·d = 3,932,160
-    bf16 values, B = 2 rows, the fp32 ad-hoc row, against its plain
-    version (weights within LLM_GATE_TOL) and timed beside its bound."""
+    """K1 on its split-row path: at the training path's cut tensor (ring
+    rows of S·d = 3,932,160 bf16 values, B = 2 rows, the fp32 ad-hoc row)
+    and at a wide ragged row (RAGGED_GATE_SHAPE), full and weights-only,
+    against its plain version (weights and cotangent within LLM_GATE_TOL),
+    bitwise the same on a second run and the weights-only call's weights
+    bitwise the full call's; timed beside its bound and plain version."""
     from repro_torch.core.weighting import xi_to_cos
+    from repro_torch.kernels import cosine_weight as cw
     from repro_torch.kernels import fused_sample as fs
 
-    W, B, F = LLM_GATE_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(7)
     cos_xi = xi_to_cos(60.0)
-    a = torch.randn((B, F), generator=gen, device="cuda")
-    z = torch.randn((W, B, F), generator=gen, device="cuda")
-    z[1] = a * torch.tensor([[0.9], [-0.5]], device="cuda") + 0.5 * z[1]
-    z = z.to(torch.bfloat16)
-    dz = torch.randn((W, B, F), generator=gen, device="cuda").to(
-        torch.bfloat16)
-    slot = torch.tensor([1], dtype=torch.int32, device="cuda")
+    for W, B, F in (LLM_GATE_SHAPE, RAGGED_GATE_SHAPE):
+        a = torch.randn((B, F), generator=gen, device="cuda")
+        z = torch.randn((W, B, F), generator=gen, device="cuda")
+        mix = torch.tensor([0.9, -0.5, 1.5][:B], device="cuda")[:, None]
+        z[1] = a * mix + 0.5 * z[1]
+        # the first token's d values carry a transformer's massive
+        # activations and change little between rounds: 30 times the
+        # rest, and the stale z close to the ad-hoc a there, so that the
+        # first chunk of a row moves its cosine by about 0.02
+        a[:, :GATE_SINK] *= 30.0
+        z[1, :, :GATE_SINK] = a[:, :GATE_SINK] + 0.05 * z[1, :, :GATE_SINK]
+        z = z.to(torch.bfloat16)
+        dz = torch.randn((W, B, F), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        slot = torch.tensor([1], dtype=torch.int32, device="cuda")
 
-    def kern():
-        return fs.fused_sample_2d(slot, a, z, dz, cos_xi)
+        def kern(d=dz):
+            return fs.fused_sample_2d(slot, a, z, d, cos_xi)
 
-    def plain():
-        return fs.fused_sample_plain(slot, a, z, dz, cos_xi)
-    (w, cot), (w0, cot0) = kern(), plain()
-    torch.cuda.synchronize()
-    err = max((w - w0).abs().max().item(), (cot - cot0).abs().max().item())
-    check(math.isfinite(err) and err <= LLM_GATE_TOL and w[1].item() == 0.0
-          and w[0].item() > 0.5, f"fused_sample_2d at {(W, B, F)}: "
-          f"weights {w.tolist()} against {w0.tolist()}, max |err| {err}")
-    # ad-hoc read, the slot's z and dz read, the cotangent written
-    _timed(torch, f"{'fused_sample_2d':30s} W,B,F={W},{B},{F} bf16 ring "
-           f"(the LLM cut tensor)", kern, plain, err,
-           4 * B * F + 2 * 2 * B * F + 4 * B * F + 4 * B + 4, 7 * B * F,
-           iters=10)
+        def plain(d=dz):
+            return fs.fused_sample_plain(slot, a, z, d, cos_xi)
+        (w, cot), (w0, cot0) = kern(), plain()
+        (w2, cot2), (wo, _) = kern(), kern(None)
+        torch.cuda.synchronize()
+        err = max((w - w0).abs().max().item(),
+                  (cot - cot0).abs().max().item())
+        label = f"fused_sample_2d at {(W, B, F)} bf16 ring"
+        check(math.isfinite(err) and err <= LLM_GATE_TOL
+              and w[1].item() == 0.0 and w[0].item() > 0.5,
+              f"{label}: weights {w.tolist()} against {w0.tolist()}, max "
+              f"|err| {err}")
+        check(torch.equal(w, w2) and torch.equal(cot, cot2),
+              f"{label}: a second run differs from the first")
+        check(torch.equal(wo, w), f"{label}: the weights-only call's "
+              f"weights {wo.tolist()} differ from the full call's "
+              f"{w.tolist()}")
+        chunks = cw.gate_chunks(B, F)
+        print(f"[kernel] {label}: split-row path, {chunks} chunks a row; "
+              f"max |err| {err:.3g} (limit {LLM_GATE_TOL}); bitwise the "
+              f"same on a second run; weights-only weights bitwise the "
+              f"full call's", flush=True)
+        # ad-hoc read, the slot's z (and dz) read, w (and the cotangent)
+        # written, the slot
+        _timed(torch, f"{'fused_sample_2d':30s} W,B,F={W},{B},{F} bf16 ring "
+               f"({chunks} chunks a row)", kern, plain, err,
+               4 * B * F + 2 * 2 * B * F + 4 * B * F + 4 * B + 4, 7 * B * F,
+               iters=10)
+        _timed(torch, f"{'fused_sample_2d weights-only':30s} W,B,F={W},{B},"
+               f"{F} bf16 ring ({chunks} chunks a row)", lambda: kern(None),
+               lambda: plain(None), (wo - w0).abs().max().item(),
+               4 * B * F + 2 * B * F + 4 * B + 4, 6 * B * F, iters=10)
 
 
 def _llm_launches(cfg, R: int, rounds: int, remat: bool, n_tensors: int):
@@ -1939,16 +2085,17 @@ def phase_training(torch, card):
     for e in top[:10]:
         print(f"[train]   {e.self_device_time_total / 1e3 / rounds:9.3f} ms "
               f"per round  {e.count / rounds:7.1f} calls  {e.key[:70]}")
-    attn = {}
+    ours = {}
     for e in top:
-        m = re.search(r"(flash_\w+)<", e.key)
+        m = re.search(r"(flash_\w+|cosine_gate_kernel|gate_\w+_kernel)<",
+                      e.key)
         if m and e.self_device_time_total:
-            row = attn.setdefault(m.group(1), [0.0, 0.0])
+            row = ours.setdefault(m.group(1), [0.0, 0.0])
             row[0] += e.self_device_time_total / 1e3 / rounds
             row[1] += e.count / rounds
-    print("[train] the attention kernels per round: " + "; ".join(
+    print("[train] the attention and gate kernels per round: " + "; ".join(
         f"{k} {ms:.3f} ms in {n:.0f} launches"
-        for k, (ms, n) in sorted(attn.items())), flush=True)
+        for k, (ms, n) in sorted(ours.items())), flush=True)
     del prof, params
 
     # one full-width train step (B = 1, S = 4,096) through K9-LSE / K10
@@ -2139,7 +2286,8 @@ def main() -> None:
         print(f"[build] {label}: {regs} registers, spill stores {st} B, "
               f"spill loads {ld} B")
     if info["log"]:
-        names = [K9_MMA[0]] + [n for n, _ in K10_MMA.values()] + [
+        names = [K9_MMA[0], K9_F32_MMA[0]] + [
+            n for n, _ in K10_MMA.values()] + [
             n for n, _ in K10_F32_MMA.values()]
         mma = {k: u for k, u in usage.items() if k.split("<")[0] in names}
         check(len(mma) == 3 * len(names)

@@ -3,8 +3,9 @@
 // cp.async staging into padded shared rows, ldmatrix, the
 // m16n8k16 bf16 mma with fp32 accumulation, the bf16 hi + lo split of
 // an fp32 operand that enters a product from the accumulators, and the
-// three-part bf16 split with its six products, which K10's fp32 kernels
-// take for an fp32-accurate product.
+// three-part bf16 split with its six products, which the fp32 kernels
+// (K9 / K9-LSE's and K10's) take for an fp32-accurate product, with the
+// fp32 tiles they stage by cp.async and split into parts in shared memory.
 //
 // Every kernel that includes this runs blocks of kWarps warps, warp w
 // owning rows 16w..16w+15 of the block's tile of kM rows.  Only the *.cu
@@ -215,6 +216,70 @@ __device__ __forceinline__ void store_rows(bf16* dst, long long pos_stride,
       *reinterpret_cast<__nv_bfloat162*>(
           dst + (g + 8 * half) * pos_stride + 8 * n + 2 * t) =
           __floats2bfloat162_rn(acc[n][2 * half], acc[n][2 * half + 1]);
+}
+
+// key j visible to query i at dist = i - j: the causal mask (j <= i) and
+// the window (i - j < window), each when set
+__device__ __forceinline__ bool visible(int dist, int causal, int window) {
+  bool vis = true;
+  if (causal) vis = dist >= 0;
+  if (window) vis = vis && dist < window;
+  return vis;
+}
+
+// rows per tile the fp32 kernels walk (keys in the forward and in K10's
+// dq, queries in its dkv): 32, and 16 at hd 128, so that the
+// accumulators, s (and dp) as a big and a small sum and the parts of p
+// (and ds) fit the registers without spills
+template <int HD>
+__host__ __device__ constexpr int f32_tile() { return HD == 128 ? 16 : 32; }
+
+// the 16-byte chunks of `rows` fp32 rows of (B, S, H, hd) into shared
+// rows of hd floats
+template <int HD>
+__device__ __forceinline__ void stage_f32(float* dst, const float* src,
+                                          long long pos_stride, int rows,
+                                          int tid) {
+  constexpr int kChunks = HD / 4;
+  for (int idx = tid; idx < rows * kChunks; idx += kThreads) {
+    const int r = idx / kChunks, c = idx % kChunks;
+    cp_async16(dst + r * HD + 4 * c, src + r * pos_stride + 4 * c);
+  }
+}
+
+// `rows` fp32 rows of hd values (global or shared, `stride` floats apart)
+// -> their three bf16 parts in padded shared rows, part i at dst + i * part
+template <int HD>
+__device__ __forceinline__ void split_rows(bf16* dst, int part,
+                                           const float* src, long long stride,
+                                           int rows, int tid) {
+  constexpr int kChunks = HD / 4;
+  for (int idx = tid; idx < rows * kChunks; idx += kThreads) {
+    const int r = idx / kChunks, c = idx % kChunks;
+    const float4 x = *reinterpret_cast<const float4*>(src + r * stride + 4 * c);
+    uint32_t xy[3], zw[3];
+    split3(x.x, x.y, xy[0], xy[1], xy[2]);
+    split3(x.z, x.w, zw[0], zw[1], zw[2]);
+    bf16* d = dst + r * row_stride<HD>() + 4 * c;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      *reinterpret_cast<uint2*>(d + i * part) = make_uint2(xy[i], zw[i]);
+  }
+}
+
+// one accumulator tile (16 rows of this warp x hd) -> (B, S, H, hd) fp32
+template <int HD>
+__device__ __forceinline__ void store_rows_f32(float* dst,
+                                               long long pos_stride,
+                                               const float (&acc)[HD / 8][4],
+                                               int g, int t) {
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      *reinterpret_cast<float2*>(dst + (g + 8 * half) * pos_stride + 8 * n +
+                                 2 * t) =
+          make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
 }
 
 // a kernel's dynamic shared memory above the default 48 KB: allowed once

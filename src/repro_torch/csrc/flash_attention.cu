@@ -60,15 +60,33 @@
 //   around each product and a producer warp feeding TMA copies through
 //   mbarriers, which is a later rewrite (of K10 too).
 //
-// fp32 (the label party's ad-hoc ∇Z pass): the fp32 cores, as on the TPU
-// (TF32 would change its numbers).  One block per (query tile of kBQ = 64
-// rows, b * H + h) walks key tiles of kBK = 32 rows staged in shared
-// memory as fp32.  Each query row is owned by hd / 32 threads (2 at hd
-// 32), each holding 32 (16) of its q values and as many of its
-// accumulator values in registers; a row's partial dot products meet by
-// warp shuffles.  A thread's values are float4 chunks interleaved with
-// its row-mates' (chunk c belongs to part c % threads a row), so the
-// lanes of a warp read distinct banks or the same word of shared memory.
+// fp32 (the label party's ad-hoc ∇Z pass): tensor cores too, at fp32
+// accuracy, as K10's fp32 kernels (csrc/flash_attention_bwd.cu).  A single
+// TF32 or bf16 rounding of an operand, or a two-part bf16 split, would put
+// elements of o or lse past chip_smoke.py's fp32 limits (2^-17 |ref| +
+// 2e-6 for o, 2^-17 |lse| + 1e-5; modelled on the CPU by
+// tests/test_torch_kernels.py::test_k9_f32_split_design).  So every
+// operand of both products is split into three bf16 parts, x = x1 + x2 +
+// x3 (exact), and each fp32 product is six bf16 products
+// (attention_mma.cuh): 12 per visible (query, key) pair and hd.  The
+// tensor cores align a product's terms to the accumulator and drop the
+// bits below it, so no long sum of big terms runs in one accumulator:
+// s = q kᵀ is a small sum (the five small products, chained) and a big
+// one (each k-step's q1 k1 summed from zero and added in fp32), added
+// before the scale; p = exp2(s - m) is taken from those fp32 values,
+// split into three parts from the accumulators (as the bf16 kernel
+// splits it in two) and enters p v from registers; each key tile's share
+// of o is summed from zero and added in fp32 to acc after acc *= corr.
+// m, corr and l stay fp32, l summed from the fp32 p.  The layout is the
+// bf16 kernel's (4 warps of 16 query rows, the grid b * H + h fastest,
+// the heaviest query tiles first); q is split once per block from device
+// memory into three parts in padded shared rows, read by ldmatrix every
+// k-step; each K and V tile (f32_tile: 32 rows, 16 at hd 128, so that the
+// accumulators, s's two sums and p's parts fit the registers) arrives in
+// fp32 by cp.async (the next tile's copy in flight during this tile's
+// products) and is split into its parts in shared memory once per block.
+// The mask is applied on the tiles that cross the diagonal or the
+// window's edge.
 //
 // Bound: operations.  The two products take 4 * hd flops per visible
 // (query, key) pair: 32.2 GFLOP at (1, 4096, 15, 64) causal, against
@@ -81,8 +99,11 @@
 // the mask, the max over a quad, the rescale, the split) in the same
 // warps, with no second warpgroup to overlap it; four warps a block,
 // each waiting on the block's loads; the causal tiles' uneven lengths.
-// The fp32 kernel runs on the fp32 cores (67 TFLOP/s peak, so at least
-// 480 us there).
+// In fp32 the work is bound by six bf16 products per product, 164.8
+// TFLOP/s (195.5 us at (1, 4096, 15, 64); 481 us at the fp32 cores' 67),
+// and the kernel issues twelve bf16 products per pair, 193 GFLOP there;
+// besides the above it splits each K and V tile in shared memory, in the
+// same warps, between its products.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -289,128 +310,221 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// fp32: the fp32 cores
+// fp32: tensor cores, every operand in three bf16 parts
 // ---------------------------------------------------------------------------
-constexpr int kBQ = 64;         // query rows per block
-constexpr int kBK = 32;         // key rows per staged tile
-// head dims per thread: 32, and 16 at hd 32 (two threads a row)
 template <int HD>
-__host__ __device__ constexpr int head_part() { return HD == 32 ? 16 : 32; }
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+constexpr int fwd_f32_smem() {
+  // q's parts (3 x kM rows), the tile's k and v parts (2 x 3 x f32_tile
+  // rows), the next k and v tile in fp32 (2 x f32_tile rows)
+  constexpr int n = f32_tile<HD>();
+  return 3 * (kM + 2 * n) * row_stride<HD>() * 2 + 2 * n * HD * 4;
 }
 
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
+// the body of flash_fwd_f32mma<HD> (below)
+template <int HD>
+__device__ __forceinline__ void fwd_f32mma(const float* __restrict__ q,
+                                           const float* __restrict__ k,
+                                           const float* __restrict__ v,
+                                           float* __restrict__ o,
+                                           float* __restrict__ lse, int S,
+                                           int H, int causal, int window,
+                                           float scale) {
+  constexpr int kN = f32_tile<HD>();   // key rows per tile
+  constexpr int kStr = row_stride<HD>();
+  constexpr int kKS = HD / 16;         // k-steps of s over hd
+  constexpr int kNT = kN / 8;          // n-tiles of s over the key tile
+  constexpr int kHeld = kM * kStr;     // one part of q
+  constexpr int kWalk = kN * kStr;     // one part of the tile's k or v
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qp = reinterpret_cast<bf16*>(smem);   // q's three parts
+  bf16* Kp = Qp + 3 * kHeld;           // the tile's k, three parts
+  bf16* Vp = Kp + 3 * kWalk;           // the tile's v, three parts
+  float* Kf = reinterpret_cast<float*>(Vp + 3 * kWalk);  // next k, fp32
+  float* Vf = Kf + kN * HD;            // next v, fp32
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kBQ * (HD / head_part<HD>()))
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int S, int H, int causal,
-                 int window, float scale) {
-  constexpr int kPart = head_part<HD>();
-  constexpr int kTPR = HD / kPart;          // threads per query row
-  constexpr int kThreads = kBQ * kTPR;
-  constexpr int kChunks = HD / 4;           // float4 chunks per row
-  __shared__ float4 ks[kBK * kChunks];
-  __shared__ float4 vs[kBK * kChunks];
-
-  const int tid = threadIdx.x;
-  const int r = tid / kTPR;
-  const int part = tid % kTPR;
-  // the heaviest (last) query tiles start first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int bh = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // the heaviest (last) query tiles of every (b, h) start first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kM;
+  const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const long long pos_stride = static_cast<long long>(H) * HD;
   const long long base = static_cast<long long>(b) * S * pos_stride +
                          static_cast<long long>(h) * HD;
-  const int qpos = q0 + r;
+  const int r0 = q0 + warp * 16;        // this warp's first query
+  const int row = r0 + g;               // this thread's queries: row, row + 8
 
-  float qv[kPart], acc[kPart];
-  const T* qrow = q + base + qpos * pos_stride;
-#pragma unroll
-  for (int i = 0; i < kPart / 4; ++i) {
-    const float4 x = load4(qrow + 4 * (part + kTPR * i));
-    qv[4 * i] = x.x;
-    qv[4 * i + 1] = x.y;
-    qv[4 * i + 2] = x.z;
-    qv[4 * i + 3] = x.w;
-  }
-#pragma unroll
-  for (int i = 0; i < kPart; ++i) acc[i] = 0.f;
-  float m = kNegInf, l = 0.f;
+  const int n_kt = S / kN;
+  const int kt1 = causal ? min((q0 + kM + kN - 1) / kN, n_kt) : n_kt;
+  const int kt0 = window ? max(q0 - window, 0) / kN : 0;
+  auto stage = [=](int kt) {
+    const long long off = base + static_cast<long long>(kt) * kN * pos_stride;
+    stage_f32<HD>(Kf, k + off, pos_stride, kN, tid);
+    stage_f32<HD>(Vf, v + off, pos_stride, kN, tid);
+  };
+  stage(kt0);
+  cp_async_commit();
+  split_rows<HD>(Qp, kHeld, q + base + static_cast<long long>(q0) * pos_stride,
+                 pos_stride, kM, tid);
 
-  const int n_kb = S / kBK;
-  const int hi = causal ? min((q0 + kBQ + kBK - 1) / kBK, n_kb) : n_kb;
-  const int lo = window ? max(q0 - window, 0) / kBK : 0;
-  for (int kt = lo; kt < hi; ++kt) {
-    __syncthreads();  // every thread is done with the previous tile
-    for (int idx = tid; idx < kBK * kChunks; idx += kThreads) {
-      const int j = idx / kChunks, c = idx % kChunks;
-      const long long off = base + (kt * kBK + j) * pos_stride + 4 * c;
-      ks[idx] = load4(k + off);
-      vs[idx] = load4(v + off);
-    }
-    __syncthreads();
+  const int a_off = (lane & 15) * kStr + (lane >> 4) * 8;
+  const int b_off = ((lane & 7) + ((lane >> 4) << 3)) * kStr +
+                    ((lane >> 3) & 1) * 8;
+  const bf16* qw = Qp + warp * 16 * kStr;
 
-    float s[kBK];
-    float tmax = kNegInf;
+  float acc[HD / 8][4];
 #pragma unroll
-    for (int j = 0; j < kBK; ++j) {
-      float d = 0.f;
+  for (int n = 0; n < HD / 8; ++n)
 #pragma unroll
-      for (int i = 0; i < kPart / 4; ++i) {
-        const float4 kk = ks[j * kChunks + part + kTPR * i];
-        d += qv[4 * i] * kk.x;
-        d += qv[4 * i + 1] * kk.y;
-        d += qv[4 * i + 2] * kk.z;
-        d += qv[4 * i + 3] * kk.w;
-      }
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  // rows row (index 0) and row + 8 (index 1): the running max (log2
+  // units) and this thread's part of the running sum
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  const float sl2 = scale * kLog2e;
+  for (int kt = kt0; kt < kt1; ++kt) {
+    cp_async_wait_all();
+    __syncthreads();   // tile kt landed; every warp is done with kt - 1
+    split_rows<HD>(Kp, kWalk, Kf, HD, kN, tid);
+    split_rows<HD>(Vp, kWalk, Vf, HD, kN, tid);
+    __syncthreads();   // the parts are in place; Kf and Vf are free
+    if (kt + 1 < kt1) stage(kt + 1);
+    cp_async_commit();
+
+    // s = q kᵀ, 16 queries x kN keys, as a big (q1 k1) and a small sum
+    float sb[kNT][4], ss[kNT][4];
 #pragma unroll
-      for (int off = 1; off < kTPR; off <<= 1)
-        d += __shfl_xor_sync(0xffffffffu, d, off);
-      const int dist = qpos - (kt * kBK + j);
-      bool vis = true;
-      if (causal) vis = dist >= 0;
-      if (window) vis = vis && dist < window;
-      s[j] = vis ? d * scale : kNegInf;
-      tmax = fmaxf(tmax, s[j]);
-    }
-    const float m_new = fmaxf(m, tmax);
-    const float corr = expf(m - m_new);
-    float psum = 0.f;
+    for (int n = 0; n < kNT; ++n)
 #pragma unroll
-    for (int i = 0; i < kPart; ++i) acc[i] *= corr;
+      for (int e = 0; e < 4; ++e) sb[n][e] = ss[n][e] = 0.f;
 #pragma unroll
-    for (int j = 0; j < kBK; ++j) {
-      const float p = expf(s[j] - m_new);
-      psum += p;
+    for (int ks = 0; ks < kKS; ++ks) {
+      uint32_t aq[3][4];
 #pragma unroll
-      for (int i = 0; i < kPart / 4; ++i) {
-        const float4 vv = vs[j * kChunks + part + kTPR * i];
-        acc[4 * i] += p * vv.x;
-        acc[4 * i + 1] += p * vv.y;
-        acc[4 * i + 2] += p * vv.z;
-        acc[4 * i + 3] += p * vv.w;
+      for (int i = 0; i < 3; ++i)
+        ldsm_x4(aq[i], qw + i * kHeld + a_off + 16 * ks);
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        uint32_t bk[3][4];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          ldsm_x4(bk[i], Kp + i * kWalk + 16 * np * kStr + b_off + 16 * ks);
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          mma6(sb[2 * np + half], ss[2 * np + half], aq, bk, half);
       }
     }
-    l = l * corr + psum;
-    m = m_new;
+
+    // the scaled scores into sb, and the mask on the tiles that cross the
+    // diagonal or the window's edge for some row of this warp
+    const int k0 = kt * kN;
+    const bool masked = (causal && k0 + kN - 1 > r0) ||
+                        (window && r0 + 15 - k0 >= window);
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sb[n][e] = (sb[n][e] + ss[n][e]) * sl2;
+        const int gap = row + 8 * (e >> 1) - k0 - 8 * n - 2 * t - (e & 1);
+        if (masked && !visible(gap, causal, window)) sb[n][e] = kNegInf;
+      }
+
+    // the online softmax: p into sb (fp32)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+        mx = fmaxf(mx, fmaxf(sb[n][2 * r], sb[n][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float corr = exp2_ftz(m[r] - mx);
+      m[r] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float p = exp2_ftz(sb[n][2 * r + c] - mx);
+          sb[n][2 * r + c] = p;
+          sum += p;
+        }
+      l[r] = l[r] * corr + sum;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        acc[n][2 * r] *= corr;
+        acc[n][2 * r + 1] *= corr;
+      }
+    }
+
+    // o += p v, p in three parts from the accumulators; per 16 columns
+    // the tile's share is summed on its own and then added
+    uint32_t pf[kN / 16][3][4];
+#pragma unroll
+    for (int kk = 0; kk < kN / 16; ++kk) {
+      split3_frag(sb[2 * kk], sb[2 * kk + 1], pf[kk]);
+    }
+#pragma unroll
+    for (int j = 0; j < HD / 16; ++j) {
+      float lo[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk) {
+        uint32_t bv[3][4];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          ldsm_x4_t(bv[i], Vp + i * kWalk + 16 * kk * kStr + a_off + 16 * j);
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          mma6_sum(lo[half], pf[kk], bv, half);
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[2 * j + half][e] += lo[half][e];
+    }
   }
 
-  const float denom = fmaxf(l, 1e-30f);
-  T* orow = o + base + qpos * pos_stride;
+  // the row sums meet over the quad; o = acc / max(l, 1e-30)
+  float denom[2];
 #pragma unroll
-  for (int i = 0; i < kPart / 4; ++i)
-    store4(orow + 4 * (part + kTPR * i),
-           make_float4(acc[4 * i] / denom, acc[4 * i + 1] / denom,
-                       acc[4 * i + 2] / denom, acc[4 * i + 3] / denom));
-  if (lse != nullptr && part == 0)
-    lse[static_cast<long long>(bh) * S + qpos] = m + logf(denom);
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    denom[r] = fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] /= denom[e >> 1];
+  store_rows_f32<HD>(o + base + static_cast<long long>(r0) * pos_stride,
+                     pos_stride, acc, g, t);
+  if (lse != nullptr && t == 0) {
+    const long long lrow = static_cast<long long>(bh) * S + row;
+    lse[lrow] = m[0] / kLog2e + logf(denom[0]);
+    lse[lrow + 8] = m[1] / kLog2e + logf(denom[1]);
+  }
+}
+
+// Declared with no minimum of blocks an SM: at hd 64 and 128 a minimum
+// (even of one) lets ptxas take more registers, and runs slower (hd 64:
+// 200 registers) or spills (hd 128: 255).  At hd 32, below, declared for
+// two: with no minimum ptxas holds it to 128 registers and spills.
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_f32mma(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int S, int H, int causal,
+                 int window, float scale) {
+  fwd_f32mma<HD>(q, k, v, o, lse, S, H, causal, window, scale);
+}
+
+template <>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_f32mma<32>(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int S, int H, int causal,
+                     int window, float scale) {
+  fwd_f32mma<32>(q, k, v, o, lse, S, H, causal, window, scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -433,12 +547,15 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
 }
 
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* o,
-               float* lse, int B, int S, int H, int causal, int window,
-               float scale, cudaStream_t stream) {
-  const dim3 grid(S / kBQ, B * H);
-  const dim3 block(kBQ * (HD / head_part<HD>()));
-  flash_fwd_kernel<float, HD><<<grid, block, 0, stream>>>(
+int launch_f32mma(const void* q, const void* k, const void* v, void* o,
+                  float* lse, int B, int S, int H, int causal, int window,
+                  float scale, cudaStream_t stream) {
+  static bool done[64] = {};
+  constexpr int bytes = fwd_f32_smem<HD>();
+  const int e = allow_smem(flash_fwd_f32mma<HD>, bytes, done);
+  if (e) return e;
+  const dim3 grid(B * H, S / kM);
+  flash_fwd_f32mma<HD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, S, H,
       causal, window, scale);
@@ -456,7 +573,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    int B, int S, int H, int hd, int causal,
                                    int window, float scale, int dtype,
                                    void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0 || S % kBQ || window < 0 ||
+  if (B <= 0 || H <= 0 || S <= 0 || S % kM || window < 0 ||
       B * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -464,9 +581,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   const auto args = [&](auto fn) {
     return fn(q, k, v, o, l, B, S, H, causal, window, scale, st);
   };
-  if (dtype == 0 && hd == 32) return args(launch_f32<32>);
-  if (dtype == 0 && hd == 64) return args(launch_f32<64>);
-  if (dtype == 0 && hd == 128) return args(launch_f32<128>);
+  if (dtype == 0 && hd == 32) return args(launch_f32mma<32>);
+  if (dtype == 0 && hd == 64) return args(launch_f32mma<64>);
+  if (dtype == 0 && hd == 128) return args(launch_f32mma<128>);
   if (dtype == 1 && hd == 32) return args(launch_mma<32>);
   if (dtype == 1 && hd == 64) return args(launch_mma<64>);
   if (dtype == 1 && hd == 128) return args(launch_mma<128>);

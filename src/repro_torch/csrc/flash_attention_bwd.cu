@@ -121,13 +121,6 @@ namespace {
 
 using namespace attn;
 
-__device__ __forceinline__ bool visible(int dist, int causal, int window) {
-  bool vis = true;
-  if (causal) vis = dist >= 0;
-  if (window) vis = vis && dist < window;
-  return vis;
-}
-
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
@@ -436,13 +429,6 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---------------------------------------------------------------------------
 // fp32: tensor cores, every operand in three bf16 parts
 // ---------------------------------------------------------------------------
-// rows per tile the fp32 kernels walk (queries in dkv, keys in dq): 32,
-// and 16 at hd 128, so that the accumulators, s and dp (each as a big
-// and a small sum) and the parts of p and ds fit the registers without
-// spills
-template <int HD>
-__host__ __device__ constexpr int f32_tile() { return HD == 128 ? 16 : 32; }
-
 template <int HD, bool kRowStats>
 constexpr int f32_smem() {
   // the held operands' parts (2 x 3 x kM rows), the walked tile's (2 x 3
@@ -451,54 +437,6 @@ constexpr int f32_smem() {
   constexpr int n = f32_tile<HD>();
   return 2 * 3 * (kM + n) * row_stride<HD>() * 2 + 2 * n * HD * 4 +
          (kRowStats ? 4 * n * 4 : 0);
-}
-
-// the 16-byte chunks of `rows` fp32 rows of (B, S, H, hd) into shared
-// rows of hd floats
-template <int HD>
-__device__ __forceinline__ void stage_f32(float* dst, const float* src,
-                                          long long pos_stride, int rows,
-                                          int tid) {
-  constexpr int kChunks = HD / 4;
-  for (int idx = tid; idx < rows * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = idx % kChunks;
-    cp_async16(dst + r * HD + 4 * c, src + r * pos_stride + 4 * c);
-  }
-}
-
-// `rows` fp32 rows of hd values (global or shared, `stride` floats apart)
-// -> their three bf16 parts in padded shared rows, part i at dst + i * part
-template <int HD>
-__device__ __forceinline__ void split_rows(bf16* dst, int part,
-                                           const float* src, long long stride,
-                                           int rows, int tid) {
-  constexpr int kChunks = HD / 4;
-  for (int idx = tid; idx < rows * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = idx % kChunks;
-    const float4 x = *reinterpret_cast<const float4*>(src + r * stride + 4 * c);
-    uint32_t xy[3], zw[3];
-    split3(x.x, x.y, xy[0], xy[1], xy[2]);
-    split3(x.z, x.w, zw[0], zw[1], zw[2]);
-    bf16* d = dst + r * row_stride<HD>() + 4 * c;
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-      *reinterpret_cast<uint2*>(d + i * part) = make_uint2(xy[i], zw[i]);
-  }
-}
-
-// one accumulator tile (16 rows of this warp x hd) -> (B, S, H, hd) fp32
-template <int HD>
-__device__ __forceinline__ void store_rows_f32(float* dst,
-                                               long long pos_stride,
-                                               const float (&acc)[HD / 8][4],
-                                               int g, int t) {
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-    for (int half = 0; half < 2; ++half)
-      *reinterpret_cast<float2*>(dst + (g + 8 * half) * pos_stride + 8 * n +
-                                 2 * t) =
-          make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
 }
 
 // declared for two blocks an SM (what its shared memory allows at hd

@@ -53,9 +53,10 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # C entry points: argument types (every pointer and the stream as
 # c_void_p, or ctypes would pass them as 32-bit ints)
 _SIGNATURES = {
-    "cosine_gate": [_P, _I, _LL, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "cosine_gate": [_P, _I, _LL, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P,
+                    _LL, _P],
     "cosine_gate_quant": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
-                          _I, _P],
+                          _I, _P, _LL, _P],
     "quantize_sr": [_P, _P, _P, _P, _I, _I, _F, _P],
     "fused_adagrad": [_P, _P, _P, _P, _LL, _F, _F, _P],
     "fused_adagrad_q8": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _F, _F,
@@ -178,27 +179,33 @@ def _launch(name: str, entry: str, device, *args) -> None:
     LAUNCHES[name] += 1
 
 
+def _numel(t) -> int:
+    return 0 if t is None else t.numel()
+
+
 def launch_cosine_gate(name: str, *, slot, n_slots: int, slot_stride: int,
-                       a, z, dz, w, cot, thresh: float) -> None:
+                       a, z, dz, w, cot, part, thresh: float) -> None:
     """Launch the fp32/bf16 gate of ``csrc/cosine_gate.cu`` (K1, K2).  The
     caller has checked devices, dtypes, shapes and contiguity and
-    allocated ``w`` / ``cot``."""
+    allocated ``w`` / ``cot`` and the split-row path's workspace ``part``
+    (None for the narrow path)."""
     B, F = a.shape
     _launch(name, "cosine_gate", a.device, _ptr(slot), n_slots, slot_stride,
             _ptr(a), _ptr(z), _ptr(dz), _ptr(w), _ptr(cot), B, F, thresh,
-            DTYPE_CODES[z.dtype])
+            DTYPE_CODES[z.dtype], _ptr(part), _numel(part))
 
 
 def launch_cosine_gate_quant(name: str, *, bits: int, slot, n_slots: int,
-                             a, zq, zs, dzq, dzs, w, cot,
+                             a, zq, zs, dzq, dzs, w, cot, part,
                              thresh: float) -> None:
     """Launch the int8 (``bits=8``, K4) or packed int4 (``bits=4``, K5)
     ring gate of ``csrc/cosine_gate.cu``; ``a`` is (B, F) with F the
-    unpacked (even, for int4) row width."""
+    unpacked (even, for int4) row width; ``part`` as for
+    :func:`launch_cosine_gate`."""
     B, F = a.shape
     _launch(name, "cosine_gate_quant", a.device, _ptr(slot), n_slots,
             _ptr(a), _ptr(zq), _ptr(zs), _ptr(dzq), _ptr(dzs), _ptr(w),
-            _ptr(cot), B, F, thresh, bits)
+            _ptr(cot), B, F, thresh, bits, _ptr(part), _numel(part))
 
 
 def launch_quantize_sr(name: str, *, x, u, q, scale, levels: float) -> None:

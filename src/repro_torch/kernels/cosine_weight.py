@@ -22,6 +22,13 @@ from . import _cuda
 
 EPS = 1e-12
 _RING_DTYPES = tuple(_cuda.DTYPE_CODES)
+# The split-row path of ``csrc/cosine_gate.cu`` (K1, K2a, K2b, K4, K5):
+# rows are cut into chunks of about GATE_CHUNK elements, one block a
+# (chunk, row), when the narrow path's ceil(B / 4) blocks (one warp a row)
+# cannot fill the card's GATE_SMS SMs and a row holds two chunks or more.
+# chip_variants.py times other chunk sizes.
+GATE_CHUNK = 4096
+GATE_SMS = 132
 
 
 def f32_threshold(cos_xi) -> float:
@@ -54,6 +61,23 @@ def cosine_weight_plain(ad_hoc, stale, dz, cos_xi):
 # --------------------------------------------------------------------------
 # Wrappers
 # --------------------------------------------------------------------------
+def gate_chunks(B: int, F: int) -> int:
+    """Chunks a row of the (B, F) gate is cut into on the split-row path;
+    1 selects the narrow path (one warp a row)."""
+    if -(-B // 4) >= GATE_SMS or F < 2 * GATE_CHUNK:
+        return 1
+    return -(-F // GATE_CHUNK)
+
+
+def gate_workspace(B: int, F: int, device):
+    """The split-row path's (B, chunks, 3) fp32 partial sums, or None on
+    the narrow path."""
+    chunks = gate_chunks(B, F)
+    if chunks == 1:
+        return None
+    return torch.empty((B, chunks, 3), dtype=torch.float32, device=device)
+
+
 def check_operands(name: str, ad_hoc, rows) -> None:
     """Raise unless the operands are what ``cosine_gate.cu`` takes:
     contiguous CUDA tensors on one device, fp32 ``ad_hoc`` of shape
@@ -97,7 +121,9 @@ def cosine_weights_2d(ad_hoc, stale, cos_xi):
                     device=ad_hoc.device)
     _cuda.launch_cosine_gate("cosine_weights_2d", slot=None, n_slots=1,
                              slot_stride=0, a=ad_hoc, z=stale, dz=None, w=w,
-                             cot=None, thresh=f32_threshold(cos_xi))
+                             cot=None, part=gate_workspace(*ad_hoc.shape,
+                                                           ad_hoc.device),
+                             thresh=f32_threshold(cos_xi))
     return w
 
 
@@ -113,5 +139,7 @@ def cosine_weight_2d(ad_hoc, stale, dz, cos_xi):
     cot = torch.empty(ad_hoc.shape, dtype=torch.float32, device=ad_hoc.device)
     _cuda.launch_cosine_gate("cosine_weight_2d", slot=None, n_slots=1,
                              slot_stride=0, a=ad_hoc, z=stale, dz=dz, w=w,
-                             cot=cot, thresh=f32_threshold(cos_xi))
+                             cot=cot, part=gate_workspace(*ad_hoc.shape,
+                                                          ad_hoc.device),
+                             thresh=f32_threshold(cos_xi))
     return w, cot

@@ -30,9 +30,11 @@ and written, so 32.6 us at the card's bf16 tensor-core peak and 9.4 us
 for the bytes.  The bf16 kernel runs its products on the tensor cores
 (``mma.sync``) and takes p into p v as bf16 hi + lo, so it issues three
 products, 48.3 GFLOP; the fp32 kernel (the label party's ad-hoc ∇Z pass)
-runs on the fp32 cores, 67 TFLOP/s at peak.  The source's note says why
-``mma.sync`` and not yet ``wgmma`` with TMA, and what still holds the
-kernel back.
+runs on the tensor cores too, every operand in three bf16 parts and six
+bf16 products for each fp32 product, at fp32 accuracy (193 GFLOP issued
+there, against 195.5 us at the six-product rate).  The source's note
+says why ``mma.sync`` and not yet ``wgmma`` with TMA, and what still
+holds the kernels back.
 """
 from __future__ import annotations
 

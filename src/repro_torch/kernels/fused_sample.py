@@ -20,7 +20,11 @@ Bandwidth-bound: one slot of z (and dz) plus the ad-hoc rows are read and
 the weights (and cotangent) written, at about 7 flops per element.  At the
 paper's W = 5, B = F = 256 that is 1.05 MB over an fp32 ring (0.31 us at
 3.35 TB/s), 658,432 B over the int8 ring (0.197 us) and 592,896 B over
-the int4 ring (0.177 us).
+the int4 ring (0.177 us).  At the LLM cut tensor (W, B, F) = (2, 2,
+3,932,160) over a bf16 ring it is 94.4 MB (28.2 us): there the kernel
+takes its split-row path (``cosine_weight.gate_chunks``), two launches
+over a (B, chunks, 3) workspace of partial sums that the wrapper
+allocates, still one launch of K1 in :data:`_cuda.LAUNCHES`.
 
 K6 (``fused_dequant_q8_2d``, ``_kernel_dq8``) and K11
 (``fused_dequant_q4_2d``, ``_kernel_dq4``) gather one slot of an int8 or
@@ -36,7 +40,8 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .cosine_weight import check_operands, f32_threshold, gate_weights_plain
+from .cosine_weight import (check_operands, f32_threshold,
+                            gate_weights_plain, gate_workspace)
 
 QUANT_NAMES = {8: "fused_sample_q8_2d", 4: "fused_sample_q4_2d"}
 DEQUANT_NAMES = {8: "fused_dequant_q8_2d", 4: "fused_dequant_q4_2d"}
@@ -81,6 +86,7 @@ def fused_sample_2d(slot, ad_hoc, z_ring, dz_ring, cos_xi):
     _cuda.launch_cosine_gate("fused_sample_2d", slot=slot,
                              n_slots=z_ring.shape[0], slot_stride=B * F,
                              a=ad_hoc, z=z_ring, dz=dz_ring, w=w, cot=cot,
+                             part=gate_workspace(B, F, ad_hoc.device),
                              thresh=f32_threshold(cos_xi))
     return w, cot
 
@@ -180,6 +186,7 @@ def _fused_sample_quant(bits, slot, ad_hoc, zq, zscale, dzq, dzscale,
     _cuda.launch_cosine_gate_quant(
         QUANT_NAMES[bits], bits=bits, slot=slot, n_slots=zq.shape[0],
         a=ad_hoc, zq=zq, zs=zscale, dzq=dzq, dzs=dzscale, w=w, cot=cot,
+        part=gate_workspace(B, F, ad_hoc.device),
         thresh=f32_threshold(cos_xi))
     return w, cot
 

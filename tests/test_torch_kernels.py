@@ -599,6 +599,179 @@ def test_k10_f32_split_design(shape, causal, window, tile):
 
 
 # --------------------------------------------------------------------------
+# The rounding points of K9 / K9-LSE's fp32 kernel (csrc/flash_attention.cu,
+# flash_fwd_f32mma), modelled on the CPU: both products take every fp32
+# operand (q, k, v; p from fp32) in three bf16 parts, six products each,
+# summed in fp32; the online softmax walks key tiles of the kernel's rows
+# with the running max, corr and l in fp32 (l from the fp32 p), and each
+# tile's share of o is added to acc after acc *= corr.  Every element of o
+# must lie within chip_smoke's fp32 limit (K10_REL |ref| + K10_ATOL) and
+# every lse within LSE_REL |ref| + LSE_ATOL, against the fp32 plain
+# version and against fp64; with a single TF32 rounding of each operand
+# (o and lse), or a two-part bf16 split (o), elements must not.
+# --------------------------------------------------------------------------
+def _k9_f32_model(q, k, v, causal, window, mm, tile):
+    """K9-LSE's fp32 forward with both products taken by ``mm`` over key
+    tiles of ``tile`` rows -> (o (B, S, H, hd), lse (B, H, S))."""
+    B, S, H, hd = q.shape
+    qf, kf, vf = (t.transpose(1, 2) for t in (q, k, v))
+    scale = tfa.softmax_scale(hd)
+    pos = torch.arange(S)
+    m = torch.full((B, H, S, 1), tfa.NEG_INF)
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, hd))
+    for k0 in range(0, S, tile):
+        kt, vt = kf[:, :, k0:k0 + tile], vf[:, :, k0:k0 + tile]
+        s = mm(qf, kt.transpose(-1, -2)) * scale
+        s = s.masked_fill(~tfa.visible(pos, pos[k0:k0 + tile], causal,
+                                       window), tfa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + mm(p, vt)
+        m = m_new
+    den = l.clamp_min(1e-30)
+    return ((acc / den).transpose(1, 2).contiguous(),
+            (m + torch.log(den))[..., 0])
+
+
+@pytest.mark.parametrize("shape,causal,window,tile", [
+    ((1, 512, 2, 64), True, 0, 32), ((1, 256, 2, 128), True, 0, 16),
+    ((2, 320, 2, 32), True, 100, 32)])
+def test_k9_f32_split_design(shape, causal, window, tile):
+    cs = _chip_smoke()
+    limits = ((cs.K10_REL["float32"], cs.K10_ATOL["float32"]),
+              (cs.LSE_REL, cs.LSE_ATOL))
+    rng = np.random.default_rng(19)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape)
+                                .astype(np.float32)) for _ in range(3))
+    kw = dict(causal=causal, window=window)
+    refs = tfa.flash_attention_fwd_lse_plain(q, k, v, **kw)
+    exact = tfa.flash_attention_fwd_lse_plain(q.double(), k.double(),
+                                              v.double(), **kw)
+
+    def worst(outs, against=refs):
+        return [round(float(((got.double() - ref.double()).abs()
+                             / (rel * ref.double().abs() + atol)).max()), 3)
+                for got, ref, (rel, atol) in zip(outs, against, limits)]
+    model = {name: _k9_f32_model(q, k, v, causal, window, mm, tile)
+             for name, mm in (("split3", _mm_split3), ("tf32", _mm_tf32),
+                              ("split2", _mm_split2))}
+    ratios = {name: worst(out) for name, out in model.items()}
+    print(f"worst err / limit (o, lse) against the fp32 plain version: "
+          f"{ratios}; against fp64: three-part split "
+          f"{worst(model['split3'], exact)}, the fp32 plain version "
+          f"{worst(refs, exact)}")
+    assert max(ratios["split3"]) <= 1.0
+    assert max(worst(model["split3"], exact)) <= 1.0
+    assert min(ratios["tf32"]) > 1.0
+    assert ratios["split2"][0] > 1.0    # o; its lse stays within
+
+
+# --------------------------------------------------------------------------
+# The split-row path of the cosine gate (csrc/cosine_gate.cu, K1 at the LLM
+# cut tensor): pass 1 sums num, aa and zz per (chunk, row) block (each
+# thread over its vectors, a vector's products summed apart first, then
+# the 32 lanes of a warp by an xor butterfly, then the 8 warps in order);
+# pass 2 sums a row's chunk partials the same way, thread t over chunks
+# t, t + 256, ..., then the warps' butterflies, then the warps in order.
+# Modelled in numpy fp32 at B = 2,
+# F = 3,932,160 over a bf16 ring (8-element vectors); the weights must lie
+# within chip_smoke's LLM_GATE_TOL of the fp64 cosine.
+# --------------------------------------------------------------------------
+def _butterfly(x):
+    """The xor-shuffle warp sum over the last axis (32 lanes), fp32."""
+    for o in (16, 8, 4, 2, 1):
+        x = x + x[..., np.arange(32) ^ o]
+    return x[..., 0]
+
+
+def _block_sums(run, threads):
+    """(..., threads) per-thread sums -> the block's: each warp's by the
+    butterfly, then the warps in order."""
+    lanes = _butterfly(run.reshape(run.shape[:-1] + (threads // 32, 32)))
+    total = np.zeros(run.shape[:-1], np.float32)
+    for w in range(threads // 32):
+        total = total + lanes[..., w]
+    return total
+
+
+def _strided_sums(x, threads):
+    """(..., n, threads) -> (..., threads): thread t's sequential fp32 sum
+    of its terms x[..., i, t]."""
+    run = np.zeros(x.shape[:-2] + x.shape[-1:], np.float32)
+    for i in range(x.shape[-2]):
+        run = run + x[..., i, :]
+    return run
+
+
+def _gate_split_model(a, z, chunks, vec, threads=256):
+    """-> (num, aa, zz) per row, summed in the split-row path's order."""
+    B, F = a.shape
+    n = F // vec
+    per = -(-n // chunks)
+    iters = -(-per // threads)
+
+    def layout(x):
+        x = np.pad(x.reshape(B, n, vec), ((0, 0), (0, chunks * per - n),
+                                          (0, 0)))
+        x = np.pad(x.reshape(B, chunks, per, vec),
+                   ((0, 0), (0, 0), (0, iters * threads - per), (0, 0)))
+        return x.reshape(B, chunks, iters, threads, vec)
+    av, zv = layout(a), layout(z)
+    m = -(-chunks // threads)
+    sums = []
+    for x, y in ((av, zv), (av, av), (zv, zv)):
+        vsum = x[..., 0] * y[..., 0]
+        for kk in range(1, vec):
+            vsum = vsum + x[..., kk] * y[..., kk]
+        part = _block_sums(_strided_sums(vsum, threads), threads)   # pass 1
+        part = np.pad(part, ((0, 0), (0, threads * m - chunks)))
+        sums.append(_block_sums(_strided_sums(
+            part.reshape(B, m, threads), threads), threads))         # pass 2
+    return sums
+
+
+def test_k1_split_row_design():
+    from repro_torch.kernels import cosine_weight as tcw
+    cs = _chip_smoke()
+    W, B, F = cs.LLM_GATE_SHAPE
+    assert (B, F) == (2, 4096 * 960)
+    # the rule: the narrow path at the paper's shapes and for many rows
+    assert tcw.gate_chunks(256, 256) == 1
+    assert tcw.gate_chunks(4 * tcw.GATE_SMS, F) == 1
+    assert tcw.gate_chunks(2, 2 * tcw.GATE_CHUNK - 1) == 1
+    assert tcw.gate_chunks(2, 2 * tcw.GATE_CHUNK) == 2
+    for rows, width in ((64, 64 * 960), (3, 1_000_003), (B, F)):
+        assert tcw.gate_chunks(rows, width) == -(-width // tcw.GATE_CHUNK)
+    chunks = tcw.gate_chunks(B, F)
+    assert chunks >= 2 * tcw.GATE_SMS     # some blocks for every SM
+    assert tcw.gate_workspace(256, 256, "cpu") is None
+    ws = tcw.gate_workspace(B, F, "cpu")
+    assert ws.shape == (B, chunks, 3) and ws.dtype == torch.float32
+
+    rng = np.random.default_rng(7)
+    a = rng.standard_normal((B, F)).astype(np.float32)
+    z = a * np.float32([[0.9], [-0.5]]) \
+        + np.float32(0.5) * rng.standard_normal((B, F)).astype(np.float32)
+    z = torch.from_numpy(z).to(torch.bfloat16).float().numpy()
+    num, aa, zz = _gate_split_model(a, z, chunks, vec=8)
+    cos = num / np.maximum(np.sqrt(aa * zz), np.float32(1e-12))
+    a64, z64 = a.astype(np.float64), z.astype(np.float64)
+    exact = (a64 * z64).sum(1) / np.sqrt((a64 * a64).sum(1)
+                                         * (z64 * z64).sum(1))
+    thresh = tcw.f32_threshold(COS_XI)
+    w = np.where(cos < thresh, 0.0, cos)
+    w_exact = np.where(exact < thresh, 0.0, exact)
+    print(f"split-row cosines {cos} against fp64 {exact}: |dev| "
+          f"{np.abs(cos - exact)}")
+    assert np.abs(cos - exact).max() <= cs.LLM_GATE_TOL
+    assert np.abs(w - w_exact).max() <= cs.LLM_GATE_TOL
+    assert w[0] > 0.5 and w[1] == 0.0
+
+
+# --------------------------------------------------------------------------
 # The rounding points of K9's bf16 kernel (csrc/flash_attention.cu),
 # modelled on the CPU: bf16 operands, s = q kᵀ as fp32 sums of exact
 # products, the online softmax over key tiles of 64 (the running max, corr
