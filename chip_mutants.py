@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Mutation check of ``chip_smoke.py``'s per-element limits for K9 and
-K10, and of its check of K1 at the LLM width, on one NVIDIA GPU.
+K10, of its check of K1 at the LLM width, and of its bitwise checks of
+the AdaGrad table kernels (K7), on one NVIDIA GPU.
 
 Builds the flash-attention forward (``src/repro_torch/csrc/
 flash_attention.cu``) or backward (``flash_attention_bwd.cu``), or the
@@ -59,14 +60,22 @@ the LLM cut tensor (``_gate_at_llm_width``):
 
   * ``gate_chunk_dropped``: pass 1 skips the first chunk of each row.
 
+K7's table kernel (``csrc/fused_adagrad.cu``), in the smoke's AdaGrad
+kernel phase (``phase_adagrad_kernels``), whose checks are bitwise:
+
+  * ``adagrad_last_chunk_dropped``: the launch's last block (the last
+    chunk of the table's last leaf) processes nothing;
+  * ``adagrad_scale_ignored``: the mask is never applied.
+
     python3 chip_mutants.py               # every mutant
     python3 chip_mutants.py NAME [NAME]   # the named ones
 
 Each mutant is a copy of ``src/`` and ``chip_smoke.py`` under
 ``src/repro_torch/_build/mutants/`` (removed afterwards).  Prints each
 mutant's failure line beside the limit of the whole-tensor check it
-replaced (2^-7 of the largest output); exits non-zero if a mutant
-passes.
+replaced (2^-7 of the largest output), or for a bitwise check the
+elements that differ and the largest difference (the limit is 0); exits
+non-zero if a mutant passes.
 """
 from __future__ import annotations
 
@@ -138,6 +147,13 @@ MUTANTS = {
         "  block_sums(num, aa, zz);",
         "    if (c != 0) gate_sums<C, kVec>(ar, zr, zscale, j, num, aa, zz);\n"
         "  block_sums(num, aa, zz);"),
+    "adagrad_last_chunk_dropped": (
+        "const long long end = min(begin + kChunk, L.n);",
+        "const long long end = blockIdx.x + 1 == gridDim.x"
+        " ? begin : min(begin + kChunk, L.n);"),
+    "adagrad_scale_ignored": (
+        "const Step st{neg_lr, eps, scale ? *scale : 1.f, scale != nullptr};",
+        "const Step st{neg_lr, eps, scale ? *scale : 1.f, false};"),
 }
 # K10's mutants: name -> the wrapper whose check must fail
 K10_MUTANTS = {name: "flash_attention_bwd_dq" if name.startswith("dq_")
@@ -151,6 +167,10 @@ TARGETS = {
                              "flash_attention_fwd_lse"),
     "gate_chunk_dropped": ("cosine_gate.cu", "_gate_at_llm_width",
                            "fused_sample_2d"),
+    "adagrad_last_chunk_dropped": ("fused_adagrad.cu",
+                                   "phase_adagrad_kernels", "fused_adagrad"),
+    "adagrad_scale_ignored": ("fused_adagrad.cu", "phase_adagrad_kernels",
+                              "fused_adagrad"),
     **{name: ("flash_attention_bwd.cu", "phase_train_kernels", kernel)
        for name, kernel in K10_MUTANTS.items()},
 }
@@ -215,13 +235,19 @@ def main() -> None:
                   f"{ref / 128:.4g}: "
                   f"{'caught' if err > ref / 128 else 'missed'} by it",
                   flush=True)
+        m = re.search(r"\((\d+) elements differ, max \|diff\| (\S+)\)",
+                      line)
+        if m:
+            print(f"[mutant] {name}: {m.group(1)} elements differ from the "
+                  f"plain version (max |diff| {m.group(2)}) where the check "
+                  f"allows none", flush=True)
         if not caught:
             survived.append(name)
         shutil.rmtree(d, ignore_errors=True)
     shutil.rmtree(top, ignore_errors=True)
     if survived:
         sys.exit(f"chip_mutants: FAILED: {survived} passed the smoke's "
-                 f"K9 / K10 / K1 checks")
+                 f"K9 / K10 / K1 / K7 checks")
     print("chip_mutants: every mutant caught")
 
 

@@ -15,22 +15,30 @@ Phases, each on its own printed lines (any failure exits non-zero):
      and weights-only, K2a, K2b; K3 at int8 and int4 levels; K4 and K5
      full and weights-only) at the main path's shapes, at an odd batch
      and narrow (and odd) rows, and at a wide F (the split-row path);
-     K7 and K8 bitwise at WDL-Criteo's leaf shapes; times from CUDA
-     events beside the least time the card could take;
+     K7 and K8 bitwise at WDL-Criteo's leaf shapes, and their table
+     kernels (one launch over a party's tensors: the in-place step,
+     with and without the mask, and the updates) bitwise over
+     WDL-Criteo's and smollm-360m's party lists and a 100-leaf ragged
+     list (three launches; 1-element and unaligned leaves), bf16
+     params, gradients and state included; a step captured in a CUDA
+     graph and replayed against eager steps; no allocation in an eager
+     step; times from CUDA events beside the least time the card could
+     take (the steps warm and cold, beside ``torch._fused_adagrad_``);
   4. the golden traces (``tests/golden``) replayed on the card from the
      reference's initial parameters, held to the tests' tolerance, with
      plain AdaGrad and once more through K7;
   5. the main paths: ``repro_torch.launch.train`` at WDL-Criteo's full
      width (B = 256, R = W = 5, celu) with the kernels' launch counts:
-     the fp32 cache (K1) with fused AdaGrad (K7 on every update of every
-     tensor, in every run below unless named), DSSM-Avazu,
+     the fp32 cache (K1) with fused AdaGrad (K7 once on every update of
+     every party, in every run below unless named), DSSM-Avazu,
      ``--no-cache-fusion`` (K2), the int8 / int4 / bf16 caches (K3 + K4,
      K3 + K5, K1), the int8 wire and the int8 cache under the int4x2 wire
      (K3), the int8 / bf16 optimizer states (K8, K7) and SM3 (neither);
      five full-width rounds on the card against the CPU (fp32; int8
      cache + int8 wire and int8 optimizer state on the same uniforms,
      the latter beside a mutation run with zeroed updates); ms per round
-     and per local step, and for the four AdaGrad routes in turns;
+     and per local step, and for the four AdaGrad routes in turns, each
+     route's kernels and busy ms per round from the profiler;
   6. the serving kernels against their plain versions: K6 and K11
      bitwise at the serving shape (W = 4 ring slots, C = 8 lanes,
      F = 960) and at a wide ring, K9 at the long-prompt shape
@@ -148,6 +156,15 @@ ADAGRAD = "src/repro_torch/csrc/fused_adagrad.cu"
 K7_SIZES = [26 * 1024 * 16, 1, 1025, 8 * 1024 + 3]
 K8_CASES = [((416, 1024), (26 * 1024, 16)), ((8, 1), ()), ((8, 64), (512,)),
             ((104, 1024), (104, 1024))]
+# the table kernels' ragged list: more leaves than two tables hold, with
+# 1-element leaves, sizes about a chunk, and every third leaf's operands
+# views one element into their storage (not 16-byte aligned)
+RAGGED_LEAVES = 100
+RAGGED_SIZES = [1, 2, 3, 5, 1023, 1024, 1025, 4097, 65_537]
+ADAGRAD_LR, ADAGRAD_EPS = 0.01, 1e-10
+# a timed step also runs cold: over enough copies of its operands, in
+# turn, that each launch finds its operands out of the 50 MB L2 cache
+L2_BYTES = 50 * 2 ** 20
 KERNELS = {   # name -> (the TPU kernel it replaces, its source)
     "fused_sample_2d": ("src/repro/kernels/fused_sample.py:125", GATE),
     "cosine_weight_2d": ("src/repro/kernels/cosine_weight.py:80", GATE),
@@ -650,19 +667,24 @@ def phase_quant_kernels(torch):
     return results
 
 
-def library_adagrad_ms(torch, g, a, lr, eps):
-    """ms of ``torch._fused_adagrad_`` (one fused PyTorch AdaGrad call; it
-    applies the step to a parameter instead of returning it) on the
-    card's tensors, or (None, why) where this PyTorch has none for CUDA."""
+def library_adagrad_ms(torch, sets, lr, eps):
+    """ms of ``torch._fused_adagrad_`` (one fused PyTorch AdaGrad call over
+    a list; it applies the step to the parameters) on the card, over each
+    (grads, accumulators, params) of ``sets`` in turn, or (None, why)
+    where this PyTorch has none for CUDA."""
     fn = getattr(torch, "_fused_adagrad_", None)
     if fn is None:
         return None, "torch._fused_adagrad_ does not exist"
-    p = torch.zeros_like(g)
-    acc = a.clone()
-    step = torch.zeros((), device=g.device)
+    lists = [([p.float() for p in ps], [g.float() for g in gs],
+              [a.float().clone() for a in accs],
+              [torch.zeros((), device=g.device) for g in gs])
+             for gs, accs, ps in sets]
+    turn = [0]
 
     def run():
-        fn([p], [g], [acc], [step], lr=lr, lr_decay=0.0, weight_decay=0.0,
+        params, grads, acc, steps = lists[turn[0] % len(lists)]
+        turn[0] += 1
+        fn(params, grads, acc, steps, lr=lr, lr_decay=0.0, weight_decay=0.0,
            eps=eps, maximize=False)
     try:
         run()
@@ -672,17 +694,286 @@ def library_adagrad_ms(torch, g, a, lr, eps):
     return device_ms(torch, run), "torch._fused_adagrad_"
 
 
+def _same(name: str, label: str, got, want) -> None:
+    """Every tensor of ``got`` bitwise its counterpart in ``want`` (the
+    failure names the elements that differ and the largest difference)."""
+    import torch
+    for x, y in zip(got, want, strict=True):
+        check(x.shape == y.shape and x.dtype == y.dtype,
+              f"{name} at {label}: {tuple(x.shape)} {x.dtype} against the "
+              f"plain version's {tuple(y.shape)} {y.dtype}")
+        if not torch.equal(x, y):
+            d = (x.float() - y.float()).abs().nan_to_num(float("inf"))
+            fail(f"{name} at {label}: not bitwise equal to its plain version "
+                 f"({int((x != y).sum())} elements differ, max |diff| "
+                 f"{d.max().item():.4g})")
+
+
+def _view(x, off: int):
+    """A copy of ``x`` that starts ``off`` elements into its storage (so
+    not 16-byte aligned when ``off`` is 1)."""
+    import torch
+    buf = torch.empty(x.numel() + off, dtype=x.dtype, device=x.device)
+    out = buf[off:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def _copy(x):
+    """A copy of ``x`` as aligned as ``x`` (the kernel's operand)."""
+    return _view(x, 0 if x.data_ptr() % 16 == 0 else 1)
+
+
+def _adagrad_lists(torch) -> dict:
+    """{name: parameter shapes}: WDL-Criteo's Party A and B and
+    smollm-360m's, each in the reference's leaf order, and the ragged
+    list."""
+    import numpy as np
+
+    from repro_torch.bridge import reference_parameters
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import llm_params
+    from repro_torch.models.tabular import make_dlrm
+
+    cfg = get_config("wdl-criteo")
+    wdl = make_dlrm(cfg)[0](0, cfg, "cuda")
+    llm = llm_params(get_config("smollm-360m"), 0, "cuda")
+    lists = {f"{name} {p}": [tuple(t.shape) for t in reference_parameters(
+        m[p])] for name, m in (("wdl-criteo", wdl), ("smollm-360m", llm))
+        for p in ("a", "b")}
+    del wdl, llm
+    rng = np.random.default_rng(20)
+    sizes = RAGGED_SIZES + [int(x) for x in rng.integers(
+        1, 70_000, RAGGED_LEAVES - len(RAGGED_SIZES))]
+    lists["ragged"] = [(n,) for n in sizes]
+    torch.cuda.empty_cache()
+    return lists
+
+
+def _k7_operands(torch, gen, shapes, grad_dtype, state_dtype, param_dtype,
+                 ragged=False):
+    """Random (grads, accumulators, params) on the card; with ``ragged``
+    every third leaf's operands are views one element in."""
+    def make(shape, dtype, i, fill):
+        x = torch.empty(shape, device="cuda")
+        fill(x)
+        return _view(x.to(dtype), int(ragged and i % 3 == 1))
+    grads = [make(s, grad_dtype, i, lambda x: x.normal_(
+        generator=gen).mul_(0.1)) for i, s in enumerate(shapes)]
+    accums = [make(s, state_dtype, i, lambda x: x.uniform_(
+        generator=gen)) for i, s in enumerate(shapes)]
+    params = [make(s, param_dtype, i, lambda x: x.normal_(
+        generator=gen)) for i, s in enumerate(shapes)]
+    return grads, accums, params
+
+
+def _k8_operands(torch, gen, shapes, grad_dtype, param_dtype):
+    """Random (grads, codes, scales, noises, params) on the card, in each
+    leaf's int8 tiling."""
+    from repro_torch.optim.quantized import _tiling
+    grads, qs, ss, us, ps = [], [], [], [], []
+    for shape in shapes:
+        R, C = _tiling(math.prod(shape))
+        grads.append((torch.randn(shape, generator=gen, device="cuda")
+                      * 0.1).to(grad_dtype))
+        qs.append(torch.randint(0, 128, (R, C), generator=gen,
+                                device="cuda", dtype=torch.int8))
+        ss.append(torch.rand((R, 1), generator=gen, device="cuda") * 1e-2)
+        us.append(torch.rand((R, C), generator=gen, device="cuda"))
+        ps.append(torch.randn(shape, generator=gen, device="cuda")
+                  .to(param_dtype))
+    return grads, qs, ss, us, ps
+
+
+def _k7_check(torch, label, ops, scale) -> None:
+    """The K7 step and the K7 updates over a list, each bitwise its plain
+    version; one launch per table of leaves."""
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import fused_adagrad as fag
+    g, a, p = ops
+    lr, eps = ADAGRAD_LR, ADAGRAD_EPS
+    ak, pk = [_copy(x) for x in a], [_copy(x) for x in p]
+    ap, pp = [x.clone() for x in a], [x.clone() for x in p]
+    n0 = _cuda.LAUNCHES["fused_adagrad"]
+    fag.fused_adagrad_step_(g, ak, pk, lr, eps, scale)
+    launches = _cuda.LAUNCHES["fused_adagrad"] - n0
+    fag.fused_adagrad_step_plain(g, ap, pp, lr, eps, scale)
+    torch.cuda.synchronize()
+    _same("fused_adagrad", f"{label} step", ak + pk, ap + pp)
+    uk, ank = fag.fused_adagrad_list(g, a, lr, eps)
+    up, anp = fag.fused_adagrad_list_plain(g, a, lr, eps)
+    torch.cuda.synchronize()
+    _same("fused_adagrad", f"{label} updates", uk + ank, up + anp)
+    want = _adagrad_launches([len(g)])
+    check(launches == want, f"fused_adagrad at {label}: {launches} "
+          f"launches for {len(g)} leaves, want {want}")
+    print(f"[adagrad] {'fused_adagrad':17s} {label}: step and updates "
+          f"bitwise equal to the plain version ({len(g)} leaves, "
+          f"{sum(x.numel() for x in g):,} elements, {launches} launch(es))",
+          flush=True)
+
+
+def _k8_check(torch, label, ops, scale) -> None:
+    """The K8 step and the K8 updates over a list, each bitwise its plain
+    version."""
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import fused_adagrad as fag
+    g, q, s, u, p = ops
+    lr, eps = ADAGRAD_LR, ADAGRAD_EPS
+    qk, sk, pk = ([x.clone() for x in xs] for xs in (q, s, p))
+    qp, sp, pp = ([x.clone() for x in xs] for xs in (q, s, p))
+    n0 = _cuda.LAUNCHES["fused_adagrad_q8"]
+    fag.fused_adagrad_q8_step_(g, qk, sk, u, pk, lr, eps, scale)
+    launches = _cuda.LAUNCHES["fused_adagrad_q8"] - n0
+    fag.fused_adagrad_q8_step_plain(g, qp, sp, u, pp, lr, eps, scale)
+    torch.cuda.synchronize()
+    _same("fused_adagrad_q8", f"{label} step", qk + sk + pk, qp + sp + pp)
+    outs = fag.fused_adagrad_q8_list(g, q, s, u, lr, eps)
+    refs = fag.fused_adagrad_q8_list_plain(g, q, s, u, lr, eps)
+    torch.cuda.synchronize()
+    _same("fused_adagrad_q8", f"{label} updates", sum(outs, []),
+          sum(refs, []))
+    want = _adagrad_launches([len(g)])
+    check(launches == want, f"fused_adagrad_q8 at {label}: {launches} "
+          f"launches for {len(g)} leaves, want {want}")
+    print(f"[adagrad] {'fused_adagrad_q8':17s} {label}: step and updates "
+          f"bitwise equal to the plain version ({len(g)} leaves, "
+          f"{sum(x.numel() for x in q):,} codes, {launches} launch(es))",
+          flush=True)
+
+
+def _step_bytes(g, a, p) -> int:
+    """Bytes the K7 step must move: g and a read, a' written, p read and
+    written, and the 4-byte scale."""
+    return 4 + sum(x.numel() * (x.element_size() + 2 * y.element_size()
+                                + 2 * z.element_size())
+                   for x, y, z in zip(g, a, p))
+
+
+def _q8_step_bytes(g, q, p) -> int:
+    """The K8 step: g, q, the noise and p read, q' and p' written, a
+    scale read and written a row, and the 4-byte mask."""
+    return 4 + sum(x.numel() * (x.element_size() + 2 * z.element_size())
+                   + 6 * c.numel() + 8 * c.shape[0]
+                   for x, c, z in zip(g, q, p))
+
+
+def _step_kernel(state) -> str:
+    import torch
+    return "fused_adagrad_q8" if state == torch.int8 else "fused_adagrad"
+
+
+def _step_timings(torch, gen, shapes, name, state, mask) -> dict:
+    """The in-place step over one party's list, fp32 params and grads,
+    ``state`` fp32 / bf16 (K7) or int8 (K8), timed warm (the same
+    operands each launch, so from the L2 cache, as in the WDL round,
+    whose whole state fits there) and cold (copies of the operands in
+    turn, twice the 50 MB L2); fp32 K7 beside ``torch._fused_adagrad_``
+    over the same lists.  -> {"warm" | "cold": the JSON numbers}."""
+    from repro_torch.kernels import fused_adagrad as fag
+    lr, eps = ADAGRAD_LR, ADAGRAD_EPS
+    kernel = _step_kernel(state)
+    if kernel == "fused_adagrad":
+        def make():
+            return _k7_operands(torch, gen, shapes, torch.float32, state,
+                                torch.float32)
+        step, plain = fag.fused_adagrad_step_, fag.fused_adagrad_step_plain
+        nbytes = _step_bytes(*make())
+        flops = 8 * sum(math.prod(x) for x in shapes)
+    else:
+        def make():
+            return _k8_operands(torch, gen, shapes, torch.float32,
+                                torch.float32)
+        step, plain = fag.fused_adagrad_q8_step_, \
+            fag.fused_adagrad_q8_step_plain
+        g, q, _, _, p = make()
+        nbytes = _q8_step_bytes(g, q, p)
+        flops = 12 * sum(x.numel() for x in q)
+    sets = [make() for _ in range(1 + 2 * L2_BYTES // nbytes)]
+    out = {}
+    for temp, use in (("warm", sets[:1]), ("cold", sets)):
+        turn = [0]
+
+        def operands(use=use, turn=turn):
+            turn[0] += 1
+            return use[turn[0] % len(use)]
+        lib_ms, lib_what = None, "none"
+        if state == torch.float32:
+            lib_ms, lib_what = library_adagrad_ms(torch, use, lr, eps)
+        out[temp] = _timed(
+            torch, f"{kernel:30s} {name} step, {str(state)[6:]} state "
+            f"{temp} ({len(use)} operand set(s))",
+            lambda: step(*operands(), lr, eps, mask),
+            lambda: plain(*operands(), lr, eps, mask), 0.0, nbytes, flops,
+            library=lib_what + ("" if lib_ms is None
+                                else f" {lib_ms * 1e3:.3f} us"))
+        out[temp]["library_ms"] = lib_ms
+    return out
+
+
+def _adagrad_graph_and_allocations(torch, lists, gen) -> None:
+    """One party's in-place step captured in a CUDA graph and replayed
+    three times (the mask 1, 0, 0.7, written before each replay) equals
+    three eager steps bitwise; an eager step (AdaGrad's ``step`` as the
+    engine calls it, and the K8 step) allocates nothing."""
+    from repro_torch.kernels import fused_adagrad as fag
+    from repro_torch.optim import adagrad
+    lr, eps = ADAGRAD_LR, ADAGRAD_EPS
+    shapes = lists["wdl-criteo a"]
+    g, a, p = _k7_operands(torch, gen, shapes, torch.float32, torch.float32,
+                           torch.float32)
+    ag, pg = [x.clone() for x in a], [x.clone() for x in p]
+    scale = torch.ones((), device="cuda")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fag.fused_adagrad_step_(g, ag, pg, lr, eps, scale)
+    for v in (1.0, 0.0, 0.7):
+        scale.fill_(v)
+        graph.replay()
+        fag.fused_adagrad_step_(g, a, p, lr, eps, scale)
+    torch.cuda.synchronize()
+    _same("fused_adagrad", "wdl-criteo a, 3 replays of a captured step "
+          "against 3 eager steps", ag + pg, a + p)
+    print("[adagrad] fused_adagrad     wdl-criteo a: the step captured in a "
+          "CUDA graph, replayed 3 times (mask 1, 0, 0.7), bitwise equal to "
+          "3 eager steps", flush=True)
+
+    opt = adagrad(lr, eps, use_pallas=True)
+    state = opt.init(p)
+    q8 = _k8_operands(torch, gen, shapes, torch.float32, torch.float32)
+    for what, step in (
+            ("AdaGrad's step (K7, fp32 state)",
+             lambda: opt.step(g, state, p, scale)),
+            ("the K8 step", lambda: fag.fused_adagrad_q8_step_(
+                *q8, lr, eps, scale))):
+        step()
+        torch.cuda.synchronize()
+        n0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+        step()
+        torch.cuda.synchronize()
+        n1 = torch.cuda.memory_stats()["allocation.all.allocated"]
+        print(f"[adagrad] {what} over wdl-criteo a: {n1 - n0} device "
+              f"allocations in an eager step", flush=True)
+        check(n1 == n0, f"{what}: an eager step made {n1 - n0} device "
+              f"allocations, want 0")
+
+
 def phase_adagrad_kernels(torch):
-    """K7 and K8 against their plain versions on the card, bitwise, at the
-    main path's leaf shapes; K7 against one fused PyTorch AdaGrad call
-    where this PyTorch has one."""
+    """K7 and K8 against their plain versions on the card, bitwise: one
+    leaf at the main path's leaf shapes (the updates), and the table
+    kernels over WDL-Criteo's and smollm-360m's party lists and a ragged
+    list of more than two tables (the in-place step with and without the
+    mask, and the updates), bf16 params, gradients and state included;
+    a captured step; no allocation in a step; µs per party update beside
+    the bound and one fused PyTorch AdaGrad call over the same list."""
     from repro_torch.kernels import fused_adagrad as fag
     from repro_torch.optim.quantized import _tiling
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    lr, eps = 0.01, 1e-10
+    lr, eps = ADAGRAD_LR, ADAGRAD_EPS
     results = {"fused_adagrad": {"max_abs_err": 0.0},
                "fused_adagrad_q8": {"max_abs_err": 0.0}}
+    # one leaf, as the kernels' one-leaf case (the updates written)
     for n in K7_SIZES:
         g = torch.randn(n, generator=gen, device="cuda") * 0.1
         a = torch.rand(n, generator=gen, device="cuda")
@@ -690,24 +981,16 @@ def phase_adagrad_kernels(torch):
                               fag.fused_adagrad_plain(g, a, lr, eps))
         uc, a2c = fag.fused_adagrad_plain(g.cpu(), a.cpu(), lr, eps)
         torch.cuda.synchronize()
-        check(torch.equal(u, u0) and torch.equal(a2, a20),
-              f"fused_adagrad at n={n}: not bitwise equal to its plain "
-              f"version (max |du| {(u - u0).abs().max().item()})")
+        _same("fused_adagrad", f"n={n}", [u, a2], [u0, a20])
         cpu_same = torch.equal(u.cpu(), uc) and torch.equal(a2.cpu(), a2c)
         label = f"{'fused_adagrad':30s} n={n}"
-        if n != K7_SIZES[0]:
-            print(f"[kernel] {label} bitwise equal to its plain version "
-                  f"(CPU plain version bitwise equal: {cpu_same})",
-                  flush=True)
-            continue
-        lib_ms, lib_what = library_adagrad_ms(torch, g, a, lr, eps)
-        t = _timed(torch, label, lambda: fag.fused_adagrad(g, a, lr, eps),
+        if n == K7_SIZES[0]:     # the one-leaf time, beside earlier PRs'
+            _timed(torch, label + " one leaf",
+                   lambda: fag.fused_adagrad(g, a, lr, eps),
                    lambda: fag.fused_adagrad_plain(g, a, lr, eps), 0.0,
-                   16 * n, 6 * n, library=lib_what + (
-                       "" if lib_ms is None else f" {lib_ms * 1e3:.2f} us"))
+                   16 * n, 6 * n)
         print(f"[kernel] {label} bitwise equal to its plain version (CPU "
               f"plain version bitwise equal: {cpu_same})", flush=True)
-        results["fused_adagrad"].update(t, library_ms=lib_ms)
 
     for (R, C), shape in K8_CASES:
         check(_tiling(math.prod(shape)) == (R, C), f"K8 tiling of {shape}")
@@ -719,20 +1002,67 @@ def phase_adagrad_kernels(torch):
         out = fag.fused_adagrad_q8(g, q, s, u, lr, eps)
         ref = fag.fused_adagrad_q8_plain(g, q, s, u, lr, eps)
         torch.cuda.synchronize()
-        check(all(torch.equal(x, y) for x, y in zip(out, ref)),
-              f"fused_adagrad_q8 at {(R, C)}: not bitwise equal to its "
-              f"plain version ({int((out[1] != ref[1]).sum())} codes "
-              f"differ)")
-        label = f"{'fused_adagrad_q8':30s} R,C={R},{C}"
-        if (R, C) != K8_CASES[0][0]:
-            print(f"[kernel] {label} update, codes and scales bitwise "
-                  f"equal to its plain version", flush=True)
-            continue
-        t = _timed(torch, label,
-                   lambda: fag.fused_adagrad_q8(g, q, s, u, lr, eps),
-                   lambda: fag.fused_adagrad_q8_plain(g, q, s, u, lr, eps),
-                   0.0, 14 * R * C + 8 * R, 12 * R * C)
-        results["fused_adagrad_q8"].update(t, library_ms=None)
+        _same("fused_adagrad_q8", f"{(R, C)}", out, ref)
+        print(f"[kernel] {'fused_adagrad_q8':30s} R,C={R},{C} update, codes "
+              f"and scales bitwise equal to its plain version", flush=True)
+
+    # the table kernels over the party lists
+    lists = _adagrad_lists(torch)
+    f32, bf16 = torch.float32, torch.bfloat16
+    mask0 = torch.zeros((), device="cuda")
+    mask = torch.full((), 0.7, device="cuda")
+    for name in ("wdl-criteo a", "wdl-criteo b", "ragged"):
+        shapes, ragged = lists[name], name == "ragged"
+        ops = _k7_operands(torch, gen, shapes, f32, f32, f32, ragged)
+        if ragged:
+            from repro_torch.kernels import _cuda
+            tables = fag.k7_tables(ops[0], ops[1], ops[1], ops[2])
+            flags = [t.leaf[k].flags for t in tables
+                     for k in range(t.n_leaves)]
+            check(len(tables) == 3 and any(f & fag.ALIGNED for f in flags)
+                  and not all(f & fag.ALIGNED for f in flags),
+                  f"the ragged list: {len(tables)} tables of "
+                  f"{_cuda.ADAGRAD_LEAVES}, aligned flags {flags}")
+        for scale, what in ((None, "no mask"), (mask, "mask 0.7"),
+                            (mask0, "mask 0")):
+            _k7_check(torch, f"{name}, fp32, {what}", ops, scale)
+        _k7_check(torch, f"{name}, bf16 grads, params and state, mask 0.7",
+                  _k7_operands(torch, gen, shapes, bf16, bf16, bf16, ragged),
+                  mask)
+        q8 = _k8_operands(torch, gen, shapes, f32, f32)
+        for scale, what in ((None, "no mask"), (mask, "mask 0.7"),
+                            (mask0, "mask 0")):
+            _k8_check(torch, f"{name}, fp32, {what}", q8, scale)
+        _k8_check(torch, f"{name}, bf16 grads and params, mask 0.7",
+                  _k8_operands(torch, gen, shapes, bf16, bf16), mask)
+        del ops, q8
+    for name in ("smollm-360m a", "smollm-360m b"):
+        shapes = lists[name]
+        ops = _k7_operands(torch, gen, shapes, bf16, f32, bf16)
+        _k7_check(torch, f"{name}, bf16 grads and params, fp32 state",
+                  ops, None)
+        del ops
+        ops = _k7_operands(torch, gen, shapes, bf16, bf16, bf16)
+        _k7_check(torch, f"{name}, bf16 grads, params and state, mask 0.7",
+                  ops, mask)
+        del ops
+        q8 = _k8_operands(torch, gen, shapes, bf16, bf16)
+        _k8_check(torch, f"{name}, bf16 grads and params, mask 0.7", q8,
+                  mask)
+        del q8
+        torch.cuda.empty_cache()
+    _adagrad_graph_and_allocations(torch, lists, gen)
+
+    # µs per party update: the in-place step of the engine's local update
+    # (fp32 params, the mask given); K7 beside one torch._fused_adagrad_
+    # call over the same list
+    for name in ("wdl-criteo a", "wdl-criteo b"):
+        for state in (f32, bf16, torch.int8):
+            for temp, t in _step_timings(torch, gen, lists[name], name,
+                                         state, mask).items():
+                if name == "wdl-criteo a" and temp == "cold" \
+                        and state != bf16:
+                    results[_step_kernel(state)].update(t)
     return results
 
 
@@ -744,7 +1074,9 @@ def phase_goldens(torch):
     three = golden.load_golden(GOLDEN_DIR, "three_party_trace.json")["celu"]
     runs = [(p, True, None) for p in ("vanilla", "fedbcd", "celu")]
     runs.append(("celu", False, None))
-    # once more through the fused AdaGrad kernel (K7)
+    # once more through the fused AdaGrad kernel (K7): one launch a party
+    # update, (1 + R) x 2 a round of 20 (R = 3); the three-party golden
+    # (1 + R) x 3 (R = 2)
     runs.append(("celu", True, {"use_pallas": True}))
     for protocol, fused, opt_kw in runs:
         _cuda.reset_launches()
@@ -755,7 +1087,7 @@ def phase_goldens(torch):
               f"adagrad {'K7' if opt_kw else 'plain'}: {dev}; K7 launches "
               f"{_cuda.LAUNCHES['fused_adagrad']}", flush=True)
         check(golden.within_tolerance(dev), f"golden {protocol} {dev}")
-        check((_cuda.LAUNCHES["fused_adagrad"] > 0) == bool(opt_kw),
+        check(_cuda.LAUNCHES["fused_adagrad"] == (160 if opt_kw else 0),
               f"golden {protocol}: K7 launches {_cuda.LAUNCHES}")
     for opt_kw in (None, {"use_pallas": True}):
         _cuda.reset_launches()
@@ -765,7 +1097,7 @@ def phase_goldens(torch):
               f"{'K7' if opt_kw else 'plain'}: {dev}; K7 launches "
               f"{_cuda.LAUNCHES['fused_adagrad']}", flush=True)
         check(golden.within_tolerance(dev), f"golden three-party {dev}")
-        check((_cuda.LAUNCHES["fused_adagrad"] > 0) == bool(opt_kw),
+        check(_cuda.LAUNCHES["fused_adagrad"] == (180 if opt_kw else 0),
               f"golden three-party: K7 launches {_cuda.LAUNCHES}")
 
 
@@ -778,10 +1110,17 @@ def train_args(arch, protocol="celu", rounds=50, device=None, **kw):
     return SimpleNamespace(**{**vars(args), **kw})
 
 
-def _tensors(out) -> int:
-    """Parameter tensors of every party of a trained state."""
+def _party_tensors(out) -> list:
+    """Parameter tensors of each party of a trained state."""
     params = out["state"]["params"]
-    return sum(len(list(m.parameters())) for m in params["a"] + [params["b"]])
+    return [len(list(m.parameters())) for m in params["a"] + [params["b"]]]
+
+
+def _adagrad_launches(party_tensors) -> int:
+    """K7 / K8 launches of one optimizer update of every party: one a
+    table of at most ``_cuda.ADAGRAD_LEAVES`` of a party's tensors."""
+    from repro_torch.kernels import _cuda
+    return sum(-(-n // _cuda.ADAGRAD_LEAVES) for n in party_tensors)
 
 
 def _run(label, args, **kw):
@@ -836,14 +1175,17 @@ def phase_main_path(torch, card):
     from repro_torch.optim import make_optimizer
 
     counts = {}
-    upd = 1 + R              # optimizer updates per party tensor a round
+    upd = 1 + R              # optimizer updates per party a round
     # WDL-Criteo at full width, the default fused ring sample (K1) and
-    # fused AdaGrad (K7)
+    # fused AdaGrad (K7: one launch per party update)
     rounds = 50
     wdl, c = _run(f"wdl-criteo celu {rounds} rounds",
                   train_args("wdl-criteo", rounds=rounds))
-    n_wdl = _tensors(wdl)
-    check(n_wdl == 20, f"wdl-criteo has {n_wdl} parameter tensors, want 20")
+    check(_party_tensors(wdl) == [7, 13], f"wdl-criteo has "
+          f"{_party_tensors(wdl)} parameter tensors a party, want [7, 13]")
+    n_wdl = _adagrad_launches(_party_tensors(wdl))
+    check(upd * n_wdl == 12, f"{upd * n_wdl} AdaGrad launches per wdl-criteo "
+          f"celu round, want 12")
     _want("fp32 cache", c, fused_sample_2d=2 * R * rounds,
           fused_adagrad=upd * n_wdl * rounds)
     counts["fused_sample_2d"] = c["fused_sample_2d"]
@@ -851,10 +1193,10 @@ def phase_main_path(torch, card):
 
     dssm, c = _run("dssm-avazu celu 5 rounds", train_args("dssm-avazu",
                                                           rounds=5))
-    check(_tensors(dssm) == 16, f"dssm-avazu has {_tensors(dssm)} "
-          f"parameter tensors, want 16")
+    check(sum(_party_tensors(dssm)) == 16, f"dssm-avazu has "
+          f"{_party_tensors(dssm)} parameter tensors, want 16")
     _want("dssm", c, fused_sample_2d=2 * R * 5,
-          fused_adagrad=upd * _tensors(dssm) * 5)
+          fused_adagrad=upd * _adagrad_launches(_party_tensors(dssm)) * 5)
 
     # the materialising path: K2a for Party A, K2b for Party B
     _, c = _run("wdl-criteo celu --no-cache-fusion 5 rounds",
@@ -897,7 +1239,8 @@ def phase_main_path(torch, card):
           fused_adagrad=upd * n_wdl * 5)
 
     # the optimizer states: K8 on every int8-state update, K7 on every
-    # bf16-state update (an upcast around it), neither for SM3
+    # bf16-state update (it reads and stores the bf16 state), neither for
+    # SM3
     opt_int8, c = _run(f"wdl-criteo celu --opt-state-dtype int8 {rounds} "
                        f"rounds", train_args("wdl-criteo", rounds=rounds,
                                              opt_state_dtype="int8"))
@@ -951,7 +1294,7 @@ def phase_main_path(torch, card):
     vanilla, c = _run("wdl-criteo vanilla 20 rounds",
                       train_args("wdl-criteo", protocol="vanilla",
                                  rounds=20))
-    _want("vanilla", c, fused_adagrad=n_wdl * 20)
+    _want("vanilla", c, fused_adagrad=n_wdl * 20)     # 2 a round
     round_ms = wdl["steady_round_ms"]
     local_ms = (round_ms - vanilla["steady_round_ms"]) / R
     print(f"[time] wdl-criteo full width B=256 R=W=5 celu: "
@@ -980,23 +1323,27 @@ def phase_main_path(torch, card):
               f"{ms[0]:.3f} and {ms[1]:.3f} ms per round; card {card}",
               flush=True)
 
-    # the card's busy time per round, from profiled runs of the plain and
-    # the K7 route (the profiler slows the host, not the kernels)
+    # the card's busy time per round, from a profiled run of each route
+    # (the profiler slows the host, not the kernels)
     from torch.profiler import ProfilerActivity, profile
     rounds = 20
-    for name in ("plain AdaGrad", "K7"):
-        args = train_args("wdl-criteo", rounds=rounds)
-        opt = make_optimizer("adagrad", args.lr) if name != "K7" else None
+    for name, kw in routes.items():
+        args = train_args("wdl-criteo", rounds=rounds, **kw)
+        opt = make_optimizer("adagrad", args.lr) if name.startswith("plain") \
+            else None
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             train_dlrm(args, opt=opt)
         kernels = [e for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / rounds
+        ag = [e for e in kernels if "adagrad" in e.name]
         print(f"[time] AdaGrad {name}: device busy {busy_ms:.3f} ms per "
               f"round ({len(kernels) / rounds:.0f} kernels per round, "
-              f"evaluation included) = {100 * busy_ms / round_ms:.1f}% of "
-              f"the {round_ms:.3f} ms K7 round; card {card}", flush=True)
+              f"evaluation included; K7 / K8 {len(ag) / rounds:.0f} of them, "
+              f"{sum(e.device_time_total for e in ag) / 1e3 / rounds:.3f} "
+              f"ms) = {100 * busy_ms / round_ms:.1f}% of the "
+              f"{round_ms:.3f} ms K7 round; card {card}", flush=True)
         top = sorted(prof.key_averages(),
                      key=lambda e: -e.self_device_time_total)
         for e in top[:8]:
@@ -1956,7 +2303,7 @@ def _gate_at_llm_width(torch):
                4 * B * F + 2 * B * F + 4 * B + 4, 6 * B * F, iters=10)
 
 
-def _llm_launches(cfg, R: int, rounds: int, remat: bool, n_tensors: int):
+def _llm_launches(cfg, R: int, rounds: int, remat: bool, party_tensors):
     """The kernels' launches over ``rounds`` celu rounds of the LLM
     split, derived from the engine's code.  Layers: Party A's La, Party
     B's Lb (bottom) and Lt (top).  Each forward through a layer runs
@@ -1970,7 +2317,9 @@ def _llm_launches(cfg, R: int, rounds: int, remat: bool, n_tensors: int):
         top tower only (the gradient is taken with respect to Z), K1
         (weights only), then the weighted pass, whose backward reaches
         all of B's layers;
-      * ``init_state`` runs A's forward once without a gradient (K9).
+      * ``init_state`` runs A's forward once without a gradient (K9);
+      * each of the 1 + R updates of a party is one K7 launch per table
+        of its ``party_tensors``.
     """
     La = cfg.vfl_split.layers_a
     Lb, Lt = cfg.vfl_split.layers_b, cfg.vfl_split.layers_top
@@ -1984,7 +2333,8 @@ def _llm_launches(cfg, R: int, rounds: int, remat: bool, n_tensors: int):
     return {"flash_attention_fwd_lse": rounds * (ex_fwd + R * loc_fwd),
             "flash_attention_bwd_dkv": k10, "flash_attention_bwd_dq": k10,
             "flash_attention": La, "fused_sample_2d": rounds * R * 2,
-            "fused_adagrad": rounds * (1 + R) * n_tensors}
+            "fused_adagrad": rounds * (1 + R)
+            * _adagrad_launches(party_tensors)}
 
 
 def _capture_grads():
@@ -2014,9 +2364,9 @@ def phase_training(torch, card):
     cfg = get_config("smollm-360m")
     args = train_args("smollm-360m", rounds=TRAIN_ROUNDS, **TRAIN_ARGS)
     params = llm_params(cfg, args.seed, "cuda")
-    n_tensors = sum(len(list(p.parameters())) for p in params.values())
-    check(n_tensors == 32, f"smollm-360m has {n_tensors} parameter tensors "
-          f"over both parties, want 32")
+    n_tensors = [len(list(p.parameters())) for p in params.values()]
+    check(sum(n_tensors) == 32, f"smollm-360m has {n_tensors} parameter "
+          f"tensors a party, want 32 over both")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launches()
@@ -2087,13 +2437,14 @@ def phase_training(torch, card):
               f"per round  {e.count / rounds:7.1f} calls  {e.key[:70]}")
     ours = {}
     for e in top:
-        m = re.search(r"(flash_\w+|cosine_gate_kernel|gate_\w+_kernel)<",
-                      e.key)
+        m = re.search(r"(flash_\w+|cosine_gate_kernel|gate_\w+_kernel"
+                      r"|fused_adagrad\w*_kernel)[<(]", e.key)
         if m and e.self_device_time_total:
             row = ours.setdefault(m.group(1), [0.0, 0.0])
             row[0] += e.self_device_time_total / 1e3 / rounds
             row[1] += e.count / rounds
-    print("[train] the attention and gate kernels per round: " + "; ".join(
+    print("[train] the attention, gate and AdaGrad kernels per round: "
+          + "; ".join(
         f"{k} {ms:.3f} ms in {n:.0f} launches"
         for k, (ms, n) in sorted(ours.items())), flush=True)
     del prof, params
@@ -2200,7 +2551,7 @@ def phase_reduced(torch, card):
     runs = {}
     for route in ("kernels", "plain"):
         params = llm_params(cfg, args.seed, "cuda")
-        n_tensors = sum(len(list(p.parameters())) for p in params.values())
+        n_tensors = [len(list(p.parameters())) for p in params.values()]
         with contextlib.ExitStack() as stack:
             for patch in _plain_attention(route):
                 stack.enter_context(patch)

@@ -486,8 +486,12 @@ def init_state(task: KPartyTask, params: Dict[str, Any], opt: Optimizer,
 # --------------------------------------------------------------------------
 def _opt_step(opt, module, grads, opt_state, scale=None):
     """One optimizer update of ``module`` in place -> new opt state.
-    ``scale`` (0-d tensor) multiplies the update before it is applied."""
+    ``scale`` (0-d tensor) multiplies the update before it is applied.
+    An optimizer with an in-place ``step`` (AdaGrad's kernel route: one
+    K7 / K8 launch for the party's tensors) takes it."""
     params = _params(module)
+    if opt.step is not None:
+        return opt.step(list(grads), opt_state, params, scale)
     upd, opt_state = opt.update(grads, opt_state, params)
     if scale is not None:
         upd = [u * scale for u in upd]

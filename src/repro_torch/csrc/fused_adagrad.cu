@@ -1,25 +1,45 @@
-// Fused AdaGrad steps for Hopper (sm_90a).
+// Fused AdaGrad steps for Hopper (sm_90a): one launch for a whole list of
+// parameter tensors (leaves).
 //
 // Replaces
 //   K7  src/repro/kernels/fused_adagrad.py  fused_adagrad     (_kernel)
 //   K8  src/repro/kernels/fused_adagrad.py  fused_adagrad_q8  (_kernel_q8)
 //
-// K7, for n elements of the gradient g and the fp32 accumulator a:
+// K7, for a leaf's gradient g and accumulator a:
 //   a'[i] = a[i] + g[i]*g[i]
 //   u[i]  = (-lr * g[i]) / (sqrt(a'[i]) + eps)
-// The TPU kernel pads to a (rows, 1024) tiling; here it is one flat pass
-// with 16-byte loads, a scalar tail and a grid-stride loop.
-//
-// K8, for the (R, C) tiling of the int8 sqrt-space accumulator (codes q,
-// one fp32 scale s a row) and the gradient's first n <= R*C elements
+// K8, for the (R, C) tiling of a leaf's int8 sqrt-space accumulator (codes
+// q, one fp32 scale s a row) and the gradient's first n <= R*C elements
 // (the rest are the reference's zero pad):
 //   r = q*s,  r' = sqrt(r*r + g*g),  u = (-lr * g) / (r' + eps)
 //   s' = max(max_j r'_j, 1e-12) / 127
 //   q' = clip(floor(r'/s' + noise), 0, 127)
-// One block takes one row (C <= 1024): each thread keeps up to four of
-// its elements in registers, the row max goes through warp shuffles and
-// shared memory, then the codes are written.  The fp32 accumulator never
-// reaches device memory.
+// Then, in the same pass, u is multiplied by the draw's mask (a 0-d fp32
+// tensor in device memory) when a scale pointer is given, and either
+// added to the parameter (p' = p + u in fp32, rounded to p's type) or
+// written out as the update.
+//
+// The leaves travel in a fixed-capacity table passed by value as a kernel
+// parameter (__grid_constant__: read in place from the parameter bank):
+// no host-to-device copy, no device allocation, so a launch can be
+// captured in a CUDA graph.  The table holds each leaf's pointers, its
+// element count, its operand types and whether all its pointers are
+// 16-byte aligned, and the prefix sum of the blocks its leaves take:
+//   K7: one block a chunk of kChunk elements, so a scalar and a
+//       425,984-element table get work in proportion; 16-byte loads where
+//       the leaf is aligned, scalar loads where it is not (a view) and on
+//       the tail;
+//   K8: one block a row of the leaf's tiling (C <= 1024): each thread
+//       keeps up to four of its elements in registers, the row max goes
+//       through warp shuffles and shared memory, then the codes are
+//       written.  A block owns its row, so the codes and the scale are
+//       read into registers before q' and s' overwrite them in place.
+// A block finds its leaf by binary search over the prefix sum.
+//
+// The gradient and the parameter may be fp32 or bf16 (bf16 is widened
+// exactly; a bf16 result is rounded to nearest even), and so may K7's
+// accumulator (the bf16 state: a' is rounded to bf16 when it is stored,
+// after u has taken the fp32 a').
 //
 // Both kernels equal their plain PyTorch versions bit for bit.  PyTorch
 // rounds every elementwise op apart, so the products and sums are written
@@ -27,55 +47,175 @@
 // division and sqrt are the IEEE ones (__fdiv_rn, __fsqrt_rn; the library
 // is built without --use_fast_math).  The row max is order-free.
 //
-// Bound: bytes.  K7 moves 16 B an element (g, a read; u, a' written) for
-// about 6 flops; K8 14 B an element (g, q, noise read; u, q' written)
-// plus 8 B a row, for about 10 flops.  Both sit far below the card's
-// flop-per-byte ridge, so the design reads each input once and keeps
-// every intermediate in registers.
+// Bound: bytes.  K7 applying an fp32 update moves 20 B an element (g, a,
+// p read; a', p' written) for about 7 flops; K8 18 B an element (g, q,
+// noise, p read; q', p' written) plus 8 B a row.  Both sit far below the
+// card's flop-per-byte ridge, so the design reads each input once, keeps
+// every intermediate in registers and writes no update tensor.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr int kLeaves = 48;          // leaves a launch (table capacity)
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 8;
+constexpr int kChunk = 4 * kThreads;  // K7 elements a block
 constexpr int kMaxCols = 1024;
-constexpr int kPerThread = kMaxCols / kThreads;   // K8 elements a thread
+constexpr int kPerThread = 4;        // K8 elements a thread at most
 constexpr float kLevels = 127.0f;
 constexpr float kEpsScale = 1e-12f;
 
-__device__ __forceinline__ void adagrad(float g, float a, float neg_lr,
-                                        float eps, float* u, float* a_new) {
-  const float an = __fadd_rn(a, __fmul_rn(g, g));
-  *a_new = an;
-  *u = __fdiv_rn(__fmul_rn(neg_lr, g), __fadd_rn(__fsqrt_rn(an), eps));
+// a leaf's flags
+constexpr int kGradBf16 = 1;
+constexpr int kAccumBf16 = 2;        // K7 only
+constexpr int kDstBf16 = 4;          // the parameter, when it is applied
+constexpr int kAligned = 8;          // K7: every pointer 16-byte aligned
+
+struct K7Leaf {
+  const void* g;
+  const void* a;
+  void* a_out;      // may equal a (in place)
+  void* dst;        // p (apply), or u (fp32, written)
+  long long n;
+  int flags;
+  int pad;
+};
+
+struct K7Table {
+  K7Leaf leaf[kLeaves];
+  int start[kLeaves + 1];   // first block of each leaf; start[n_leaves]: grid
+  int n_leaves;
+};
+
+struct K8Leaf {
+  const void* g;
+  const int8_t* q;
+  const float* s;
+  int8_t* q_out;    // may equal q (in place)
+  float* s_out;     // may equal s
+  const float* noise;
+  void* dst;        // p (apply), or u (fp32, written)
+  long long n;      // gradient elements, <= R*C
+  int C;
+  int flags;
+};
+
+struct K8Table {
+  K8Leaf leaf[kLeaves];
+  int start[kLeaves + 1];   // first row (block) of each leaf
+  int n_leaves;
+};
+
+// under the classic 4 KB kernel-parameter limit with the other parameters
+static_assert(sizeof(K7Table) + 32 <= 4096, "K7 table too large");
+static_assert(sizeof(K8Table) + 32 <= 4096, "K8 table too large");
+
+template <class Table>
+__device__ __forceinline__ int find_leaf(const Table& t, int block) {
+  int lo = 0, hi = t.n_leaves - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (t.start[mid] <= block) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
 }
 
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-fused_adagrad_kernel(const float* __restrict__ g, const float* __restrict__ a,
-                     float* __restrict__ u, float* __restrict__ a_out,
-                     long long n, float neg_lr, float eps) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  long long done = 0;
-  if constexpr (kVec) {
-    const long long n4 = n / 4;
-    for (long long v = i; v < n4; v += stride) {
-      const float4 gv = reinterpret_cast<const float4*>(g)[v];
-      const float4 av = reinterpret_cast<const float4*>(a)[v];
-      float4 uv, anv;
-      adagrad(gv.x, av.x, neg_lr, eps, &uv.x, &anv.x);
-      adagrad(gv.y, av.y, neg_lr, eps, &uv.y, &anv.y);
-      adagrad(gv.z, av.z, neg_lr, eps, &uv.z, &anv.z);
-      adagrad(gv.w, av.w, neg_lr, eps, &uv.w, &anv.w);
-      reinterpret_cast<float4*>(u)[v] = uv;
-      reinterpret_cast<float4*>(a_out)[v] = anv;
-    }
-    done = n4 * 4;
+__device__ __forceinline__ float load1(const void* p, long long i, bool bf) {
+  return bf ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+            : static_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ void store1(void* p, long long i, float v,
+                                       bool bf) {
+  if (bf) static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
+  else static_cast<float*>(p)[i] = v;
+}
+
+// elements 4v .. 4v+3: 16 bytes of fp32 or 8 of bf16
+__device__ __forceinline__ float4 load4(const void* p, long long v,
+                                        bool bf) {
+  if (!bf) return static_cast<const float4*>(p)[v];
+  const uint2 w = static_cast<const uint2*>(p)[v];
+  return make_float4(__uint_as_float(w.x << 16),
+                     __uint_as_float(w.x & 0xffff0000u),
+                     __uint_as_float(w.y << 16),
+                     __uint_as_float(w.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ void store4(void* p, long long v, float4 x,
+                                       bool bf) {
+  if (!bf) {
+    static_cast<float4*>(p)[v] = x;
+    return;
   }
-  for (long long j = done + i; j < n; j += stride)
-    adagrad(g[j], a[j], neg_lr, eps, &u[j], &a_out[j]);
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+  uint2 w;
+  w.x = *reinterpret_cast<const unsigned int*>(&lo);
+  w.y = *reinterpret_cast<const unsigned int*>(&hi);
+  static_cast<uint2*>(p)[v] = w;
+}
+
+struct Step {
+  float neg_lr, eps, s;
+  bool scaled;
+};
+
+// one element: a' into *a_new, -> the (scaled) update
+__device__ __forceinline__ float adagrad(float g, float a, const Step& st,
+                                         float* a_new) {
+  const float an = __fadd_rn(a, __fmul_rn(g, g));
+  *a_new = an;
+  const float u = __fdiv_rn(__fmul_rn(st.neg_lr, g),
+                            __fadd_rn(__fsqrt_rn(an), st.eps));
+  return st.scaled ? __fmul_rn(u, st.s) : u;
+}
+
+__global__ void __launch_bounds__(kThreads)
+fused_adagrad_kernel(const __grid_constant__ K7Table t,
+                     const float* scale, float neg_lr, float eps,
+                     int apply) {
+  const int i = find_leaf(t, blockIdx.x);
+  const K7Leaf& L = t.leaf[i];
+  const long long begin =
+      static_cast<long long>(blockIdx.x - t.start[i]) * kChunk;
+  const long long end = min(begin + kChunk, L.n);
+  const Step st{neg_lr, eps, scale ? *scale : 1.f, scale != nullptr};
+  const bool gb = L.flags & kGradBf16, ab = L.flags & kAccumBf16,
+             db = L.flags & kDstBf16;
+  long long j0 = begin;
+  if (L.flags & kAligned) {
+    const long long v1 = end >> 2;   // begin is a multiple of 4
+    for (long long v = (begin >> 2) + threadIdx.x; v < v1; v += kThreads) {
+      const float4 g = load4(L.g, v, gb), a = load4(L.a, v, ab);
+      float4 an, u;
+      u.x = adagrad(g.x, a.x, st, &an.x);
+      u.y = adagrad(g.y, a.y, st, &an.y);
+      u.z = adagrad(g.z, a.z, st, &an.z);
+      u.w = adagrad(g.w, a.w, st, &an.w);
+      store4(L.a_out, v, an, ab);
+      if (apply) {
+        float4 p = load4(L.dst, v, db);
+        p.x = __fadd_rn(p.x, u.x);
+        p.y = __fadd_rn(p.y, u.y);
+        p.z = __fadd_rn(p.z, u.z);
+        p.w = __fadd_rn(p.w, u.w);
+        store4(L.dst, v, p, db);
+      } else {
+        store4(L.dst, v, u, false);
+      }
+    }
+    j0 = v1 << 2;
+  }
+  for (long long j = j0 + threadIdx.x; j < end; j += kThreads) {
+    float an;
+    const float u = adagrad(load1(L.g, j, gb), load1(L.a, j, ab), st, &an);
+    store1(L.a_out, j, an, ab);
+    if (apply) store1(L.dst, j, __fadd_rn(load1(L.dst, j, db), u), db);
+    else static_cast<float*>(L.dst)[j] = u;
+  }
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -86,35 +226,37 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-fused_adagrad_q8_kernel(const float* __restrict__ g,
-                        const int8_t* __restrict__ q,
-                        const float* __restrict__ scale,
-                        const float* __restrict__ noise,
-                        float* __restrict__ u, int8_t* __restrict__ q_out,
-                        float* __restrict__ scale_out, long long n, int C,
-                        float neg_lr, float eps) {
+fused_adagrad_q8_kernel(const __grid_constant__ K8Table t,
+                        const float* scale, float neg_lr, float eps,
+                        int apply) {
   __shared__ float warp_maxes[kThreads / 32];
-  const int row = blockIdx.x;
+  const int i = find_leaf(t, blockIdx.x);
+  const K8Leaf& L = t.leaf[i];
+  const int row = blockIdx.x - t.start[i];
+  const int C = L.C;
   const long long off = static_cast<long long>(row) * C;
-  const float s = scale[row];
+  const long long n = L.n;
+  const bool gb = L.flags & kGradBf16, db = L.flags & kDstBf16;
+  const float s = L.s[row];            // read before s' is written below
+  const float mask = scale ? *scale : 1.f;
   float r_new[kPerThread];
-  float gk[kPerThread];
   float amax = 0.f;     // r' >= 0
 #pragma unroll
   for (int k = 0; k < kPerThread; ++k) {
     const int j = threadIdx.x + k * blockDim.x;
     r_new[k] = 0.f;
-    gk[k] = 0.f;
     if (j < C) {
       const long long idx = off + j;
-      gk[k] = idx < n ? g[idx] : 0.f;
-      const float r = __fmul_rn(static_cast<float>(q[idx]), s);
-      r_new[k] = __fsqrt_rn(__fadd_rn(__fmul_rn(r, r),
-                                      __fmul_rn(gk[k], gk[k])));
+      const float g = idx < n ? load1(L.g, idx, gb) : 0.f;
+      const float r = __fmul_rn(static_cast<float>(L.q[idx]), s);
+      r_new[k] = __fsqrt_rn(__fadd_rn(__fmul_rn(r, r), __fmul_rn(g, g)));
       amax = fmaxf(amax, r_new[k]);
-      if (idx < n)
-        u[idx] = __fdiv_rn(__fmul_rn(neg_lr, gk[k]),
-                           __fadd_rn(r_new[k], eps));
+      if (idx < n) {
+        float u = __fdiv_rn(__fmul_rn(neg_lr, g), __fadd_rn(r_new[k], eps));
+        if (scale) u = __fmul_rn(u, mask);
+        if (apply) store1(L.dst, idx, __fadd_rn(load1(L.dst, idx, db), u), db);
+        else static_cast<float*>(L.dst)[idx] = u;
+      }
     }
   }
   amax = warp_max(amax);
@@ -130,63 +272,68 @@ fused_adagrad_q8_kernel(const float* __restrict__ g,
   }
   __syncthreads();
   const float s_new = __fdiv_rn(fmaxf(warp_maxes[0], kEpsScale), kLevels);
-  if (threadIdx.x == 0) scale_out[row] = s_new;
+  if (threadIdx.x == 0) L.s_out[row] = s_new;
 #pragma unroll
   for (int k = 0; k < kPerThread; ++k) {
     const int j = threadIdx.x + k * blockDim.x;
     if (j < C) {
       const long long idx = off + j;
-      float c = floorf(__fadd_rn(__fdiv_rn(r_new[k], s_new), noise[idx]));
+      float c = floorf(__fadd_rn(__fdiv_rn(r_new[k], s_new), L.noise[idx]));
       c = fminf(fmaxf(c, 0.f), kLevels);
-      q_out[idx] = static_cast<int8_t>(static_cast<int>(c));
+      L.q_out[idx] = static_cast<int8_t>(static_cast<int>(c));
     }
   }
 }
 
-bool aligned(const void* p, uintptr_t n) {
-  return (reinterpret_cast<uintptr_t>(p) & (n - 1)) == 0;
-}
-
 }  // namespace
 
-// K7.  g, a, u, a_out: n fp32 each.  Returns the cudaError_t of the
-// launch (0 on success).
-extern "C" int fused_adagrad(const float* g, const float* a, float* u,
-                             float* a_out, long long n, float lr, float eps,
-                             void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec = aligned(g, 16) && aligned(a, 16) && aligned(u, 16) &&
-                   aligned(a_out, 16);
-  const long long work = vec ? (n + 3) / 4 : n;
-  long long blocks = (work + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  const dim3 grid(static_cast<unsigned>(blocks));
-  if (vec)
-    fused_adagrad_kernel<true><<<grid, kThreads, 0, st>>>(g, a, u, a_out, n,
-                                                          -lr, eps);
-  else
-    fused_adagrad_kernel<false><<<grid, kThreads, 0, st>>>(g, a, u, a_out, n,
-                                                           -lr, eps);
+// The table layout, for the Python side's check of its ctypes mirror:
+// out[0..4] = sizeof(K7Table), sizeof(K8Table), the capacity, K7's chunk,
+// K8's widest row.
+extern "C" int fused_adagrad_layout(long long* out) {
+  out[0] = sizeof(K7Table);
+  out[1] = sizeof(K8Table);
+  out[2] = kLeaves;
+  out[3] = kChunk;
+  out[4] = kMaxCols;
+  return 0;
+}
+
+// K7 over the leaves of the K7Table at ``table`` (a host struct; the
+// launch copies it).  scale: a device fp32 scalar or null; apply: 1 adds
+// the update to dst in place, 0 writes it there.  Returns the cudaError_t
+// of the launch (0 on success).
+extern "C" int fused_adagrad(const void* table, const float* scale,
+                             float lr, float eps, int apply, void* stream) {
+  const K7Table* t = static_cast<const K7Table*>(table);
+  if (t->n_leaves <= 0 || t->n_leaves > kLeaves ||
+      t->start[t->n_leaves] <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  fused_adagrad_kernel<<<t->start[t->n_leaves], kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      *t, scale, -lr, eps, apply);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K8.  g: n fp32 (n <= R*C); q, q_out: (R, C) int8; scale, scale_out:
-// (R,) fp32; noise: (R, C) fp32; u: n fp32.  C <= 1024.  Returns the
-// cudaError_t of the launch (0 on success).
-extern "C" int fused_adagrad_q8(const float* g, const int8_t* q,
-                                const float* scale, const float* noise,
-                                float* u, int8_t* q_out, float* scale_out,
-                                long long n, int R, int C, float lr,
-                                float eps, void* stream) {
-  if (R <= 0 || C <= 0 || C > kMaxCols || n <= 0 ||
-      n > static_cast<long long>(R) * C)
+// K8 over the leaves of the K8Table at ``table``, one block a row; scale
+// and apply as for K7.
+extern "C" int fused_adagrad_q8(const void* table, const float* scale,
+                                float lr, float eps, int apply,
+                                void* stream) {
+  const K8Table* t = static_cast<const K8Table*>(table);
+  if (t->n_leaves <= 0 || t->n_leaves > kLeaves ||
+      t->start[t->n_leaves] <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // enough threads for four elements each, in whole warps
-  int threads = ((C + kPerThread - 1) / kPerThread + 31) / 32 * 32;
-  if (threads > kThreads) threads = kThreads;
-  fused_adagrad_q8_kernel<<<R, threads, 0, st>>>(
-      g, q, scale, noise, u, q_out, scale_out, n, C, -lr, eps);
+  // enough threads for four elements each of the widest row, whole warps
+  int cols = 0;
+  for (int i = 0; i < t->n_leaves; ++i) {
+    const int C = t->leaf[i].C;
+    if (C <= 0 || C > kMaxCols) return static_cast<int>(cudaErrorInvalidValue);
+    cols = C > cols ? C : cols;
+  }
+  const int threads = ((cols + kPerThread - 1) / kPerThread + 31) / 32 * 32;
+  fused_adagrad_q8_kernel<<<t->start[t->n_leaves], threads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      *t, scale, -lr, eps, apply);
   return static_cast<int>(cudaGetLastError());
 }

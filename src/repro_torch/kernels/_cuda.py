@@ -58,9 +58,9 @@ _SIGNATURES = {
     "cosine_gate_quant": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
                           _I, _P, _LL, _P],
     "quantize_sr": [_P, _P, _P, _P, _I, _I, _F, _P],
-    "fused_adagrad": [_P, _P, _P, _P, _LL, _F, _F, _P],
-    "fused_adagrad_q8": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _F, _F,
-                         _P],
+    "fused_adagrad": [_P, _P, _F, _F, _I, _P],
+    "fused_adagrad_q8": [_P, _P, _F, _F, _I, _P],
+    "fused_adagrad_layout": [_P],
     "ring_dequant": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
     "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                             _I, _P],
@@ -69,6 +69,44 @@ _SIGNATURES = {
     "flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _F, _I, _P],
 }
+
+
+# The leaf tables of ``csrc/fused_adagrad.cu`` (K7, K8), passed by value
+# to the kernels; :func:`lib` checks these mirrors against the C layout.
+ADAGRAD_LEAVES = 48        # leaves a launch
+ADAGRAD_CHUNK = 1024       # K7 elements a block
+ADAGRAD_MAX_COLS = 1024    # K8's widest row
+
+
+class K7Leaf(ctypes.Structure):
+    _fields_ = [("g", _P), ("a", _P), ("a_out", _P), ("dst", _P),
+                ("n", _LL), ("flags", _I), ("pad", _I)]
+
+
+class K7Table(ctypes.Structure):
+    _fields_ = [("leaf", K7Leaf * ADAGRAD_LEAVES),
+                ("start", _I * (ADAGRAD_LEAVES + 1)), ("n_leaves", _I)]
+
+
+class K8Leaf(ctypes.Structure):
+    _fields_ = [("g", _P), ("q", _P), ("s", _P), ("q_out", _P),
+                ("s_out", _P), ("noise", _P), ("dst", _P), ("n", _LL),
+                ("C", _I), ("flags", _I)]
+
+
+class K8Table(ctypes.Structure):
+    _fields_ = [("leaf", K8Leaf * ADAGRAD_LEAVES),
+                ("start", _I * (ADAGRAD_LEAVES + 1)), ("n_leaves", _I)]
+
+
+def _check_adagrad_layout(handle) -> None:
+    got = (ctypes.c_longlong * 5)()
+    handle.fused_adagrad_layout(ctypes.addressof(got))
+    want = (ctypes.sizeof(K7Table), ctypes.sizeof(K8Table), ADAGRAD_LEAVES,
+            ADAGRAD_CHUNK, ADAGRAD_MAX_COLS)
+    if tuple(got) != want:
+        raise RuntimeError(f"csrc/fused_adagrad.cu's table layout "
+                           f"{tuple(got)} is not its ctypes mirror's {want}")
 
 
 def reset_launches() -> None:
@@ -156,6 +194,7 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         handle.kernel_error_string.argtypes = [ctypes.c_int]
         handle.kernel_error_string.restype = ctypes.c_char_p
+        _check_adagrad_layout(handle)
         _lib = handle
     return _lib
 
@@ -215,20 +254,15 @@ def launch_quantize_sr(name: str, *, x, u, q, scale, levels: float) -> None:
             _ptr(scale), T, L, levels)
 
 
-def launch_fused_adagrad(name: str, *, grad, accum, upd, accum_out,
-                         lr: float, eps: float) -> None:
-    """Launch K7 of ``csrc/fused_adagrad.cu`` on checked operands."""
-    _launch(name, "fused_adagrad", grad.device, _ptr(grad), _ptr(accum),
-            _ptr(upd), _ptr(accum_out), grad.numel(), lr, eps)
-
-
-def launch_fused_adagrad_q8(name: str, *, grad, q, scale, u, upd, q_out,
-                            scale_out, lr: float, eps: float) -> None:
-    """Launch K8 of ``csrc/fused_adagrad.cu`` on checked operands."""
-    R, C = q.shape
-    _launch(name, "fused_adagrad_q8", grad.device, _ptr(grad), _ptr(q),
-            _ptr(scale), _ptr(u), _ptr(upd), _ptr(q_out), _ptr(scale_out),
-            grad.numel(), R, C, lr, eps)
+def launch_fused_adagrad(name: str, table, *, device, scale, lr: float,
+                         eps: float, apply: bool) -> None:
+    """Launch K7 (``name`` "fused_adagrad", a :class:`K7Table`) or K8
+    ("fused_adagrad_q8", a :class:`K8Table`) of ``csrc/fused_adagrad.cu``
+    over a table of checked leaves; ``scale`` a 0-d fp32 tensor or None;
+    ``apply`` adds the update to each leaf's ``dst`` instead of writing
+    it there."""
+    _launch(name, name, device, ctypes.addressof(table), _ptr(scale), lr,
+            eps, int(apply))
 
 
 def launch_ring_dequant(name: str, *, bits: int, slot, zq, zs, out) -> None:

@@ -142,22 +142,51 @@ def quantize_stochastic(x, u, levels):
 
 
 def fused_adagrad(grad, accum, lr, eps):
-    """Fused AdaGrad step (K7): a' = a + g², u = -lr·g / (√a' + eps).
-    grad: any shape (cast to fp32); accum: fp32 of grad's shape.
-    -> (update fp32, new accumulator fp32)."""
-    return _ag.fused_adagrad(grad.float().contiguous(), accum.contiguous(),
-                             lr, eps)
+    """Fused AdaGrad step on one leaf (K7): a' = a + g², u = -lr·g /
+    (√a' + eps).  grad: any shape, fp32 or bf16; accum: fp32 of grad's
+    shape.  -> (update fp32, new accumulator fp32)."""
+    return _ag.fused_adagrad(grad.contiguous(), accum.contiguous(), lr, eps)
+
+
+def fused_adagrad_list(grads, accums, lr, eps):
+    """K7 over a list of leaves, one launch (per table of leaves): ->
+    (updates fp32, new accumulators in the accumulators' dtype, fp32 or
+    bf16); the inputs are untouched."""
+    return _ag.fused_adagrad_list([g.contiguous() for g in grads], accums,
+                                  lr, eps)
+
+
+def fused_adagrad_step_(grads, accums, params, lr, eps, scale=None):
+    """The in-place K7 step over one party's leaves: accumulators <- a',
+    params <- p + u·scale (``scale`` a 0-d fp32 tensor, or None for 1)."""
+    _ag.fused_adagrad_step_([g.contiguous() for g in grads], accums, params,
+                            lr, eps, scale)
 
 
 def fused_adagrad_q8(grad, accum_q, accum_scale, u, lr, eps):
-    """int8-at-rest AdaGrad step (K8): dequantise → accumulate → scale →
-    requantise in one pass.  grad: fp32 of at most R·C elements (the rest
-    of the (R, C) tiling is the zero pad: no padded copy is made);
-    accum_q: (R, C) int8 sqrt-space codes; accum_scale: (R, 1) fp32;
-    u: (R, C) uniforms.  -> (update fp32 in grad's shape, new codes, new
-    scales)."""
-    return _ag.fused_adagrad_q8(grad.float().contiguous(), accum_q,
-                                accum_scale, u.float().contiguous(), lr, eps)
+    """int8-at-rest AdaGrad step on one leaf (K8): dequantise → accumulate
+    → scale → requantise in one pass.  grad: fp32 or bf16 of at most R·C
+    elements (the rest of the (R, C) tiling is the zero pad: no padded
+    copy is made); accum_q: (R, C) int8 sqrt-space codes; accum_scale:
+    (R, 1) fp32; u: (R, C) uniforms.  -> (update fp32 in grad's shape,
+    new codes, new scales)."""
+    return _ag.fused_adagrad_q8(grad.contiguous(), accum_q, accum_scale,
+                                u.float().contiguous(), lr, eps)
+
+
+def fused_adagrad_q8_list(grads, qs, scales, noises, lr, eps):
+    """K8 over a list of leaves, one launch (per table of leaves): ->
+    (updates fp32, new codes, new scales); the inputs are untouched."""
+    return _ag.fused_adagrad_q8_list([g.contiguous() for g in grads], qs,
+                                     scales, noises, lr, eps)
+
+
+def fused_adagrad_q8_step_(grads, qs, scales, noises, params, lr, eps,
+                           scale=None):
+    """The in-place K8 step over one party's leaves: codes and scales
+    <- q', s', params <- p + u·scale."""
+    _ag.fused_adagrad_q8_step_([g.contiguous() for g in grads], qs, scales,
+                               noises, params, lr, eps, scale)
 
 
 def flash_attention_trainable(q, k, v, *, causal: bool = True,

@@ -104,8 +104,11 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, *,
                     a.add_(g.float())
             loss = loss / microbatches
             grads = [g / microbatches for g in grads]
-        upd, opt_state = opt.update(list(grads), opt_state, leaves)
-        apply_updates(leaves, upd)
+        if opt.step is not None:
+            opt_state = opt.step(list(grads), opt_state, leaves)
+        else:
+            upd, opt_state = opt.update(list(grads), opt_state, leaves)
+            apply_updates(leaves, upd)
         return params, opt_state, loss.detach()
 
     return train_step

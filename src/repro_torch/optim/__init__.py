@@ -1,10 +1,15 @@
 """Optimizers as explicit transforms over lists of tensors.
 
-Port of ``repro/optim/__init__.py``.  ``Optimizer(init, update)``:
+Port of ``repro/optim/__init__.py``.  ``Optimizer(init, update, step)``:
 
   * ``init(params) -> opt_state``
   * ``update(grads, opt_state, params) -> (updates, opt_state)``; updates
-    are ADDED to params by ``apply_updates``.
+    are ADDED to params by ``apply_updates``;
+  * ``step(grads, opt_state, params, scale) -> opt_state``, or None: the
+    same update applied in place, multiplied by ``scale`` (a 0-d tensor,
+    or None for 1) first, with the state updated in place (its tensors
+    keep their storage).  The engine and ``launch/steps.py`` take it
+    where an optimizer has one, else ``update`` + ``apply_updates``.
 
 ``params`` and ``grads`` are matching lists of tensors (a module's
 parameters, which the engine lists in the reference's leaf order).
@@ -15,25 +20,28 @@ picks the bf16 or int8 state of :mod:`.quantized`;
 ``make_optimizer("sm3", ...)`` is the factored accumulator.
 
 ``adagrad(..., use_pallas=True)`` takes the hand-written kernel route:
-each update of each tensor is one launch of the fused AdaGrad kernel (K7,
-``kernels/fused_adagrad.py``) on the card, where the plain arithmetic
-takes six elementwise launches; on the CPU the kernel's plain version
-runs, the same arithmetic.  (The keyword is the reference's, whose kernel
-route was the Pallas kernel.)
+on the card each ``update`` or ``step`` of a list of tensors is one
+launch of the fused AdaGrad kernel (K7, ``kernels/fused_adagrad.py``;
+one per 48 tensors), where the plain arithmetic takes six elementwise
+launches a tensor and ``apply_updates`` two more; ``step`` is AdaGrad's
+in-place step.  On the CPU the kernel's plain version runs, the same
+arithmetic.  (The keyword is the reference's, whose kernel route was the
+Pallas kernel.)
 """
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple
+from typing import Callable, List, NamedTuple, Optional
 
 import torch
 
 from ..kernels import ops as kops
-from ..kernels.fused_adagrad import fused_adagrad_plain
+from ..kernels.fused_adagrad import fused_adagrad_list_plain
 
 
 class Optimizer(NamedTuple):
     init: Callable
     update: Callable
+    step: Optional[Callable] = None
 
 
 def _zeros_like_f32(params):
@@ -54,20 +62,25 @@ def adagrad(lr: float, eps: float = 1e-10, *, use_pallas: bool = False,
         from .quantized import adagrad_quantized
         return adagrad_quantized(lr, eps, state_dtype=state_dtype,
                                  use_pallas=use_pallas, uniforms=uniforms)
-    step = kops.fused_adagrad if use_pallas else fused_adagrad_plain
-
     def init(params):
         return {"accum": _zeros_like_f32(params)}
 
+    updates = kops.fused_adagrad_list if use_pallas \
+        else fused_adagrad_list_plain
+
     def update(grads, state, params=None):
-        upd, acc = [], []
-        for g, a in zip(grads, state["accum"]):
-            u, a_new = step(g, a, lr, eps)
-            upd.append(u)
-            acc.append(a_new)
+        upd, acc = updates(grads, state["accum"], lr, eps)
         return upd, {"accum": acc}
 
-    return Optimizer(init, update)
+    if not use_pallas:
+        return Optimizer(init, update)
+
+    def step(grads, state, params, scale=None):
+        kops.fused_adagrad_step_(grads, state["accum"], params, lr, eps,
+                                 scale)
+        return state
+
+    return Optimizer(init, update, step)
 
 
 def sgd(lr: float, momentum: float = 0.0) -> Optimizer:

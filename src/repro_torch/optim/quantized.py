@@ -4,14 +4,16 @@ SM3-style factored accumulator.
 Port of ``repro/optim/quantized.py``.  Three at-rest options, all keeping
 the fp32 update arithmetic:
 
-  * ``bfloat16`` — the accumulator is stored bf16 and upcast around the
-    fused fp32 step (K7, ``kernels/fused_adagrad.py``);
+  * ``bfloat16`` — the accumulator is stored bf16 and widened around the
+    fused fp32 step (K7, ``kernels/fused_adagrad.py``, which reads and
+    stores the bf16 accumulator itself);
   * ``int8`` — int8 sqrt-space codes in [0, 127] plus one fp32 scale a
     row (accumulator value = (code·scale)²), stored in the reference
     kernel's padded (R, C) tiling (:func:`_tiling`).  The step is K8:
     dequantise, accumulate g², emit the update, re-derive the row scale
-    and requantise with stochastic rounding in one pass, so the fp32
-    accumulator never exists in device memory.  The rounding uniforms come
+    and requantise with stochastic rounding in one pass (one launch for
+    all of a party's leaves), so the fp32 accumulator never exists in
+    device memory.  The rounding uniforms come
     from a uniform source (``core/uniforms.py``) under the tag
     ``("optim", t, i)``: ``t`` is the state's update counter, kept as a
     host int so a tag costs no sync, and ``i`` the leaf's index in the
@@ -36,8 +38,9 @@ import torch
 
 from ..core.uniforms import GeneratorUniforms, optim_key
 from ..kernels import ops as kops
-from ..kernels.fused_adagrad import (BLOCK, ROWS, fused_adagrad_plain,
-                                     fused_adagrad_q8_plain)
+from ..kernels.fused_adagrad import (BLOCK, ROWS, fused_adagrad_list_plain,
+                                     fused_adagrad_plain,
+                                     fused_adagrad_q8_list_plain)
 from . import Optimizer
 
 
@@ -98,23 +101,27 @@ def adagrad_quantized(lr: float, eps: float = 1e-10, *,
                          f"got {state_dtype!r}")
 
     if state_dtype == "bfloat16":
-        step = kops.fused_adagrad if use_pallas else fused_adagrad_plain
-
         def init(params):
             return {"accum": [torch.zeros(p.shape, dtype=torch.bfloat16,
                                           device=p.device) for p in params]}
 
+        updates = kops.fused_adagrad_list if use_pallas \
+            else fused_adagrad_list_plain
+
         def update(grads, state, params=None):
-            upd, acc = [], []
-            for g, a in zip(grads, state["accum"]):
-                u, a_new = step(g, a.float(), lr, eps)
-                upd.append(u)
-                acc.append(a_new.to(torch.bfloat16))
+            upd, acc = updates(grads, state["accum"], lr, eps)
             return upd, {"accum": acc}
 
-        return Optimizer(init, update)
+        if not use_pallas:
+            return Optimizer(init, update)
 
-    step_q8 = kops.fused_adagrad_q8 if use_pallas else fused_adagrad_q8_plain
+        def step(grads, state, params, scale=None):
+            kops.fused_adagrad_step_(grads, state["accum"], params, lr, eps,
+                                     scale)
+            return state
+
+        return Optimizer(init, update, step)
+
     defaults = {}
 
     def source(device):
@@ -127,18 +134,37 @@ def adagrad_quantized(lr: float, eps: float = 1e-10, *,
     def init(params):
         return {"accum": [quant_accum_init(p) for p in params], "t": 0}
 
-    def update(grads, state, params=None):
-        t = state["t"]
-        key = optim_key(source(grads[0].device), t)
-        upd, acc = [], []
-        for i, (g, a) in enumerate(zip(grads, state["accum"])):
-            noise = key.fold(i).uniform(a.q.shape)
-            u, q_new, s_new = step_q8(g, a.q, a.scale, noise, lr, eps)
-            upd.append(u)
-            acc.append(QuantAccum(q_new, s_new, a.shape))
-        return upd, {"accum": acc, "t": t + 1}
+    def noises(grads, state):
+        """One (R, C) tensor of uniforms a leaf, under ``("optim", t,
+        i)``."""
+        key = optim_key(source(grads[0].device), state["t"])
+        return [key.fold(i).uniform(a.q.shape)
+                for i, a in enumerate(state["accum"])]
 
-    return Optimizer(init, update)
+    def qs(state):
+        return ([a.q for a in state["accum"]],
+                [a.scale for a in state["accum"]])
+
+    updates = kops.fused_adagrad_q8_list if use_pallas \
+        else fused_adagrad_q8_list_plain
+
+    def update(grads, state, params=None):
+        upd, q_new, s_new = updates(grads, *qs(state), noises(grads, state),
+                                    lr, eps)
+        acc = [QuantAccum(q, s, a.shape)
+               for q, s, a in zip(q_new, s_new, state["accum"])]
+        return upd, {"accum": acc, "t": state["t"] + 1}
+
+    if not use_pallas:
+        return Optimizer(init, update)
+
+    def step(grads, state, params, scale=None):
+        kops.fused_adagrad_q8_step_(grads, *qs(state), noises(grads, state),
+                                    params, lr, eps, scale)
+        state["t"] += 1
+        return state
+
+    return Optimizer(init, update, step)
 
 
 def sm3(lr: float, eps: float = 1e-10) -> Optimizer:

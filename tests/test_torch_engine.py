@@ -472,16 +472,16 @@ def test_optimizer_state_rounds_match_reference(kind, params):
 
 def test_optimizer_rounds_tolerance_catches_zero_updates(params,
                                                          monkeypatch):
-    """Mutation check of the limits above: an int8 state whose step
-    returns zero updates must fall outside them."""
+    """Mutation check of the limits above: an int8 state whose step moves
+    no parameter (the state still advances) must fall outside them."""
     from repro_torch.kernels import fused_adagrad as fag
-    plain = fag.fused_adagrad_q8
+    plain = fag.fused_adagrad_q8_step_
 
-    def zero_update(*args):
-        u, q, s = plain(*args)
-        return torch.zeros_like(u), q, s
+    def zero_update(grads, qs, scales, noises, params, *args, **kw):
+        plain(grads, qs, scales, noises, [p.clone() for p in params], *args,
+              **kw)
 
-    monkeypatch.setattr(fag, "fused_adagrad_q8", zero_update)
+    monkeypatch.setattr(fag, "fused_adagrad_q8_step_", zero_update)
     want = _jax_two_party_trace("float32", "", 5, *OPT_CASES["int8"])
     dev = golden.compare(_opt_trace("int8", params), want)
     print(dev)
@@ -492,33 +492,86 @@ def test_optimizer_rounds_tolerance_catches_zero_updates(params,
     ("float32", "k7"), ("bfloat16", "k7"), ("int8", "k8")])
 def test_engine_hands_adagrad_kernels_operands_they_take(
         state_dtype, kernel, params, monkeypatch):
-    """With the kernel route every optimizer update of every parameter
-    tensor reaches K7 (fp32, bf16) or K8 (int8) with operands the kernel
-    takes: (1 + R) updates of both parties' tensors a celu round."""
+    """With the kernel route every optimizer update of a party reaches the
+    in-place K7 step (fp32, bf16) or K8 step (int8) once, for all of the
+    party's tensors in the reference's leaf order, with operands the
+    kernel takes: (1 + R) updates of both parties a celu round, the fresh
+    one unscaled and each local one scaled by its draw's valid mask."""
+    from repro_torch.core.engine import _params
     from repro_torch.kernels import fused_adagrad as fag
+    from repro_torch.models.tabular import make_dlrm
     seen = []
 
-    def k7(grad, accum, lr, eps):
-        fag.check_operands(grad, accum)
-        seen.append("k7")
-        return fag.fused_adagrad_plain(grad, accum, lr, eps)
+    def k7(grads, accums, params, lr, eps, scale=None):
+        fag.check_step_operands(grads, accums, params, scale)
+        seen.append(("k7", [tuple(p.shape) for p in params], scale))
+        return fag.fused_adagrad_step_plain(grads, accums, params, lr, eps,
+                                            scale)
 
-    def k8(grad, q, scale, u, lr, eps):
-        fag.check_q8_operands(grad, q, scale, u)
-        seen.append("k8")
-        return fag.fused_adagrad_q8_plain(grad, q, scale, u, lr, eps)
+    def k8(grads, qs, scales, noises, params, lr, eps, scale=None):
+        fag.check_q8_step_operands(grads, qs, scales, noises, params, scale)
+        seen.append(("k8", [tuple(p.shape) for p in params], scale))
+        return fag.fused_adagrad_q8_step_plain(grads, qs, scales, noises,
+                                               params, lr, eps, scale)
 
-    monkeypatch.setattr(fag, "fused_adagrad", k7)
-    monkeypatch.setattr(fag, "fused_adagrad_q8", k8)
+    monkeypatch.setattr(fag, "fused_adagrad_step_", k7)
+    monkeypatch.setattr(fag, "fused_adagrad_q8_step_", k8)
+    rounds, R = 3, 3
+    golden.two_party_trace("celu", params, device="cpu", rounds=rounds,
+                           opt_kw={"use_pallas": True,
+                                   "state_dtype": state_dtype})
+    init_fn, _, _ = make_dlrm(golden.TWO_PARTY_CFG)
+    p = init_fn(0, golden.TWO_PARTY_CFG, "cpu")
+    leaves = [[tuple(t.shape) for t in _params(p[k])] for k in ("a", "b")]
+    assert {k for k, _, _ in seen} == {kernel}
+    assert len(seen) == rounds * (1 + R) * 2
+    # each round: A's and B's fresh updates, then R local updates of each
+    for r in range(rounds):
+        block = seen[r * 2 * (1 + R):(r + 1) * 2 * (1 + R)]
+        assert [shapes for _, shapes, _ in block] == leaves * (1 + R)
+        assert [s is None for _, _, s in block] == [True, True] + [False] * (
+            2 * R)
+        for _, _, s in block[2:]:
+            assert s.dim() == 0 and s.dtype == torch.float32
+            assert float(s) in (0.0, 1.0)
+
+
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16", "int8"])
+def test_adagrad_state_keeps_its_storage_across_rounds(state_dtype, params,
+                                                       monkeypatch):
+    """The in-place step updates the accumulators (codes and scales) where
+    they are: before the first round and after each of three, every state
+    tensor of both parties has the same ``data_ptr``, and the state has
+    moved."""
+    from repro_torch.core import engine
+    make, seen = engine.make_round, []
+
+    def ptrs(state):
+        out = []
+        for st in state["opt"]["a"] + [state["opt"]["b"]]:
+            for e in st["accum"]:
+                out += [e.q, e.scale] if hasattr(e, "q") else [e]
+        return [(t.data_ptr(), t.float().sum().item()) for t in out]
+
+    def recording(*a, **kw):
+        rnd = make(*a, **kw)
+
+        def run(state, *ra, **rkw):
+            if not seen:
+                seen.append(ptrs(state))
+            out = rnd(state, *ra, **rkw)
+            seen.append(ptrs(out[0]))
+            return out
+        return run
+
+    monkeypatch.setattr(engine, "make_round", recording)
     golden.two_party_trace("celu", params, device="cpu", rounds=3,
                            opt_kw={"use_pallas": True,
                                    "state_dtype": state_dtype})
-    from repro_torch.models.tabular import make_dlrm
-    init_fn, _, _ = make_dlrm(golden.TWO_PARTY_CFG)
-    p = init_fn(0, golden.TWO_PARTY_CFG, "cpu")
-    tensors = sum(len(list(p[k].parameters())) for k in ("a", "b"))
-    assert set(seen) == {kernel}
-    assert len(seen) == 3 * (1 + 3) * tensors
+    assert len(seen) == 4
+    for later in seen[1:]:
+        assert [p for p, _ in later] == [p for p, _ in seen[0]]
+    assert [v for _, v in seen[3]] != [v for _, v in seen[0]]
 
 
 def test_engine_lists_parameters_in_reference_leaf_order():

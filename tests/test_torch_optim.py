@@ -22,6 +22,8 @@ byte counts at WDL-Criteo's full width, and ten steps of
 the reference from one bridged state (the int8 state on the reference's
 rounding uniforms).
 """
+import zlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +36,7 @@ from repro.optim import make_optimizer as jmake_optimizer
 from repro.optim import quantized as JQ
 from repro_torch import optim as toptim
 from repro_torch.bridge import load_opt_state
+from repro_torch.kernels import _cuda as toptim_cuda
 from repro_torch.kernels import fused_adagrad as tag
 from repro_torch.kernels import ops as tops
 from repro_torch.optim import OPT_STATE_DTYPES, adagrad, apply_updates
@@ -208,6 +211,306 @@ def test_k8_zero_state_first_step():
     ju, _ = jref.fused_adagrad_ref(jnp.asarray(g), jnp.zeros((8, 64)), 0.1,
                                    EPS)
     assert _rel(tu, ju) <= RTOL
+
+
+# --------------------------------------------------------------------------
+# The list step: one launch for a party's leaves, applied in place
+# --------------------------------------------------------------------------
+def _keyed(tag, shape):
+    """A uniform source keyed by the tag alone (two routes draw alike)."""
+    gen = torch.Generator().manual_seed(zlib.crc32(repr(tag).encode()))
+    return torch.rand(tuple(shape), generator=gen)
+
+
+@pytest.fixture(scope="module")
+def wdl_leaves():
+    """WDL-Criteo's parameter shapes of each party, full width, in the
+    reference's leaf order."""
+    from repro_torch.bridge import reference_parameters
+    from repro_torch.configs import get_config
+    from repro_torch.models.tabular import make_dlrm
+    cfg = get_config("wdl-criteo")
+    params = make_dlrm(cfg)[0](0, cfg, "cpu")
+    return {k: [tuple(p.shape) for p in reference_parameters(params[k])]
+            for k in ("a", "b")}
+
+
+def _leaf_list(shapes, seed, param_dtype):
+    rng = np.random.default_rng(seed)
+    params = [torch.from_numpy(np.asarray(rng.standard_normal(s),
+                                          np.float32)).to(param_dtype)
+              for s in shapes]
+    grads = [[torch.from_numpy(np.asarray(rng.standard_normal(s) * 0.1,
+                                          np.float32)).to(param_dtype)
+              for s in shapes] for _ in range(2)]
+    return params, grads
+
+
+def _parent_route(state_dtype, params, state, grads, scale, lr, t):
+    """The engine's AdaGrad route before the list step, per leaf: the
+    update (``ops.fused_adagrad`` on ``grad.float()``, the bf16 state
+    upcast around it; ``ops.fused_adagrad_q8`` on the noise of
+    ``("optim", t, i)``), then ``u * scale``, then ``p.add_(u)``."""
+    new = []
+    for i, (g, a, p) in enumerate(zip(grads, state["accum"], params)):
+        if state_dtype == "int8":
+            noise = _keyed(("optim", t, i), a.q.shape)
+            u, q, sc = tag.fused_adagrad_q8_plain(g.float().contiguous(),
+                                                  a.q, a.scale, noise, lr,
+                                                  EPS)
+            new.append(TQ.QuantAccum(q, sc, a.shape))
+        else:
+            u, a_new = tag.fused_adagrad_plain(g.float().contiguous(),
+                                               a.float(), lr, EPS)
+            new.append(a_new.to(a.dtype))
+        if scale is not None:
+            u = u * scale
+        with torch.no_grad():
+            p.add_(u)
+    return new
+
+
+def _state_tensors(state):
+    out = []
+    for e in state["accum"]:
+        out += [e.q, e.scale] if isinstance(e, TQ.QuantAccum) else [e]
+    return out
+
+
+@pytest.mark.parametrize("mask", [None, 0.0, 1.0])
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("param_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("party", ["a", "b"])
+def test_list_step_plain_is_bitwise_the_per_leaf_route(
+        party, param_dtype, state_dtype, mask, wdl_leaves):
+    """AdaGrad's in-place ``step`` (the list step's plain version on the
+    CPU) over WDL-Criteo's real leaf lists, two updates, equals the
+    parent's per-leaf route (update, scale, ``apply_updates``) bit for
+    bit: parameters, accumulators, codes and scales."""
+    lr = 0.01
+    opt = adagrad(lr, EPS, use_pallas=True, state_dtype=state_dtype,
+                  uniforms=_keyed)
+    params, grads = _leaf_list(wdl_leaves[party], 7, param_dtype)
+    ref_params = [p.clone() for p in params]
+    state = opt.init(params)
+    ref = {"accum": [TQ.QuantAccum(a.q.clone(), a.scale.clone(), a.shape)
+                     if state_dtype == "int8" else a.clone()
+                     for a in state["accum"]]}
+    scale = None if mask is None else torch.tensor(mask)
+    for t, g in enumerate(grads):
+        out = opt.step(g, state, params, scale)
+        assert out is state
+        ref["accum"] = _parent_route(state_dtype, ref_params, ref, g, scale,
+                                     lr, t)
+    if state_dtype == "int8":
+        assert state["t"] == 2
+    for got, want in zip(params + _state_tensors(state),
+                         ref_params + _state_tensors(ref), strict=True):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("oracle", ["ref", "interpret"])
+def test_k7_list_matches_reference_per_leaf(oracle):
+    """The list kernel's updates and accumulators, leaf by leaf, against
+    JAX's K7 (``ref.py`` and the Pallas kernel in interpret mode) within
+    the one-leaf tolerances; the in-place step moves each parameter by
+    that update."""
+    rng = np.random.default_rng(3)
+    shapes = [(64, 16), (512,), (), (37,), (9, 1031)]
+    g = [np.asarray(rng.standard_normal(s), np.float32) for s in shapes]
+    a = [np.asarray(np.abs(rng.standard_normal(s)), np.float32)
+         for s in shapes]
+    fn = jref.fused_adagrad_ref if oracle == "ref" else jops.fused_adagrad
+    tu, ta = tag.fused_adagrad_list([torch.from_numpy(x) for x in g],
+                                    [torch.from_numpy(x) for x in a], LR,
+                                    EPS)
+    params = [torch.zeros(s) for s in shapes]
+    accums = [torch.from_numpy(x.copy()) for x in a]
+    tag.fused_adagrad_step_([torch.from_numpy(x) for x in g], accums,
+                            params, LR, EPS)
+    for i, s in enumerate(shapes):
+        ju, ja = fn(jnp.asarray(g[i]), jnp.asarray(a[i]), LR, EPS)
+        assert tu[i].shape == s and _rel(tu[i], ju) <= RTOL
+        assert torch.equal(params[i], tu[i])
+        if oracle == "ref":
+            np.testing.assert_array_equal(ta[i].numpy(), np.asarray(ja))
+            np.testing.assert_array_equal(accums[i].numpy(), np.asarray(ja))
+        else:
+            assert _rel(ta[i], ja) <= RTOL
+
+
+@pytest.mark.parametrize("oracle", ["ref", "interpret"])
+def test_k8_list_matches_reference_per_leaf(oracle):
+    """The int8 list kernel, leaf by leaf in each leaf's tiling, against
+    JAX's K8 within the one-leaf tolerances (codes off by one step only
+    where r'/s' + u sits at an integer); the step writes the same codes
+    and scales in place."""
+    rng = np.random.default_rng(4)
+    shapes = [(), (37,), (512,), (26 * 64, 16)]
+    fn = jref.fused_adagrad_q8_ref if oracle == "ref" \
+        else jops.fused_adagrad_q8
+    ins = []
+    for k, shape in enumerate(shapes):
+        g = np.asarray(rng.standard_normal(shape) * 0.1, np.float32)
+        R, C = JQ._tiling(g.size)
+        ins.append((g,) + _q8_inputs(R, C, seed=k)[1:])
+    tu, tq, ts = tag.fused_adagrad_q8_list(
+        *[[torch.from_numpy(x[j]) for x in ins] for j in range(4)], LR, EPS)
+    qs = [torch.from_numpy(x[1].copy()) for x in ins]
+    ss = [torch.from_numpy(x[2].copy()) for x in ins]
+    params = [torch.zeros(s) for s in shapes]
+    tag.fused_adagrad_q8_step_([torch.from_numpy(x[0]) for x in ins], qs,
+                               ss, [torch.from_numpy(x[3]) for x in ins],
+                               params, LR, EPS)
+    for i, (g, q, s, u) in enumerate(ins):
+        R, C = q.shape
+        g2d = JQ._to2d(jnp.asarray(g), R, C)
+        ju, jq, js = fn(g2d, *map(jnp.asarray, (q, s, u)), LR, EPS)
+        want = np.asarray(ju).reshape(-1)[:g.size].reshape(g.shape)
+        assert tu[i].shape == g.shape and _rel(tu[i], want) <= RTOL
+        assert _rel(ts[i], js) <= RTOL
+        _check_codes(tq[i].numpy(), jq, _near_integer(
+            np.asarray(g2d), q, s, u, ts[i].numpy()), f"K8 list leaf {i}")
+        assert torch.equal(qs[i], tq[i]) and torch.equal(ss[i], ts[i])
+        assert torch.equal(params[i], tu[i])
+
+
+def _blocks(table, rows=None):
+    """The kernel's walk over one table, in Python: -> [(leaf, first,
+    last)] element ranges a block, each block finding its leaf by binary
+    search over the prefix sum (K8: the row's elements, ``rows`` giving
+    each leaf's C)."""
+    n, start = table.n_leaves, list(table.start)
+    out = []
+    for b in range(start[n]):
+        lo, hi = 0, n - 1
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            lo, hi = (mid, hi) if start[mid] <= b else (lo, mid - 1)
+        k = b - start[lo]
+        if rows is None:
+            chunk = toptim_cuda.ADAGRAD_CHUNK
+            first = k * chunk
+            out.append((lo, first, min(first + chunk, table.leaf[lo].n)))
+        else:
+            out.append((lo, k * rows[lo], (k + 1) * rows[lo]))
+    return out
+
+
+def _ragged(n_leaves, seed):
+    """Leaves of 1 to 70,000 elements (and about a chunk), every third a
+    view one element into its storage (not 16-byte aligned)."""
+    rng = np.random.default_rng(seed)
+    sizes = [1, 2, 3, 1023, 1024, 1025, 4097] + [
+        int(x) for x in rng.integers(1, 70_000, n_leaves - 7)]
+    return [torch.zeros(n + 1)[1:] if i % 3 == 1 else torch.zeros(n)
+            for i, n in enumerate(sizes)]
+
+
+@pytest.mark.parametrize("which", ["wdl a", "wdl b", "ragged"])
+def test_k7_tables_cover_every_element_once(which, wdl_leaves):
+    """The K7 table builder: each launch holds at most the capacity's
+    leaves in the list's order (a 100-leaf list takes three launches),
+    the blocks cover every element of every leaf exactly once, and only
+    the leaves whose four pointers are all 16-byte aligned take the
+    vector path; bf16 operands are flagged."""
+    cap = toptim_cuda.ADAGRAD_LEAVES
+    if which == "ragged":
+        grads = _ragged(100, 5)
+        params = [torch.zeros(g.shape, dtype=torch.bfloat16) for g in grads]
+    else:
+        grads = [torch.zeros(s) for s in wdl_leaves[which[-1]]]
+        params = [torch.zeros(s) for s in wdl_leaves[which[-1]]]
+    accums = [torch.zeros(g.shape) for g in grads]
+    tables = tag.k7_tables(grads, accums, accums, params)
+    assert len(tables) == -(-len(grads) // cap)
+    assert [t.n_leaves for t in tables] == [
+        min(cap, len(grads) - i * cap) for i in range(len(tables))]
+    seen = [np.zeros(g.numel(), np.int64) for g in grads]
+    for j, t in enumerate(tables):
+        for k in range(t.n_leaves):
+            i = j * cap + k
+            e = t.leaf[k]
+            assert (e.g, e.a, e.a_out, e.dst, e.n) == (
+                grads[i].data_ptr(), accums[i].data_ptr(),
+                accums[i].data_ptr(), params[i].data_ptr(), grads[i].numel())
+            aligned = all(x.data_ptr() % 16 == 0
+                          for x in (grads[i], accums[i], params[i]))
+            assert bool(e.flags & tag.ALIGNED) == aligned
+            assert bool(e.flags & tag.DST_BF16) == (
+                params[i].dtype == torch.bfloat16)
+            assert not e.flags & (tag.GRAD_BF16 | tag.ACCUM_BF16)
+        for k, lo, hi in _blocks(t):
+            seen[j * cap + k][lo:hi] += 1
+    assert all((s == 1).all() for s in seen)
+    if which == "ragged":
+        flags = [t.leaf[k].flags & tag.ALIGNED for t in tables
+                 for k in range(t.n_leaves)]
+        assert 0 < sum(map(bool, flags)) < len(flags)
+
+
+@pytest.mark.parametrize("which", ["wdl a", "wdl b", "ragged"])
+def test_k8_tables_cover_every_row_once(which, wdl_leaves):
+    """The K8 table builder: leaves in the list's order, at most the
+    capacity a launch, one block for every row of every leaf's tiling,
+    exactly once; the gradient's element count and the row width as the
+    tiling says."""
+    cap = toptim_cuda.ADAGRAD_LEAVES
+    if which == "ragged":
+        grads = _ragged(100, 6)
+    else:
+        grads = [torch.zeros(s) for s in wdl_leaves[which[-1]]]
+    accs = [TQ.quant_accum_init(g) for g in grads]
+    qs, ss = [a.q for a in accs], [a.scale for a in accs]
+    noises = [torch.zeros(q.shape) for q in qs]
+    params = [torch.zeros(g.shape) for g in grads]
+    tables = tag.k8_tables(grads, qs, ss, qs, ss, noises, params)
+    assert len(tables) == -(-len(grads) // cap)
+    seen = [np.zeros(q.numel(), np.int64) for q in qs]
+    for j, t in enumerate(tables):
+        for k in range(t.n_leaves):
+            i = j * cap + k
+            e = t.leaf[k]
+            assert (e.g, e.q, e.s, e.noise, e.dst) == (
+                grads[i].data_ptr(), qs[i].data_ptr(), ss[i].data_ptr(),
+                noises[i].data_ptr(), params[i].data_ptr())
+            assert (e.n, e.C) == (grads[i].numel(), qs[i].shape[1])
+            assert e.C <= toptim_cuda.ADAGRAD_MAX_COLS
+        widths = [t.leaf[k].C for k in range(t.n_leaves)]
+        for k, lo, hi in _blocks(t, widths):
+            seen[j * cap + k][lo:hi] += 1
+    assert all((s == 1).all() for s in seen)
+
+
+def test_tables_fit_the_kernel_parameter_limit():
+    """A table travels by value as a kernel parameter: with the launch's
+    other parameters it stays under the classic 4 KB limit."""
+    import ctypes
+    for table in (toptim_cuda.K7Table, toptim_cuda.K8Table):
+        assert ctypes.sizeof(table) + 32 <= 4096
+    assert toptim_cuda.ADAGRAD_LEAVES >= 20     # a WDL party in one launch
+
+
+def test_step_operand_checks():
+    g = [torch.zeros(4, 8), torch.zeros(3)]
+    a = [torch.zeros(4, 8), torch.zeros(3, dtype=torch.bfloat16)]
+    p = [torch.zeros(4, 8, dtype=torch.bfloat16), torch.zeros(3)]
+    tag.check_step_operands(g, a, p, torch.tensor(1.0))
+    with pytest.raises(ValueError, match="parameter must be"):
+        tag.check_step_operands(g, a, [p[0], torch.zeros(4)])
+    with pytest.raises(ValueError, match="parameters"):
+        tag.check_step_operands(g, a, p[:1])
+    with pytest.raises(ValueError, match="scale must be"):
+        tag.check_step_operands(g, a, p, torch.ones(1))
+    with pytest.raises(ValueError, match="accum must be"):
+        tag.check_step_operands(g, [a[0], torch.zeros(3).double()], p)
+    accs = [TQ.quant_accum_init(x) for x in g]
+    noises = [torch.zeros(x.q.shape) for x in accs]
+    tag.check_q8_step_operands(g, [x.q for x in accs],
+                               [x.scale for x in accs], noises, p)
+    with pytest.raises(ValueError, match="unequal length"):
+        tag.check_q8_step_operands(g, [x.q for x in accs],
+                                   [x.scale for x in accs], noises[:1], p)
 
 
 # --------------------------------------------------------------------------
