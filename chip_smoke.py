@@ -39,7 +39,20 @@ Phases, each on its own printed lines (any failure exits non-zero):
      the latter beside a mutation run with zeroed updates); ms per round
      and per local step, and for the four AdaGrad routes in turns, each
      route's kernels and busy ms per round from the profiler;
-  6. the serving kernels against their plain versions: K6 and K11
+  6. the pipelined scheduler (``engine.make_pipeline``): the goldens at
+     depth 0 on the card, within the tests' tolerance and bitwise the
+     port's ``make_round``; WDL-Criteo at full width through
+     ``train_dlrm`` at ``--pipeline-depth`` 1, 2 and 4 (50 rounds; K1 and
+     K7 launches against the counts derived from the schedule,
+     ``_pipeline_schedule``), uniform sampling at depth 2 and DP
+     (sigma 0.5) over the int8 wire (K3), each also five rounds on the
+     card against the CPU; ms per round on the host clock (depths 0, 1,
+     2 in turns), device busy ms per round (profiler), the simulated WAN
+     seconds against the sequential charge and the AUC; smollm-360m at
+     full width through ``train_llm`` at depth 1 (3 rounds; K9-LSE, K10,
+     K9, K1 and K7 launches derived by ``_llm_launches``), its losses,
+     ms per round, busy ms per round and peak memory;
+  7. the serving kernels against their plain versions: K6 and K11
      bitwise at the serving shape (W = 4 ring slots, C = 8 lanes,
      F = 960) and at a wide ring, K9 at the long-prompt shape
      (1, 4096, 15, 64) bf16, causal, with a window of 1,024, at head
@@ -50,7 +63,7 @@ Phases, each on its own printed lines (any failure exits non-zero):
      products of its work and of the three it issues, and the
      tensor-core instructions in the SASS of its bf16 kernel (none
      fails);
-  7. the serving path: ``repro_torch.launch.serve`` at smollm-360m's
+  8. the serving path: ``repro_torch.launch.serve`` at smollm-360m's
      full width (32 requests, 8 lanes, prompt 16, gen 16, closed burst)
      with the int8 ring and wire (K6 on every ring read; two runs, equal
      tokens and bitwise equal logits), the int4 ring (K11), the fp32
@@ -60,7 +73,7 @@ Phases, each on its own printed lines (any failure exits non-zero):
      every attention layer of each prefill, the prefill's logits held
      against the same prefill through the plain attention); launches
      and ms per decode step;
-  8. the training kernels against their plain versions: K9-LSE (the
+  9. the training kernels against their plain versions: K9-LSE (the
      forward with the row log-sum-exp) and K10's dkv and dq kernels at
      (1, 4096, 15, 64) bf16, causal, with a window of 1,024, at head dim
      128 and in fp32, at the training phase's (2, 4096, 15, 64) in bf16
@@ -81,7 +94,7 @@ Phases, each on its own printed lines (any failure exits non-zero):
      LLM cut tensor (2, 2, 3,932,160) and a wide ragged row (2, 3,
      1,000,003), full and weights-only, against its plain version,
      bitwise the same on a second run, timed beside its bound;
-  9. the LLM training path: ``repro_torch.launch.train`` at smollm-360m's
+ 10. the LLM training path: ``repro_torch.launch.train`` at smollm-360m's
      full width (B = 2, S = 4,096, R = W = 2, 3 celu rounds, fp32 cache,
      AdaGrad through K7, remat on) with the exact launch counts of
      K9-LSE, K10, K9, K1 and K7 derived from the code, each round's loss,
@@ -91,12 +104,12 @@ Phases, each on its own printed lines (any failure exits non-zero):
      ``launch/steps.py`` train step at B = 1, S = 4,096 through
      K9-LSE / K10 against the same step through the plain attention,
      loss and every gradient leaf held to a limit;
- 10. the reduced smollm-360m (head dim 32) past 2,048 tokens: two celu
+ 11. the reduced smollm-360m (head dim 32) past 2,048 tokens: two celu
      rounds of ``train_llm`` at B = 2, S = 3,072 and a train step, each
      against the same run through the plain attention, and the serving
      engine on 3,072-token prompts, the prefill's logits against the
      plain attention's;
- 11. a JSON line of per-kernel results, then the last line
+ 12. a JSON line of per-kernel results, then the last line
      ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
@@ -105,6 +118,7 @@ when it is not run from a checkout of the repository.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -295,6 +309,9 @@ LLM_GATE_TOL = 1e-4
 # the training phase: smollm-360m at full width
 TRAIN_ARGS = {"batch_size": 2, "seq_len": 4096, "R": 2, "W": 2}
 TRAIN_ROUNDS = 3
+# the pipeline phase's DP run: noise at sigma · clip on clipped rows
+DP_SIGMA = 0.5
+DP_CLIP = 1.0
 # The full-width train step through K9-LSE / K10 against the same step
 # through the plain attention on the card (B = 1, S = 4,096): both round
 # each layer's attention output and its gradients to bf16, so one-ulp
@@ -1145,12 +1162,19 @@ def _want(label, counts, **want):
 def _cpu_vs_cuda(label, gpu, cpu, rtol):
     """-> the largest relative loss deviation over rounds 2-5, checked
     against ``rtol`` unless ``rtol`` is None (a mutation run, which the
-    caller holds to the other side of the limit)."""
+    caller holds to the other side of the limit).  A deep pipeline's
+    warm-up rounds report a NaN loss: they must do so on both devices,
+    and are not compared."""
     check([g[0] for g in gpu["history"]] == [2, 3, 4, 5]
           and [c[0] for c in cpu["history"]] == [2, 3, 4, 5],
           f"{label} cuda vs cpu: rounds 2-5 not all recorded")
+    warm = [math.isnan(c[1]) for c in cpu["history"]]
+    check([math.isnan(g[1]) for g in gpu["history"]] == warm
+          and not all(warm), f"{label} cuda vs cpu: NaN losses on rounds "
+          f"{gpu['history']} against {cpu['history']}")
     devs = [abs(g[1] - c[1]) / abs(c[1])
-            for g, c in zip(gpu["history"], cpu["history"])]
+            for g, c in zip(gpu["history"], cpu["history"])
+            if not math.isnan(c[1])]
     print(f"[main] {label}, 5 full-width rounds cuda vs cpu: loss rel dev "
           f"per round 2-5 {[float(f'{d:.3g}') for d in devs]} (tolerance "
           f"{rtol})", flush=True)
@@ -1350,6 +1374,274 @@ def phase_main_path(torch, card):
             print(f"[time]   {e.self_device_time_total / 1e3 / rounds:8.3f} "
                   f"ms per round  {e.count / rounds:6.1f} calls  "
                   f"{e.key[:70]}")
+    return counts
+
+
+def _depth0_goldens(torch):
+    """The goldens at depth 0 through ``engine.make_pipeline``: within the
+    tests' tolerance, and bitwise the port's ``make_round`` on the card."""
+    from repro_torch import golden
+    params = golden.load_params(GOLDEN_DIR)
+    two = golden.load_golden(GOLDEN_DIR, "two_party_trace.json")
+    three = golden.load_golden(GOLDEN_DIR, "three_party_trace.json")["celu"]
+    runs = [(f"two-party {p}", two[p],
+             lambda depth, p=p: golden.two_party_trace(
+                 p, params, device="cuda", depth=depth))
+            for p in ("vanilla", "fedbcd", "celu")]
+    runs.append(("three-party celu", three,
+                 lambda depth: golden.three_party_trace(
+                     params, device="cuda", depth=depth)))
+    for label, want, trace in runs:
+        got = trace(0)
+        dev = golden.compare(got, want)
+        same = got == trace(None)
+        print(f"[pipeline] golden {label} through make_pipeline at depth 0 "
+              f"on the card: {dev}; bitwise make_round: {same}", flush=True)
+        check(golden.within_tolerance(dev), f"depth-0 golden {label} {dev}")
+        check(same, f"depth-0 golden {label}: the pipeline's rows differ "
+              f"from make_round's")
+
+
+def _pipeline_run(label, args, depth, n_adagrad, want=None, **kw):
+    """``train_dlrm(args, **kw)`` at ``depth`` with the counts set to 0
+    just before: the derived K1 / K7 counts, and no other kernel unless
+    ``want`` names it.  -> (result, counts)."""
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.train import train_dlrm
+    want = dict(_wdl_launches(depth, args.rounds, n_adagrad), **(want or {}))
+    _cuda.reset_launches()
+    out = train_dlrm(args, **kw)
+    counts = dict(_cuda.LAUNCHES)
+    print(f"[pipeline] {label}: launches {counts}", flush=True)
+    check(out["pipeline_depth"] == depth, f"{label}: ran at depth "
+          f"{out['pipeline_depth']}")
+    check(math.isfinite(out["final_loss"]), f"{label}: loss not finite")
+    _want(label, counts, **want)
+    return out, counts
+
+
+@contextlib.contextmanager
+def _profiled_steps(torch, start: int = 2):
+    """Profile the training CLI's rounds from step ``start`` to its last
+    (evaluation included; set-up, the earlier rounds and the pipeline's
+    drain left out): ``launch.train.make_schedule`` is wrapped so that the
+    profiler starts before step ``start`` and stops before the finish.
+    Yields the profiler."""
+    from unittest import mock
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import train as T
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    make = T.make_schedule
+
+    def profiled(*a, **kw):
+        sched, calls = make(*a, **kw), [0]
+
+        def step(*sa, **skw):
+            calls[0] += 1
+            if calls[0] == start:
+                torch.cuda.synchronize()
+                prof.start()
+            return sched.step(*sa, **skw)
+
+        def finish(state):
+            torch.cuda.synchronize()
+            prof.stop()
+            return sched.finish(state)
+        return sched._replace(step=step, finish=finish)
+    with mock.patch.object(T, "make_schedule", profiled):
+        yield prof
+
+
+def _kernels(torch, prof) -> list:
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _busy_ms_per_round(torch, args):
+    """-> (device busy ms per round, kernels per round) of ``train_dlrm``'s
+    rounds 2 on (evaluation included) under the profiler."""
+    from repro_torch.launch.train import train_dlrm
+    with _profiled_steps(torch) as prof:
+        train_dlrm(args)
+    kernels = _kernels(torch, prof)
+    rounds = args.rounds - 1
+    return (sum(e.device_time_total for e in kernels) / 1e3 / rounds,
+            len(kernels) / rounds)
+
+
+def phase_pipeline(torch, card):
+    """The pipelined scheduler (``engine.PipelinedEngine``): the goldens at
+    depth 0; WDL-Criteo at full width through ``train_dlrm`` at depths 1,
+    2 and 4, uniform sampling at depth 2 and DP over the int8 wire (K3),
+    each run's launches against the counts derived from the schedule and
+    its first rounds against the CPU; ms per round (host clock and busy)
+    at depths 0, 1 and 2; smollm-360m at full width through ``train_llm``
+    at depth 1.  -> the kernels' launches over the phase's runs."""
+    from repro_torch.core.uniforms import GeneratorUniforms
+    from repro_torch.launch.train import celu_config, train_dlrm
+
+    _depth0_goldens(torch)
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    n_wdl = 2            # one K7 launch a party update (7 and 13 tensors)
+    rounds = 50
+    runs = {}
+    for depth in (1, 2, 4):
+        args = train_args("wdl-criteo", rounds=rounds, pipeline_depth=depth)
+        runs[depth], c = _pipeline_run(
+            f"wdl-criteo celu --pipeline-depth {depth}, {rounds} rounds",
+            args, depth, n_wdl)
+        check(_adagrad_launches(_party_tensors(runs[depth])) == n_wdl,
+              "wdl-criteo: one K7 launch a party update")
+        add(c)
+        # the first rounds on the card against the CPU
+        gpu5 = train_dlrm(train_args("wdl-criteo", rounds=5,
+                                     pipeline_depth=depth))
+        cpu5 = train_dlrm(train_args("wdl-criteo", rounds=5, device="cpu",
+                                     pipeline_depth=depth))
+        _cpu_vs_cuda(f"--pipeline-depth {depth}", gpu5, cpu5, CPU_CUDA_RTOL)
+
+    # uniform sampling at depth 2: no CLI flag (nor the reference's), so
+    # the CELUConfig goes to train_dlrm; the draws' uniforms come from the
+    # CPU on both devices
+    def uniform(device, rounds):
+        args = train_args("wdl-criteo", rounds=rounds, device=device,
+                          pipeline_depth=2)
+        celu = dataclasses.replace(celu_config(args), sampling="uniform")
+        return args, dict(celu=celu, uniforms=GeneratorUniforms(
+            0, device or "cuda", "cpu"))
+    args, kw = uniform(None, rounds)
+    out, c = _pipeline_run(f"wdl-criteo celu uniform sampling "
+                           f"--pipeline-depth 2, {rounds} rounds", args, 2,
+                           n_wdl, **kw)
+    add(c)
+    print(f"[pipeline] uniform sampling at depth 2: AUC "
+          f"{out['final_auc']:.4f} (round-robin {runs[2]['final_auc']:.4f})",
+          flush=True)
+    gpu5, cpu5 = (train_dlrm(a, **k) for a, k in (uniform(None, 5),
+                                                  uniform("cpu", 5)))
+    _cpu_vs_cuda("uniform sampling, --pipeline-depth 2", gpu5, cpu5,
+                 CPU_CUDA_RTOL)
+
+    # DP over the int8 wire (K3 on the uplink Z and the downlink ∇Z), the
+    # noise drawn on the CPU on both devices
+    def dp(device, rounds):
+        args = train_args("wdl-criteo", rounds=rounds, device=device,
+                          compression="int8")
+        celu = dataclasses.replace(celu_config(args), dp_sigma=DP_SIGMA,
+                                   dp_clip=DP_CLIP)
+        return args, dict(celu=celu, uniforms=GeneratorUniforms(
+            0, device or "cuda", "cpu"))
+    args, kw = dp(None, rounds)
+    out, c = _pipeline_run(f"wdl-criteo celu --compression int8, DP sigma "
+                           f"{DP_SIGMA} clip {DP_CLIP}, {rounds} rounds",
+                           args, 0, n_wdl,
+                           want={"quantize_sr_2d": 2 * rounds}, **kw)
+    add(c)
+    print(f"[pipeline] DP sigma {DP_SIGMA} over the int8 wire: AUC "
+          f"{out['final_auc']:.4f}", flush=True)
+    gpu5, cpu5 = (train_dlrm(a, **k) for a, k in (dp(None, 5),
+                                                  dp("cpu", 5)))
+    _cpu_vs_cuda(f"DP sigma {DP_SIGMA} over the int8 wire", gpu5, cpu5,
+                 QUANT_CPU_CUDA_RTOL)
+
+    # time: depths 0, 1, 2 in turns (host clock), then the card's busy
+    # time per round from a profiled run of each
+    times = {d: [] for d in (0, 1, 2)}
+    for depth in (0, 1, 2, 2, 1, 0):
+        out = train_dlrm(train_args("wdl-criteo", rounds=20,
+                                    pipeline_depth=depth))
+        times[depth].append(out)
+    for depth, outs in times.items():
+        busy, n = _busy_ms_per_round(torch, train_args(
+            "wdl-criteo", rounds=20, pipeline_depth=depth))
+        o = outs[0]
+        host = " and ".join(f"{x['steady_round_ms']:.3f}" for x in outs)
+        flush = " and ".join(f"{x['flush_ms']:.3f}" for x in outs)
+        print(f"[time] wdl-criteo full width B=256 R=W=5 celu "
+              f"--pipeline-depth {depth}: {host} ms per round (host clock, "
+              f"rounds 2-20 of two runs in turns; the drain {flush} ms); "
+              f"device busy {busy:.3f} ms per round over rounds 2-20 "
+              f"({n:.0f} kernels per round, evaluation included); "
+              f"simulated WAN {o['sim_wan_s']:.3f} s "
+              f"against {o['sim_wan_sequential_s']:.3f} s sequential "
+              f"({o['sim_wan_sequential_s'] / o['sim_wan_s']:.3f}x); AUC "
+              f"{o['final_auc']:.4f} after 20 rounds; card {card}",
+              flush=True)
+    for depth in (1, 2, 4):
+        o = runs[depth]
+        print(f"[time] wdl-criteo --pipeline-depth {depth}, {rounds} rounds: "
+              f"{o['steady_round_ms']:.3f} ms per round (host clock), "
+              f"simulated WAN {o['sim_wan_s']:.3f} s against "
+              f"{o['sim_wan_sequential_s']:.3f} s sequential, AUC "
+              f"{o['final_auc']:.4f}; card {card}", flush=True)
+    add(_llm_at_depth1(torch, card))
+    return counts
+
+
+def _llm_at_depth1(torch, card):
+    """smollm-360m at full width through ``train_llm`` at depth 1: the
+    derived launches, finite losses, ms per round, busy ms per round
+    (rounds 2-3, profiled) and the peak memory.  -> the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch import train as T
+
+    cfg = get_config("smollm-360m")
+    args = train_args("smollm-360m", rounds=TRAIN_ROUNDS, pipeline_depth=1,
+                      **TRAIN_ARGS)
+    params = T.llm_params(cfg, args.seed, "cuda")
+    n_tensors = [len(list(p.parameters())) for p in params.values()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    out = T.train_llm(args, params=params)
+    torch.cuda.synchronize()
+    counts = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = _llm_launches(cfg, args.R, TRAIN_ROUNDS, args.remat, n_tensors,
+                         depth=1)
+    print(f"[pipeline] {cfg.name} full width, B={args.batch_size} "
+          f"S={args.seq_len} R={args.R} W={args.W} celu "
+          f"--pipeline-depth 1, {TRAIN_ROUNDS} rounds, remat on: launches "
+          f"{counts} (derived {want})", flush=True)
+    _want("smollm-360m at depth 1", counts, **want)
+    losses = out["losses"]
+    check(out["pipeline_depth"] == 1
+          and all(math.isfinite(x) for x in losses)
+          and abs(losses[0] - math.log(cfg.vocab_size)) < 1.0,
+          f"depth-1 training losses {losses}")
+    ms = [1e3 * t for t in out["round_s"]]
+    print(f"[pipeline] losses per round {losses}; ms per round "
+          f"{[round(x, 3) for x in ms]} (rounds 2-{TRAIN_ROUNDS}: "
+          f"{sum(ms[1:]) / len(ms[1:]):.3f} ms), the flush "
+          f"{1e3 * out['flush_s']:.3f} ms; peak device memory {peak:,} B "
+          f"(torch.cuda.max_memory_allocated); card {card}", flush=True)
+    del out
+
+    # busy time of rounds 2-3 (the drain left out)
+    with _profiled_steps(torch) as prof:
+        prof_out = T.train_llm(train_args(
+            "smollm-360m", rounds=TRAIN_ROUNDS, pipeline_depth=1,
+            **TRAIN_ARGS), params=params)
+    rounds = TRAIN_ROUNDS - 1
+    wall = sum(prof_out["round_s"][1:])
+    kernels = _kernels(torch, prof)
+    busy = sum(e.device_time_total for e in kernels) / 1e3 / rounds
+    print(f"[pipeline] {cfg.name} depth 1, rounds 2-{TRAIN_ROUNDS} of a "
+          f"second run profiled: device busy {busy:.3f} ms per round in "
+          f"{len(kernels) / rounds:.0f} kernels, ms per round on the host "
+          f"clock under the profiler "
+          f"{[round(1e3 * t, 3) for t in prof_out['round_s']]} "
+          f"({100 * busy * rounds / (1e3 * wall):.1f} % busy over rounds "
+          f"2-{TRAIN_ROUNDS}); card {card}", flush=True)
+    del prof, prof_out, params
     return counts
 
 
@@ -2303,11 +2595,49 @@ def _gate_at_llm_width(torch):
                4 * B * F + 2 * B * F + 4 * B + 4, 6 * B * F, iters=10)
 
 
-def _llm_launches(cfg, R: int, rounds: int, remat: bool, party_tensors):
+def _pipeline_schedule(depth: int, rounds: int):
+    """-> (local scans, merges) of ``rounds`` steps of
+    ``engine.PipelinedEngine`` at ``depth`` and its flush, following its
+    ``step`` and ``flush``: depth 0 merges, then scans; depth 1 scans,
+    then merges, and the flush scans once more; depth D >= 2 scans and
+    merges the oldest exchange once D are in flight, and the flush scans
+    and merges until none is, then scans once more.  Every step
+    dispatches one exchange; depth 0 (and ``make_round``) is ``rounds``
+    of each."""
+    scans = merges = pending = 0
+    for _ in range(rounds):
+        pending += 1
+        scans += 1
+        if depth <= 1 or pending == depth:
+            merges += 1
+            pending -= 1
+    if depth == 1:
+        scans += 1
+    elif depth >= 2:
+        scans += pending + 1
+        merges += pending
+    return scans, merges
+
+
+def _wdl_launches(depth: int, rounds: int, n_adagrad: int) -> dict:
+    """K1 and K7 launches of ``rounds`` WDL celu rounds (one feature
+    party, R local updates a scan) at ``depth``: K1 once per local update
+    of each party (Party B's weights-only), K7 ``n_adagrad`` launches for
+    each update of both parties (``_adagrad_launches``), R a scan and one
+    a merge."""
+    scans, merges = _pipeline_schedule(depth, rounds)
+    return {"fused_sample_2d": 2 * R * scans,
+            "fused_adagrad": (R * scans + merges) * n_adagrad}
+
+
+def _llm_launches(cfg, R: int, rounds: int, remat: bool, party_tensors,
+                  depth: int = 0):
     """The kernels' launches over ``rounds`` celu rounds of the LLM
-    split, derived from the engine's code.  Layers: Party A's La, Party
-    B's Lb (bottom) and Lt (top).  Each forward through a layer runs
-    K9-LSE once, each backward K10 (dkv and dq) once, and with remat each
+    split at pipeline depth ``depth``, derived from the engine's code:
+    ``rounds`` exchanges, and the local scans and merges of
+    :func:`_pipeline_schedule`.  Layers: Party A's La, Party B's Lb
+    (bottom) and Lt (top).  Each forward through a layer runs K9-LSE
+    once, each backward K10 (dkv and dq) once, and with remat each
     backward first recomputes the layer's forward (K9-LSE again):
 
       * exchange: A's and B's forwards; B's backward through all its
@@ -2318,8 +2648,8 @@ def _llm_launches(cfg, R: int, rounds: int, remat: bool, party_tensors):
         (weights only), then the weighted pass, whose backward reaches
         all of B's layers;
       * ``init_state`` runs A's forward once without a gradient (K9);
-      * each of the 1 + R updates of a party is one K7 launch per table
-        of its ``party_tensors``.
+      * each update of a party (R a scan, one a merge) is one K7 launch
+        per table of its ``party_tensors``.
     """
     La = cfg.vfl_split.layers_a
     Lb, Lt = cfg.vfl_split.layers_b, cfg.vfl_split.layers_top
@@ -2329,11 +2659,12 @@ def _llm_launches(cfg, R: int, rounds: int, remat: bool, party_tensors):
     loc_fwd = (La * (1 + rec) + (Lb + Lt) + rec * Lt
                + (Lb + Lt) * (1 + rec))
     loc_bwd = La + Lt + (Lb + Lt)
-    k10 = rounds * (ex_bwd + R * loc_bwd)
-    return {"flash_attention_fwd_lse": rounds * (ex_fwd + R * loc_fwd),
+    scans, merges = _pipeline_schedule(depth, rounds)
+    k10 = rounds * ex_bwd + scans * R * loc_bwd
+    return {"flash_attention_fwd_lse": rounds * ex_fwd + scans * R * loc_fwd,
             "flash_attention_bwd_dkv": k10, "flash_attention_bwd_dq": k10,
-            "flash_attention": La, "fused_sample_2d": rounds * R * 2,
-            "fused_adagrad": rounds * (1 + R)
+            "flash_attention": La, "fused_sample_2d": scans * R * 2,
+            "fused_adagrad": (scans * R + merges)
             * _adagrad_launches(party_tensors)}
 
 
@@ -2661,8 +2992,11 @@ def main() -> None:
     t0 = time.perf_counter()
     counts = phase_main_path(torch, card)
     print(f"[phase] main path {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    pipeline_counts = phase_pipeline(torch, card)
+    print(f"[phase] pipeline {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 6.-7. serving
+    # 7.-8. serving
     t0 = time.perf_counter()
     kernels.update(phase_serve_kernels(torch))
     print(f"[phase] serving kernels {time.perf_counter() - t0:.1f} s",
@@ -2671,7 +3005,7 @@ def main() -> None:
     counts.update(phase_serving(torch, card))
     print(f"[phase] serving {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 8.-9. training
+    # 9.-10. training
     t0 = time.perf_counter()
     kernels.update(phase_train_kernels(torch))
     print(f"[phase] training kernels {time.perf_counter() - t0:.1f} s",
@@ -2680,13 +3014,15 @@ def main() -> None:
     counts.update(phase_training(torch, card))
     print(f"[phase] training {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 10. the reduced model
+    # 11. the reduced model
     t0 = time.perf_counter()
     phase_reduced(torch, card)
     print(f"[phase] reduced model {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    # 11. results
+    # 12. results: each kernel's launches over every path that ran it
+    for k, v in pipeline_counts.items():
+        counts[k] = counts.get(k, 0) + v
     rows = []
     for name, (replaces, source) in KERNELS.items():
         r = kernels[name]

@@ -1,7 +1,7 @@
-"""The K-party CELU-VFL round engine (paper Algorithms 1-2), sequential
-schedule.
+"""The K-party CELU-VFL round engine (paper Algorithms 1-2): the
+sequential round and the pipelined scheduler.
 
-Port of the sequential half of ``repro/core/engine.py``.  A *round*
+Port of ``repro/core/engine.py`` (less the pod transport).  A *round*
 exchanges ⟨Z_i, ∇Z_i⟩ once for every feature party A_i, applies the fresh
 update to all parties, inserts the released statistics into each party's
 workset ring, then runs ``R`` staleness-weighted local updates per party
@@ -39,9 +39,15 @@ How the JAX engine maps onto PyTorch:
     source (``core/uniforms.py``) under tags that name the reference's
     key chain.  The state keeps the round number as a host int
     (``state["round"]``) for the tags, so drawing costs no host sync.
+  * The pipelined scheduler (:class:`PipelinedEngine`) runs the same
+    stages eagerly on one stream: a per-slot staleness is a host int
+    (the queue's length, an exchange's age), so the schedule never reads
+    the card.
+  * DP on the wire (``celu.dp_sigma > 0``) draws its Gaussian noise from
+    the send's key through the uniform source (``core/privacy.py``).
 
-The pipelined scheduler, DP and the chaos engine's ``recover_dropped``
-are later slices of the port (ROADMAP.md) and raise here.
+The chaos engine's ``recover_dropped`` is a later slice of the port
+(ROADMAP.md) and raises here.
 """
 from __future__ import annotations
 
@@ -53,12 +59,13 @@ import numpy as np
 import torch
 
 from ..bridge import reference_parameters
-from ..configs.base import CELUConfig
+from ..configs.base import CELUConfig, validate_pipeline_depth
 from ..kernels import ops as kops
 from ..optim import Optimizer, apply_updates
 from .compression import IdentityCodec, make_codec_pair
-from .uniforms import GeneratorUniforms, insert_key, wire_key
-from .weighting import xi_to_cos
+from .privacy import DPConfig, clip_rows, privatize, wire_noise
+from .uniforms import GeneratorUniforms, draw_key, insert_key, wire_key
+from .weighting import pipeline_attenuation, xi_to_cos
 from .workset import (CastLeaf, Quant4Leaf, QuantLeaf, decode_entry,
                       take_slot, tree_map, workset_draw, workset_entry,
                       workset_init, workset_insert)
@@ -105,15 +112,13 @@ _WIRE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 class SimWANTransport:
     """In-process slow link: each released message is round-tripped
-    through the wire dtype (simulating quantised transmission); byte
-    accounting follows the wire precision.  The wire value is what both
-    sides see and what gets cached."""
+    through the wire dtype (simulating quantised transmission) after
+    optional DP noising (``celu.dp_sigma > 0``: per-row L2 clip at
+    ``celu.dp_clip``, then Gaussian noise, ``core/privacy.py``); byte
+    accounting follows the wire precision.  The noised wire value is what
+    both sides see and what gets cached."""
 
     def __init__(self, celu: CELUConfig):
-        if celu.dp_sigma > 0.0:
-            raise NotImplementedError(
-                "DP on the wire (dp_sigma > 0) comes with slice 3b of the "
-                "port (ROADMAP.md)")
         if celu.wire_dtype not in _WIRE_DTYPES:
             raise ValueError(f"wire_dtype must be one of "
                              f"{tuple(_WIRE_DTYPES)}, got "
@@ -135,9 +140,16 @@ class SimWANTransport:
             x = x.to(self.wire).to(x.dtype)
         return x
 
+    @property
+    def dp(self) -> DPConfig:
+        return DPConfig(clip=self.celu.dp_clip, sigma=self.celu.dp_sigma)
+
     def send(self, key, x, res=None, direction: str = "up"):
         """The message released across the link -> (wire value, residual).
-        ``key`` (a ``UniformKey``) is unused by the plain wire."""
+        ``key`` (a ``UniformKey``) draws the DP noise; the plain wire uses
+        it for nothing else."""
+        if self.celu.dp_sigma > 0.0:
+            x = privatize(key, x, self.dp)
         return self._wire_cast(x), res
 
     def message_bytes(self, z_shape) -> int:
@@ -189,15 +201,20 @@ class CompressedWANTransport(SimWANTransport):
 
     def send(self, key, x, res=None, direction: str = "up"):
         codec = self.codecs[direction]
-        x, _ = super().send(key, x, None, direction)
         if getattr(codec, "exact", False):
-            return x, res
-        e = x.float()
+            return super().send(key, x, None, direction)[0], res
+        # under DP: clip before the wire cast and noise the decoded value,
+        # so the residual stays noise-free (noise in it would be re-sent,
+        # and so cancelled, by the next rounds)
+        dp = self.celu.dp_sigma > 0.0
+        e = self._wire_cast(clip_rows(x, self.dp.clip) if dp else x).float()
         if res is not None:
             e = e + res
-        payload = codec.encode(key.fold(1), e)
-        y = codec.decode(payload, e)
-        return y.to(x.dtype), None if res is None else e - y
+        y = codec.decode(codec.encode(key.fold(1), e), e)
+        new_res = None if res is None else e - y
+        if dp:
+            y = wire_noise(key.fold(2), y, self.dp)
+        return y.to(x.dtype), new_res
 
     def uplink_bytes(self, z_shape) -> int:
         return self.codecs["up"].wire_bytes(z_shape, self.wire)
@@ -254,11 +271,28 @@ def staleness_weights(ad_hoc, stale, cos_xi: float) -> torch.Tensor:
     return kops.cosine_weight(ad_hoc, stale, cos_xi)
 
 
-def weighted_cotangent(ad_hoc, stale, dz, cos_xi: float
+def _attenuate_post_scale(w, cot, staleness: int, dynamic: bool = False):
+    """Compose the depth-s pipeline discount onto a gate kernel's
+    (w, w ⊙ ∇Z): -> (w^(1+s), w^s ⊙ (w ⊙ ∇Z)), the law of
+    :func:`~repro_torch.core.weighting.pipeline_attenuation`, so the
+    discounted weight multiplies the cotangent once.  The static path
+    (depths 0 / 1) skips ``s = 0`` and takes ``w ** s`` as products; the
+    dynamic path (``dynamic``: the depth-D queue's per-slot staleness, a
+    host int) always applies the float power, the identity at s = 0."""
+    if not dynamic and not staleness:
+        return w, cot
+    extra = torch.pow(w, float(staleness)) if dynamic else w ** int(staleness)
+    return w * extra, cot * _bcast(extra, cot)
+
+
+def weighted_cotangent(ad_hoc, stale, dz, cos_xi: float, *,
+                       pipeline_staleness: int = 0, dynamic: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """InsWeight + weights ⊙ ∇Z -> (weights (B,), fp32 weighted
-    cotangent) (K2a)."""
-    return kops.weighted_cotangent(ad_hoc, stale, dz.float(), cos_xi)
+    cotangent) (K2a), discounted for ``pipeline_staleness``
+    (:func:`_attenuate_post_scale`)."""
+    w, cot = kops.weighted_cotangent(ad_hoc, stale, dz.float(), cos_xi)
+    return _attenuate_post_scale(w, cot, pipeline_staleness, dynamic)
 
 
 # --------------------------------------------------------------------------
@@ -285,12 +319,15 @@ def _backward_a(z_new, params_a, w, cot, mask):
 
 
 def _grad_a_tail(z_new, params_a, stale_z, stale_dz, cos_xi: float, *,
-                 weighting: bool, mask):
+                 weighting: bool, mask, pipeline_staleness: int,
+                 dynamic: bool):
     """Feature-party update once the stale statistics are materialised:
     InsWeight + cotangent scale + backward."""
     if weighting:
         w, cot = weighted_cotangent(z_new.detach(), stale_z, stale_dz,
-                                    cos_xi)
+                                    cos_xi,
+                                    pipeline_staleness=pipeline_staleness,
+                                    dynamic=dynamic)
     else:
         w = torch.ones(z_new.shape[0], device=z_new.device)
         cot = _bcast(w, z_new) * stale_dz.float()
@@ -298,13 +335,17 @@ def _grad_a_tail(z_new, params_a, stale_z, stale_dz, cos_xi: float, *,
 
 
 def local_grad_a(forward_a, params_a, entry, cos_xi: float, *,
-                 weighting: bool = True, mask=None):
+                 weighting: bool = True, mask=None,
+                 pipeline_staleness: int = 0, dynamic: bool = False):
     """Feature-party local update on a materialised workset entry
     {"z", "dz", "batch"}.  ``mask`` (0-d 0/1 tensor) zeroes a bubble
-    draw.  Returns (grads, weights)."""
+    draw; ``pipeline_staleness`` / ``dynamic`` discount the weights
+    (:func:`_attenuate_post_scale`).  Returns (grads, weights)."""
     z_new = forward_a(params_a, entry["batch"])
     return _grad_a_tail(z_new, params_a, entry["z"], entry["dz"], cos_xi,
-                        weighting=weighting, mask=mask)
+                        weighting=weighting, mask=mask,
+                        pipeline_staleness=pipeline_staleness,
+                        dynamic=dynamic)
 
 
 def _ring_view(store):
@@ -331,12 +372,14 @@ def _fused_ring_sample(slot, z_new, z_store, dz_store, cos_xi: float):
 
 def local_grad_a_cached(forward_a, params_a, ws, slot, cos_xi: float, *,
                         weighting: bool = True, cache_fused: bool = True,
-                        mask=None):
+                        mask=None, pipeline_staleness: int = 0,
+                        dynamic: bool = False):
     """Feature-party local update straight off the workset ring.  Only the
     party's own cached features are gathered; with ``cache_fused`` the cut
     statistics ⟨Z, ∇Z⟩ go through the fused ring-sample kernel of the
     ring's storage form (K1, K4 or K5) and no copy of the entry is made.
-    Otherwise the entry is gathered, decoded and weighted by K2a.  Returns
+    Otherwise the entry is gathered, decoded and weighted by K2a.  The
+    pipeline discount is a post-scale of the kernel's output.  Returns
     (grads, weights)."""
     buf = ws["buf"]
     idx = slot.reshape(1).long()
@@ -345,10 +388,13 @@ def local_grad_a_cached(forward_a, params_a, ws, slot, cos_xi: float, *,
     if weighting and cache_fused:
         w, cot = _fused_ring_sample(slot, z_new.detach(), buf["z"],
                                     buf["dz"], cos_xi)
+        w, cot = _attenuate_post_scale(w, cot, pipeline_staleness, dynamic)
         return _backward_a(z_new, params_a, w, cot, mask)
     entry = workset_entry(ws, slot)
     return _grad_a_tail(z_new, params_a, entry["z"], entry["dz"], cos_xi,
-                        weighting=weighting, mask=mask)
+                        weighting=weighting, mask=mask,
+                        pipeline_staleness=pipeline_staleness,
+                        dynamic=dynamic)
 
 
 def _weighted_grad_b(loss_b, params_b, zs, batch_b, w):
@@ -369,17 +415,20 @@ def _ad_hoc_dz(loss_b, params_b, zs, batch_b):
 
 
 def local_grad_b(loss_b, params_b, entry, cos_xi: float, *,
-                 weighting: bool = True, mask=None):
+                 weighting: bool = True, mask=None,
+                 pipeline_staleness: int = 0, dynamic: bool = False):
     """Label-party local update on a materialised entry: stale Z_i's +
     own features; the ad-hoc ∇Z_i only measure staleness, then the
     weighted per-instance losses drive the backward pass.  K>1: the
-    weight is the minimum cosine over parties.  Returns (grads, weights)."""
+    weight is the minimum cosine over parties, then discounted once for
+    the pipeline staleness.  Returns (grads, weights)."""
     zs, dzs, batch_b = entry["z"], entry["dz"], entry["batch"]
     if weighting:
         dz_new = _ad_hoc_dz(loss_b, params_b, zs, batch_b)
         w = staleness_weights(dz_new[0], dzs[0], cos_xi)
         for i in range(1, len(zs)):
             w = torch.minimum(w, staleness_weights(dz_new[i], dzs[i], cos_xi))
+        w = pipeline_attenuation(w, pipeline_staleness, dynamic)
     else:
         w = torch.ones(zs[0].shape[0], device=zs[0].device)
     if mask is not None:
@@ -403,7 +452,8 @@ def _fused_ring_weights(slot, dz_new, dz_store, cos_xi: float):
 
 def local_grad_b_cached(loss_b, params_b, ws, slot, cos_xi: float, *,
                         weighting: bool = True, cache_fused: bool = True,
-                        mask=None):
+                        mask=None, pipeline_staleness: int = 0,
+                        dynamic: bool = False):
     """Label-party local update straight off the workset ring.  The loss
     consumes the cached Z list, so it is gathered and decoded with plain
     ops; with ``cache_fused`` the ∇Z side is read by the weights-only ring
@@ -427,6 +477,7 @@ def local_grad_b_cached(loss_b, params_b, ws, slot, cos_xi: float, *,
         w = weigh(0)
         for i in range(1, len(zs)):
             w = torch.minimum(w, weigh(i))
+        w = pipeline_attenuation(w, pipeline_staleness, dynamic)
     else:
         w = torch.ones(zs[0].shape[0], device=zs[0].device)
     if mask is not None:
@@ -484,6 +535,11 @@ def init_state(task: KPartyTask, params: Dict[str, Any], opt: Optimizer,
 # --------------------------------------------------------------------------
 # The round stages
 # --------------------------------------------------------------------------
+def _zero_local_metrics(dev):
+    zero = torch.zeros((), device=dev)
+    return {"local_steps": _i32(dev), "w_mean": zero, "w_zero_frac": zero}
+
+
 def _opt_step(opt, module, grads, opt_state, scale=None):
     """One optimizer update of ``module`` in place -> new opt state.
     ``scale`` (0-d tensor) multiplies the update before it is applied.
@@ -500,23 +556,43 @@ def _opt_step(opt, module, grads, opt_state, scale=None):
 
 
 def _make_stages(task: KPartyTask, opt: Optimizer, celu: CELUConfig, *,
-                 n_local: int, tp):
+                 n_local: int, tp, pipeline_staleness: int = 0,
+                 lr_damping: float = 0.0):
     """The round's stages over the shared state layout:
 
       * ``exchange_compute(params, tstate, batches_a, batch_b, round_,
         uniforms)`` — party forwards, the wire up (Z_i) and down (∇Z_i),
         Party B's loss and every fresh gradient, without touching the
-        state; -> the fresh values and the updated residuals;
+        state; -> the fresh values and the updated residuals (the
+        payload an in-flight exchange carries);
       * ``exchange_apply(state, fresh, batches_a, batch_b, batch_idx,
-        uniforms)`` — fresh optimizer steps, workset inserts, counters,
-        the residuals adopted;
-      * ``local_scan(state)`` — the R staleness-weighted local updates
-        per party (Algorithm 2)."""
-    if celu.sampling not in ("round_robin", "consecutive"):
-        raise NotImplementedError(
-            f"sampling={celu.sampling!r}: uniform sampling comes with "
-            f"slice 2 of the port (ROADMAP.md)")
+        uniforms, staleness=None)`` — fresh optimizer steps, workset
+        inserts, counters, the residuals adopted;
+      * ``local_scan(state, staleness=None)`` — the R staleness-weighted
+        local updates per party (Algorithm 2).
+
+    ``pipeline_staleness`` (the scheduler's depth) tightens the workset
+    validity window and discounts the Algorithm-2 weights on the static
+    path.  A ``staleness`` given to a stage (a host int: the depth-D
+    queue's in-flight count at a scan, the merged exchange's age at a
+    merge) takes the dynamic path instead: it replaces the depth, the
+    discount is always applied, the uniform draws fold it in, and with
+    ``lr_damping`` (the ``c`` of ``1 / (1 + c·s)``) positive the stage's
+    optimizer updates are damped."""
+    if celu.sampling not in ("round_robin", "consecutive", "uniform"):
+        raise ValueError(f"sampling={celu.sampling!r}")
     cos_xi = xi_to_cos(celu.xi_degrees)
+    s_pipe = int(pipeline_staleness)
+    uniform = celu.sampling == "uniform"
+
+    def _damp(staleness) -> Optional[float]:
+        """1 / (1 + c·s) in float32, as the reference computes it; None
+        on the static path or at c = 0."""
+        if staleness is None or lr_damping <= 0.0:
+            return None
+        one = np.float32(1.0)
+        return float(one / (one + np.float32(lr_damping)
+                            * np.float32(staleness)))
 
     def exchange_compute(params, tstate, batches_a, batch_b, round_,
                          uniforms):
@@ -568,15 +644,19 @@ def _make_stages(task: KPartyTask, opt: Optimizer, celu: CELUConfig, *,
                 "loss": loss.detach(), "tstate": new_tstate}
 
     def exchange_apply(state, fresh, batches_a, batch_b, batch_idx,
-                       uniforms):
+                       uniforms, staleness=None):
         pas, pb = state["params"]["a"], state["params"]["b"]
         K = len(pas)
         zs, dzs = fresh["zs"], fresh["dzs"]
+        damp = _damp(staleness)
+        # the damping alone scales the fresh steps (a fill, no host copy)
+        scale = None if damp is None else torch.full(
+            (), damp, dtype=torch.float32, device=state["comm_rounds"].device)
         for i in range(K):
             state["opt"]["a"][i] = _opt_step(opt, pas[i], fresh["g_as"][i],
-                                             state["opt"]["a"][i])
+                                             state["opt"]["a"][i], scale)
         state["opt"]["b"] = _opt_step(opt, pb, fresh["g_b"],
-                                      state["opt"]["b"])
+                                      state["opt"]["b"], scale)
         # rounding uniforms of quantised tables: one key per party
         round_ = state["round"]
         for i in range(K):
@@ -594,45 +674,58 @@ def _make_stages(task: KPartyTask, opt: Optimizer, celu: CELUConfig, *,
         state["transport"] = fresh["tstate"]
         return state, {"loss": fresh["loss"]}
 
-    def local_scan(state):
+    def local_scan(state, staleness=None):
         pas, pb = state["params"]["a"], state["params"]["b"]
         K = len(pas)
         dev = state["comm_rounds"].device
         if n_local == 0:
-            zero = torch.zeros((), device=dev)
-            return state, {"local_steps": _i32(dev), "w_mean": zero,
-                           "w_zero_frac": zero}
+            return state, _zero_local_metrics(dev)
+        dynamic = staleness is not None
+        s_loc = s_pipe if staleness is None else int(staleness)
+        damp = _damp(staleness)
         scale = float(np.float32(1.0 / (K + 1)))
         oas, wsas, wsb = state["opt"]["a"], state["ws"]["a"], state["ws"]["b"]
         nas = [_i32(dev) for _ in range(K)]
         nb = _i32(dev)
         w_mean_steps, w_zero_steps = [], []
+        # the uniform draws' keys: the scan's round and local step, then
+        # the party; the dynamic path folds the staleness in first, since
+        # the depth-D queue can run several scans at one round
+        round_, src = state["round"], state["uniforms"]
+        s_key = s_loc if dynamic else None
+
+        def draw(ws, j, party):
+            key = draw_key(src, round_, j, party, s_key) if uniform else None
+            _, slot, _, valid = workset_draw(ws, celu.R, celu.sampling,
+                                             rng=key,
+                                             pipeline_staleness=s_loc)
+            vf = valid.float()
+            # the update's scale: the draw's mask, damped (exact: 0 or 1
+            # times a float32)
+            return slot, valid, vf, (vf if damp is None else vf * damp)
 
         def account(n, valid, w, w_means, w_zeros):
             n.add_(valid.to(torch.int32))
             w_means.append(w.mean())
             w_zeros.append((w == 0.0).float().mean())
 
-        for _ in range(n_local):
+        for j in range(n_local):
             w_means, w_zeros = [], []
             for i in range(K):
-                _, slot, _, valid = workset_draw(wsas[i], celu.R,
-                                                 celu.sampling)
-                vf = valid.float()
+                slot, valid, vf, uf = draw(wsas[i], j, i)
                 g, w = local_grad_a_cached(
                     task.forward_a, pas[i], wsas[i], slot, cos_xi,
                     weighting=celu.weighting, cache_fused=celu.cache_fused,
-                    mask=vf)
-                oas[i] = _opt_step(opt, pas[i], g, oas[i], vf)
+                    mask=vf, pipeline_staleness=s_loc, dynamic=dynamic)
+                oas[i] = _opt_step(opt, pas[i], g, oas[i], uf)
                 account(nas[i], valid, w, w_means, w_zeros)
 
-            _, slot_b, _, valid = workset_draw(wsb, celu.R, celu.sampling)
-            vf = valid.float()
+            slot_b, valid, vf, uf = draw(wsb, j, K)
             g, w = local_grad_b_cached(
                 task.loss_b, pb, wsb, slot_b, cos_xi,
                 weighting=celu.weighting, cache_fused=celu.cache_fused,
-                mask=vf)
-            state["opt"]["b"] = _opt_step(opt, pb, g, state["opt"]["b"], vf)
+                mask=vf, pipeline_staleness=s_loc, dynamic=dynamic)
+            state["opt"]["b"] = _opt_step(opt, pb, g, state["opt"]["b"], uf)
             account(nb, valid, w, w_means, w_zeros)
             w_mean_steps.append(sum(w_means) * scale)
             w_zero_steps.append(sum(w_zeros) * scale)
@@ -661,11 +754,16 @@ def make_round(task: KPartyTask, opt: Optimizer, celu: CELUConfig, *,
     codec).  The rounding uniforms come from the state's source
     (``init_state(uniforms=...)``).  The state is updated in place.
     Metrics are device tensors: reading one (``float(m["loss"])``) is the
-    round's only host sync."""
+    round's only host sync.
+
+    This is the sequential schedule; a ``celu.pipeline_depth`` > 0 is
+    refused here.  For the paper's two-worker overlap (and the depth-D
+    queue) build the same stages through :func:`make_pipeline`."""
     if celu.pipeline_depth:
-        raise NotImplementedError(
-            "pipeline_depth > 0: the pipelined scheduler comes with slice 2 "
-            "of the port (ROADMAP.md)")
+        raise ValueError(
+            f"pipeline_depth={celu.pipeline_depth}: make_round is the "
+            f"sequential schedule; build the pipelined scheduler with "
+            f"make_pipeline")
     n_local = celu.R if local_steps < 0 else local_steps
     tp = transport if transport is not None \
         else make_transport(celu, compression)
@@ -685,6 +783,251 @@ def make_round(task: KPartyTask, opt: Optimizer, celu: CELUConfig, *,
         return state, m
 
     return round_fn
+
+
+# --------------------------------------------------------------------------
+# The pipelined scheduler (paper §4.1 Fig. 4, generalised to a D-deep
+# exchange queue)
+# --------------------------------------------------------------------------
+class PendingExchange(NamedTuple):
+    """An in-flight exchange: one slot of the scheduler's queue.
+
+    ``fresh`` is ``exchange_compute``'s payload: the wire values
+    ⟨Z_i, ∇Z_i⟩ that the merge inserts, the fresh gradients, Party B's
+    loss and the transport's updated residuals (adopted at the merge).
+    Every tensor in it was made by the dispatch, so no later local scan,
+    insert or merge writes it.  The batches ride along for the deferred
+    insert.  ``dispatched_at`` is the number of merges done at dispatch (a
+    host int): the merge charges the fresh gradients
+    ``round - dispatched_at`` exchanges of staleness (D - 1 at steady
+    state)."""
+    fresh: Dict[str, Any]
+    batches_a: Sequence[Any]
+    batch_b: Any
+    batch_idx: Any
+    dispatched_at: int = 0
+
+
+class RoundState(NamedTuple):
+    """The scheduler's round state: the fields of :func:`init_state`'s
+    dict (convert with :meth:`from_state` / :meth:`as_state`) and
+    ``pending``, the in-flight exchanges, oldest first (at most
+    ``max(depth, 1)``; ``()`` when none is in flight).
+
+    The stages update the tensors in place, so a ``RoundState`` that a
+    stage returns supersedes the one it was given: the old one shares
+    the mutated parameters, optimizer state and rings."""
+    params: Dict[str, Any]
+    opt: Dict[str, Any]
+    ws: Dict[str, Any]
+    steps: Dict[str, Any]
+    comm_rounds: torch.Tensor
+    round: int
+    uniforms: Any
+    transport: Dict[str, Any]
+    pending: Tuple[PendingExchange, ...] = ()
+
+    @classmethod
+    def from_state(cls, state: Dict[str, Any],
+                   pending: Tuple[PendingExchange, ...] = ()
+                   ) -> "RoundState":
+        return cls(params=state["params"], opt=state["opt"], ws=state["ws"],
+                   steps=state["steps"], comm_rounds=state["comm_rounds"],
+                   round=state["round"], uniforms=state["uniforms"],
+                   transport=state.get("transport", {}), pending=pending)
+
+    def as_state(self) -> Dict[str, Any]:
+        return {"params": self.params, "opt": self.opt, "ws": self.ws,
+                "steps": self.steps, "comm_rounds": self.comm_rounds,
+                "round": self.round, "uniforms": self.uniforms,
+                "transport": self.transport}
+
+
+class PipelinedEngine:
+    """The round as explicit stages: the paper's two-worker pipeline,
+    generalised to a depth-D exchange queue.
+
+    Depth 0 runs dispatch, merge and the local scan in turn and is
+    bitwise :func:`make_round`.  Depth 1 dispatches round t+1's exchange
+    and runs round t's local scan while it is in flight::
+
+        dispatch(batch t+1)   # exchange_compute: the wire and fresh grads
+        local()               # round t's R local updates (the overlap)
+        merge()               # adopt the exchange: fresh step + insert
+
+    Depth D >= 2 keeps up to D exchanges in flight (``rs.pending``, oldest
+    first): each step dispatches, scans with the whole queue in flight,
+    and merges the oldest once the queue holds D, so an exchange rides
+    the wire for D local scans.  The first D - 1 steps only fill the
+    queue (their ``loss`` is NaN); :meth:`flush` drains it, scan and merge
+    in turn, so every inserted batch still gets its scan.
+
+    The overlap is at dispatch: the stages are eager launches on one
+    stream and nothing waits for the card between them, so the local
+    scan's kernels queue behind the exchange's with no host barrier; the
+    simulated WAN clock (``launch/wan.py``) charges the D-deep schedule.
+    The cost is staleness, charged per slot at depth >= 2 (the
+    ``dynamic`` path; ``dynamic_staleness=True`` forces it at any
+    depth): a scan is charged the in-flight count (a host int), which
+    tightens the workset's validity window, discounts the weights
+    ``w -> w^(1+s)`` and damps the local steps by ``1 / (1 + c·s)``
+    (``CELUConfig.pipeline_lr_damping``); a merge is charged its
+    exchange's age.  Depths 0 / 1 keep the static path.
+
+    Drive it as::
+
+        pe = make_pipeline(task, opt, celu, depth=2)
+        rs = pe.init(engine.init_state(...))
+        for bi, ba, bb in batches:
+            rs, m = pe.step(rs, ba, bb, bi)
+        rs, m = pe.flush(rs)          # drain the in-flight queue
+        state = pe.finalize(rs)
+    """
+
+    def __init__(self, task: KPartyTask, opt: Optimizer, celu: CELUConfig,
+                 *, depth: Optional[int] = None, local_steps: int = -1,
+                 transport=None, compression: Optional[str] = None,
+                 dynamic_staleness: Optional[bool] = None):
+        if depth is None:
+            depth = celu.pipeline_depth
+        validate_pipeline_depth(depth, celu.W)
+        self.depth = depth
+        self.celu = celu
+        self.dynamic = (depth >= 2) if dynamic_staleness is None \
+            else bool(dynamic_staleness)
+        self.n_local = celu.R if local_steps < 0 else local_steps
+        self.transport = transport if transport is not None \
+            else make_transport(celu, compression)
+        self._compute, self._apply, self._scan = _make_stages(
+            task, opt, celu, n_local=self.n_local, tp=self.transport,
+            pipeline_staleness=depth,
+            lr_damping=celu.pipeline_lr_damping if self.dynamic else 0.0)
+
+    @property
+    def queue_capacity(self) -> int:
+        """Most exchanges in flight (depth 0 still holds the one exchange
+        between its dispatch and its merge)."""
+        return max(self.depth, 1)
+
+    # ---- stages ----------------------------------------------------------
+    def init(self, state: Dict[str, Any]) -> RoundState:
+        """Adopt an :func:`init_state` dict."""
+        return RoundState.from_state(state)
+
+    def dispatch(self, rs: RoundState, batches_a, batch_b,
+                 batch_idx) -> RoundState:
+        """Start an exchange from the current parameters and append it to
+        the queue.  Its wire sends are keyed by the dispatch's sequence
+        number (merges done + in flight), and it encodes against the
+        newest in-flight exchange's residuals: the error-feedback chain
+        follows dispatch order."""
+        if len(rs.pending) >= self.queue_capacity:
+            raise RuntimeError(
+                f"{len(rs.pending)} exchange(s) already in flight: the "
+                f"depth-{self.depth} queue holds at most "
+                f"{self.queue_capacity}; merge() the oldest before "
+                f"dispatching another")
+        tstate = rs.pending[-1].fresh["tstate"] if rs.pending \
+            else rs.transport
+        with torch.enable_grad():
+            fresh = self._compute(rs.params, tstate, batches_a, batch_b,
+                                  rs.round + len(rs.pending), rs.uniforms)
+        pe = PendingExchange(fresh, batches_a, batch_b, batch_idx,
+                             dispatched_at=rs.round)
+        return rs._replace(pending=rs.pending + (pe,))
+
+    def local(self, rs: RoundState) -> Tuple[RoundState, Dict[str, Any]]:
+        """The R local updates per party against the rings as of the last
+        merge.  On the dynamic path the scan is charged the in-flight
+        count."""
+        s = len(rs.pending) if self.dynamic else None
+        with torch.enable_grad():
+            state, lm = self._scan(rs.as_state(), s)
+        return RoundState.from_state(state, rs.pending), lm
+
+    def merge(self, rs: RoundState) -> Tuple[RoundState, Dict[str, Any]]:
+        """Adopt the oldest in-flight exchange: the fresh optimizer steps,
+        applied to the parameters as they are now (damped by the
+        exchange's age on the dynamic path), the inserts, the residuals
+        and the counters."""
+        if not rs.pending:
+            raise RuntimeError("no exchange in flight: dispatch() first")
+        p, rest = rs.pending[0], rs.pending[1:]
+        s = rs.round - p.dispatched_at if self.dynamic else None
+        with torch.enable_grad():
+            state, m = self._apply(rs.as_state(), p.fresh, p.batches_a,
+                                   p.batch_b, p.batch_idx, rs.uniforms, s)
+        return RoundState.from_state(state, rest), m
+
+    # ---- schedules -------------------------------------------------------
+    def step(self, rs: RoundState, batches_a, batch_b, batch_idx
+             ) -> Tuple[RoundState, Dict[str, Any]]:
+        """One communication round.  Depth 0: exchange, then the local
+        scan.  Depth 1: the previous round's scan runs between this
+        round's dispatch and merge.  Depth D >= 2: dispatch, scan with the
+        queue in flight, merge the oldest once the queue holds D (the
+        first D - 1 steps report a NaN ``loss``)."""
+        rs = self.dispatch(rs, batches_a, batch_b, batch_idx)
+        if self.depth == 0:
+            rs, m = self.merge(rs)
+            rs, lm = self.local(rs)
+        elif self.depth == 1:
+            rs, lm = self.local(rs)
+            rs, m = self.merge(rs)
+        else:
+            rs, lm = self.local(rs)
+            if len(rs.pending) == self.depth:
+                rs, m = self.merge(rs)
+            else:       # warm-up: the queue is filling
+                m = {"loss": torch.full((), float("nan"),
+                                        device=rs.comm_rounds.device)}
+        m.update(lm)
+        return rs, m
+
+    def flush(self, rs: RoundState) -> Tuple[RoundState, Dict[str, Any]]:
+        """Drain the pipeline.  Depth 0: nothing to do; depth 1: the one
+        scan the last merge still owes; depth >= 2: scan and merge in
+        turn until the queue is empty, then one more scan."""
+        if self.depth == 0:
+            return rs, _zero_local_metrics(rs.comm_rounds.device)
+        if self.depth == 1:
+            return self.local(rs)
+        scans = []
+        while rs.pending:
+            rs, lm = self.local(rs)
+            scans.append(lm)
+            rs, _ = self.merge(rs)
+        rs, lm = self.local(rs)
+        scans.append(lm)
+        n = len(scans)
+        return rs, {
+            "local_steps": sum(m["local_steps"] for m in scans),
+            "w_mean": sum(m["w_mean"] for m in scans) / n,
+            "w_zero_frac": sum(m["w_zero_frac"] for m in scans) / n,
+        }
+
+    def finalize(self, rs: RoundState) -> Dict[str, Any]:
+        """Back to :func:`init_state`'s dict."""
+        if rs.pending:
+            raise RuntimeError(
+                f"{len(rs.pending)} exchange(s) still in flight: merge() "
+                f"(or flush()) before finalizing")
+        return rs.as_state()
+
+
+def make_pipeline(task: KPartyTask, opt: Optimizer, celu: CELUConfig, *,
+                  depth: Optional[int] = None, local_steps: int = -1,
+                  transport=None, compression: Optional[str] = None
+                  ) -> PipelinedEngine:
+    """The staged round scheduler.  ``depth`` defaults to
+    ``celu.pipeline_depth``: 0 is :func:`make_round`'s sequential round,
+    1 overlaps round t+1's exchange with round t's local updates (paper
+    §4.1), D >= 2 keeps a D-deep queue with per-slot staleness and
+    damping (:class:`PipelinedEngine`).  ``depth`` must stay < ``celu.W``.
+    """
+    return PipelinedEngine(task, opt, celu, depth=depth,
+                           local_steps=local_steps, transport=transport,
+                           compression=compression)
 
 
 def preset_config(name: str, base: CELUConfig) -> Tuple[CELUConfig, int]:

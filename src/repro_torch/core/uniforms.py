@@ -6,6 +6,9 @@ The reference draws every stochastic-rounding uniform from a fixed
   * the wire: ``split(fold_in(PRNGKey(17), comm_rounds), 2K)[j]`` for
     send ``j`` (2i up, 2i + 1 down for feature party i), then
     ``fold_in(·, 1)`` per encode and ``fold_in(·, i)`` per codec stage;
+    the DP noise of a send is ``jax.random.normal`` of the send's key on
+    the plain wire and of ``fold_in(·, 2)`` after a lossy codec
+    (``core/privacy.py`` turns the uniforms into normals);
   * the workset inserts: ``fold_in(fold_in(PRNGKey(0xCE1), comm_rounds),
     party)`` (feature parties 0..K-1, Party B K), then
     ``fold_in(·, leaf_index)`` over the entry's leaves in JAX's flattening
@@ -16,6 +19,11 @@ The reference draws every stochastic-rounding uniform from a fixed
     n-th admit or decode step (the prefill uplink; ``fold_in(·, 1)`` for
     the downlink), and ``split(·, C)[lane]`` of it for each lane's decode
     uplink;
+  * the uniform workset draws: ``fold_in(fold_in(fold_in(PRNGKey(29),
+    comm_rounds), j), party)`` for local step ``j`` of a scan (feature
+    parties 0..K-1, Party B K); a scan charged a per-slot staleness ``s``
+    (the pipelined scheduler's dynamic path) starts from
+    ``fold_in(PRNGKey(29), s)`` instead;
   * the int8 AdaGrad state's requantisation:
     ``fold_in(fold_in(PRNGKey(0xAD49), t), leaf_index)``, with ``t`` the
     optimizer state's update counter and the leaf index in JAX's
@@ -26,7 +34,9 @@ PyTorch cannot reproduce those bits, so the port takes the uniforms from a
 ``shape`` float32 tensor in [0, 1) on the round's device.  The tag names
 the draw in the reference's terms — ``("wire", round, 2K, j, *folds)``,
 ``("insert", round, party, *folds)`` (``("insert", time, *folds)`` from
-the clock), ``("optim", t, *folds)``, ``("seed", seed, n, *folds)`` or
+the clock), ``("draw", round, j, party)`` (``("draw_s", s, round, j,
+party)`` on the dynamic path), ``("optim", t, *folds)``, ``("seed",
+seed, n, *folds)`` or
 ``("lanes", seed, n, C, *folds)`` — so a parity test can hand in a source
 that computes the reference's uniforms from it.  A ``"lanes"`` draw is
 one batched draw for all C lanes: its shape leads with C, and row c is
@@ -82,6 +92,18 @@ def wire_key(source, round_: int, n_sends: int, send: int) -> UniformKey:
 def insert_key(source, round_: int, party: int) -> UniformKey:
     """Key of ``party``'s workset insert in a round (Party B is K)."""
     return UniformKey(source, ("insert", round_, party))
+
+
+def draw_key(source, round_: int, step: int, party: int,
+             staleness=None) -> UniformKey:
+    """Key of ``party``'s uniform workset draw at local step ``step`` of
+    the scan at ``round_`` (Party B is K).  ``staleness`` is the per-slot
+    staleness of a scan on the pipelined scheduler's dynamic path (host
+    int), None on the static path: the two chains differ."""
+    if staleness is None:
+        return UniformKey(source, ("draw", round_, step, party))
+    return UniformKey(source, ("draw_s", int(staleness), round_, step,
+                               party))
 
 
 def optim_key(source, t: int) -> UniformKey:

@@ -37,18 +37,17 @@ def instance_weights(ad_hoc, stale, cos_xi: float):
     return torch.where(w < float(np.float32(cos_xi)), 0.0, w)
 
 
-def static_staleness(s) -> bool:
-    """True when ``s`` is a host-side Python int (a static pipeline
-    depth); a tensor is a per-slot dynamic staleness."""
-    return isinstance(s, int) and not isinstance(s, bool)
-
-
-def pipeline_attenuation(w, staleness):
+def pipeline_attenuation(w, staleness: int, dynamic: bool = False):
     """Discount Algorithm-2 weights for known extra staleness:
-    ``w -> w^(1+s)``; ``staleness=0`` is the identity."""
-    if static_staleness(staleness) and staleness <= 0:
-        return w
-    return w ** (1 + staleness)
+    ``w -> w^(1+s)``.  ``staleness`` is a host int.  On the static path
+    (``dynamic`` False: pipeline depths 0 / 1) ``s = 0`` is skipped and
+    the power is the reference's ``integer_pow`` (products); the dynamic
+    path (the depth-D queue's per-slot staleness) always applies it as a
+    float power, as the reference's ``lax.pow`` of a traced exponent
+    does, which is the identity at ``s = 0``."""
+    if not dynamic:
+        return w if staleness <= 0 else w ** (1 + int(staleness))
+    return torch.pow(w, float(1 + staleness))
 
 
 def xi_to_cos(xi_degrees: float) -> float:

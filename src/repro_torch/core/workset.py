@@ -18,8 +18,9 @@ index) and returns the same dict.
 
 Round-robin sampling (paper §3.2): a cursor walks slots in insertion
 order, one slot per draw, bubbles included.  Consecutive sampling (FedBCD)
-always returns the most recently inserted slot.  ``uniform`` sampling
-comes with a later slice.
+always returns the most recently inserted slot.  Uniform sampling draws
+each slot independently over the alive ones (a Gumbel-max draw from a
+uniform source, as ``jax.random.categorical`` draws it).
 
 At-rest precision (``workset_init(..., cache_dtype=...)``) of the cut
 statistics (the ``z`` / ``dz`` entry keys, ``QUANT_KEYS``):
@@ -365,6 +366,20 @@ def _valid_mask(ws: Dict[str, Any], R: int,
     return alive
 
 
+def _categorical(f, alive) -> torch.Tensor:
+    """``jax.random.categorical(key, where(alive, 0, -inf))`` from the
+    key's [0, 1) uniforms ``f`` (W,): the Gumbel-max draw of JAX's "low"
+    mode, ``argmax(-log(-log(u)) + logits)`` with ``u = max(tiny, f · (1 -
+    tiny) + tiny)`` (``1 - tiny`` rounds to 1 in float32).  With no slot
+    alive the logits are zeros, as in the reference (the draw is then a
+    bubble).  -> 0-d int32 on the device, no host sync."""
+    tiny = torch.finfo(torch.float32).tiny
+    u = torch.clamp_min(f.to(alive.device) + tiny, tiny)
+    logits = torch.where(alive, 0.0, float("-inf"))
+    logits = torch.where(alive.any(), logits, 0.0)
+    return torch.argmax(-torch.log(-torch.log(u)) + logits).to(torch.int32)
+
+
 def workset_draw(ws: Dict[str, Any], R: int, strategy: str, *,
                  rng=None, pipeline_staleness=0
                  ) -> Tuple[Dict[str, Any], torch.Tensor, torch.Tensor,
@@ -372,11 +387,14 @@ def workset_draw(ws: Dict[str, Any], R: int, strategy: str, *,
     """Pick one slot for a local update without materialising the entry.
 
     strategy: "round_robin" — the cursor's slot, then the cursor advances
-    by one even on a bubble; "consecutive" — always the freshest slot.
-    Returns (ws, slot, batch_idx, valid), all device tensors: ``slot`` and
-    ``batch_idx`` 0-d int32, ``valid`` 0-d bool (False -> the caller
-    masks the update into a no-op).  The table's use count (and cursor)
-    are updated in place."""
+    by one even on a bubble; "consecutive" — always the freshest slot;
+    "uniform" — an independent draw over the alive slots, from ``rng`` (a
+    :class:`~repro_torch.core.uniforms.UniformKey`).  Returns (ws, slot,
+    batch_idx, valid), all device tensors: ``slot`` and ``batch_idx`` 0-d
+    int32, ``valid`` 0-d bool (False -> the caller masks the update into a
+    no-op).  The table's use count (and the round-robin cursor) are
+    updated in place; the other strategies leave the cursor where it is.
+    ``pipeline_staleness`` is a host int."""
     W = ws["insert_time"].shape[0]
     alive = _valid_mask(ws, R, pipeline_staleness)
     if strategy == "consecutive":
@@ -384,9 +402,9 @@ def workset_draw(ws: Dict[str, Any], R: int, strategy: str, *,
     elif strategy == "round_robin":
         slot = torch.remainder(ws["cursor"], W)
     elif strategy == "uniform":
-        raise NotImplementedError(
-            "uniform workset sampling comes with slice 2 of the port "
-            "(ROADMAP.md)")
+        if rng is None:
+            raise ValueError("uniform sampling needs an rng key")
+        slot = _categorical(rng.uniform((W,)), alive)
     else:
         raise ValueError(strategy)
     idx = _index(slot)

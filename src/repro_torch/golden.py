@@ -59,17 +59,41 @@ def _rows_metrics(m) -> dict:
             "local_steps": int(m["local_steps"])}
 
 
+def _replay(task, opt, celu, nloc, state, batches, rounds: int, depth):
+    """Run ``rounds`` rounds of ``batches`` ((batches_a, batch_b,
+    batch_idx) tuples): through :func:`engine.make_round` when ``depth``
+    is None, else through :func:`engine.make_pipeline` at that depth,
+    flushed and finalized after the last step.  -> (rows, final state)."""
+    rows = []
+    if depth is None:
+        rnd = engine.make_round(task, opt, celu, local_steps=nloc)
+        for _, (bas, b, bi) in zip(range(rounds), batches):
+            state, m = rnd(state, bas, b, bi)
+            rows.append(_rows_metrics(m))
+        return rows, state
+    pe = engine.make_pipeline(task, opt, celu, depth=depth,
+                              local_steps=nloc)
+    rs = pe.init(state)
+    for _, (bas, b, bi) in zip(range(rounds), batches):
+        rs, m = pe.step(rs, bas, b, bi)
+        rows.append(_rows_metrics(m))
+    rs, _ = pe.flush(rs)
+    return rows, pe.finalize(rs)
+
+
 def two_party_trace(protocol: str, flat_params: dict, *, device=None,
                     cache_fused: bool = True, rounds: int = 20,
                     cache_dtype: str = "float32", compression: str = "",
                     uniforms=None, optimizer: str = "adagrad",
-                    opt_kw=None) -> list:
+                    opt_kw=None, depth=None, celu_kw=None) -> list:
     """The two-party golden workload (``tests/test_engine.py::_workload``)
     through the port -> rows in the golden JSON's schema.  ``cache_dtype``,
     ``compression``, ``uniforms`` (the rounding uniforms' source),
     ``optimizer`` and its keywords ``opt_kw`` (e.g. ``use_pallas=True``,
     the fused AdaGrad kernel route) vary it beyond the goldens, which pin
-    the defaults."""
+    the defaults; ``celu_kw`` overrides fields of its ``CELUConfig`` (R =
+    W = 3 by default).  ``depth`` runs it through the pipelined
+    scheduler at that depth (:func:`pipelined_trace`)."""
     dev = resolve_device(device)
     cfg = TWO_PARTY_CFG
     data = make_tabular(TabularSpec("criteo", fields_a=4, fields_b=3,
@@ -79,8 +103,10 @@ def two_party_trace(protocol: str, flat_params: dict, *, device=None,
     params = init_fn(0, cfg, dev)
     load_flat(params["a"], subtree(flat_params, "two_party.a"))
     load_flat(params["b"], subtree(flat_params, "two_party.b"))
-    base = CELUConfig(R=3, W=3, xi_degrees=60.0, cache_fused=cache_fused,
-                      cache_dtype=cache_dtype, compression=compression)
+    base = CELUConfig(**{"R": 3, "W": 3, "xi_degrees": 60.0,
+                         "cache_fused": cache_fused,
+                         "cache_dtype": cache_dtype,
+                         "compression": compression, **(celu_kw or {})})
     ccfg, nloc = engine.preset_config(protocol, base)
     opt = make_optimizer(optimizer, 0.05, **(opt_kw or {}))
     it = aligned_batches(data["train"], 64, seed=0)
@@ -89,17 +115,24 @@ def two_party_trace(protocol: str, flat_params: dict, *, device=None,
     state = engine.init_state(etask, engine.lift_two_party_params(params),
                               opt, ccfg, [to_device(ba, dev)],
                               to_device(bb, dev), uniforms=uniforms)
-    rnd = engine.make_round(etask, opt, ccfg, local_steps=nloc)
-    it = aligned_batches(data["train"], 64, seed=0)
-    rows = []
-    for _ in range(rounds):
-        bi, ba, bb = next(it)
-        state, m = rnd(state, [to_device(ba, dev)], to_device(bb, dev), bi)
-        rows.append(_rows_metrics(m))
+    batches = (([to_device(ba, dev)], to_device(bb, dev), bi)
+               for bi, ba, bb in aligned_batches(data["train"], 64, seed=0))
+    rows, state = _replay(etask, opt, ccfg, nloc, state, batches, rounds,
+                          depth)
     rows.append({"steps_a": int(state["steps"]["a"][0]),
                  "steps_b": int(state["steps"]["b"]),
                  "comm_rounds": int(state["comm_rounds"])})
     return rows
+
+
+def pipelined_trace(protocol: str, flat_params: dict, depth: int,
+                    **kw) -> list:
+    """:func:`two_party_trace` through ``engine.make_pipeline`` at
+    ``depth`` (the reference's ``tests/test_pipeline.py::_run_pipelined``
+    and, with ``celu_kw`` W = 5, ``test_pipeline_depth.py::_drive``): one
+    row a step, the first D - 1 with a NaN loss at depth D >= 2, then the
+    counters after the flush."""
+    return two_party_trace(protocol, flat_params, depth=depth, **kw)
 
 
 def three_party_task() -> engine.KPartyTask:
@@ -118,9 +151,10 @@ def three_party_task() -> engine.KPartyTask:
 
 def three_party_trace(flat_params: dict, *, device=None,
                       cache_fused: bool = True, rounds: int = 20,
-                      opt_kw=None) -> list:
+                      opt_kw=None, depth=None) -> list:
     """The three-party (K = 2 feature parties) golden workload; ``opt_kw``
-    are AdaGrad's keywords."""
+    are AdaGrad's keywords; ``depth`` runs it through the pipelined
+    scheduler."""
     dev = resolve_device(device)
     cfg = THREE_PARTY_CFG
     data = make_tabular(TabularSpec("t", fields_a=8, fields_b=4, vocab=64,
@@ -147,13 +181,10 @@ def three_party_trace(flat_params: dict, *, device=None,
     _, ba, bb = next(it)
     state = engine.init_state(task, {"a": pas, "b": pb}, opt, celu,
                               *split(ba, bb))
-    rnd = engine.make_round(task, opt, celu)
-    it = aligned_batches(data["train"], 64, seed=0)
-    rows = []
-    for _ in range(rounds):
-        bi, ba, bb = next(it)
-        state, m = rnd(state, *split(ba, bb), bi)
-        rows.append(_rows_metrics(m))
+    batches = (split(ba, bb) + (bi,)
+               for bi, ba, bb in aligned_batches(data["train"], 64, seed=0))
+    rows, state = _replay(task, opt, celu, celu.R, state, batches, rounds,
+                          depth)
     rows.append({"steps_a": [int(s) for s in state["steps"]["a"]],
                  "steps_b": int(state["steps"]["b"]),
                  "comm_rounds": int(state["comm_rounds"])})

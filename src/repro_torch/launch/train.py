@@ -13,7 +13,12 @@ attention takes gradients through K9-LSE and K10.  The other LLM
 families come with slice 7c.  ``--cache-dtype`` sets the workset rings'
 at-rest precision (float32 | bfloat16 | int8 | int4) and
 ``--compression`` the wire codec (a ``core.compression.CODEC_SPECS`` name
-or ``up/down``).  AdaGrad takes
+or ``up/down``).  ``--pipeline-depth D`` drives the pipelined scheduler
+(``engine.make_pipeline``): D = 1 overlaps round t+1's exchange with round
+t's local updates, D >= 2 keeps a D-deep queue of exchanges whose
+per-slot staleness discounts the weights and damps the updates by
+``1 / (1 + c·s)`` (``--pipeline-lr-damping c``); the simulated WAN clock
+charges the overlapped schedule.  AdaGrad takes
 the fused kernel route (K7; K8 for ``--opt-state-dtype int8``);
 ``--opt-state-dtype`` sets its accumulator's at-rest precision (float32 |
 bfloat16 | int8) and ``--optimizer sm3`` the factored state.  It runs on
@@ -25,21 +30,24 @@ the card unless ``--device cpu`` is given.
         --device cpu --small --rounds 10 --cache-dtype int4 --compression int8
     PYTHONPATH=src python -m repro_torch.launch.train --arch wdl-criteo \\
         --device cpu --small --rounds 10 --opt-state-dtype int8
+    PYTHONPATH=src python -m repro_torch.launch.train --arch wdl-criteo \\
+        --device cpu --small --rounds 20 --pipeline-depth 2 \\
+        --pipeline-lr-damping 0.5
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
         --device cpu --reduced --rounds 4 --batch-size 2 --seq-len 16
 
 Flags of the reference that switch on what later slices of the port
-bring (pipelining, DP, chaos, checkpoints, the other LLM families) are
-refused with a message; the reference's flags that only tune those
-features (``--fault-seed``, ``--checkpoint-every``, ...) are not defined,
-so argparse rejects them.
+bring (chaos, checkpoints, the other LLM families) are refused with a
+message; the reference's flags that only tune those features
+(``--fault-seed``, ``--checkpoint-every``, ...) are not defined, so
+argparse rejects them.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
-from typing import Any, Dict
+from typing import Any, Callable, Dict, NamedTuple
 
 import torch
 
@@ -81,8 +89,6 @@ def refuse_unported(args) -> None:
         raise SystemExit(f"repro_torch.launch.train: unknown arch "
                          f"{args.arch!r}: the ids are "
                          f"{DLRM_IDS + ARCH_IDS}")
-    if args.pipeline_depth:
-        later.append("--pipeline-depth > 0 (slice 2)")
     if (args.fault_drop_prob or args.fault_straggler_prob
             or args.fault_dropout):
         later.append("--fault-* (slice 6)")
@@ -111,12 +117,40 @@ def make_opt(args, uniforms=None):
     return make_optimizer(args.optimizer, args.lr, **kw)
 
 
-def train_dlrm(args, uniforms=None, opt=None) -> Dict[str, Any]:
-    """Train ``args.rounds`` rounds.  ``uniforms`` is the rounding uniforms'
-    source (``core/uniforms.py``) of the wire, the inserts and the int8
-    optimizer state; the default draws from a ``torch.Generator`` on the
-    device, seeded with ``--seed``.  ``opt`` replaces the optimizer the
-    flags describe."""
+class Schedule(NamedTuple):
+    """How the CLI drives the rounds: ``start`` adopts ``init_state``'s
+    dict, ``step(state, batches_a, batch_b, batch_idx) -> (state,
+    metrics)`` runs a round and ``finish`` returns the dict, drained."""
+    start: Callable
+    step: Callable
+    finish: Callable
+
+
+def make_schedule(etask, opt, celu_cfg, n_local, transport) -> Schedule:
+    """Depth 0: ``engine.make_round``.  A depth > 0: the pipelined
+    scheduler (``engine.make_pipeline``) over its ``RoundState``; the
+    finish flushes the in-flight queue and finalizes."""
+    if not celu_cfg.pipeline_depth:
+        rnd = engine.make_round(etask, opt, celu_cfg, local_steps=n_local,
+                                transport=transport)
+        return Schedule(lambda state: state, rnd, lambda state: state)
+    pe = engine.make_pipeline(etask, opt, celu_cfg, local_steps=n_local,
+                              transport=transport)
+
+    def finish(rs):
+        rs, _ = pe.flush(rs)
+        return pe.finalize(rs)
+    return Schedule(pe.init, pe.step, finish)
+
+
+def train_dlrm(args, uniforms=None, opt=None, celu=None) -> Dict[str, Any]:
+    """Train ``args.rounds`` rounds.  ``uniforms`` is the source
+    (``core/uniforms.py``) of the wire's rounding uniforms and DP noise,
+    the inserts', the uniform draws' and the int8 optimizer state's; the
+    default draws from a ``torch.Generator`` on the device, seeded with
+    ``--seed``.  ``opt`` replaces the optimizer the flags describe, and
+    ``celu`` the ``CELUConfig`` (for fields the reference's CLI has no
+    flag for either: ``sampling``, ``dp_sigma``, ``dp_clip``)."""
     refuse_unported(args)
     dev = resolve_device(args.device)
     cfg: DLRMConfig = get_config(args.arch)
@@ -130,12 +164,9 @@ def train_dlrm(args, uniforms=None, opt=None) -> Dict[str, Any]:
     data = synth.make_tabular(spec, seed=args.seed)
     init_fn, task, predict = make_dlrm(cfg)
 
-    base = CELUConfig(R=args.R, W=args.W, xi_degrees=args.xi,
-                      weighting=not args.no_weighting,
-                      cache_fused=not args.no_cache_fusion,
-                      compression=args.compression,
-                      cache_dtype=args.cache_dtype)
-    celu_cfg, n_local = engine.preset_config(args.protocol, base)
+    celu_cfg, n_local = engine.preset_config(
+        args.protocol, celu_config(args) if celu is None else celu)
+    depth = celu_cfg.pipeline_depth
     params = init_fn(args.seed, cfg, dev)
     if uniforms is None:
         uniforms = GeneratorUniforms(args.seed, dev)
@@ -163,13 +194,15 @@ def train_dlrm(args, uniforms=None, opt=None) -> Dict[str, Any]:
     print(f"[opt] {args.optimizer} state: Party A {opt_b[0]} B, Party B "
           f"{opt_b[1]} B (--opt-state-dtype {args.opt_state_dtype})",
           flush=True)
-    rnd = engine.make_round(etask, opt, celu_cfg, local_steps=n_local,
-                            transport=transport)
+    sched = make_schedule(etask, opt, celu_cfg, n_local, transport)
+    state = sched.start(state)
     z_shapes = [(args.batch_size, cfg.z_dim)]
     up_bytes, down_bytes = transport_round_updown(transport, z_shapes)
+    dp_note = (f"; DP sigma {celu_cfg.dp_sigma} clip {celu_cfg.dp_clip}"
+               if celu_cfg.dp_sigma > 0 else "")
     print(f"[wire] compression {args.compression or 'none'}: up "
           f"{up_bytes} B, down {down_bytes} B per round "
-          f"({celu_cfg.wire_dtype} wire)", flush=True)
+          f"({celu_cfg.wire_dtype} wire{dp_note})", flush=True)
 
     te = data["test"]
     tea = to_device({"x_a": te["x_a"]}, dev)
@@ -183,7 +216,8 @@ def train_dlrm(args, uniforms=None, opt=None) -> Dict[str, Any]:
     t0 = time.perf_counter()
     for i in range(args.rounds):
         bi, ba, bb = next(it)
-        state, m = rnd(state, [to_device(ba, dev)], to_device(bb, dev), bi)
+        state, m = sched.step(state, [to_device(ba, dev)],
+                              to_device(bb, dev), bi)
         if i == 0 or (i + 1) % max(1, args.rounds // 10) == 0 \
                 or i + 1 == args.rounds:
             _sync(dev)
@@ -191,23 +225,31 @@ def train_dlrm(args, uniforms=None, opt=None) -> Dict[str, Any]:
             train_s += dt
             steady_s += dt if i else 0.0
             loss = float(m["loss"])
-            if i:
-                logits = predict(engine.unlift_params(state["params"]), cfg,
-                                 tea, teb)
+            if i:       # the parameters are trained in place
+                logits = predict(params, cfg, tea, teb)
                 a = auc(logits.cpu().numpy(), te["y"])
                 history.append((i + 1, loss, a))
                 print(f"round {i+1:6d} loss {loss:.4f} AUC {a:.4f} "
                       f"local_steps {int(m['local_steps'])} "
                       f"w_mean {float(m['w_mean']):.3f}", flush=True)
             t0 = time.perf_counter()
+    # the pipeline's drain (its last scans and merges) is the last
+    # rounds' work: in the compute wall, apart from the steady rounds
+    t0 = time.perf_counter()
+    state = sched.finish(state)
+    _sync(dev)
+    flush_s = time.perf_counter() - t0
+    train_s += flush_s
     # overlap-aware simulated wall-clock, as the reference charges it: the
     # measured compute split into the exchange share (1 fresh update) and
-    # the local share (n_local updates), serialized with the wire
+    # the local share (n_local updates); the clock serializes them with
+    # the wire at depth 0 and charges max(exchange, local) at depth >= 1
     compute_per_round = train_s / max(args.rounds, 1)
     ex_c = compute_per_round / (1 + n_local)
-    comm_s = DEFAULT_WAN.time_to_target(
+    loc_c = compute_per_round - ex_c
+    comm_s, seq_s = (DEFAULT_WAN.time_to_target(
         args.rounds, up_bytes, down_bytes, exchange_compute_s=ex_c,
-        local_compute_s=compute_per_round - ex_c, pipeline_depth=0)
+        local_compute_s=loc_c, pipeline_depth=d) for d in (depth, 0))
     out = {
         "arch": args.arch, "protocol": args.protocol, "device": str(dev),
         "rounds": args.rounds, "n_local": n_local,
@@ -216,18 +258,22 @@ def train_dlrm(args, uniforms=None, opt=None) -> Dict[str, Any]:
         "comm_bytes": args.rounds * (up_bytes + down_bytes),
         "uplink_bytes": args.rounds * up_bytes,
         "downlink_bytes": args.rounds * down_bytes,
-        "sim_wan_s": comm_s, "compute_wall_s": train_s,
+        "sim_wan_s": comm_s, "sim_wan_sequential_s": seq_s,
+        "pipeline_depth": depth, "compute_wall_s": train_s,
         "steady_round_ms": (1e3 * steady_s / (args.rounds - 1)
                             if args.rounds > 1 else None),
+        "flush_ms": 1e3 * flush_s,
         "history": history,
         "state": state,
     }
+    pipe_note = (f" (sequential would be {seq_s:.1f}s -> "
+                 f"{seq_s / comm_s:.2f}x overlap win)") if depth else ""
     auc_note = "n/a" if out["final_auc"] is None \
         else f"{out['final_auc']:.4f}"
     print(f"[done] {args.protocol}: AUC={auc_note} "
           f"comm={out['comm_bytes']/1e6:.1f}MB "
           f"(up {up_bytes/1e3:.0f}KB/dn {down_bytes/1e3:.0f}KB per round) "
-          f"simWAN={comm_s:.1f}s wall={train_s:.1f}s")
+          f"simWAN={comm_s:.1f}s wall={train_s:.1f}s{pipe_note}")
     return out
 
 
@@ -264,12 +310,8 @@ def train_llm(args, params=None) -> Dict[str, Any]:
     data = synth.make_token_stream(max(B * 8, 64), S, cfg.vocab_size,
                                    cfg.aux_vocab_size, seed=args.seed)
     task = llm_task(cfg, remat=args.remat)
-    base = CELUConfig(R=args.R, W=args.W, xi_degrees=args.xi,
-                      weighting=not args.no_weighting,
-                      cache_fused=not args.no_cache_fusion,
-                      compression=args.compression,
-                      cache_dtype=args.cache_dtype)
-    celu_cfg, n_local = engine.preset_config(args.protocol, base)
+    celu_cfg, n_local = engine.preset_config(args.protocol,
+                                             celu_config(args))
     if params is None:
         params = llm_params(cfg, args.seed, dev)
     uniforms = GeneratorUniforms(args.seed, dev)
@@ -283,12 +325,13 @@ def train_llm(args, params=None) -> Dict[str, Any]:
                               opt, celu_cfg, [to_device(ba0, dev)],
                               to_device(bb0, dev), transport=transport,
                               uniforms=uniforms)
-    rnd = engine.make_round(etask, opt, celu_cfg, local_steps=n_local,
-                            transport=transport)
+    sched = make_schedule(etask, opt, celu_cfg, n_local, transport)
+    state = sched.start(state)
     z_shapes = [(B, S, cfg.d_model)]
     up_bytes, down_bytes = transport_round_updown(transport, z_shapes)
     print(f"[llm] {cfg.name}: B={B} S={S} R={celu_cfg.R} W={celu_cfg.W} "
           f"{args.protocol}, remat {'on' if args.remat else 'off'}, "
+          f"pipeline depth {celu_cfg.pipeline_depth}, "
           f"device {dev}; wire up {up_bytes} B, down {down_bytes} B per "
           f"round ({celu_cfg.wire_dtype} wire)", flush=True)
     it = synth.token_batches(data, B, seed=args.seed)
@@ -296,7 +339,8 @@ def train_llm(args, params=None) -> Dict[str, Any]:
     for i in range(args.rounds):
         t0 = time.perf_counter()
         bi, ba, bb = next(it)
-        state, m = rnd(state, [to_device(ba, dev)], to_device(bb, dev), bi)
+        state, m = sched.step(state, [to_device(ba, dev)],
+                              to_device(bb, dev), bi)
         _sync(dev)
         round_s.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
@@ -304,13 +348,29 @@ def train_llm(args, params=None) -> Dict[str, Any]:
             print(f"round {i+1:4d} loss {losses[-1]:.4f} local_steps "
                   f"{int(m['local_steps'])} w_mean "
                   f"{float(m['w_mean']):.3f}", flush=True)
+    t0 = time.perf_counter()
+    state = sched.finish(state)  # drain the in-flight queue
+    _sync(dev)
+    flush_s = time.perf_counter() - t0
     print(f"[done] {args.arch} {args.protocol}: "
           f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     return {"arch": args.arch, "protocol": args.protocol,
             "device": str(dev), "rounds": args.rounds, "n_local": n_local,
-            "losses": losses, "round_s": round_s,
+            "pipeline_depth": celu_cfg.pipeline_depth,
+            "losses": losses, "round_s": round_s, "flush_s": flush_s,
             "comm_bytes": args.rounds * (up_bytes + down_bytes),
             "state": state}
+
+
+def celu_config(args) -> CELUConfig:
+    """The technique's hyper-parameters from the flags."""
+    return CELUConfig(R=args.R, W=args.W, xi_degrees=args.xi,
+                      weighting=not args.no_weighting,
+                      cache_fused=not args.no_cache_fusion,
+                      compression=args.compression,
+                      cache_dtype=args.cache_dtype,
+                      pipeline_depth=args.pipeline_depth,
+                      pipeline_lr_damping=args.pipeline_lr_damping)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -358,9 +418,26 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--opt-state-dtype", default="float32",
                     choices=("float32", "bfloat16", "int8"),
                     help="at-rest precision of AdaGrad's accumulator")
+    ap.add_argument("--pipeline-depth", type=int, default=0, metavar="D",
+                    help="0 = sequential rounds; 1 = overlap round t+1's "
+                         "WAN exchange with round t's local updates "
+                         "(paper §4.1 two-worker pipeline); D >= 2 = a "
+                         "D-deep queue of in-flight exchanges for "
+                         "high-RTT links where one exchange cannot hide "
+                         "behind one local scan.  Every cached entry gets "
+                         "D exchanges staler, so D >= 2 trades rounds for "
+                         "wall-clock: weights are attenuated w -> w^(1+s) "
+                         "per slot and updates lr-damped by "
+                         "1/(1 + c*s) (see --pipeline-lr-damping); D must "
+                         "stay < W")
+    ap.add_argument("--pipeline-lr-damping", type=float, default=0.25,
+                    metavar="C",
+                    help="staleness-aware lr damping coefficient c of the "
+                         "eta/(1 + c*s) schedule applied to local and "
+                         "fresh updates on the depth-D (D >= 2) pipeline; "
+                         "0 disables (depths 0/1 never damp)")
     later = ap.add_argument_group(
         "flags of later slices of the port (refused)")
-    later.add_argument("--pipeline-depth", type=int, default=0)
     later.add_argument("--fault-drop-prob", type=float, default=0.0)
     later.add_argument("--fault-straggler-prob", type=float, default=0.0)
     later.add_argument("--fault-dropout", action="append", default=[])

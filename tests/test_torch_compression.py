@@ -34,10 +34,16 @@ def jax_key(tag):
     round), 2K)[j]``; ``("insert", round, party, *folds)`` —
     ``fold_in(fold_in(PRNGKey(0xCE1), round), party)``; ``("optim", t,
     *folds)`` — ``fold_in(PRNGKey(0xAD49), t)``, the int8 AdaGrad state's
-    requantisation; ``("seed", s, *folds)`` — ``PRNGKey(s)``; then
-    ``fold_in`` by each fold."""
+    requantisation; ``("draw", round, j, party)`` — the uniform workset
+    draw, ``PRNGKey(29)`` folded by round, local step and party, and
+    ``("draw_s", s, round, j, party)`` — the same on the pipelined
+    scheduler's dynamic path, folded by the staleness ``s`` first;
+    ``("seed", s, *folds)`` — ``PRNGKey(s)``; then ``fold_in`` by each
+    fold."""
     kind, *rest = tag
-    if kind == "wire":
+    if kind in ("draw", "draw_s"):
+        key, folds = jax.random.PRNGKey(29), rest
+    elif kind == "wire":
         rnd, n, j, *folds = rest
         key = jax.random.split(
             jax.random.fold_in(jax.random.PRNGKey(17), rnd), n)[j]

@@ -290,14 +290,37 @@ def test_transport_and_wan_clock_match_reference(wire):
     clock = twan.WANClock().with_bandwidth(1e6, 2e6)
     assert twan.wan_seconds(up, down, clock=clock) == jwan.wan_seconds(
         up, down, clock=jwan.WANClock().with_bandwidth(1e6, 2e6))
-    # the compressed wire is in; DP and the chaos engine's recovery of a
-    # lost exchange stay refused, naming their slices
+    # the compressed wire is in; so is DP on both wires: the noised sends
+    # against the reference's on the same uniforms (the noise's erfinv
+    # differs in its last bits, tests/test_torch_privacy.py)
+    from test_torch_compression import jax_uniforms
+    from repro_torch.core.uniforms import UniformKey
     tp = tengine.make_transport(CELUConfig(wire_dtype=wire), "int8")
     assert isinstance(tp, tengine.CompressedWANTransport)
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        tengine.SimWANTransport(CELUConfig(dp_sigma=0.5))
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        tengine.make_transport(CELUConfig(dp_sigma=0.5), "int8")
+    jkey = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(17), 2),
+                            2)[1]
+    key = UniformKey(jax_uniforms, ("wire", 2, 2, 1))
+    for spec in ("", "int8"):
+        kw = dict(wire_dtype=wire, dp_sigma=0.5, dp_clip=2.0)
+        dtp = tengine.make_transport(CELUConfig(**kw), spec)
+        jdtp = jengine.make_transport(JCELU(**kw), spec)
+        assert isinstance(dtp, tengine.SimWANTransport)
+        res = None if not spec else torch.zeros(16, 8)
+        y, r = dtp.send(key, torch.from_numpy(x), res, "down")
+        jy, jr = jdtp.send(jkey, jnp.asarray(x),
+                           None if res is None else jnp.zeros((16, 8)),
+                           "down")
+        assert not np.array_equal(y.numpy(), ttp.send(
+            key, torch.from_numpy(x))[0].numpy())
+        # a bf16 wire rounds the noised value: a last-bit difference in
+        # the noise may move it one bf16 step
+        rtol = 1e-5 if wire == "float32" else 2.0 ** -8
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=rtol,
+                                   atol=1e-5)
+        if res is not None:
+            np.testing.assert_allclose(r.numpy(), np.asarray(jr), rtol=1e-5,
+                                       atol=1e-6)
+    # the chaos engine's recovery of a lost exchange stays refused
     with pytest.raises(NotImplementedError, match="slice 6"):
         tp.recover_dropped({})
 

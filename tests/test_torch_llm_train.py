@@ -581,13 +581,11 @@ def test_cli_refuses_other_families(arch):
         TTrain.main(["--arch", arch, "--reduced", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("remat", [True, False])
-def test_chip_smoke_launch_counts_are_the_engines_calls(remat, monkeypatch):
-    """``chip_smoke.py`` holds the training path's kernel launches on the
-    card to counts it derives from the engine's code; here the same
-    derivation must equal the calls of each kernel's wrapper in one celu
-    round past 2,048 tokens at reduced geometry (their plain versions run
-    on the CPU, so the calls are counted, not the launches)."""
+def _count_kernel_calls(monkeypatch):
+    """-> a Counter of the calls of each kernel wrapper that the LLM
+    training path launches (their plain versions run on the CPU, so the
+    calls are counted, not the launches), keyed like ``_cuda.LAUNCHES``;
+    and the ``chip_smoke`` module."""
     import collections
     import os
     import sys
@@ -610,6 +608,16 @@ def test_chip_smoke_launch_counts_are_the_engines_calls(remat, monkeypatch):
     counted(TL, "flash_attention")
     counted(tfs, "fused_sample_2d")
     counted(tag, "fused_adagrad_step_", "fused_adagrad")
+    return calls, chip_smoke
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_chip_smoke_launch_counts_are_the_engines_calls(remat, monkeypatch):
+    """``chip_smoke.py`` holds the training path's kernel launches on the
+    card to counts it derives from the engine's code; here the same
+    derivation must equal the calls of each kernel's wrapper in one celu
+    round past 2,048 tokens at reduced geometry."""
+    calls, chip_smoke = _count_kernel_calls(monkeypatch)
     args = chip_smoke.train_args("smollm-360m", rounds=1, device="cpu",
                                  reduced=True, batch_size=1, seq_len=LONG_S,
                                  R=1, W=2, remat=remat)
@@ -619,3 +627,19 @@ def test_chip_smoke_launch_counts_are_the_engines_calls(remat, monkeypatch):
     want = chip_smoke._llm_launches(CFG, 1, 1, remat, n)
     print(f"remat={remat}: calls {dict(calls)}")
     assert dict(calls) == want
+
+
+def test_chip_smoke_launch_counts_at_pipeline_depth_1(monkeypatch):
+    """The same at ``--pipeline-depth 1``: one round, whose drain runs one
+    more local scan (the derivation's ``depth``)."""
+    calls, chip_smoke = _count_kernel_calls(monkeypatch)
+    args = chip_smoke.train_args("smollm-360m", rounds=1, device="cpu",
+                                 reduced=True, batch_size=1, seq_len=LONG_S,
+                                 R=1, W=2, remat=False, pipeline_depth=1)
+    out = TTrain.train_llm(args)
+    params = out["state"]["params"]
+    n = [len(list(p.parameters())) for p in params["a"] + [params["b"]]]
+    want = chip_smoke._llm_launches(CFG, 1, 1, False, n, depth=1)
+    print(f"depth 1: calls {dict(calls)}")
+    assert dict(calls) == want
+    assert want != chip_smoke._llm_launches(CFG, 1, 1, False, n)

@@ -1,6 +1,6 @@
 """The port's training CLI on the CPU: a few rounds end to end (every
-optimizer state), the flags of later slices refused, and no silent move to
-the CPU."""
+optimizer state, the pipelined scheduler), the flags of later slices
+refused, and no silent move to the CPU."""
 import numpy as np
 import pytest
 import torch
@@ -39,9 +39,24 @@ def test_cli_runs_rounds_on_cpu(arch, protocol, extra):
     ["--checkpoint", "x.npz"], ["--resume", "x.npz"],
     ["--fault-straggler-prob", "0.1"], ["--fault-dropout", "1:0:5"],
 ])
-def test_cli_refuses_flags_of_later_slices(flag):
-    with pytest.raises(SystemExit, match="not in the port yet"):
-        train.main(["--arch", "wdl-criteo"] + SMALL + flag)
+def test_cli_refuses_flags_of_later_slices(flag, capsys):
+    """Slice 6's flags are refused with a message.  The pipeline depths,
+    refused until the pipelined scheduler came, now run: every round is
+    merged, the queue drains, and the WAN clock charges the overlap."""
+    if flag[0] != "--pipeline-depth":
+        with pytest.raises(SystemExit, match="not in the port yet"):
+            train.main(["--arch", "wdl-criteo"] + SMALL + flag)
+        return
+    out = train.main(["--arch", "wdl-criteo"] + SMALL + flag)
+    depth = int(flag[1])
+    assert out["pipeline_depth"] == depth
+    assert np.isfinite(out["final_loss"])
+    assert out["comm_bytes"] == 4 * 2 * 64 * 32 * 4
+    assert out["sim_wan_s"] < out["sim_wan_sequential_s"]
+    done = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("[done]")]
+    assert len(done) == 1 and "sequential would be" in done[0] \
+        and "overlap win" in done[0], done
 
 
 @pytest.mark.parametrize("optimizer", ["sgd", "adam", "sm3"])
@@ -86,7 +101,21 @@ def test_cli_reports_opt_state_bytes(optimizer, state_dtype, capsys):
 ])
 def test_cli_rejects_tuning_flags_of_later_slices(flag, capsys):
     """The reference's flags that only tune a later slice's feature are
-    not defined here, so argparse rejects them rather than ignoring them."""
+    not defined here, so argparse rejects them rather than ignoring them.
+    ``--pipeline-lr-damping`` tunes the pipelined scheduler, which is in:
+    it is accepted, and damps a depth-2 run's updates."""
+    if flag[0] == "--pipeline-lr-damping":
+        runs = [train.train_dlrm(train.build_parser().parse_args(
+            ["--arch", "wdl-criteo"] + SMALL
+            + ["--rounds", "6", "--pipeline-depth", "2",
+               "--pipeline-lr-damping", c]))
+            for c in (flag[1], "0")]
+        for out in runs:
+            assert np.isfinite(out["final_loss"])
+        # the same schedule, damped and not: the losses part once a
+        # damped update reaches a dispatched exchange (round 4 on)
+        assert runs[0]["final_loss"] != runs[1]["final_loss"]
+        return
     with pytest.raises(SystemExit) as e:
         train.main(["--arch", "wdl-criteo"] + SMALL + flag)
     assert e.value.code == 2

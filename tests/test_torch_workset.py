@@ -88,6 +88,18 @@ def test_unported_workset_paths_raise():
     # a quantised table draws its rounding uniforms from a key
     with pytest.raises(ValueError, match="needs a key"):
         tws.workset_insert(tws.workset_init(3, e, cache_dtype="int8"), e, 0)
+    # uniform sampling is in: it needs a key, and draws a 0-d int32 slot
+    # among the alive ones as the reference's categorical draw does
+    # (tests/test_torch_pipeline.py holds it to the reference)
+    from test_torch_compression import jax_uniforms
+    from repro_torch.core.uniforms import draw_key
     ws = tws.workset_init(3, e)
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(ValueError, match="rng"):
         tws.workset_draw(ws, 2, "uniform")
+    tws.workset_insert(ws, e, 7)
+    _, slot, bi, valid = tws.workset_draw(
+        ws, 2, "uniform", rng=draw_key(jax_uniforms, 0, 0, 0))
+    assert slot.dtype == torch.int32 and slot.dim() == 0
+    assert (int(slot), int(bi), bool(valid)) == (0, 7, True)
+    assert ws["use_count"].tolist() == [1, 0, 0]
+    assert int(ws["cursor"]) == 0
