@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Mutation check of ``chip_smoke.py``'s per-element limits for K9 and
-K10, of its check of K1 at the LLM width, and of its bitwise checks of
-the AdaGrad table kernels (K7), on one NVIDIA GPU.
+K10, of its check of K1 at the LLM width, of its bitwise checks of the
+AdaGrad table kernels (K7), and of its chaos phase, on one NVIDIA GPU.
 
 Builds the flash-attention forward (``src/repro_torch/csrc/
 flash_attention.cu``) or backward (``flash_attention_bwd.cu``), or the
@@ -66,6 +66,19 @@ kernel phase (``phase_adagrad_kernels``), whose checks are bitwise:
   * ``adagrad_last_chunk_dropped``: the launch's last block (the last
     chunk of the table's last leaf) processes nothing;
   * ``adagrad_scale_ignored``: the mask is never applied.
+
+The chaos engine and the checkpoints (``core/engine.py``,
+``checkpoint/checkpoint.py``), in the smoke's chaos phase, whose checks
+name ``chaos``:
+
+  * ``chaos_party_mask_ignored``: the local scan ignores the party mask,
+    so a down party keeps updating (``_chaos_fault_matrix``);
+  * ``chaos_drop_unrecovered``: ``recover_dropped`` returns the
+    residuals unrecovered, r' in place of r' + y (``_chaos_drop_plan``);
+  * ``checkpoint_restore_allocates``: the restore makes new tensors in
+    place of copying into the reference's (``_chaos_checkpoint``);
+  * ``checkpoint_generator_left_out``: the uniform generator's position
+    is left out of the file (``_chaos_checkpoint``).
 
     python3 chip_mutants.py               # every mutant
     python3 chip_mutants.py NAME [NAME]   # the named ones
@@ -154,6 +167,19 @@ MUTANTS = {
     "adagrad_scale_ignored": (
         "const Step st{neg_lr, eps, scale ? *scale : 1.f, scale != nullptr};",
         "const Step st{neg_lr, eps, scale ? *scale : 1.f, false};"),
+    # the chaos engine and the checkpoints (Python sources)
+    "chaos_party_mask_ignored": (
+        "                vf = vf * party_mask[party]",
+        "                vf = vf"),
+    "chaos_drop_unrecovered": (
+        "            ts[d] = [r + v.float() for r, v in zip(ts[d], vals)]",
+        "            ts[d] = [r.clone() for r, v in zip(ts[d], vals)]"),
+    "checkpoint_restore_allocates": (
+        "        ref.copy_(src)\n    return ref",
+        "        ref = src.to(ref.device, ref.dtype).clone()\n    return ref"),
+    "checkpoint_generator_left_out": (
+        "        flat[_UNIFORMS] = rs.uniforms.get_state().numpy()",
+        "        pass"),
 }
 # K10's mutants: name -> the wrapper whose check must fail
 K10_MUTANTS = {name: "flash_attention_bwd_dq" if name.startswith("dq_")
@@ -174,6 +200,18 @@ TARGETS = {
     **{name: ("flash_attention_bwd.cu", "phase_train_kernels", kernel)
        for name, kernel in K10_MUTANTS.items()},
 }
+TARGETS.update({
+    "chaos_party_mask_ignored": ("src/repro_torch/core/engine.py",
+                                 "_chaos_fault_matrix", "chaos"),
+    "chaos_drop_unrecovered": ("src/repro_torch/core/engine.py",
+                               "_chaos_drop_plan", "chaos"),
+    "checkpoint_restore_allocates": (
+        "src/repro_torch/checkpoint/checkpoint.py", "_chaos_checkpoint",
+        "chaos"),
+    "checkpoint_generator_left_out": (
+        "src/repro_torch/checkpoint/checkpoint.py", "_chaos_checkpoint",
+        "chaos"),
+})
 for _name in MUTANTS:
     TARGETS.setdefault(_name, ("flash_attention.cu", "phase_serve_kernels",
                                "flash_attention"))
@@ -218,7 +256,9 @@ def main() -> None:
         good, bad = MUTANTS[name]
         source, phase, kernel = TARGETS[name]
         d = os.path.join(top, name)
-        mutated_copy(d, os.path.join(CSRC, source), [(good, bad)], name)
+        path = source if source.startswith("src/") \
+            else os.path.join(CSRC, source)
+        mutated_copy(d, path, [(good, bad)], name)
         r = subprocess.run([sys.executable, "-c", RUN.format(phase)], cwd=d,
                            capture_output=True, text=True, timeout=600)
         line = next((ln for ln in (r.stdout + r.stderr).splitlines()
@@ -247,7 +287,7 @@ def main() -> None:
     shutil.rmtree(top, ignore_errors=True)
     if survived:
         sys.exit(f"chip_mutants: FAILED: {survived} passed the smoke's "
-                 f"K9 / K10 / K1 / K7 checks")
+                 f"K9 / K10 / K1 / K7 / chaos checks")
     print("chip_mutants: every mutant caught")
 
 

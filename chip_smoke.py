@@ -52,7 +52,26 @@ Phases, each on its own printed lines (any failure exits non-zero):
      full width through ``train_llm`` at depth 1 (3 rounds; K9-LSE, K10,
      K9, K1 and K7 launches derived by ``_llm_launches``), its losses,
      ms per round, busy ms per round and peak memory;
-  7. the serving kernels against their plain versions: K6 and K11
+  7. the chaos engine (``core/faults.py``) and the round-state
+     checkpoints (``checkpoint/``) at WDL-Criteo's full width: (1)
+     ``ChaosEngine(plan=None)`` bitwise ``PipelinedEngine`` at depths 0,
+     1 and 2 over 20 rounds; (2) the reference benchmark's fault matrix
+     (``benchmarks/chaos.py``) at depth 1 over 50 rounds, its counters
+     and events equal to the CPU run's, a0's parameters, K7 accumulators
+     and step counter bitwise unchanged over its dropout span while Party
+     B's move (K1 and K7 still launch for it, at mask and scale 0), the
+     first 5 rounds card against CPU, the wire priced on a0's slow link;
+     (3) a plan that drops (int8 wire, K3) at depth 2: comm_rounds ==
+     merges == dispatches - drops, and a dropped exchange's recovered
+     residual bitwise r' + y; (4) a checkpoint after round 7 of 12 at
+     depth 2 restored into a fresh engine, the resumed run bitwise the
+     uninterrupted one with every AdaGrad state tensor in its storage,
+     with the fp32 ring and state, then the int4 ring (K5) and the int8
+     state (K8); (5) the training CLI run whole, to a checkpoint and
+     resumed, the resumed history bitwise the whole run's; every run's
+     launches derived from its telemetry (``_chaos_launches``); host and
+     busy ms per round of the fault matrix against plan=None, in turns;
+  8. the serving kernels against their plain versions: K6 and K11
      bitwise at the serving shape (W = 4 ring slots, C = 8 lanes,
      F = 960) and at a wide ring, K9 at the long-prompt shape
      (1, 4096, 15, 64) bf16, causal, with a window of 1,024, at head
@@ -63,7 +82,7 @@ Phases, each on its own printed lines (any failure exits non-zero):
      products of its work and of the three it issues, and the
      tensor-core instructions in the SASS of its bf16 kernel (none
      fails);
-  8. the serving path: ``repro_torch.launch.serve`` at smollm-360m's
+  9. the serving path: ``repro_torch.launch.serve`` at smollm-360m's
      full width (32 requests, 8 lanes, prompt 16, gen 16, closed burst)
      with the int8 ring and wire (K6 on every ring read; two runs, equal
      tokens and bitwise equal logits), the int4 ring (K11), the fp32
@@ -73,7 +92,7 @@ Phases, each on its own printed lines (any failure exits non-zero):
      every attention layer of each prefill, the prefill's logits held
      against the same prefill through the plain attention); launches
      and ms per decode step;
-  9. the training kernels against their plain versions: K9-LSE (the
+ 10. the training kernels against their plain versions: K9-LSE (the
      forward with the row log-sum-exp) and K10's dkv and dq kernels at
      (1, 4096, 15, 64) bf16, causal, with a window of 1,024, at head dim
      128 and in fp32, at the training phase's (2, 4096, 15, 64) in bf16
@@ -94,7 +113,7 @@ Phases, each on its own printed lines (any failure exits non-zero):
      LLM cut tensor (2, 2, 3,932,160) and a wide ragged row (2, 3,
      1,000,003), full and weights-only, against its plain version,
      bitwise the same on a second run, timed beside its bound;
- 10. the LLM training path: ``repro_torch.launch.train`` at smollm-360m's
+ 11. the LLM training path: ``repro_torch.launch.train`` at smollm-360m's
      full width (B = 2, S = 4,096, R = W = 2, 3 celu rounds, fp32 cache,
      AdaGrad through K7, remat on) with the exact launch counts of
      K9-LSE, K10, K9, K1 and K7 derived from the code, each round's loss,
@@ -104,12 +123,12 @@ Phases, each on its own printed lines (any failure exits non-zero):
      ``launch/steps.py`` train step at B = 1, S = 4,096 through
      K9-LSE / K10 against the same step through the plain attention,
      loss and every gradient leaf held to a limit;
- 11. the reduced smollm-360m (head dim 32) past 2,048 tokens: two celu
+ 12. the reduced smollm-360m (head dim 32) past 2,048 tokens: two celu
      rounds of ``train_llm`` at B = 2, S = 3,072 and a train step, each
      against the same run through the plain attention, and the serving
      engine on 3,072-token prompts, the prefill's logits against the
      plain attention's;
- 12. a JSON line of per-kernel results, then the last line
+ 13. a JSON line of per-kernel results, then the last line
      ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
@@ -1645,6 +1664,544 @@ def _llm_at_depth1(torch, card):
     return counts
 
 
+# --------------------------------------------------------------------------
+# The chaos engine and the checkpoints (core/faults.py, checkpoint/)
+# --------------------------------------------------------------------------
+# the reference benchmark's fault matrix (benchmarks/chaos.py:44-50) over
+# 50 rounds: 5% per-attempt loss with two retries, a light straggler
+# tail, a0 down for 5 rounds from the middle, a0 on a 100 Mbps link with
+# 20 ms legs (the link only prices the wire)
+CHAOS_ROUNDS = 50
+CHAOS_SPAN = (25, 5)
+CHAOS_MATRIX = {"fault_seed": 7, "fault_drop_prob": 0.05,
+                "fault_max_retries": 2, "fault_straggler_prob": 0.1,
+                "fault_straggler_rounds": 2,
+                "fault_dropout": [f"a0:{CHAOS_SPAN[0]}:{CHAOS_SPAN[1]}"]}
+CHAOS_LINKS = ((12.5e6, 12.5e6, 0.02),)
+CHAOS_BACKOFF_S = 0.5
+# a plan that really drops: no retry, depth 2, the int8 wire (K3)
+DROP_FLAGS = {"fault_seed": 2, "fault_drop_prob": 0.35,
+              "fault_max_retries": 0}
+DROP_ROUNDS = 30
+# tests/test_faults.py::test_chaos_checkpoint_resume_bit_exact's plan:
+# depth 2, 12 rounds, interrupted after round 7
+CKPT_FLAGS = {"fault_seed": 9, "fault_drop_prob": 0.25,
+              "fault_max_retries": 1, "fault_straggler_prob": 0.3,
+              "fault_straggler_rounds": 2, "fault_dropout": ["a0:5:2"]}
+CKPT_ROUNDS, CKPT_CUT = 12, 7
+# the CLI's three runs: one whole, one to the checkpoint, one resumed
+CLI_FLAGS = ["--fault-seed", "3", "--fault-drop-prob", "0.3",
+             "--fault-straggler-prob", "0.2", "--fault-dropout", "a0:10:5",
+             "--pipeline-depth", "2", "--compression", "int8"]
+CLI_ROUNDS, CLI_CUT = 50, 25
+
+
+def _chaos_schedule(tel, rounds: int, depth: int):
+    """-> (local scans, merges) of a chaos run from its telemetry
+    (``ChaosEngine.telemetry()`` after the flush), following
+    ``ChaosEngine.step`` and ``flush``: every round scans once; the flush
+    scans and merges each exchange still in flight (one scheduler round
+    each, so ``rounds`` grows by them) and then scans once more, except
+    at depth 0 with nothing in flight."""
+    drained = tel["rounds"] - rounds
+    scans = rounds + drained + (0 if depth == 0 and not drained else 1)
+    return scans, tel["merges"]
+
+
+def _chaos_launches(tel, rounds: int, depth: int, n_adagrad: int, *,
+                    wire_k3: int = 0, cache: str = "float32",
+                    state: str = "float32") -> dict:
+    """The kernels' launches of a WDL chaos run (one feature party, R
+    local updates a scan), derived from its telemetry: the gate (K1 for
+    fp32 / bf16 rings, K4 / K5 for int8 / int4) on each local update of
+    both parties, down parties included (a zero mask); AdaGrad (K7, or K8
+    for the int8 state) ``n_adagrad`` launches for each update of both
+    parties, R a scan, the down party's at scale 0, and one a merge; K3
+    ``wire_k3`` times a dispatch (dropped ones included: the drop comes
+    after the sends) and, for a quantised ring, once for each of the four
+    inserts of a merge."""
+    scans, merges = _chaos_schedule(tel, rounds, depth)
+    gate = {"float32": "fused_sample_2d", "bfloat16": "fused_sample_2d",
+            "int8": "fused_sample_q8_2d", "int4": "fused_sample_q4_2d"}
+    opt = "fused_adagrad_q8" if state == "int8" else "fused_adagrad"
+    k3 = wire_k3 * tel["dispatches"] + (
+        4 * merges if cache in ("int8", "int4") else 0)
+    return {gate[cache]: 2 * R * scans, opt: (R * scans + merges) * n_adagrad,
+            "quantize_sr_2d": k3}
+
+
+def _chaos_args(device=None, rounds=CHAOS_ROUNDS, **kw):
+    return train_args("wdl-criteo", rounds=rounds, device=device, **kw)
+
+
+def _chaos_engine(args, *, chaos=True, uniforms=None):
+    """WDL-Criteo at full width as ``train_dlrm`` sets it up, under the
+    ChaosEngine of the flags' plan (``chaos``) or the plain
+    ``PipelinedEngine`` -> (set-up, engine, round state, batches on the
+    device)."""
+    from repro_torch.core import engine
+    from repro_torch.core.faults import ChaosEngine
+    from repro_torch.data import synthetic as synth
+    from repro_torch.data import to_device
+    from repro_torch.launch.train import fault_plan, setup_dlrm
+    su = setup_dlrm(args, uniforms=uniforms)
+    if chaos:
+        pe = ChaosEngine(su.etask, su.opt, su.celu, plan=fault_plan(args),
+                         local_steps=su.n_local, transport=su.transport)
+    else:
+        pe = engine.make_pipeline(su.etask, su.opt, su.celu,
+                                  local_steps=su.n_local,
+                                  transport=su.transport)
+    batches = (([to_device(ba, su.dev)], to_device(bb, su.dev), bi)
+               for bi, ba, bb in synth.aligned_batches(
+                   su.data["train"], args.batch_size, seed=args.seed))
+    return su, pe, pe.init(su.state), batches
+
+
+def _drive(pe, rs, batches, rounds, at=None):
+    """``rounds`` steps -> (round state, losses as device tensors);
+    ``at`` (step index -> fn(rs)) runs a hook after that step."""
+    losses = []
+    for i in range(rounds):
+        bas, b, bi = next(batches)
+        rs, m = pe.step(rs, bas, b, bi)
+        losses.append(m["loss"])
+        if at and i in at:
+            at[i](rs)
+    return rs, losses
+
+
+def _floats(losses) -> list:
+    return [float(x) for x in losses]
+
+
+def _same_losses(a, b) -> bool:
+    return len(a) == len(b) and all(
+        (math.isnan(x) and math.isnan(y)) or x == y for x, y in zip(a, b))
+
+
+def _state_tensors(state) -> list:
+    """Every tensor of an engine state dict (parameters, optimizer
+    state, rings, counters, residuals) in a fixed order."""
+    out = []
+
+    def walk(x):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k])
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif hasattr(x, "named_parameters"):
+            out.extend(p.detach() for _, p in sorted(x.named_parameters()))
+        elif hasattr(x, "tensors"):
+            out.extend(x.tensors())
+        elif hasattr(x, "q") and hasattr(x, "scale"):
+            out.extend([x.q, x.scale])
+        elif hasattr(x, "data_ptr"):
+            out.append(x)
+    walk({k: v for k, v in state.items() if k != "uniforms"})
+    return out
+
+
+def _states_equal(torch, a, b) -> bool:
+    ta, tb = _state_tensors(a), _state_tensors(b)
+    return len(ta) == len(tb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(ta, tb))
+
+
+def _chaos_plan_none(torch):
+    """Check 1: ``ChaosEngine(plan=None)`` is bitwise ``PipelinedEngine``
+    at depths 0, 1 and 2 over 20 full-width rounds on the card: every
+    loss and every state tensor."""
+    for depth in (0, 1, 2):
+        outs = []
+        for chaos in (False, True):
+            args = _chaos_args(rounds=20, pipeline_depth=depth)
+            _, pe, rs, it = _chaos_engine(args, chaos=chaos)
+            rs, losses = _drive(pe, rs, it, 20)
+            rs, _ = pe.flush(rs)
+            outs.append((_floats(losses), pe.finalize(rs)))
+        same = _same_losses(outs[0][0], outs[1][0])
+        state = _states_equal(torch, outs[0][1], outs[1][1])
+        print(f"[chaos] plan=None at depth {depth}, 20 rounds on the card: "
+              f"losses bitwise {same}, state bitwise {state}", flush=True)
+        check(same and state, f"chaos plan=None at depth {depth}: not "
+              f"bitwise the pipeline (losses {same}, state {state})")
+
+
+def _party_snapshot(rs, i):
+    """Party i's parameters, AdaGrad accumulators and step counter
+    (i = -1: Party B), cloned."""
+    m = rs.params["b"] if i < 0 else rs.params["a"][i]
+    o = rs.opt["b"] if i < 0 else rs.opt["a"][i]
+    s = rs.steps["b"] if i < 0 else rs.steps["a"][i]
+    return ([p.detach().clone() for p in m.parameters()]
+            + [a.clone() for a in o["accum"]] + [s.clone()])
+
+
+def _chaos_wire_seconds(plan, tel, transport, z_shapes) -> float:
+    """The run's wire seconds on the plan's links, as the reference's
+    benchmark prices them (``benchmarks/chaos.py::_wire_seconds``):
+    every attempt of every round with nobody down, with its backoff."""
+    from repro_torch.core.faults import FaultSchedule
+    from repro_torch.launch.wan import (clocks_from_plan,
+                                        retry_exchange_seconds,
+                                        transport_party_updown)
+    clocks = clocks_from_plan(plan, len(z_shapes))
+    updown = transport_party_updown(transport, z_shapes)
+    sched = FaultSchedule(plan)
+    return sum(retry_exchange_seconds(
+        clocks, updown, attempts=sched.exchange_fate(t).attempts,
+        backoff_s=plan.retry_backoff_s)
+        for t in range(tel["rounds"]) if not plan.down_parties(t))
+
+
+def _chaos_fault_matrix(torch, card=None):
+    """Check 2: the reference benchmark's fault matrix at depth 1 over 50
+    rounds on the card: counters and events equal the CPU run's; a0's
+    parameters, K7 accumulators and step counter unchanged over its
+    dropout span while Party B's advance; the first 5 rounds' losses
+    within CPU_CUDA_RTOL of the CPU's (the uniforms drawn on the CPU on
+    both devices); the launches derived from the telemetry.  -> the
+    launches."""
+    import dataclasses as dc
+
+    from repro_torch.core.uniforms import GeneratorUniforms
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.train import fault_plan
+    start, span = CHAOS_SPAN
+    runs = {}
+    for device in ("cuda", "cpu"):
+        args = _chaos_args(device, pipeline_depth=1, **CHAOS_MATRIX)
+        su, pe, rs, it = _chaos_engine(
+            args, uniforms=GeneratorUniforms(0, device, "cpu"))
+        snaps = {}
+
+        def snap(rs, key):
+            snaps[key] = (_party_snapshot(rs, 0), _party_snapshot(rs, -1))
+        _cuda.reset_launches()
+        rs, losses = _drive(pe, rs, it, CHAOS_ROUNDS, at={
+            start - 1: lambda rs: snap(rs, "before"),
+            start + span - 1: lambda rs: snap(rs, "after")})
+        rs, _ = pe.flush(rs)
+        counts = dict(_cuda.LAUNCHES)
+        runs[device] = (pe, _floats(losses), snaps, counts, su)
+    pe, losses, snaps, counts, su = runs["cuda"]
+    cpe, closses = runs["cpu"][0], runs["cpu"][1]
+    tel = pe.telemetry()
+    print(f"[chaos] fault matrix (benchmarks/chaos.py) at depth 1, "
+          f"{CHAOS_ROUNDS} rounds: {pe.counters}; events {tel['events']}",
+          flush=True)
+    check(pe.counters == cpe.counters
+          and tel["events"] == cpe.telemetry()["events"],
+          f"chaos fault matrix: card counters {pe.counters} against the "
+          f"CPU's {cpe.counters}")
+    check(tel["dropout_rounds"] == span, f"chaos fault matrix: "
+          f"{tel['dropout_rounds']} dropout rounds, want {span}")
+    a_before, b_before = snaps["before"]
+    a_after, b_after = snaps["after"]
+    frozen = all(torch.equal(x, y) for x, y in zip(a_before, a_after))
+    moved = not all(torch.equal(x, y) for x, y in zip(b_before, b_after))
+    print(f"[chaos] a0 over its dropout span (rounds {start}-"
+          f"{start + span - 1}): parameters, accumulators and step "
+          f"counter bitwise unchanged {frozen}; Party B's moved {moved}",
+          flush=True)
+    check(frozen, "chaos fault matrix: a0's parameters, accumulators or "
+          "step counter moved over its dropout span")
+    check(moved, "chaos fault matrix: Party B did not step over a0's "
+          "dropout span")
+    devs = [abs(g - c) / abs(c) for g, c in zip(losses[:5], closses[:5])
+            if not math.isnan(c)]
+    nan_same = [math.isnan(x) for x in losses[:5]] == \
+        [math.isnan(x) for x in closses[:5]]
+    print(f"[chaos] fault matrix, first 5 rounds card against CPU: loss "
+          f"rel dev {[float(f'{d:.3g}') for d in devs]} (tolerance "
+          f"{CPU_CUDA_RTOL})", flush=True)
+    check(nan_same and devs and max(devs) <= CPU_CUDA_RTOL,
+          f"chaos fault matrix: card losses {losses[:5]} against the "
+          f"CPU's {closses[:5]}")
+    n = _adagrad_launches([len(list(m.parameters())) for m in
+                           (su.params["a"], su.params["b"])])
+    want = _chaos_launches(tel, CHAOS_ROUNDS, 1, n)
+    _want("chaos fault matrix", counts, **want)
+    plan = dc.replace(fault_plan(_chaos_args(**CHAOS_MATRIX)),
+                      party_clocks=CHAOS_LINKS,
+                      retry_backoff_s=CHAOS_BACKOFF_S)
+    wire = _chaos_wire_seconds(plan, tel, su.transport,
+                               [(256, su.cfg.z_dim)])
+    print(f"[chaos] fault matrix sim_wan_s {wire} (every attempt on a0's "
+          f"100 Mbps / 20 ms link with backoff {CHAOS_BACKOFF_S} s, "
+          f"launch.wan.retry_exchange_seconds over clocks_from_plan)",
+          flush=True)
+    return counts
+
+
+def _chaos_times(torch, card):
+    """Host ms and busy ms per scheduler round of the fault matrix
+    against ``plan=None`` at depth 1: each profiled once over rounds
+    2-20 (busy), then timed over rounds 2-50 in turns (host clock)."""
+    from torch.profiler import ProfilerActivity, profile
+    host = {True: [], False: []}
+    busy = {}
+    for chaos in (True, False, False, True, True, False):
+        flags = CHAOS_MATRIX if chaos else {}
+        _, pe, rs, it = _chaos_engine(_chaos_args(pipeline_depth=1,
+                                                  **flags))
+        rs, _ = _drive(pe, rs, it, 1)
+        torch.cuda.synchronize()
+        if chaos not in busy:
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            with prof:
+                rs, _ = _drive(pe, rs, it, 19)
+                torch.cuda.synchronize()
+            kern = _kernels(torch, prof)
+            busy[chaos] = (sum(e.device_time_total for e in kern) / 1e3
+                           / 19, len(kern) / 19)
+        else:
+            t0 = time.perf_counter()
+            rs, _ = _drive(pe, rs, it, CHAOS_ROUNDS - 1)
+            torch.cuda.synchronize()
+            host[chaos].append(1e3 * (time.perf_counter() - t0)
+                               / (CHAOS_ROUNDS - 1))
+        pe.flush(rs)
+    for chaos in (True, False):
+        label = "fault matrix" if chaos else "plan=None"
+        print(f"[time] chaos {label} at depth 1: "
+              f"{' and '.join(f'{x:.3f}' for x in host[chaos])} ms per "
+              f"scheduler round (host clock, rounds 2-{CHAOS_ROUNDS} of two "
+              f"runs in turns); device busy {busy[chaos][0]:.3f} ms per "
+              f"round over rounds 2-20 ({busy[chaos][1]:.0f} kernels per "
+              f"round); card {card}", flush=True)
+
+
+def _chaos_drop_plan(torch):
+    """Check 3: a plan that drops (seed 2, p 0.35, no retry) at depth 2
+    over the int8 wire (K3), 30 rounds: at least one drop, known from the
+    host-side schedule before the run; after the flush comm_rounds ==
+    merges == dispatches - drops; finite state; the first drop's
+    recovered residual bitwise r' + y, the same add made on the CPU.
+    -> the launches."""
+    from repro_torch.core.faults import FaultSchedule
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.train import fault_plan
+    args = _chaos_args(rounds=DROP_ROUNDS, pipeline_depth=2,
+                       compression="int8", **DROP_FLAGS)
+    plan = fault_plan(args)
+    sched = FaultSchedule(plan)
+    planned = [t for t in range(DROP_ROUNDS)
+               if not sched.exchange_fate(t).delivered]
+    check(planned, "chaos drop plan: the schedule drops nothing")
+    su, pe, rs, it = _chaos_engine(args)
+    recovered = []
+    recover = pe.transport.recover_dropped
+
+    def recording(fresh):
+        out = recover(fresh)
+        if not recovered:
+            recovered.append(({d: [r.cpu() for r in fresh["tstate"][d]]
+                               for d in out}, [y.cpu() for y in fresh["zs"]],
+                              [y.cpu() for y in fresh["dzs"]],
+                              {d: [r.cpu() for r in out[d]] for d in out}))
+        return out
+    pe.transport.recover_dropped = recording
+    _cuda.reset_launches()
+    rs, _ = _drive(pe, rs, it, DROP_ROUNDS)
+    rs, _ = pe.flush(rs)
+    counts = dict(_cuda.LAUNCHES)
+    state = pe.finalize(rs)
+    c = pe.counters
+    comm = int(state["comm_rounds"])
+    print(f"[chaos] drop plan at depth 2 over the int8 wire, {DROP_ROUNDS} "
+          f"rounds: drops planned at {planned}; {c}; comm_rounds {comm}",
+          flush=True)
+    check(c["drops"] == len(planned) and comm == c["merges"]
+          == c["dispatches"] - c["drops"], f"chaos drop plan: comm_rounds "
+          f"{comm}, counters {c}")
+    check(all(bool(torch.isfinite(t.float()).all())
+              for t in _state_tensors(state)), "chaos drop plan: a state "
+          "tensor is not finite")
+    check(recovered, "chaos drop plan: recover_dropped never ran")
+    res, zs, dzs, out = recovered[0]
+    same = all(torch.equal(out[d][i], res[d][i] + (zs if d == "up"
+                                                   else dzs)[i].float())
+               for d in out for i in range(len(out[d])))
+    moved = any(not torch.equal(out[d][i], res[d][i])
+                for d in out for i in range(len(out[d])))
+    print(f"[chaos] the first drop's recovered residuals bitwise r' + y "
+          f"(the add on the CPU): {same}; they differ from r': {moved}",
+          flush=True)
+    check(same and moved, "chaos drop plan: the recovered residual is not "
+          "r' + y")
+    n = _adagrad_launches([len(list(m.parameters())) for m in
+                           (su.params["a"], su.params["b"])])
+    _want("chaos drop plan", counts,
+          **_chaos_launches(pe.telemetry(), DROP_ROUNDS, 2, n, wire_k3=2))
+    return counts
+
+
+def _opt_tensors(rs) -> list:
+    out = []
+    for o in rs.opt["a"] + [rs.opt["b"]]:
+        for a in o["accum"]:
+            out.extend([a.q, a.scale] if hasattr(a, "q") else [a])
+    return out
+
+
+def _chaos_checkpoint(torch, card=None):
+    """Check 4: the plan of test_chaos_checkpoint_resume_bit_exact at
+    depth 2 over the int8 wire, 12 rounds, saved after round 7 and
+    restored into a fresh engine: the losses and the final state bitwise
+    the uninterrupted run's, and every AdaGrad state tensor keeps its
+    storage; with the fp32 ring and state, then the int4 ring (K5) and
+    the int8 state (K8).  -> the uninterrupted runs' launches."""
+    import tempfile
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.kernels import _cuda
+    counts = {}
+    for cache, state in (("float32", "float32"), ("int4", "int8")):
+        label = f"chaos checkpoint ({cache} ring, {state} AdaGrad state)"
+        args = _chaos_args(rounds=CKPT_ROUNDS, pipeline_depth=2,
+                           compression="int8", cache_dtype=cache,
+                           opt_state_dtype=state, **CKPT_FLAGS)
+        su, pe0, rs0, it0 = _chaos_engine(args)
+        _cuda.reset_launches()
+        rs0, l0 = _drive(pe0, rs0, it0, CKPT_ROUNDS)
+        rs0, _ = pe0.flush(rs0)
+        c = dict(_cuda.LAUNCHES)
+        st0 = pe0.finalize(rs0)
+        n = _adagrad_launches([len(list(m.parameters())) for m in
+                               (su.params["a"], su.params["b"])])
+        _want(label, c, **_chaos_launches(
+            pe0.telemetry(), CKPT_ROUNDS, 2, n, wire_k3=2, cache=cache,
+            state=state))
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+        _, pe1, rs1, it1 = _chaos_engine(args)
+        rs1, l1a = _drive(pe1, rs1, it1, CKPT_CUT)
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "round.npz")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ckpt.save_round_state(path, rs1, extra=pe1.host_state())
+            save_ms = 1e3 * (time.perf_counter() - t0)
+            nbytes = os.path.getsize(path)
+            n_pend = len(rs1.pending)
+            del pe1, rs1
+            _, pe2, rs_ref, it2 = _chaos_engine(args)
+            for _ in range(n_pend):
+                bas, b, bi = next(it2)
+                rs_ref = pe2.dispatch(rs_ref, bas, b, bi)
+            ptrs = [t.data_ptr() for t in _opt_tensors(rs_ref)]
+            host = {"now": 0, "dispatch_seq": 0, "arrival": [0] * n_pend,
+                    "dispatch_round": [0] * n_pend,
+                    "last_merged_dispatch": 0}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                rs2, host = ckpt.restore_round_state(path, rs_ref,
+                                                     extra_reference=host)
+            except (KeyError, ValueError) as e:
+                fail(f"chaos checkpoint: the restore failed: {e}")
+            torch.cuda.synchronize()
+            restore_ms = 1e3 * (time.perf_counter() - t0)
+        pe2.load_host_state(host)
+        kept = [t.data_ptr() for t in _opt_tensors(rs2)] == ptrs
+        for _ in range(CKPT_CUT - n_pend):
+            next(it2)
+        rs2, l1b = _drive(pe2, rs2, it2, CKPT_ROUNDS - CKPT_CUT)
+        rs2, _ = pe2.flush(rs2)
+        st2 = pe2.finalize(rs2)
+        same = _same_losses(_floats(l0), _floats(l1a + l1b))
+        state_same = _states_equal(torch, st0, st2)
+        print(f"[chaos] {label}: {n_pend} in flight at round {CKPT_CUT}; "
+              f"file {nbytes} B, save {save_ms:.3f} ms, restore "
+              f"{restore_ms:.3f} ms; {len(ptrs)} AdaGrad state tensors "
+              f"keep their storage {kept}; resumed losses bitwise {same}, "
+              f"final state bitwise {state_same}", flush=True)
+        check(kept, f"chaos checkpoint: the restore moved the AdaGrad "
+              f"state ({label})")
+        check(same and state_same, f"chaos checkpoint: the resumed run is "
+              f"not bitwise the uninterrupted one ({label}: losses {same}, "
+              f"state {state_same})")
+    return counts
+
+
+def _chaos_cli(torch):
+    """Check 5: ``python -m repro_torch.launch.train`` (its ``main``) with
+    the same fault flags three times: 50 rounds; 25 rounds with a
+    checkpoint at 25; 50 rounds resumed from it.  The resumed run's
+    history from round 25 on and its final AUC equal the whole run's,
+    bitwise; its counters cover only the rounds after the resume.  ->
+    the whole run's launches, checked against the derivation."""
+    import tempfile
+
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.train import main
+    base = ["--arch", "wdl-criteo"] + CLI_FLAGS
+    _cuda.reset_launches()
+    whole = main(base + ["--rounds", str(CLI_ROUNDS)])
+    counts = dict(_cuda.LAUNCHES)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "cli.npz")
+        first = main(base + ["--rounds", str(CLI_CUT), "--checkpoint", path,
+                             "--checkpoint-every", str(CLI_CUT)])
+        resumed = main(base + ["--rounds", str(CLI_ROUNDS), "--resume",
+                               path])
+    def rows(h):        # NaN (a starved round's loss) equal to NaN
+        return [tuple("nan" if isinstance(x, float) and math.isnan(x)
+                      else x for x in row) for row in h]
+    tail = [h for h in whole["history"] if h[0] > CLI_CUT]
+    at_cut = [h for h in whole["history"] if h[0] == CLI_CUT]
+    same = (rows(resumed["history"]) == rows(tail)
+            and rows(first["history"][-1:]) == rows(at_cut)
+            and resumed["final_auc"] == whole["final_auc"])
+    tw, tf, tr = (o["fault_telemetry"] for o in (whole, first, resumed))
+    split = all(tf[k] + tr[k] == tw[k]
+                for k in ("dispatches", "drops", "wire_attempts",
+                          "dropout_rounds"))
+    print(f"[chaos] the CLI, {' '.join(CLI_FLAGS)}: whole run AUC "
+          f"{whole['final_auc']!r}, resumed at round "
+          f"{resumed['start_round']} AUC {resumed['final_auc']!r}; history "
+          f"from round {CLI_CUT} on bitwise {same}; counters split at the "
+          f"resume {split} (whole {tw['dispatches']} dispatches, "
+          f"{tw['drops']} drops; resumed {tr['dispatches']}, "
+          f"{tr['drops']})", flush=True)
+    check(resumed["start_round"] == CLI_CUT and same, "chaos CLI: the "
+          "resumed run's history is not bitwise the whole run's")
+    check(split, f"chaos CLI: counters whole {tw}, first {tf}, resumed "
+          f"{tr}")
+    # main() drops the state: WDL-Criteo's parties hold 7 and 13 tensors
+    # (phase_main_path checks it)
+    n = _adagrad_launches([7, 13])
+    _want("chaos CLI", counts, **_chaos_launches(tw, CLI_ROUNDS, 2, n,
+                                                 wire_k3=2))
+    return counts
+
+
+def phase_chaos(torch, card):
+    """The chaos engine over the pipelined scheduler and the round-state
+    checkpoints at WDL-Criteo's full width (B = 256, R = W = 5, ξ = 60°,
+    AdaGrad lr 0.01) on the card: checks 1-5 above, each run's K1 / K7 /
+    K3 / K5 / K8 launches derived from its telemetry; host and busy ms
+    per round of the fault matrix against plan=None.  -> the launches."""
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    _chaos_plan_none(torch)
+    add(_chaos_fault_matrix(torch, card))
+    add(_chaos_drop_plan(torch))
+    add(_chaos_checkpoint(torch))
+    add(_chaos_cli(torch))
+    _chaos_times(torch, card)
+    return counts
+
+
 def phase_serve_kernels(torch):
     """K6 and K11 against their plain versions, bitwise, at the serving
     ring and a wide one; K9 against its plain version at the long-prompt
@@ -2995,8 +3552,12 @@ def main() -> None:
     t0 = time.perf_counter()
     pipeline_counts = phase_pipeline(torch, card)
     print(f"[phase] pipeline {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    for k, v in phase_chaos(torch, card).items():
+        pipeline_counts[k] = pipeline_counts.get(k, 0) + v
+    print(f"[phase] chaos {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 7.-8. serving
+    # 8.-9. serving
     t0 = time.perf_counter()
     kernels.update(phase_serve_kernels(torch))
     print(f"[phase] serving kernels {time.perf_counter() - t0:.1f} s",
@@ -3005,7 +3566,7 @@ def main() -> None:
     counts.update(phase_serving(torch, card))
     print(f"[phase] serving {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 9.-10. training
+    # 10.-11. training
     t0 = time.perf_counter()
     kernels.update(phase_train_kernels(torch))
     print(f"[phase] training kernels {time.perf_counter() - t0:.1f} s",
@@ -3014,13 +3575,13 @@ def main() -> None:
     counts.update(phase_training(torch, card))
     print(f"[phase] training {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 11. the reduced model
+    # 12. the reduced model
     t0 = time.perf_counter()
     phase_reduced(torch, card)
     print(f"[phase] reduced model {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    # 12. results: each kernel's launches over every path that ran it
+    # 13. results: each kernel's launches over every path that ran it
     for k, v in pipeline_counts.items():
         counts[k] = counts.get(k, 0) + v
     rows = []

@@ -1,5 +1,6 @@
 """Configuration dataclasses: copies of ``repro/configs/base.py``'s
-``validate_pipeline_depth``, ``CELUConfig``, the LLM architecture configs
+``validate_pipeline_depth``, ``CELUConfig``, the chaos engine's
+``DropoutSpan`` and ``FaultPlan``, the LLM architecture configs
 (``ArchConfig`` with its family extras ``MoEConfig``, ``SSMConfig``,
 ``XLSTMConfig``, the party split ``VFLConfig``) and ``ShapeConfig``.  The
 port keeps its own so that it imports nothing of the JAX package; field
@@ -8,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 def _round_up(x: int, m: int) -> int:
@@ -54,6 +55,86 @@ class CELUConfig:
             raise ValueError(
                 f"pipeline_lr_damping must be >= 0, got "
                 f"{self.pipeline_lr_damping}")
+
+
+@dataclass(frozen=True)
+class DropoutSpan:
+    """One party's outage: ``party`` ("a0".."a{K-1}" or "b") is down for
+    ``rounds`` consecutive scheduler rounds starting at ``start`` (and
+    rejoins at ``start + rounds``)."""
+    party: str
+    start: int
+    rounds: int
+
+    def __post_init__(self):
+        if not (self.party == "b" or (self.party.startswith("a")
+                                      and self.party[1:].isdigit())):
+            raise ValueError(
+                f"DropoutSpan.party must be 'a<i>' or 'b', got "
+                f"{self.party!r}")
+        if self.start < 0 or self.rounds <= 0:
+            raise ValueError(
+                f"DropoutSpan needs start >= 0 and rounds >= 1, got "
+                f"start={self.start} rounds={self.rounds}")
+
+    def covers(self, round_idx: int) -> bool:
+        return self.start <= round_idx < self.start + self.rounds
+
+
+@dataclass(frozen=True)
+class FaultPlan:
+    """Deterministic, seeded fault schedule of the chaos engine
+    (``core.faults.ChaosEngine``): every fate is a function of ``(seed,
+    round_idx)`` alone, so a run and its resumed continuation see the
+    same faults.
+
+    A dropped exchange attempt (probability ``drop_prob``) is retried up
+    to ``max_retries`` times with exponential backoff from
+    ``retry_backoff_s`` before the round's exchange is abandoned; a
+    delivered one arrives late with probability ``straggler_prob``, by a
+    delay uniform on [1, ``straggler_rounds``].  ``party_clocks`` are
+    per-feature-party WAN links as ``(up_bandwidth_Bps,
+    down_bandwidth_Bps, latency_s)`` tuples (``launch.wan.clocks_from_plan``
+    turns them into clocks); the slowest party paces each exchange."""
+    seed: int = 0
+    drop_prob: float = 0.0
+    max_retries: int = 2
+    retry_backoff_s: float = 0.5
+    straggler_prob: float = 0.0
+    straggler_rounds: int = 2
+    dropouts: Tuple[DropoutSpan, ...] = ()
+    party_clocks: Optional[Tuple[Tuple[float, float, float], ...]] = None
+
+    def __post_init__(self):
+        if not (0.0 <= self.drop_prob < 1.0):
+            raise ValueError(f"drop_prob must be in [0, 1), got "
+                             f"{self.drop_prob}")
+        if not (0.0 <= self.straggler_prob <= 1.0):
+            raise ValueError(f"straggler_prob must be in [0, 1], got "
+                             f"{self.straggler_prob}")
+        if self.max_retries < 0 or self.straggler_rounds < 1:
+            raise ValueError(
+                f"need max_retries >= 0 and straggler_rounds >= 1, got "
+                f"{self.max_retries} / {self.straggler_rounds}")
+        if self.retry_backoff_s < 0.0:
+            raise ValueError(f"retry_backoff_s must be >= 0, got "
+                             f"{self.retry_backoff_s}")
+        object.__setattr__(self, "dropouts", tuple(self.dropouts))
+        if self.party_clocks is not None:
+            object.__setattr__(
+                self, "party_clocks",
+                tuple(tuple(float(v) for v in c)
+                      for c in self.party_clocks))
+            for c in self.party_clocks:
+                if len(c) != 3 or c[0] <= 0 or c[1] <= 0 or c[2] < 0:
+                    raise ValueError(
+                        f"party_clocks entries are (up_Bps, down_Bps, "
+                        f"latency_s) with positive bandwidths, got {c}")
+
+    def down_parties(self, round_idx: int) -> Tuple[str, ...]:
+        """Parties down at ``round_idx`` (sorted, deduplicated)."""
+        return tuple(sorted({d.party for d in self.dropouts
+                             if d.covers(round_idx)}))
 
 
 # --------------------------------------------------------------------------

@@ -45,9 +45,10 @@ How the JAX engine maps onto PyTorch:
     the card.
   * DP on the wire (``celu.dp_sigma > 0``) draws its Gaussian noise from
     the send's key through the uniform source (``core/privacy.py``).
-
-The chaos engine's ``recover_dropped`` is a later slice of the port
-(ROADMAP.md) and raises here.
+  * The chaos engine (``core/faults.py``) drives the same scheduler
+    through its hooks: ``local(staleness=, party_mask=)``,
+    ``merge(staleness=)``, ``dispatch(wire_round=)`` and the transports'
+    ``recover_dropped``.
 """
 from __future__ import annotations
 
@@ -168,6 +169,14 @@ class SimWANTransport:
         return sum(self.uplink_bytes(s) + self.downlink_bytes(s)
                    for s in z_shapes)
 
+    def recover_dropped(self, fresh: Dict[str, Any]) -> Dict[str, Any]:
+        """Transport state to resume from when ``fresh``'s wire transfer
+        is lost (the chaos engine abandons an exchange after its
+        retries).  A stateless transport has nothing to recover: the
+        update is gone and the local scans go on from cached
+        statistics."""
+        return fresh["tstate"]
+
 
 class CompressedWANTransport(SimWANTransport):
     """Compressed wire (Compressed-VFL): every released message passes the
@@ -223,9 +232,20 @@ class CompressedWANTransport(SimWANTransport):
         return self.codecs["down"].wire_bytes(z_shape, self.wire)
 
     def recover_dropped(self, fresh: Dict[str, Any]) -> Dict[str, Any]:
-        raise NotImplementedError(
-            "recover_dropped (the chaos engine's lost exchanges) comes "
-            "with slice 6 of the port (ROADMAP.md)")
+        """Error-feedback recovery of a lost exchange: each dropped
+        decoded message ``y`` goes back into its direction's residual.
+        The send kept ``r' = (x + r) - y``, so ``r'' = r' + y = x + r``
+        and the next delivered send carries the whole signal: the drop
+        becomes a delay, not a loss.  Under DP the dropped ``y`` carries
+        its noise into the residual, as in the reference (the released
+        value is then noisier than needed, never less noisy).  Lossless
+        directions keep no residual.  The residuals are new tensors: the
+        dropped payload is not written."""
+        ts = dict(fresh["tstate"])
+        for d in self.stateful_directions:
+            vals = fresh["zs"] if d == "up" else fresh["dzs"]
+            ts[d] = [r + v.float() for r, v in zip(ts[d], vals)]
+        return ts
 
     def scheduled(self, loss) -> "CompressedWANTransport":
         """Offer one (smoothed) loss observation to each distinct codec's
@@ -568,8 +588,10 @@ def _make_stages(task: KPartyTask, opt: Optimizer, celu: CELUConfig, *,
       * ``exchange_apply(state, fresh, batches_a, batch_b, batch_idx,
         uniforms, staleness=None)`` — fresh optimizer steps, workset
         inserts, counters, the residuals adopted;
-      * ``local_scan(state, staleness=None)`` — the R staleness-weighted
-        local updates per party (Algorithm 2).
+      * ``local_scan(state, staleness=None, party_mask=None)`` — the R
+        staleness-weighted local updates per party (Algorithm 2);
+        ``party_mask`` ((K+1,) float32 on the round's device, a_0..a_{K-1}
+        then b) freezes a party that is down.
 
     ``pipeline_staleness`` (the scheduler's depth) tightens the workset
     validity window and discounts the Algorithm-2 weights on the static
@@ -674,7 +696,11 @@ def _make_stages(task: KPartyTask, opt: Optimizer, celu: CELUConfig, *,
         state["transport"] = fresh["tstate"]
         return state, {"loss": fresh["loss"]}
 
-    def local_scan(state, staleness=None):
+    def local_scan(state, staleness=None, party_mask=None):
+        # a masked party's draw factor is 0: its gate (K1) and its update
+        # (K7 at scale 0) still launch, and its ring clocks (use_count,
+        # cursor) still tick, as in the reference, so the draws of every
+        # later step stay those of the unmasked schedule
         pas, pb = state["params"]["a"], state["params"]["b"]
         K = len(pas)
         dev = state["comm_rounds"].device
@@ -700,12 +726,14 @@ def _make_stages(task: KPartyTask, opt: Optimizer, celu: CELUConfig, *,
                                              rng=key,
                                              pipeline_staleness=s_loc)
             vf = valid.float()
+            if party_mask is not None:
+                vf = vf * party_mask[party]
             # the update's scale: the draw's mask, damped (exact: 0 or 1
             # times a float32)
             return slot, valid, vf, (vf if damp is None else vf * damp)
 
-        def account(n, valid, w, w_means, w_zeros):
-            n.add_(valid.to(torch.int32))
+        def account(n, valid, vf, w, w_means, w_zeros):
+            n.add_((valid if party_mask is None else vf > 0).to(torch.int32))
             w_means.append(w.mean())
             w_zeros.append((w == 0.0).float().mean())
 
@@ -718,7 +746,7 @@ def _make_stages(task: KPartyTask, opt: Optimizer, celu: CELUConfig, *,
                     weighting=celu.weighting, cache_fused=celu.cache_fused,
                     mask=vf, pipeline_staleness=s_loc, dynamic=dynamic)
                 oas[i] = _opt_step(opt, pas[i], g, oas[i], uf)
-                account(nas[i], valid, w, w_means, w_zeros)
+                account(nas[i], valid, vf, w, w_means, w_zeros)
 
             slot_b, valid, vf, uf = draw(wsb, j, K)
             g, w = local_grad_b_cached(
@@ -726,7 +754,7 @@ def _make_stages(task: KPartyTask, opt: Optimizer, celu: CELUConfig, *,
                 weighting=celu.weighting, cache_fused=celu.cache_fused,
                 mask=vf, pipeline_staleness=s_loc, dynamic=dynamic)
             state["opt"]["b"] = _opt_step(opt, pb, g, state["opt"]["b"], uf)
-            account(nb, valid, w, w_means, w_zeros)
+            account(nb, valid, vf, w, w_means, w_zeros)
             w_mean_steps.append(sum(w_means) * scale)
             w_zero_steps.append(sum(w_zeros) * scale)
 
@@ -914,13 +942,15 @@ class PipelinedEngine:
         """Adopt an :func:`init_state` dict."""
         return RoundState.from_state(state)
 
-    def dispatch(self, rs: RoundState, batches_a, batch_b,
-                 batch_idx) -> RoundState:
+    def dispatch(self, rs: RoundState, batches_a, batch_b, batch_idx, *,
+                 wire_round: Optional[int] = None) -> RoundState:
         """Start an exchange from the current parameters and append it to
         the queue.  Its wire sends are keyed by the dispatch's sequence
-        number (merges done + in flight), and it encodes against the
-        newest in-flight exchange's residuals: the error-feedback chain
-        follows dispatch order."""
+        number (merges done + in flight, or ``wire_round``, a host int:
+        the chaos engine's own count, so that a resend after a drop never
+        reuses the dropped release's uniforms), and it encodes against
+        the newest in-flight exchange's residuals: the error-feedback
+        chain follows dispatch order."""
         if len(rs.pending) >= self.queue_capacity:
             raise RuntimeError(
                 f"{len(rs.pending)} exchange(s) already in flight: the "
@@ -931,29 +961,52 @@ class PipelinedEngine:
             else rs.transport
         with torch.enable_grad():
             fresh = self._compute(rs.params, tstate, batches_a, batch_b,
-                                  rs.round + len(rs.pending), rs.uniforms)
+                                  rs.round + len(rs.pending)
+                                  if wire_round is None else wire_round,
+                                  rs.uniforms)
         pe = PendingExchange(fresh, batches_a, batch_b, batch_idx,
                              dispatched_at=rs.round)
         return rs._replace(pending=rs.pending + (pe,))
 
-    def local(self, rs: RoundState) -> Tuple[RoundState, Dict[str, Any]]:
+    def local(self, rs: RoundState, *, staleness: Optional[int] = None,
+              party_mask=None) -> Tuple[RoundState, Dict[str, Any]]:
         """The R local updates per party against the rings as of the last
         merge.  On the dynamic path the scan is charged the in-flight
-        count."""
-        s = len(rs.pending) if self.dynamic else None
+        count; ``staleness`` (a host int) replaces that charge and
+        ``party_mask`` ((K+1,) float32 on the round's device) freezes
+        parties that are down.  Both are the chaos engine's hooks and
+        need the dynamic path."""
+        if (staleness is not None or party_mask is not None) \
+                and not self.dynamic:
+            raise RuntimeError(
+                "staleness/party_mask overrides need the dynamic stage "
+                "plumbing: build the engine with dynamic_staleness=True")
+        s = None
+        if self.dynamic:
+            s = len(rs.pending) if staleness is None else int(staleness)
         with torch.enable_grad():
-            state, lm = self._scan(rs.as_state(), s)
+            state, lm = self._scan(rs.as_state(), s, party_mask)
         return RoundState.from_state(state, rs.pending), lm
 
-    def merge(self, rs: RoundState) -> Tuple[RoundState, Dict[str, Any]]:
+    def merge(self, rs: RoundState, *, staleness: Optional[int] = None
+              ) -> Tuple[RoundState, Dict[str, Any]]:
         """Adopt the oldest in-flight exchange: the fresh optimizer steps,
         applied to the parameters as they are now (damped by the
         exchange's age on the dynamic path), the inserts, the residuals
-        and the counters."""
+        and the counters.  ``staleness`` (a host int, dynamic path only)
+        replaces the age: the chaos engine charges the true age in
+        scheduler rounds."""
         if not rs.pending:
             raise RuntimeError("no exchange in flight: dispatch() first")
         p, rest = rs.pending[0], rs.pending[1:]
-        s = rs.round - p.dispatched_at if self.dynamic else None
+        if staleness is not None and not self.dynamic:
+            raise RuntimeError(
+                "staleness override needs the dynamic stage plumbing: "
+                "build the engine with dynamic_staleness=True")
+        s = None
+        if self.dynamic:
+            s = rs.round - p.dispatched_at if staleness is None \
+                else int(staleness)
         with torch.enable_grad():
             state, m = self._apply(rs.as_state(), p.fresh, p.batches_a,
                                    p.batch_b, p.batch_idx, rs.uniforms, s)

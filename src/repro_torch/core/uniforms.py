@@ -42,7 +42,8 @@ that computes the reference's uniforms from it.  A ``"lanes"`` draw is
 one batched draw for all C lanes: its shape leads with C, and row c is
 the draw of ``split(fold_in(PRNGKey(seed), n), C)[c]`` folded by
 ``folds``.  The default source ignores the tag and draws from an explicit
-``torch.Generator``.
+``torch.Generator``, whose position a checkpoint keeps; a source that is
+a function of the tag alone has no state.
 """
 from __future__ import annotations
 
@@ -69,6 +70,14 @@ class GeneratorUniforms:
         u = torch.rand(tuple(shape), generator=self.gen,
                        dtype=torch.float32, device=self.draw_device)
         return u.to(self.device)
+
+    def get_state(self) -> torch.Tensor:
+        """The generator's position (a CPU uint8 tensor): every draw moves
+        it, so a bitwise resume needs it (``checkpoint``)."""
+        return self.gen.get_state()
+
+    def set_state(self, state: torch.Tensor) -> None:
+        self.gen.set_state(state)
 
 
 class UniformKey(NamedTuple):

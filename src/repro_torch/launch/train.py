@@ -18,7 +18,12 @@ or ``up/down``).  ``--pipeline-depth D`` drives the pipelined scheduler
 t's local updates, D >= 2 keeps a D-deep queue of exchanges whose
 per-slot staleness discounts the weights and damps the updates by
 ``1 / (1 + c·s)`` (``--pipeline-lr-damping c``); the simulated WAN clock
-charges the overlapped schedule.  AdaGrad takes
+charges the overlapped schedule.  ``--fault-*`` runs the rounds under the
+chaos engine's seeded fault plan (``core/faults.py``: dropped exchanges
+with retries, stragglers, ``--fault-dropout PARTY:START:ROUNDS`` spans);
+``--checkpoint PATH`` saves the whole round state every
+``--checkpoint-every`` rounds and ``--resume PATH`` continues from it,
+bitwise the uninterrupted run.  AdaGrad takes
 the fused kernel route (K7; K8 for ``--opt-state-dtype int8``);
 ``--opt-state-dtype`` sets its accumulator's at-rest precision (float32 |
 bfloat16 | int8) and ``--optimizer sm3`` the factored state.  It runs on
@@ -33,28 +38,33 @@ the card unless ``--device cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.train --arch wdl-criteo \\
         --device cpu --small --rounds 20 --pipeline-depth 2 \\
         --pipeline-lr-damping 0.5
+    PYTHONPATH=src python -m repro_torch.launch.train --arch wdl-criteo \\
+        --device cpu --small --rounds 20 --pipeline-depth 2 \\
+        --fault-drop-prob 0.3 --checkpoint /tmp/c.npz --checkpoint-every 10
+    PYTHONPATH=src python -m repro_torch.launch.train --arch wdl-criteo \\
+        --device cpu --small --rounds 40 --pipeline-depth 2 \\
+        --fault-drop-prob 0.3 --resume /tmp/c.npz
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
         --device cpu --reduced --rounds 4 --batch-size 2 --seq-len 16
 
-Flags of the reference that switch on what later slices of the port
-bring (chaos, checkpoints, the other LLM families) are refused with a
-message; the reference's flags that only tune those features
-(``--fault-seed``, ``--checkpoint-every``, ...) are not defined, so
-argparse rejects them.
+As in the reference, the LLM path takes no fault plan and no
+checkpoint: it ignores those flags.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
-from typing import Any, Callable, Dict, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
+from .. import checkpoint as ckpt
 from .. import resolve_device
 from ..configs import ARCH_IDS, DLRM_IDS, LATER_ARCH_IDS, get_config
-from ..configs.base import ArchConfig, CELUConfig
+from ..configs.base import ArchConfig, CELUConfig, DropoutSpan, FaultPlan
 from ..core import engine
+from ..core.faults import ChaosEngine
 from ..core.protocol import VFLTask
 from ..core.uniforms import GeneratorUniforms
 from ..core.workset import QUANT_KEYS, workset_nbytes
@@ -89,11 +99,6 @@ def refuse_unported(args) -> None:
         raise SystemExit(f"repro_torch.launch.train: unknown arch "
                          f"{args.arch!r}: the ids are "
                          f"{DLRM_IDS + ARCH_IDS}")
-    if (args.fault_drop_prob or args.fault_straggler_prob
-            or args.fault_dropout):
-        later.append("--fault-* (slice 6)")
-    if args.checkpoint or args.resume:
-        later.append("--checkpoint / --resume (slice 6)")
     if later:
         raise SystemExit("repro_torch.launch.train: not in the port yet: "
                          + "; ".join(later)
@@ -117,40 +122,119 @@ def make_opt(args, uniforms=None):
     return make_optimizer(args.optimizer, args.lr, **kw)
 
 
+def fault_plan(args) -> Optional[FaultPlan]:
+    """The ``FaultPlan`` of the ``--fault-*`` flags; None when no fault
+    axis is set (the scheduler then stays the fault-free one)."""
+    spans = []
+    for s in args.fault_dropout or ():
+        try:
+            party, start, rounds = s.split(":")
+            spans.append(DropoutSpan(party=party, start=int(start),
+                                     rounds=int(rounds)))
+        except ValueError:
+            raise SystemExit(
+                f"--fault-dropout wants PARTY:START:ROUNDS (e.g. "
+                f"a0:40:5), got {s!r}")
+    if not (args.fault_drop_prob or args.fault_straggler_prob or spans):
+        return None
+    return FaultPlan(seed=args.fault_seed,
+                     drop_prob=args.fault_drop_prob,
+                     max_retries=args.fault_max_retries,
+                     straggler_prob=args.fault_straggler_prob,
+                     straggler_rounds=args.fault_straggler_rounds,
+                     dropouts=tuple(spans))
+
+
+def checkpoint_extra_ref(n_pending: int, chaos: bool) -> Dict[str, Any]:
+    """The structure of a checkpoint's ``extra`` tree: the resume round
+    and, for a chaos run, the engine's host bookkeeping with one entry a
+    pending exchange."""
+    extra: Dict[str, Any] = {"round": 0}
+    if chaos:
+        extra["host"] = {"now": 0, "dispatch_seq": 0,
+                         "arrival": [0] * n_pending,
+                         "dispatch_round": [0] * n_pending,
+                         "last_merged_dispatch": 0}
+    return extra
+
+
 class Schedule(NamedTuple):
     """How the CLI drives the rounds: ``start`` adopts ``init_state``'s
     dict, ``step(state, batches_a, batch_b, batch_idx) -> (state,
-    metrics)`` runs a round and ``finish`` returns the dict, drained."""
+    metrics)`` runs a round and ``finish`` returns the dict, drained.
+    ``engine`` is the scheduler object (a ``ChaosEngine``), None for the
+    sequential ``make_round``."""
     start: Callable
     step: Callable
     finish: Callable
+    engine: Optional[ChaosEngine] = None
 
 
-def make_schedule(etask, opt, celu_cfg, n_local, transport) -> Schedule:
-    """Depth 0: ``engine.make_round``.  A depth > 0: the pipelined
-    scheduler (``engine.make_pipeline``) over its ``RoundState``; the
-    finish flushes the in-flight queue and finalizes."""
-    if not celu_cfg.pipeline_depth:
+def make_schedule(etask, opt, celu_cfg, n_local, transport, *,
+                  plan: Optional[FaultPlan] = None,
+                  engineful: bool = False) -> Schedule:
+    """Depth 0 with no fault plan and no checkpoint (``engineful``
+    false): ``engine.make_round``.  Otherwise the scheduler object the
+    reference's CLI builds, a ``ChaosEngine`` over ``plan`` (with
+    ``plan=None`` bitwise ``engine.make_pipeline``) over its
+    ``RoundState``; the finish flushes the in-flight queue and
+    finalizes."""
+    if not (celu_cfg.pipeline_depth or plan is not None or engineful):
         rnd = engine.make_round(etask, opt, celu_cfg, local_steps=n_local,
                                 transport=transport)
         return Schedule(lambda state: state, rnd, lambda state: state)
-    pe = engine.make_pipeline(etask, opt, celu_cfg, local_steps=n_local,
-                              transport=transport)
+    pe = ChaosEngine(etask, opt, celu_cfg, plan=plan, local_steps=n_local,
+                     transport=transport)
 
     def finish(rs):
         rs, _ = pe.flush(rs)
         return pe.finalize(rs)
-    return Schedule(pe.init, pe.step, finish)
+    return Schedule(pe.init, pe.step, finish, pe)
 
 
-def train_dlrm(args, uniforms=None, opt=None, celu=None) -> Dict[str, Any]:
-    """Train ``args.rounds`` rounds.  ``uniforms`` is the source
-    (``core/uniforms.py``) of the wire's rounding uniforms and DP noise,
-    the inserts', the uniform draws' and the int8 optimizer state's; the
-    default draws from a ``torch.Generator`` on the device, seeded with
-    ``--seed``.  ``opt`` replaces the optimizer the flags describe, and
-    ``celu`` the ``CELUConfig`` (for fields the reference's CLI has no
-    flag for either: ``sampling``, ``dp_sigma``, ``dp_clip``)."""
+def resume(path: str, sched: Schedule, rs, batches, plan, device):
+    """Restore ``path`` into the fresh round state ``rs``: peek the
+    in-flight count, dispatch that many exchanges from ``batches`` to
+    fabricate the reference (every value is overwritten), restore into
+    it and set the engine's host bookkeeping.  -> (round state, the
+    round to continue from)."""
+    pe = sched.engine
+    n_pend = ckpt.peek_pending_len(path)
+    for _ in range(n_pend):
+        bi, ba, bb = next(batches)
+        rs = pe.dispatch(rs, [to_device(ba, device)], to_device(bb, device),
+                         bi)
+    rs, extra = ckpt.restore_round_state(
+        path, rs, extra_reference=checkpoint_extra_ref(n_pend,
+                                                       plan is not None))
+    # without a plan the fabrication moved nothing the file does not hold
+    pe.load_host_state(extra["host"] if plan is not None
+                       else checkpoint_extra_ref(0, True)["host"])
+    start = int(extra["round"])
+    print(f"[resume] {path}: round {start}, {n_pend} in-flight "
+          f"exchange(s)", flush=True)
+    return rs, start
+
+
+class DLRMSetup(NamedTuple):
+    """What ``train_dlrm`` builds before its first round."""
+    dev: torch.device
+    cfg: DLRMConfig
+    data: Dict[str, Any]
+    predict: Callable
+    celu: CELUConfig
+    n_local: int
+    params: Dict[str, Any]
+    uniforms: Any
+    opt: Any
+    etask: engine.KPartyTask
+    transport: Any
+    state: Dict[str, Any]
+
+
+def setup_dlrm(args, uniforms=None, opt=None, celu=None) -> DLRMSetup:
+    """The data, model, optimizer, transport and ``engine.init_state``
+    of a DLRM run from the flags (see :func:`train_dlrm`)."""
     refuse_unported(args)
     dev = resolve_device(args.device)
     cfg: DLRMConfig = get_config(args.arch)
@@ -166,7 +250,6 @@ def train_dlrm(args, uniforms=None, opt=None, celu=None) -> Dict[str, Any]:
 
     celu_cfg, n_local = engine.preset_config(
         args.protocol, celu_config(args) if celu is None else celu)
-    depth = celu_cfg.pipeline_depth
     params = init_fn(args.seed, cfg, dev)
     if uniforms is None:
         uniforms = GeneratorUniforms(args.seed, dev)
@@ -182,6 +265,23 @@ def train_dlrm(args, uniforms=None, opt=None, celu=None) -> Dict[str, Any]:
                               opt, celu_cfg, [to_device(ba0, dev)],
                               to_device(bb0, dev), transport=transport,
                               uniforms=uniforms)
+    return DLRMSetup(dev, cfg, data, predict, celu_cfg, n_local, params,
+                     uniforms, opt, etask, transport, state)
+
+
+def train_dlrm(args, uniforms=None, opt=None, celu=None) -> Dict[str, Any]:
+    """Train ``args.rounds`` rounds.  ``uniforms`` is the source
+    (``core/uniforms.py``) of the wire's rounding uniforms and DP noise,
+    the inserts', the uniform draws' and the int8 optimizer state's; the
+    default draws from a ``torch.Generator`` on the device, seeded with
+    ``--seed``.  ``opt`` replaces the optimizer the flags describe, and
+    ``celu`` the ``CELUConfig`` (for fields the reference's CLI has no
+    flag for either: ``sampling``, ``dp_sigma``, ``dp_clip``)."""
+    su = setup_dlrm(args, uniforms, opt, celu)
+    dev, cfg, data, predict = su.dev, su.cfg, su.data, su.predict
+    celu_cfg, n_local, params, opt = su.celu, su.n_local, su.params, su.opt
+    etask, transport, state = su.etask, su.transport, su.state
+    depth = celu_cfg.pipeline_depth
     tables = state["ws"]["a"] + [state["ws"]["b"]]
     cache_stat_b = sum(workset_nbytes(w, QUANT_KEYS) for w in tables)
     cache_total_b = sum(workset_nbytes(w) for w in tables)
@@ -194,8 +294,18 @@ def train_dlrm(args, uniforms=None, opt=None, celu=None) -> Dict[str, Any]:
     print(f"[opt] {args.optimizer} state: Party A {opt_b[0]} B, Party B "
           f"{opt_b[1]} B (--opt-state-dtype {args.opt_state_dtype})",
           flush=True)
-    sched = make_schedule(etask, opt, celu_cfg, n_local, transport)
+    plan = fault_plan(args)
+    # a fault plan, a checkpoint or a resume needs the scheduler object,
+    # as in the reference (with no plan it is bitwise the pipeline)
+    sched = make_schedule(etask, opt, celu_cfg, n_local, transport,
+                          plan=plan, engineful=bool(args.checkpoint
+                                                    or args.resume))
     state = sched.start(state)
+    start_round = 0
+    if args.resume:
+        state, start_round = resume(
+            args.resume, sched, state, synth.aligned_batches(
+                data["train"], args.batch_size, seed=args.seed), plan, dev)
     z_shapes = [(args.batch_size, cfg.z_dim)]
     up_bytes, down_bytes = transport_round_updown(transport, z_shapes)
     dp_note = (f"; DP sigma {celu_cfg.dp_sigma} clip {celu_cfg.dp_clip}"
@@ -209,23 +319,31 @@ def train_dlrm(args, uniforms=None, opt=None, celu=None) -> Dict[str, Any]:
     teb = to_device({"x_b": te["x_b"], "y": te["y"]}, dev)
     it = synth.aligned_batches(data["train"], args.batch_size,
                                seed=args.seed)
+    for _ in range(start_round):    # replay the consumed prefix
+        next(it)
     history = []
     train_s = 0.0        # round time only: evaluation is kept out
-    steady_s = 0.0       # the same from round 2 on (no first-call set-up)
+    steady_s = 0.0       # the same from the second round on (no set-up)
     loss = float("nan")
     t0 = time.perf_counter()
-    for i in range(args.rounds):
+    for i in range(start_round, args.rounds):
         bi, ba, bb = next(it)
         state, m = sched.step(state, [to_device(ba, dev)],
                               to_device(bb, dev), bi)
-        if i == 0 or (i + 1) % max(1, args.rounds // 10) == 0 \
-                or i + 1 == args.rounds:
+        if args.checkpoint and (i + 1) % args.checkpoint_every == 0:
+            extra: Dict[str, Any] = {"round": i + 1}
+            if plan is not None:
+                extra["host"] = sched.engine.host_state()
+            ckpt.save_round_state(args.checkpoint, state, extra=extra)
+        on_cadence = (i + 1) % max(1, args.rounds // 10) == 0 \
+            or i + 1 == args.rounds
+        if i == start_round or on_cadence:
             _sync(dev)
             dt = time.perf_counter() - t0
             train_s += dt
-            steady_s += dt if i else 0.0
+            steady_s += dt if i > start_round else 0.0
             loss = float(m["loss"])
-            if i:       # the parameters are trained in place
+            if on_cadence and i:    # the parameters are trained in place
                 logits = predict(params, cfg, tea, teb)
                 a = auc(logits.cpu().numpy(), te["y"])
                 history.append((i + 1, loss, a))
@@ -240,6 +358,14 @@ def train_dlrm(args, uniforms=None, opt=None, celu=None) -> Dict[str, Any]:
     _sync(dev)
     flush_s = time.perf_counter() - t0
     train_s += flush_s
+    tel = sched.engine.telemetry() if plan is not None else None
+    if tel is not None:
+        print(f"[chaos] {tel['merges']} merges / {tel['dispatches']} "
+              f"dispatches over {tel['rounds']} rounds: "
+              f"{tel['drops']} drops, {tel['stalls']} stalls, "
+              f"{tel['dropout_rounds']} dropout rounds, "
+              f"{tel['wire_attempts']} wire attempts", flush=True)
+    n_run = args.rounds - start_round
     # overlap-aware simulated wall-clock, as the reference charges it: the
     # measured compute split into the exchange share (1 fresh update) and
     # the local share (n_local updates); the clock serializes them with
@@ -250,18 +376,22 @@ def train_dlrm(args, uniforms=None, opt=None, celu=None) -> Dict[str, Any]:
     comm_s, seq_s = (DEFAULT_WAN.time_to_target(
         args.rounds, up_bytes, down_bytes, exchange_compute_s=ex_c,
         local_compute_s=loc_c, pipeline_depth=d) for d in (depth, 0))
+    # a chaos run charges the wire per attempt (a retry sends again; a
+    # dropout or stalled round sends nothing)
+    wire_rounds = tel["wire_attempts"] if tel is not None else args.rounds
     out = {
         "arch": args.arch, "protocol": args.protocol, "device": str(dev),
         "rounds": args.rounds, "n_local": n_local,
         "final_auc": history[-1][2] if history else None,
         "final_loss": loss,
-        "comm_bytes": args.rounds * (up_bytes + down_bytes),
-        "uplink_bytes": args.rounds * up_bytes,
-        "downlink_bytes": args.rounds * down_bytes,
+        "comm_bytes": wire_rounds * (up_bytes + down_bytes),
+        "uplink_bytes": wire_rounds * up_bytes,
+        "downlink_bytes": wire_rounds * down_bytes,
+        "fault_telemetry": tel, "start_round": start_round,
         "sim_wan_s": comm_s, "sim_wan_sequential_s": seq_s,
         "pipeline_depth": depth, "compute_wall_s": train_s,
-        "steady_round_ms": (1e3 * steady_s / (args.rounds - 1)
-                            if args.rounds > 1 else None),
+        "steady_round_ms": (1e3 * steady_s / (n_run - 1)
+                            if n_run > 1 else None),
         "flush_ms": 1e3 * flush_s,
         "history": history,
         "state": state,
@@ -436,13 +566,38 @@ def build_parser() -> argparse.ArgumentParser:
                          "eta/(1 + c*s) schedule applied to local and "
                          "fresh updates on the depth-D (D >= 2) pipeline; "
                          "0 disables (depths 0/1 never damp)")
-    later = ap.add_argument_group(
-        "flags of later slices of the port (refused)")
-    later.add_argument("--fault-drop-prob", type=float, default=0.0)
-    later.add_argument("--fault-straggler-prob", type=float, default=0.0)
-    later.add_argument("--fault-dropout", action="append", default=[])
-    later.add_argument("--checkpoint", default="")
-    later.add_argument("--resume", default="")
+    ap.add_argument("--fault-drop-prob", type=float, default=0.0,
+                    metavar="P",
+                    help="per-attempt exchange drop probability of the "
+                         "chaos layer (core/faults.py); any --fault-* axis "
+                         "switches the scheduler to the seeded ChaosEngine")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the deterministic fault schedule")
+    ap.add_argument("--fault-max-retries", type=int, default=2,
+                    help="wire retries per exchange before the round's "
+                         "update is abandoned (the residuals absorb it)")
+    ap.add_argument("--fault-straggler-prob", type=float, default=0.0,
+                    metavar="P",
+                    help="probability that a delivered exchange arrives "
+                         "late")
+    ap.add_argument("--fault-straggler-rounds", type=int, default=2,
+                    help="most rounds of straggler delay")
+    ap.add_argument("--fault-dropout", action="append", default=[],
+                    metavar="PARTY:START:ROUNDS",
+                    help="take a party down for a span of rounds "
+                         "(repeatable), e.g. a0:40:5 or b:100:10; the "
+                         "others keep updating from cached statistics")
+    ap.add_argument("--checkpoint", default="", metavar="PATH",
+                    help="save the whole round state (parameters, "
+                         "optimizer, worksets, transport residuals, the "
+                         "in-flight exchange queue, the uniform "
+                         "generator) to PATH every --checkpoint-every "
+                         "rounds")
+    ap.add_argument("--checkpoint-every", type=int, default=50,
+                    metavar="N")
+    ap.add_argument("--resume", default="", metavar="PATH",
+                    help="resume from a --checkpoint file, bitwise the "
+                         "uninterrupted run (same flags, same seed)")
     return ap
 
 

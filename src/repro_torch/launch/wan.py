@@ -1,8 +1,11 @@
 """The simulated WAN clock: per-direction bandwidth + RTT, and the
 overlap-aware round latency model.
 
-Copy of ``repro/launch/wan.py``'s ``WANClock``, ``transport_round_updown``
-and ``wan_seconds`` (the port imports nothing of the JAX package).  The
+Copy of ``repro/launch/wan.py``'s ``WANClock``, ``transport_round_updown``,
+``wan_seconds`` and the chaos engine's price model over heterogeneous,
+unreliable links (``clocks_from_plan``, ``transport_party_updown``,
+``hetero_wire_seconds``, ``retry_exchange_seconds``); the port imports
+nothing of the JAX package.  The
 simulation has no real WAN, so the training loop models wall-clock from
 byte counts (paper §2.1: a 300 Mbps gateway-proxied link).  Within a round
 the two legs serialize, so wire time is ``up/bw_up + down/bw_down +
@@ -99,3 +102,50 @@ def wan_seconds(up_bytes: float, down_bytes: float, *,
     required — the historical one-argument form took the ROUND TOTAL and
     would silently double-count if it defaulted here."""
     return clock.wire_seconds(up_bytes, down_bytes)
+
+
+# --------------------------------------------------------------------------
+# Heterogeneous / unreliable links (the chaos engine's price model)
+# --------------------------------------------------------------------------
+def clocks_from_plan(plan, K: int):
+    """Per-feature-party :class:`WANClock` list for a
+    ``configs.base.FaultPlan``.  ``plan.party_clocks`` holds plain
+    ``(up_Bps, down_Bps, latency_s)`` tuples; missing entries (or
+    ``plan=None`` / ``party_clocks=None``) fall back to the default link,
+    and a tuple shorter than K cycles."""
+    tuples = getattr(plan, "party_clocks", None) if plan is not None \
+        else None
+    if not tuples:
+        return [DEFAULT_CLOCK] * K
+    return [WANClock(up_bandwidth=tuples[i % len(tuples)][0],
+                     down_bandwidth=tuples[i % len(tuples)][1],
+                     latency=tuples[i % len(tuples)][2])
+            for i in range(K)]
+
+
+def transport_party_updown(transport, z_shapes):
+    """Per-party [(uplink, downlink)] byte pairs: the per-link loads a
+    heterogeneous clock set prices one by one."""
+    return [(transport.uplink_bytes(s), transport.downlink_bytes(s))
+            for s in z_shapes]
+
+
+def hetero_wire_seconds(clocks, party_updown) -> float:
+    """One K-party exchange over per-party links: each party's ⟨Z_i, ∇Z_i⟩
+    legs ride its own link concurrently with the others', so the exchange
+    completes when the slowest link drains."""
+    return max(c.wire_seconds(u, d)
+               for c, (u, d) in zip(clocks, party_updown))
+
+
+def retry_exchange_seconds(clocks, party_updown, *, attempts: int = 1,
+                           backoff_s: float = 0.0) -> float:
+    """Wall-clock of one exchange delivered on its ``attempts``-th try
+    under exponential backoff: every attempt pays the full heterogeneous
+    wire time (the exchange is retried whole), and attempt k + 1 waits
+    ``backoff_s * 2**(k-1)`` first."""
+    if attempts < 1:
+        raise ValueError(f"attempts must be >= 1, got {attempts}")
+    wire = hetero_wire_seconds(clocks, party_updown)
+    waits = sum(backoff_s * (2.0 ** k) for k in range(attempts - 1))
+    return attempts * wire + waits

@@ -320,9 +320,16 @@ def test_transport_and_wan_clock_match_reference(wire):
         if res is not None:
             np.testing.assert_allclose(r.numpy(), np.asarray(jr), rtol=1e-5,
                                        atol=1e-6)
-    # the chaos engine's recovery of a lost exchange stays refused
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tp.recover_dropped({})
+    # the chaos engine's recovery of a lost exchange: each dropped decoded
+    # message goes back into its residual, r'' = r' + y, in new tensors
+    # (tests/test_torch_faults.py holds it against the reference's)
+    y, r = tp.send(key, torch.from_numpy(x), torch.zeros(16, 8), "up")
+    fresh = {"tstate": {"up": [r], "down": [r]}, "zs": [y], "dzs": [y]}
+    rec = tp.recover_dropped(fresh)
+    for d in ("up", "down"):
+        assert rec[d][0] is not r
+        assert torch.equal(rec[d][0], r + y.float())
+    assert fresh["tstate"]["up"][0] is r
 
 
 # Quantised cache and compressed wire, 5 rounds at the golden geometry,

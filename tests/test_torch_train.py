@@ -1,6 +1,7 @@
 """The port's training CLI on the CPU: a few rounds end to end (every
-optimizer state, the pipelined scheduler), the flags of later slices
-refused, and no silent move to the CPU."""
+optimizer state, the pipelined scheduler, the chaos engine's fault flags,
+checkpoint and resume), the other LLM families refused, and no silent
+move to the CPU."""
 import numpy as np
 import pytest
 import torch
@@ -39,15 +40,58 @@ def test_cli_runs_rounds_on_cpu(arch, protocol, extra):
     ["--checkpoint", "x.npz"], ["--resume", "x.npz"],
     ["--fault-straggler-prob", "0.1"], ["--fault-dropout", "1:0:5"],
 ])
-def test_cli_refuses_flags_of_later_slices(flag, capsys):
-    """Slice 6's flags are refused with a message.  The pipeline depths,
-    refused until the pipelined scheduler came, now run: every round is
-    merged, the queue drains, and the WAN clock charges the overlap."""
-    if flag[0] != "--pipeline-depth":
-        with pytest.raises(SystemExit, match="not in the port yet"):
+def test_cli_refuses_flags_of_later_slices(flag, capsys, tmp_path):
+    """The flags of the pipelined scheduler (slice 2) and of chaos and
+    checkpoints (slice 6), once refused, now run and do what the
+    reference's do.  The pipeline depths: every round is merged, the
+    queue drains, and the WAN clock charges the overlap.  A fault flag
+    builds the reference's ``FaultPlan`` and runs the chaos engine, whose
+    wire is charged per attempt (a malformed ``--fault-dropout`` is
+    refused with the reference's message); ``--checkpoint`` writes a
+    round-state file; ``--resume`` continues one bitwise."""
+    if flag[0] in ("--checkpoint", "--resume"):
+        flag = [flag[0], str(tmp_path / flag[1])]
+    if flag[0] == "--fault-dropout":
+        with pytest.raises(SystemExit, match="PARTY:START:ROUNDS"):
             train.main(["--arch", "wdl-criteo"] + SMALL + flag)
+        flag = ["--fault-dropout", "a0:1:2"]
+    if flag[0] == "--resume":
+        train.main(["--arch", "wdl-criteo"] + SMALL
+                   + ["--rounds", "2", "--pipeline-depth", "1",
+                      "--checkpoint", flag[1], "--checkpoint-every", "2"])
+        whole = train.main(["--arch", "wdl-criteo"] + SMALL
+                           + ["--pipeline-depth", "1"])
+        out = train.main(["--arch", "wdl-criteo"] + SMALL
+                         + ["--pipeline-depth", "1"] + flag)
+        assert out["start_round"] == 2
+        assert "[resume]" in capsys.readouterr().out
+        assert out["history"] == whole["history"][1:]
+        assert out["final_auc"] == whole["final_auc"]
+        return
+    if flag[0] == "--checkpoint":
+        from repro_torch import checkpoint as ckpt
+        out = train.main(["--arch", "wdl-criteo"] + SMALL + flag
+                         + ["--checkpoint-every", "2"])
+        assert ckpt.peek_pending_len(flag[1]) == 0   # depth 0: none
+        assert out["fault_telemetry"] is None
+        assert out["comm_bytes"] == 4 * 2 * 64 * 32 * 4
+        # the scheduler object a checkpoint needs is bitwise make_round
+        plain = train.main(["--arch", "wdl-criteo"] + SMALL)
+        assert out["history"] == plain["history"]
         return
     out = train.main(["--arch", "wdl-criteo"] + SMALL + flag)
+    assert np.isfinite(out["final_auc"])
+    if flag[0].startswith("--fault"):
+        tel = out["fault_telemetry"]
+        assert tel["rounds"] == 4
+        # the wire is charged per attempt
+        assert out["comm_bytes"] == tel["wire_attempts"] * 2 * 64 * 32 * 4
+        if flag[0] == "--fault-dropout":
+            assert tel["dropout_rounds"] == 2
+            assert tel["events"][0] == {"round": 1, "kind": "dropout",
+                                        "parties": ["a0"]}
+        assert "[chaos]" in capsys.readouterr().out
+        return
     depth = int(flag[1])
     assert out["pipeline_depth"] == depth
     assert np.isfinite(out["final_loss"])
@@ -57,6 +101,20 @@ def test_cli_refuses_flags_of_later_slices(flag, capsys):
             if ln.startswith("[done]")]
     assert len(done) == 1 and "sequential would be" in done[0] \
         and "overlap win" in done[0], done
+
+
+def _reference_plan(args):
+    """The reference CLI's ``FaultPlan`` of the same parsed flags, with
+    its dataclasses turned into the port's for comparison."""
+    import dataclasses
+
+    from repro.launch.train import _fault_plan_from_args
+    from repro_torch.configs.base import DropoutSpan, FaultPlan
+    plan = _fault_plan_from_args(args)
+    if plan is None:
+        return None
+    return FaultPlan(**{**dataclasses.asdict(plan), "dropouts": tuple(
+        DropoutSpan(**dataclasses.asdict(d)) for d in plan.dropouts)})
 
 
 @pytest.mark.parametrize("optimizer", ["sgd", "adam", "sm3"])
@@ -99,11 +157,15 @@ def test_cli_reports_opt_state_bytes(optimizer, state_dtype, capsys):
     ["--fault-straggler-rounds", "1"], ["--checkpoint-every", "10"],
     ["--pipeline-lr-damping", "0.5"],
 ])
-def test_cli_rejects_tuning_flags_of_later_slices(flag, capsys):
-    """The reference's flags that only tune a later slice's feature are
-    not defined here, so argparse rejects them rather than ignoring them.
-    ``--pipeline-lr-damping`` tunes the pipelined scheduler, which is in:
-    it is accepted, and damps a depth-2 run's updates."""
+def test_cli_rejects_tuning_flags_of_later_slices(flag, capsys, tmp_path):
+    """The reference's flags that tune the chaos engine and the
+    checkpoints, once undefined, are accepted with the reference's
+    defaults and tune what the reference's tune: each fault flag lands in
+    the same ``FaultPlan`` as the reference CLI's and the run's events
+    follow that plan's fates; ``--checkpoint-every`` sets the rounds a
+    checkpoint is written at.  ``--pipeline-lr-damping`` tunes the
+    pipelined scheduler: it is accepted, and damps a depth-2 run's
+    updates."""
     if flag[0] == "--pipeline-lr-damping":
         runs = [train.train_dlrm(train.build_parser().parse_args(
             ["--arch", "wdl-criteo"] + SMALL
@@ -116,10 +178,40 @@ def test_cli_rejects_tuning_flags_of_later_slices(flag, capsys):
         # damped update reaches a dispatched exchange (round 4 on)
         assert runs[0]["final_loss"] != runs[1]["final_loss"]
         return
-    with pytest.raises(SystemExit) as e:
-        train.main(["--arch", "wdl-criteo"] + SMALL + flag)
-    assert e.value.code == 2
-    assert f"unrecognized arguments: {flag[0]}" in capsys.readouterr().err
+    defaults = train.build_parser().parse_args(["--arch", "wdl-criteo"])
+    assert (defaults.fault_seed, defaults.fault_max_retries,
+            defaults.fault_straggler_rounds, defaults.checkpoint_every,
+            defaults.fault_drop_prob, defaults.fault_straggler_prob,
+            defaults.fault_dropout, defaults.checkpoint,
+            defaults.resume) == (0, 2, 2, 50, 0.0, 0.0, [], "", "")
+    if flag[0] == "--checkpoint-every":
+        from repro_torch import checkpoint as ckpt
+        path = str(tmp_path / "c.npz")
+        for rounds, saved in (("9", False), ("10", True)):
+            train.main(["--arch", "wdl-criteo"] + SMALL
+                       + ["--rounds", rounds, "--checkpoint", path] + flag)
+            assert (tmp_path / "c.npz").exists() == saved
+        assert ckpt.peek_pending_len(path) == 0
+        return
+    from repro_torch.core.faults import FaultSchedule
+    argv = (["--arch", "wdl-criteo"] + SMALL
+            + ["--rounds", "8", "--fault-drop-prob", "0.4",
+               "--fault-straggler-prob", "0.5", "--pipeline-depth", "1"]
+            + flag)
+    args = train.build_parser().parse_args(argv)
+    plan = train.fault_plan(args)
+    assert plan == _reference_plan(args)
+    assert getattr(plan, {"--fault-seed": "seed",
+                          "--fault-max-retries": "max_retries",
+                          "--fault-straggler-rounds": "straggler_rounds"}[
+        flag[0]]) == int(flag[1])
+    tel = train.main(argv)["fault_telemetry"]
+    fates = [FaultSchedule(plan).exchange_fate(t) for t in range(8)]
+    drops = [e["round"] for e in tel["events"] if e["kind"] == "drop"]
+    assert tel["wire_attempts"] >= tel["dispatches"]
+    assert all(not fates[t].delivered for t in drops)
+    assert all(f.attempts <= plan.max_retries + 1 for f in fates)
+    assert all(f.delay_rounds <= plan.straggler_rounds for f in fates)
 
 
 def test_cli_refuses_llm_arch():
