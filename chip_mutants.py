@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Mutation check of ``chip_smoke.py``'s per-element limits for K9 and
 K10, of its check of K1 at the LLM width, of its bitwise checks of the
-AdaGrad table kernels (K7), and of its chaos phase, on one NVIDIA GPU.
+AdaGrad table kernels (K7) and of the job-batched gate, and of its chaos
+phase, on one NVIDIA GPU.
 
 Builds the flash-attention forward (``src/repro_torch/csrc/
 flash_attention.cu``) or backward (``flash_attention_bwd.cu``), or the
@@ -59,6 +60,15 @@ K1's split-row path (``csrc/cosine_gate.cu``), in the smoke's check at
 the LLM cut tensor (``_gate_at_llm_width``):
 
   * ``gate_chunk_dropped``: pass 1 skips the first chunk of each row.
+
+The job axis of the gate (``csrc/cosine_gate.cu``'s ``for_job``), in the
+smoke's check of the job-batched gate (``_fleet_gate_kernels``: each job
+of one batched launch bitwise its one-job launch; failures name
+``fleet``):
+
+  * ``gate_job_ring_stride_ignored``: the ring's job stride is ignored,
+    so every job reads job 0's z ring;
+  * ``gate_job_threshold_ignored``: every job reads job 0's threshold.
 
 K7's table kernel (``csrc/fused_adagrad.cu``), in the smoke's AdaGrad
 kernel phase (``phase_adagrad_kernels``), whose checks are bitwise:
@@ -160,6 +170,11 @@ MUTANTS = {
         "  block_sums(num, aa, zz);",
         "    if (c != 0) gate_sums<C, kVec>(ar, zr, zscale, j, num, aa, zz);\n"
         "  block_sums(num, aa, zz);"),
+    "gate_job_ring_stride_ignored": (
+        "g.z += job * g.js_z;", "g.z += 0 * job * g.js_z;"),
+    "gate_job_threshold_ignored": (
+        "g.thresh = __ldg(g.thr + job * g.js_thr);",
+        "g.thresh = __ldg(g.thr);"),
     "adagrad_last_chunk_dropped": (
         "const long long end = min(begin + kChunk, L.n);",
         "const long long end = blockIdx.x + 1 == gridDim.x"
@@ -193,6 +208,10 @@ TARGETS = {
                              "flash_attention_fwd_lse"),
     "gate_chunk_dropped": ("cosine_gate.cu", "_gate_at_llm_width",
                            "fused_sample_2d"),
+    "gate_job_ring_stride_ignored": ("cosine_gate.cu", "_fleet_gate_kernels",
+                                     "fleet"),
+    "gate_job_threshold_ignored": ("cosine_gate.cu", "_fleet_gate_kernels",
+                                   "fleet"),
     "adagrad_last_chunk_dropped": ("fused_adagrad.cu",
                                    "phase_adagrad_kernels", "fused_adagrad"),
     "adagrad_scale_ignored": ("fused_adagrad.cu", "phase_adagrad_kernels",
@@ -287,7 +306,7 @@ def main() -> None:
     shutil.rmtree(top, ignore_errors=True)
     if survived:
         sys.exit(f"chip_mutants: FAILED: {survived} passed the smoke's "
-                 f"K9 / K10 / K1 / K7 / chaos checks")
+                 f"K9 / K10 / K1 / K7 / fleet / chaos checks")
     print("chip_mutants: every mutant caught")
 
 

@@ -71,7 +71,23 @@ Phases, each on its own printed lines (any failure exits non-zero):
      resumed, the resumed history bitwise the whole run's; every run's
      launches derived from its telemetry (``_chaos_launches``); host and
      busy ms per round of the fault matrix against plan=None, in turns;
-  8. the serving kernels against their plain versions: K6 and K11
+  8. the fleet (``fleet.run_fleet``): the job-batched gate (one launch
+     for N jobs, each with its own slot, rings and threshold) in every
+     layout (narrow and split-row; fp32, bf16, int8 and int4 rings; full,
+     weights-only, a ring shared by every job; K2a, K2b), each job bitwise
+     its one-job launch and within the kernels' limit of the plain
+     version, timed at N = 16 and 128 beside its bound and N one-job
+     launches; a one-job vmap fleet on both goldens; map lanes bitwise
+     the scalar ``PipelinedEngine``; 16 lanes of one spec bitwise each
+     other; WDL-Criteo at full width over the reference benchmark's job
+     grid (lr cycling, seed j, ξ 60° / 45°), 8 rounds and the drain, at
+     N = 1 (bitwise the scalar run), 16 and 128 (depth 0) and 16 (depth
+     2), lanes against their scalar runs, K1 launches derived from the
+     schedule (the same at every N); a ``--no-cache-fusion`` and an
+     int8-cache cohort (K2a / K2b, K3 + K4); job-rounds per second, busy
+     and host ms per fleet round against the sequential loop of scalar
+     runs, in turns;
+  9. the serving kernels against their plain versions: K6 and K11
      bitwise at the serving shape (W = 4 ring slots, C = 8 lanes,
      F = 960) and at a wide ring, K9 at the long-prompt shape
      (1, 4096, 15, 64) bf16, causal, with a window of 1,024, at head
@@ -82,7 +98,7 @@ Phases, each on its own printed lines (any failure exits non-zero):
      products of its work and of the three it issues, and the
      tensor-core instructions in the SASS of its bf16 kernel (none
      fails);
-  9. the serving path: ``repro_torch.launch.serve`` at smollm-360m's
+ 10. the serving path: ``repro_torch.launch.serve`` at smollm-360m's
      full width (32 requests, 8 lanes, prompt 16, gen 16, closed burst)
      with the int8 ring and wire (K6 on every ring read; two runs, equal
      tokens and bitwise equal logits), the int4 ring (K11), the fp32
@@ -92,7 +108,7 @@ Phases, each on its own printed lines (any failure exits non-zero):
      every attention layer of each prefill, the prefill's logits held
      against the same prefill through the plain attention); launches
      and ms per decode step;
- 10. the training kernels against their plain versions: K9-LSE (the
+ 11. the training kernels against their plain versions: K9-LSE (the
      forward with the row log-sum-exp) and K10's dkv and dq kernels at
      (1, 4096, 15, 64) bf16, causal, with a window of 1,024, at head dim
      128 and in fp32, at the training phase's (2, 4096, 15, 64) in bf16
@@ -113,7 +129,7 @@ Phases, each on its own printed lines (any failure exits non-zero):
      LLM cut tensor (2, 2, 3,932,160) and a wide ragged row (2, 3,
      1,000,003), full and weights-only, against its plain version,
      bitwise the same on a second run, timed beside its bound;
- 11. the LLM training path: ``repro_torch.launch.train`` at smollm-360m's
+ 12. the LLM training path: ``repro_torch.launch.train`` at smollm-360m's
      full width (B = 2, S = 4,096, R = W = 2, 3 celu rounds, fp32 cache,
      AdaGrad through K7, remat on) with the exact launch counts of
      K9-LSE, K10, K9, K1 and K7 derived from the code, each round's loss,
@@ -123,12 +139,12 @@ Phases, each on its own printed lines (any failure exits non-zero):
      ``launch/steps.py`` train step at B = 1, S = 4,096 through
      K9-LSE / K10 against the same step through the plain attention,
      loss and every gradient leaf held to a limit;
- 12. the reduced smollm-360m (head dim 32) past 2,048 tokens: two celu
+ 13. the reduced smollm-360m (head dim 32) past 2,048 tokens: two celu
      rounds of ``train_llm`` at B = 2, S = 3,072 and a train step, each
      against the same run through the plain attention, and the serving
      engine on 3,072-token prompts, the prefill's logits against the
      plain attention's;
- 13. a JSON line of per-kernel results, then the last line
+ 14. a JSON line of per-kernel results, then the last line
      ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
@@ -2202,6 +2218,618 @@ def phase_chaos(torch, card):
     return counts
 
 
+# --------------------------------------------------------------------------
+# The fleet (repro_torch.fleet)
+# --------------------------------------------------------------------------
+FLEET_ROUNDS = 8                  # benchmarks/fleet.py: ROUNDS
+FLEET_SIZES = (1, 16, 128)        # the reference's, less 512 (time)
+FLEET_LRS = (0.05, 0.03, 0.08, 0.02)   # benchmarks/fleet.py: job_specs
+FLEET_XI = (60.0, 45.0)           # two thresholds: each job its own
+FLEET_GATE_JOBS = (16, 128)
+# lanes of N > 1 against their scalar runs: the batched GEMMs and the
+# embedding's batched scatter-add sum in another order than the scalar
+# run's, and at the grid's lr (0.02-0.08) the first AdaGrad steps (±lr
+# wherever a gradient is nonzero) amplify that from round 3 on (measured
+# at N = 16: at most 1.4e-5 relative over rounds 1-2, 1.2e-3 at round 3,
+# 5e-3 at round 4, whole percents later; one-job fleets are bitwise)
+FLEET_PARITY_ROUNDS = 2
+FLEET_RTOL = 1e-3
+FLEET_SIDE_ROUNDS = 4             # the K2 and int8-cache cohorts
+FLEET_SIDE_JOBS = 16
+
+
+def _jobs_operands(torch, gen, n, shape, dtype, bits=None):
+    """``n`` jobs' gate operands at (W, B, F): ad hoc (n, B, F), rings
+    (n, W, B, F) whose slots lie near the ad-hoc rows at every angle (the
+    jobs' cosines straddle both thresholds), slots (n, 1) and thresholds
+    (n,) alternating cos 60° and cos 45°.  ``bits`` quantises the rings
+    (K3's plain version): -> (q, row scales) pairs."""
+    from repro_torch.core.weighting import xi_to_cos
+    from repro_torch.kernels import fused_sample as fs
+    from repro_torch.kernels import quantize as qz
+    W, B, F = shape
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device="cuda")
+    a = randn(n, B, F)
+    mix = torch.rand((n, W, B, 1), generator=gen, device="cuda") * 4 - 1
+    z = a[:, None] * mix + randn(n, W, B, F)
+    dz = randn(n, W, B, F)
+    slot = torch.randint(0, W, (n, 1), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    thr = torch.tensor([xi_to_cos(FLEET_XI[j % 2]) for j in range(n)],
+                       dtype=torch.float32, device="cuda")
+    if bits is None:
+        return a, z.to(dtype), dz.to(dtype), slot, thr
+
+    def quant(x):
+        rows = x.reshape(-1, F)
+        q, s = qz.quantize_sr_plain(rows, torch.rand(
+            rows.shape, generator=gen, device="cuda"),
+            127 if bits == 8 else 7)
+        q = q.reshape(x.shape)
+        return (fs.pack_nibbles(q) if bits == 4 else q), s.reshape(
+            x.shape[:-1])
+    return a, quant(z), quant(dz), slot, thr
+
+
+def _gate_cases(torch, fs, cw, n, ops, bits):
+    """name -> (the op over one job's operands and threshold, the
+    (args, in_dims) of its vmapped call over ``ops``, the plain version of
+    one job): the layouts of the job-batched gate."""
+    a, z, dz, slot, thr = ops
+    if bits:
+        (zq, zs), (dzq, dzs) = z, dz
+        fn = fs.fused_sample_q8_2d if bits == 8 else fs.fused_sample_q4_2d
+        name = fs.QUANT_NAMES[bits]
+        return {
+            name: (lambda s, x, q, sc, dq, dsc, t: fn(s, x, q, sc, dq, dsc,
+                                                      t),
+                   (slot, a, zq, zs, dzq, dzs, thr), (0,) * 7,
+                   lambda j, t: fs.fused_sample_quant_plain(
+                       bits, slot[j], a[j], zq[j], zs[j], dzq[j], dzs[j],
+                       t)),
+            f"{name} weights-only": (
+                lambda s, x, q, sc, t: (fn(s, x, q, sc, None, None, t)[0],),
+                (slot, a, zq, zs, thr), (0,) * 5,
+                lambda j, t: fs.fused_sample_quant_plain(
+                    bits, slot[j], a[j], zq[j], zs[j], None, None, t)),
+        }
+    z1 = z[torch.arange(n, device=z.device), slot[:, 0].long()]
+    dz1 = dz[torch.arange(n, device=dz.device), slot[:, 0].long()]
+    return {
+        "fused_sample_2d": (
+            lambda s, x, zr, dzr, t: fs.fused_sample_2d(s, x, zr, dzr, t),
+            (slot, a, z, dz, thr), (0,) * 5,
+            lambda j, t: fs.fused_sample_plain(slot[j], a[j], z[j], dz[j],
+                                               t)),
+        "fused_sample_2d weights-only": (
+            lambda s, x, zr, t: (fs.fused_sample_2d(s, x, zr, None, t)[0],),
+            (slot, a, z, thr), (0,) * 4,
+            lambda j, t: fs.fused_sample_plain(slot[j], a[j], z[j], None,
+                                               t)),
+        "fused_sample_2d shared ring": (
+            lambda s, x, zr, dzr, t: fs.fused_sample_2d(s, x, zr, dzr, t),
+            (slot, a, z[0], dz[0], thr), (0, 0, None, None, 0),
+            lambda j, t: fs.fused_sample_plain(slot[j], a[j], z[0], dz[0],
+                                               t)),
+        "cosine_weight_2d": (
+            lambda x, s, d, t: cw.cosine_weight_2d(x, s, d, t),
+            (a, z1.contiguous(), dz1.contiguous(), thr), (0,) * 4,
+            lambda j, t: cw.cosine_weight_plain(a[j], z1[j], dz1[j], t)),
+        "cosine_weights_2d": (
+            lambda x, s, t: (cw.cosine_weights_2d(x, s, t),),
+            (a, z1.contiguous(), thr), (0,) * 3,
+            lambda j, t: (cw.cosine_weights_plain(a[j], z1[j], t), None)),
+    }
+
+
+def _fleet_gate_kernels(torch):
+    """The job-batched gate (one launch for n jobs, each with its own
+    slot, threshold and rings) in every layout: the narrow and the
+    split-row paths, fp32 / bf16 / int8 / int4 rings, K1 full,
+    weights-only and over a ring vmap left unbatched (job stride 0), K2a
+    and K2b.  Each is bitwise n one-job launches of the same kernel and
+    within K1's limit of its plain version; each kernel's full gate is
+    timed at (n, W, B, F) = (16 | 128, 5, 256, 256) beside its bytes
+    bound and n one-job launches.  -> the timings."""
+    from torch.func import vmap
+
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import cosine_weight as cw
+    from repro_torch.kernels import fused_sample as fs
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    layouts = [(4, MAIN_SHAPE, torch.float32, None),
+               (3, (2, 37, 13), torch.float32, None),
+               (4, MAIN_SHAPE, torch.bfloat16, None),
+               (3, (2, 2, 64 * 960), torch.float32, None),    # split rows
+               (4, MAIN_SHAPE, None, 8), (4, MAIN_SHAPE, None, 4),
+               (3, (2, 2, 64 * 960), None, 8)]
+    for n, shape, dtype, bits in layouts:
+        W, B, F = shape
+        path = "split-row" if cw.gate_chunks(B, F) > 1 else "narrow"
+        ops = _jobs_operands(torch, gen, n, shape, dtype, bits)
+        thr = ops[-1]
+        for name, (one, args, dims, plain) in _gate_cases(
+                torch, fs, cw, n, ops, bits).items():
+            key = name.split()[0]
+            before = _cuda.LAUNCHES[key]
+            got = vmap(one, in_dims=dims)(*args)
+            check(_cuda.LAUNCHES[key] == before + 1,
+                  f"fleet gate {name}: {_cuda.LAUNCHES[key] - before} "
+                  f"launches for {n} jobs, want 1")
+            err = 0.0
+            for j in range(n):
+                sub = [x[j] if d == 0 else x for x, d in zip(args, dims)]
+                t = float(thr[j])
+                want = one(*sub[:-1], t)
+                want = want if isinstance(want, tuple) else (want,)
+                for g, w in zip(got, want):
+                    check(torch.equal(g[j], w), f"fleet gate {name} "
+                          f"{path} {shape} {dtype or bits}: job {j} of the "
+                          f"batched launch is not bitwise its one-job launch")
+                w0, c0 = plain(j, t)
+                # rows this close to the job's threshold may flip
+                keep = (plain(j, -2.0)[0] - t).abs() > NEAR
+                err = max(err, (got[0][j] - w0).abs()[keep].max().item())
+                if c0 is not None and len(got) > 1:
+                    err = max(err, (got[1][j] - c0).abs()[keep].max().item())
+            check(math.isfinite(err) and err <= KERNEL_TOL,
+                  f"fleet gate {name} {shape}: max |err| {err} against the "
+                  f"plain version")
+            print(f"[fleet] gate {name:30s} n={n} W,B,F={W},{B},{F} "
+                  f"{'int%d' % bits if bits else str(dtype)[6:]:8s} "
+                  f"({path}): one launch, bitwise {n} one-job launches, "
+                  f"max|err| {err:.3g} against the plain version",
+                  flush=True)
+    # times at the main path's shape: the full gate of each kernel (K1,
+    # K2a, K2b, K4, K5), one batched launch against n one-job launches
+    W, B, F = MAIN_SHAPE
+    per_job = {      # bytes a job: ad hoc read, w written, stale rows read,
+        # cot written, the slot and the threshold
+        "fused_sample_2d": 4 * B * F + 4 * B + 2 * 4 * B * F + 4 * B * F + 8,
+        "cosine_weight_2d": 4 * B * F + 4 * B + 2 * 4 * B * F + 4 * B * F + 4,
+        "cosine_weights_2d": 4 * B * F + 4 * B + 4 * B * F + 4,
+        "fused_sample_q8_2d": 4 * B * F + 4 * B + 2 * (B * F + 4 * B)
+        + 4 * B * F + 8,
+        "fused_sample_q4_2d": 4 * B * F + 4 * B + 2 * (B * F // 2 + 4 * B)
+        + 4 * B * F + 8,
+    }
+    times = {}
+    for n in FLEET_GATE_JOBS:
+        cases = {}
+        for bits in (None, 8, 4):
+            ops = _jobs_operands(torch, gen, n, MAIN_SHAPE, torch.float32,
+                                 bits)
+            cases.update({k: (v, ops[-1]) for k, v in _gate_cases(
+                torch, fs, cw, n, ops, bits).items() if k in per_job})
+        for name, ((one, args, dims, _), thr) in cases.items():
+            ts = [float(x) for x in thr]
+            subs = [[x[j] if d == 0 else x for x, d in zip(args, dims)][:-1]
+                    for j in range(n)]
+            ms = device_ms(torch, lambda: vmap(one, in_dims=dims)(*args), 20)
+            loop_ms = device_ms(torch, lambda: [one(*s, t) for s, t in
+                                                zip(subs, ts)], 2)
+            call = call_ms(torch, lambda: vmap(one, in_dims=dims)(*args), 50)
+            nbytes = n * per_job[name]
+            flops = n * (6 if name == "cosine_weights_2d" else 7) * B * F
+            bound_ms, bound_by = bound(nbytes, flops)
+            times[(name, n)] = {"ms": ms, "loop_ms": loop_ms,
+                                "bound_ms": bound_ms}
+            print(f"[fleet] gate {name:18s} n={n} W,B,F={W},{B},{F}: "
+                  f"device: one launch {ms * 1e3:.2f} us, {n} one-job "
+                  f"launches {loop_ms * 1e3:.2f} us, bound "
+                  f"{bound_ms * 1e3:.3f} us ({bound_by}, {nbytes} B; "
+                  f"{bound_ms / ms:.0%} of the bound rate); per call from "
+                  f"Python {call * 1e3:.2f} us", flush=True)
+    return times
+
+
+def _fleet_workload(torch, device="cuda"):
+    """WDL-Criteo at full width (B = 256) as ``train_dlrm`` sets it up, as
+    a fleet workload: job ``seed``'s parameters from the port's own
+    initialisers (``wdl_init(seed)``) -> (workload, celu config, R)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import engine
+    from repro_torch.data import synthetic as synth
+    from repro_torch.fleet import FleetWorkload
+    from repro_torch.launch.train import celu_config
+    from repro_torch.models.tabular import make_dlrm
+    args = train_args("wdl-criteo", device=device)
+    cfg = get_config("wdl-criteo")
+    spec = dataclasses.replace(synth.TABULAR_SPECS["criteo"],
+                               vocab=cfg.vocab, n_train=args.n_train,
+                               n_test=args.n_test)
+    data = synth.make_tabular(spec, seed=0)
+    init_fn, task, _ = make_dlrm(cfg)
+
+    def params_for(seed):
+        return engine.lift_two_party_params(init_fn(seed, cfg, device))
+
+    def batch_stream():
+        for bi, ba, bb in synth.aligned_batches(data["train"],
+                                                args.batch_size, seed=0):
+            yield bi, [ba], bb
+    ccfg, nloc = engine.preset_config("celu", celu_config(args))
+    return FleetWorkload(engine.lift_two_party(task), params_for,
+                         batch_stream), ccfg, nloc
+
+
+def _fleet_specs(celu, nloc, n, depth=0):
+    """The reference benchmark's job grid (lr cycling, seed j) with ξ
+    alternating 60° and 45°."""
+    from repro_torch.fleet import JobSpec
+    return [JobSpec(celu=celu, local_steps=nloc, lr=FLEET_LRS[j % 4],
+                    seed=j, xi_degrees=FLEET_XI[j % 2], depth=depth)
+            for j in range(n)]
+
+
+def _fleet_scalar(torch, wl, spec, rounds):
+    """Job ``spec`` through the scalar ``PipelinedEngine`` (the plain
+    AdaGrad route, the job's uniform source as the fleet makes it) ->
+    (its rows' metrics (device tensors), flush metrics, final state,
+    seconds of its rounds and flush on the host clock, set-up left
+    out)."""
+    from repro_torch.core import engine
+    from repro_torch.core.uniforms import GeneratorUniforms
+    from repro_torch.data import to_device
+    from repro_torch.fleet import JobUniforms
+    from repro_torch.optim import make_optimizer
+    celu = dataclasses.replace(spec.celu, xi_degrees=spec.resolved_xi())
+    opt = make_optimizer(spec.optimizer, spec.lr)
+    it = wl.batch_stream()
+    _, ba, bb = next(it)
+    state = engine.init_state(
+        wl.task, wl.params_for(spec.seed), opt, celu,
+        [to_device(b, "cuda") for b in ba], to_device(bb, "cuda"),
+        uniforms=JobUniforms(GeneratorUniforms(spec.seed, "cuda"),
+                             spec.seed))
+    pe = engine.make_pipeline(wl.task, opt, celu,
+                              depth=spec.resolved_depth(),
+                              local_steps=spec.local_steps)
+    rs = pe.init(state)
+    rows = []
+    it = wl.batch_stream()
+    batches = [next(it) for _ in range(rounds)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for bi, ba, bb in batches:
+        rs, m = pe.step(rs, [to_device(b, "cuda") for b in ba],
+                        to_device(bb, "cuda"), bi)
+        rows.append(m)
+    rs, fm = pe.flush(rs)
+    torch.cuda.synchronize()
+    return rows, fm, pe.finalize(rs), time.perf_counter() - t0
+
+
+def _fleet_goldens(torch):
+    """A one-job vmap fleet replays the two-party (celu) and the
+    three-party goldens on the card within the tests' tolerance."""
+    from repro_torch import golden
+    from repro_torch.bridge import load_flat, subtree
+    from repro_torch.configs.base import CELUConfig
+    from repro_torch.core import engine
+    from repro_torch.data.synthetic import (TabularSpec, aligned_batches,
+                                            make_tabular)
+    from repro_torch.fleet import FleetWorkload, JobSpec, run_fleet
+    from repro_torch.models.tabular import (MLP, PartyA, WDLPartyB,
+                                            make_dlrm)
+    flat = golden.load_params(GOLDEN_DIR)
+    cfg = golden.TWO_PARTY_CFG
+    data = make_tabular(TabularSpec("criteo", fields_a=4, fields_b=3,
+                                    vocab=32, n_train=2048, n_test=512), 0)
+    init_fn, task, _ = make_dlrm(cfg)
+
+    def two(seed):
+        p = init_fn(0, cfg, "cuda")
+        load_flat(p["a"], subtree(flat, "two_party.a"))
+        load_flat(p["b"], subtree(flat, "two_party.b"))
+        return engine.lift_two_party_params(p)
+
+    def two_stream():
+        for bi, ba, bb in aligned_batches(data["train"], 64, seed=0):
+            yield bi, [ba], bb
+    data3 = make_tabular(TabularSpec("t", fields_a=8, fields_b=4, vocab=64,
+                                     n_train=4096, n_test=512), seed=0)
+
+    def three(seed):
+        gen = torch.Generator().manual_seed(0)
+        pas = [PartyA(golden.THREE_PARTY_CFG, gen) for _ in range(2)]
+        pb = WDLPartyB(golden.THREE_PARTY_CFG, gen)
+        pb.top = MLP(golden.THREE_PARTY_TOP, gen)
+        for i, pa in enumerate(pas):
+            load_flat(pa, subtree(flat, f"three_party.a{i}"))
+        load_flat(pb, subtree(flat, "three_party.b"))
+        return {"a": pas, "b": pb}
+
+    def three_stream():
+        for bi, ba, bb in aligned_batches(data3["train"], 64, seed=0):
+            yield bi, [{"x_a": ba["x_a"][:, :4]},
+                       {"x_a": ba["x_a"][:, 4:]}], bb
+    runs = [("two-party celu", FleetWorkload(engine.lift_two_party(task),
+                                             two, two_stream),
+             JobSpec(celu=CELUConfig(R=3, W=3, xi_degrees=60.0)),
+             "two_party_trace.json", False),
+            ("three-party celu", FleetWorkload(golden.three_party_task(),
+                                               three, three_stream),
+             JobSpec(celu=CELUConfig(R=2, W=2, xi_degrees=60.0), lr=0.02),
+             "three_party_trace.json", True)]
+    for label, wl, spec, name, k3 in runs:
+        res = run_fleet([spec], 20, workload=wl, mode="vmap")
+        rows = [{"loss": float(res.losses[0, t]),
+                 "w_mean": float(res.w_mean[0, t]),
+                 "w_zero_frac": float(res.w_zero_frac[0, t]),
+                 "local_steps": int(res.local_steps[0, t])}
+                for t in range(20)]
+        rows.append({"steps_a": res.steps_a[0] if k3 else res.steps_a[0][0],
+                     "steps_b": int(res.steps_b[0]),
+                     "comm_rounds": int(res.comm_rounds[0])})
+        dev = golden.compare(rows, golden.load_golden(GOLDEN_DIR,
+                                                      name)["celu"])
+        print(f"[fleet] one-job vmap fleet, {label} golden on the card: "
+              f"{dev}", flush=True)
+        check(golden.within_tolerance(dev), f"fleet {label} golden {dev}")
+
+
+def _fleet_bitwise(res, j, scalar, label) -> None:
+    """Job ``j`` of a fleet is bitwise the scalar run of its job: every
+    row, the flush's w_mean, the counters and the final parameters."""
+    import numpy as np
+
+    from repro_torch.core import engine
+    rows, fm, fin, _ = scalar
+    got = np.stack([res.losses[j], res.w_mean[j], res.w_zero_frac[j]])
+    want = np.stack([[float(m[k]) for m in rows]
+                     for k in ("loss", "w_mean", "w_zero_frac")])
+    want_p = [p.detach().cpu().numpy() for m in fin["params"]["a"]
+              + [fin["params"]["b"]] for p in engine._params(m)]
+    got_p = [p for ps in res.final_state(j)["params"]["a"] for p in ps] \
+        + res.final_state(j)["params"]["b"]
+    check(np.array_equal(got, want, equal_nan=True)
+          and [int(m["local_steps"]) for m in rows]
+          == res.local_steps[j].tolist()
+          and np.float32(res.flush_metrics["w_mean"][j])
+          == np.float32(float(fm["w_mean"]))
+          and int(res.comm_rounds[j]) == int(fin["comm_rounds"])
+          and int(res.steps_b[j]) == int(fin["steps"]["b"])
+          and all(np.array_equal(a, b) for a, b in zip(got_p, want_p,
+                                                       strict=True)),
+          f"{label}: job {j} is not bitwise the scalar run of its job")
+
+
+def _fleet_map_bitwise(torch, wl, celu, nloc):
+    """``mode="map"`` lanes (two jobs, depth 2) bitwise the scalar
+    ``PipelinedEngine`` runs of their jobs.  -> the launches of the map
+    run."""
+    from repro_torch.fleet import run_fleet
+    from repro_torch.kernels import _cuda
+    specs = _fleet_specs(celu, nloc, 2, depth=2)
+    _cuda.reset_launches()
+    res = run_fleet(specs, FLEET_SIDE_ROUNDS, workload=wl, mode="map")
+    counts = dict(_cuda.LAUNCHES)
+    scans, _ = _pipeline_schedule(2, FLEET_SIDE_ROUNDS)
+    _want("fleet map, 2 jobs at depth 2", counts,
+          fused_sample_2d=2 * 2 * R * scans)
+    for j, spec in enumerate(specs):
+        _fleet_bitwise(res, j, _fleet_scalar(torch, wl, spec,
+                                             FLEET_SIDE_ROUNDS),
+                       "fleet map")
+    print(f"[fleet] map mode, 2 jobs at depth 2, {FLEET_SIDE_ROUNDS} "
+          f"rounds: each lane bitwise its scalar PipelinedEngine run "
+          f"(rows, flush metrics, counters, parameters); K1 launches "
+          f"{counts['fused_sample_2d']} (twice one job's)", flush=True)
+    return counts
+
+
+def _fleet_vmap_run(torch, wl, specs, rounds, label, profile_it=False):
+    """One vmap fleet run with the launch counts set to 0 just before,
+    the K1 count checked against the schedule (independent of the fleet
+    size).  -> (result, counts, busy ms and kernels per fleet round or
+    None)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.fleet import run_fleet
+    from repro_torch.kernels import _cuda
+    depth = specs[0].resolved_depth()
+    _cuda.reset_launches()
+    if profile_it:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res = run_fleet(specs, rounds, workload=wl, mode="vmap")
+            torch.cuda.synchronize()
+        kern = _kernels(torch, prof)
+        busy = (sum(e.device_time_total for e in kern) / 1e3 / rounds,
+                len(kern) / rounds)
+    else:
+        res = run_fleet(specs, rounds, workload=wl, mode="vmap")
+        busy = None
+    counts = dict(_cuda.LAUNCHES)
+    check(np.isfinite(res.losses[:, depth and depth - 1:]).all(),
+          f"{label}: losses not finite")
+    return res, counts, busy
+
+
+def _fleet_lanes_alike(torch, wl, celu, nloc):
+    """Sixteen lanes of one spec under vmap are bitwise each other (rows
+    and final parameters).  -> the run's launches."""
+    import numpy as np
+
+    from repro_torch.fleet import JobSpec
+    specs = [JobSpec(celu=celu, local_steps=nloc, lr=FLEET_LRS[0],
+                     seed=3)] * 16
+    res, c, _ = _fleet_vmap_run(torch, wl, specs, FLEET_SIDE_ROUNDS,
+                                "fleet vmap, 16 lanes of one spec")
+    p0 = res.final_state(0)["params"]
+    alike = all(
+        np.array_equal(res.losses[j], res.losses[0])
+        and np.array_equal(res.w_mean[j], res.w_mean[0])
+        and all(np.array_equal(a, b) for a, b in zip(
+            p0["a"][0] + p0["b"], res.final_state(j)["params"]["a"][0]
+            + res.final_state(j)["params"]["b"]))
+        for j in range(16))
+    check(alike, "fleet vmap: lanes of one spec differ")
+    print(f"[fleet] vmap, 16 lanes of one spec, {FLEET_SIDE_ROUNDS} rounds: "
+          f"bitwise each other (rows and final parameters)", flush=True)
+    return c
+
+
+def _fleet_parity(torch, res, scalar, label):
+    """Lane j of a vmap fleet against the scalar run of job j: counters
+    exact over all rounds, loss (relative) and w_mean (absolute) within
+    FLEET_RTOL over the first FLEET_PARITY_ROUNDS rounds (every round's
+    largest deviations printed).  -> the largest held deviation."""
+    per_round = [(0.0, 0.0)] * FLEET_ROUNDS
+    for j, (rows, fm, fin, _) in enumerate(scalar):
+        check([int(m["local_steps"]) for m in rows]
+              == res.local_steps[j].tolist()
+              and int(res.comm_rounds[j]) == int(fin["comm_rounds"])
+              and int(res.steps_b[j]) == int(fin["steps"]["b"])
+              and res.steps_a[j] == [int(s) for s in fin["steps"]["a"]],
+              f"{label} lane {j}: counters differ from the scalar run")
+        for t, m in enumerate(rows):
+            want, got = float(m["loss"]), float(res.losses[j, t])
+            if math.isnan(want):
+                check(math.isnan(got), f"{label} lane {j}: warm-up row")
+                continue
+            dl = abs(got - want) / abs(want)
+            dw = abs(float(res.w_mean[j, t]) - float(m["w_mean"]))
+            per_round[t] = (max(per_round[t][0], dl),
+                            max(per_round[t][1], dw))
+    per_round = per_round[:len(scalar[0][0])]
+    shown = [(float(f"{a:.3g}"), float(f"{b:.3g}")) for a, b in per_round]
+    print(f"[fleet] {label}: lanes against their scalar runs, largest "
+          f"(loss rel, w_mean abs) per round: {shown} (held to "
+          f"{FLEET_RTOL} over rounds 1-{FLEET_PARITY_ROUNDS}); counters "
+          f"exact", flush=True)
+    worst = max(max(r) for r in per_round[:FLEET_PARITY_ROUNDS])
+    check(worst <= FLEET_RTOL,
+          f"{label}: lanes {shown} from their scalar runs")
+    return worst
+
+
+def phase_fleet(torch, card):
+    """The fleet (``repro_torch.fleet.run_fleet``) on the card: the
+    job-batched gate in every layout; the goldens through a one-job vmap
+    fleet; map lanes bitwise the scalar engine; WDL-Criteo at full width
+    (B = 256, R = W = 5, fp32 cache and wire) over the reference
+    benchmark's job grid, 8 rounds and the drain, at N = 1, 16 and 128
+    (depth 0) and N = 16 at depth 2, each lane of N = 16 against its
+    scalar run, K1 launches per fleet round derived from the schedule
+    (the same at every N); a ``--no-cache-fusion`` cohort (K2a / K2b) and
+    an int8-cache cohort (K3 + K4); job-rounds per second, busy and host
+    ms per fleet round against the sequential loop of scalar runs, in
+    turns.  -> the launches of the phase's runs."""
+    counts = {}
+    t0 = time.perf_counter()
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    def lap(label):
+        print(f"[fleet] {label}: done at {time.perf_counter() - t0:.1f} s "
+              f"into the phase", flush=True)
+    _fleet_gate_kernels(torch)
+    lap("the job-batched gate")
+    _fleet_goldens(torch)
+    wl, celu, nloc = _fleet_workload(torch)
+    add(_fleet_map_bitwise(torch, wl, celu, nloc))
+    add(_fleet_lanes_alike(torch, wl, celu, nloc))
+    lap("goldens, map lanes, lanes of one spec")
+
+    # the sequential loop over the first 16 jobs: the lanes' reference
+    # and the baseline's time (its first round untimed: the warm-up)
+    specs16 = _fleet_specs(celu, nloc, 16)
+    _fleet_scalar(torch, wl, specs16[0], 1)
+    scalar16 = [_fleet_scalar(torch, wl, s, FLEET_ROUNDS) for s in specs16]
+    seq_s = [sum(r[3] for r in scalar16)]
+    lap("the sequential loop")
+
+    results = {}
+    for n, depth in [(1, 0), (16, 0), (128, 0), (16, 2)]:
+        specs = _fleet_specs(celu, nloc, n, depth)
+        label = f"fleet vmap N={n} depth {depth}"
+        res, c, _ = _fleet_vmap_run(torch, wl, specs, FLEET_ROUNDS, label)
+        scans, _ = _pipeline_schedule(depth, FLEET_ROUNDS)
+        _want(label, c, fused_sample_2d=2 * R * scans)
+        add(c)
+        if n == 1:
+            _fleet_bitwise(res, 0, scalar16[0], label)
+            print(f"[fleet] {label}: bitwise the scalar PipelinedEngine "
+                  f"run of its job (rows, counters, parameters)",
+                  flush=True)
+        if n == 16 and depth == 0:
+            _fleet_parity(torch, res, scalar16, label)
+        if n == 16 and depth == 2:
+            _fleet_parity(torch, res, [_fleet_scalar(
+                torch, wl, s, FLEET_ROUNDS) for s in specs[:2]], label)
+        busy = None
+        if depth == 0:      # the profiled run: busy ms, kernels a round
+            _, c, busy = _fleet_vmap_run(torch, wl, specs, FLEET_ROUNDS,
+                                         label, profile_it=True)
+            add(c)
+        results[(n, depth)] = {"host": [res.wall_s], "busy": busy,
+                               "compile_s": res.compile_s}
+        print(f"[fleet] {label}: K1 launches {c['fused_sample_2d']} "
+              f"(schedule: {2 * R * scans}, at every N); compile "
+              f"{res.compile_s:.2f} s", flush=True)
+        lap(label)
+
+    # times in turns: the sequential loop, the fleets above, then the
+    # sequential loop and N = 16 once more
+    seq_s.append(sum(_fleet_scalar(torch, wl, s, FLEET_ROUNDS)[3]
+                     for s in specs16))
+    res, c, _ = _fleet_vmap_run(torch, wl, _fleet_specs(celu, nloc, 16),
+                                FLEET_ROUNDS, "fleet vmap N=16 (time)")
+    add(c)
+    results[(16, 0)]["host"].append(res.wall_s)
+    seq_rate = [16 * FLEET_ROUNDS / s for s in seq_s]
+    print(f"[fleet] sequential loop of scalar PipelinedEngine runs (16 jobs "
+          f"x {FLEET_ROUNDS} rounds, plain AdaGrad, warm-up untimed): "
+          f"{' / '.join(f'{r:.2f}' for r in seq_rate)} job-rounds per s "
+          f"({' / '.join(f'{1e3 / r:.3f}' for r in seq_rate)} ms per "
+          f"job-round, host clock, set-up left out); card {card}",
+          flush=True)
+    for (n, depth), r in results.items():
+        timed = FLEET_ROUNDS - 1          # round 1 is the warm-up
+        rates = [n * timed / w for w in r["host"]]
+        host_ms = [1e3 * w / timed for w in r["host"]]
+        busy = "not profiled" if r["busy"] is None else (
+            f"device busy {r['busy'][0]:.3f} ms per fleet round "
+            f"({r['busy'][1]:.0f} kernels per round, warm-up included)")
+        print(f"[time] fleet N={n} depth {depth}: "
+              f"{' / '.join(f'{x:.2f}' for x in rates)} job-rounds per s "
+              f"({max(rates) / max(seq_rate):.2f}x the sequential loop's "
+              f"best); host {' / '.join(f'{x:.3f}' for x in host_ms)} ms "
+              f"per fleet round (rounds 2-{FLEET_ROUNDS} and the drain); "
+              f"{busy}; card {card}", flush=True)
+
+    # the other gate kernels in a cohort: K2a / K2b and K3 + K4
+    for label, kw, want in [
+            ("--no-cache-fusion", {"cache_fused": False},
+             lambda s: {"cosine_weight_2d": R * s,
+                        "cosine_weights_2d": R * s}),
+            ("int8 cache", {"cache_dtype": "int8"},
+             lambda s: {"fused_sample_q8_2d": 2 * R * s,
+                        "quantize_sr_2d": 4 * FLEET_SIDE_ROUNDS})]:
+        specs = _fleet_specs(dataclasses.replace(celu, **kw), nloc,
+                             FLEET_SIDE_JOBS)
+        res, c, _ = _fleet_vmap_run(torch, wl, specs, FLEET_SIDE_ROUNDS,
+                                    f"fleet {label}")
+        scans, _ = _pipeline_schedule(0, FLEET_SIDE_ROUNDS)
+        _want(f"fleet {label} N={FLEET_SIDE_JOBS}", c, **want(scans))
+        add(c)
+        scalar = [_fleet_scalar(torch, wl, s, FLEET_SIDE_ROUNDS)
+                  for s in specs[:2]]
+        _fleet_parity(torch, res, scalar, f"fleet {label} N="
+                      f"{FLEET_SIDE_JOBS}")
+        print(f"[fleet] {label} cohort N={FLEET_SIDE_JOBS}, "
+              f"{FLEET_SIDE_ROUNDS} rounds: launches "
+              f"{ {k: v for k, v in c.items() if v} }", flush=True)
+    return counts
+
+
 def phase_serve_kernels(torch):
     """K6 and K11 against their plain versions, bitwise, at the serving
     ring and a wide one; K9 against its plain version at the long-prompt
@@ -3556,8 +4184,12 @@ def main() -> None:
     for k, v in phase_chaos(torch, card).items():
         pipeline_counts[k] = pipeline_counts.get(k, 0) + v
     print(f"[phase] chaos {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    for k, v in phase_fleet(torch, card).items():
+        pipeline_counts[k] = pipeline_counts.get(k, 0) + v
+    print(f"[phase] fleet {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 8.-9. serving
+    # 9.-10. serving
     t0 = time.perf_counter()
     kernels.update(phase_serve_kernels(torch))
     print(f"[phase] serving kernels {time.perf_counter() - t0:.1f} s",
@@ -3566,7 +4198,7 @@ def main() -> None:
     counts.update(phase_serving(torch, card))
     print(f"[phase] serving {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 10.-11. training
+    # 11.-12. training
     t0 = time.perf_counter()
     kernels.update(phase_train_kernels(torch))
     print(f"[phase] training kernels {time.perf_counter() - t0:.1f} s",
@@ -3575,13 +4207,13 @@ def main() -> None:
     counts.update(phase_training(torch, card))
     print(f"[phase] training {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 12. the reduced model
+    # 13. the reduced model
     t0 = time.perf_counter()
     phase_reduced(torch, card)
     print(f"[phase] reduced model {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    # 13. results: each kernel's launches over every path that ran it
+    # 14. results: each kernel's launches over every path that ran it
     for k, v in pipeline_counts.items():
         counts[k] = counts.get(k, 0) + v
     rows = []

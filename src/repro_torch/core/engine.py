@@ -49,9 +49,22 @@ How the JAX engine maps onto PyTorch:
     through its hooks: ``local(staleness=, party_mask=)``,
     ``merge(staleness=)``, ``dispatch(wire_round=)`` and the transports'
     ``recover_dropped``.
+  * The fleet (``fleet/``) runs the same stages under
+    ``torch.func.vmap`` over a job axis.  Stages built with
+    ``functional=True`` take every gradient with ``torch.func.vjp`` over
+    the party's parameters bound into its module (:func:`bind_parameters`),
+    never create a leaf with ``requires_grad_`` and never add a batched
+    value into a tensor they made; ``cos_xi=`` may then be a (batched)
+    tensor and ``uniforms=`` a per-job source.  The default route keeps
+    ``torch.autograd.grad``: ``torch.func`` refuses the saved-tensor
+    hooks of the LLM towers' activation checkpointing and the old-style
+    ``autograd.Function`` of K9-LSE / K10.  Both routes give the same
+    numbers (``tests/test_torch_fleet.py`` holds map lanes bitwise to the
+    scalar engine).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, \
     Tuple
@@ -59,7 +72,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, \
 import numpy as np
 import torch
 
-from ..bridge import reference_parameters
+from ..bridge import path_key, reference_parameters
 from ..configs.base import CELUConfig, validate_pipeline_depth
 from ..kernels import ops as kops
 from ..optim import Optimizer, apply_updates
@@ -329,20 +342,73 @@ def _take(ws_leaf, idx):
     return ws_leaf.index_select(0, idx)[0]
 
 
-def _backward_a(z_new, params_a, w, cot, mask):
+@contextlib.contextmanager
+def bind_parameters(module, tensors):
+    """Run ``module`` with ``tensors`` (in :func:`_params`'s order) in
+    place of its parameters, restored on exit: the party's parameters
+    as a stacked fleet's batched slices, or as ``torch.func.vjp``'s
+    primals.  In-place updates of the bound tensors land in them."""
+    names = [n for n, _ in sorted(module.named_parameters(),
+                                  key=lambda kv: path_key(kv[0]))]
+    slots = []
+    for name in names:
+        *path, leaf = name.split(".")
+        sub = module
+        for part in path:
+            sub = getattr(sub, part)
+        slots.append((sub, leaf, sub._parameters[leaf]))
+    for (sub, leaf, _), t in zip(slots, tensors, strict=True):
+        sub._parameters[leaf] = t
+    try:
+        yield module
+    finally:
+        for sub, leaf, old in slots:
+            sub._parameters[leaf] = old
+
+
+def _vjp(fn, module, extra=(), *, functional: bool = False):
+    """``fn(*extra)``'s value and its pullback: ``pull(cot)`` -> the
+    gradients of <fn, cot> with respect to ``module``'s parameters
+    (:func:`_params`'s order; none when ``module`` is None), then
+    ``extra``.  ``fn`` reaches the parameters through ``module``.
+
+    ``functional``: ``torch.func.vjp`` with the parameters bound into the
+    module as primals, which ``torch.func.vmap`` can carry (the fleet).
+    Otherwise ``torch.autograd.grad`` over the module's own parameters and
+    fresh leaves for ``extra``: the same numbers, and the only route for
+    the LLM towers (see the module docstring)."""
+    params = [] if module is None else _params(module)
+    if not functional:
+        leaves = [x.detach().requires_grad_(True) for x in extra]
+        out = fn(*leaves)
+        return out, lambda cot: torch.autograd.grad(
+            out, params + leaves, grad_outputs=cot)
+    n = len(params)
+
+    def f(*xs):
+        ctx = contextlib.nullcontext() if module is None \
+            else bind_parameters(module, xs[:n])
+        with ctx:
+            return fn(*xs[n:])
+    out, pull = torch.func.vjp(f, *[p.detach() for p in params],
+                               *[x.detach() for x in extra])
+    return out, pull
+
+
+def _backward_a(z_new, pull, w, cot, mask):
     if mask is not None:
         w = w * mask
         cot = cot * mask
-    g = torch.autograd.grad(z_new, _params(params_a),
-                            grad_outputs=cot.to(z_new.dtype))
+    g = pull(cot.to(z_new.dtype))
     return g, w
 
 
-def _grad_a_tail(z_new, params_a, stale_z, stale_dz, cos_xi: float, *,
+def _grad_a_tail(z_new, pull, stale_z, stale_dz, cos_xi, *,
                  weighting: bool, mask, pipeline_staleness: int,
                  dynamic: bool):
     """Feature-party update once the stale statistics are materialised:
-    InsWeight + cotangent scale + backward."""
+    InsWeight + cotangent scale + backward (``pull``, the forward's
+    pullback)."""
     if weighting:
         w, cot = weighted_cotangent(z_new.detach(), stale_z, stale_dz,
                                     cos_xi,
@@ -351,18 +417,21 @@ def _grad_a_tail(z_new, params_a, stale_z, stale_dz, cos_xi: float, *,
     else:
         w = torch.ones(z_new.shape[0], device=z_new.device)
         cot = _bcast(w, z_new) * stale_dz.float()
-    return _backward_a(z_new, params_a, w, cot, mask)
+    return _backward_a(z_new, pull, w, cot, mask)
 
 
-def local_grad_a(forward_a, params_a, entry, cos_xi: float, *,
+def local_grad_a(forward_a, params_a, entry, cos_xi, *,
                  weighting: bool = True, mask=None,
-                 pipeline_staleness: int = 0, dynamic: bool = False):
+                 pipeline_staleness: int = 0, dynamic: bool = False,
+                 functional: bool = False):
     """Feature-party local update on a materialised workset entry
     {"z", "dz", "batch"}.  ``mask`` (0-d 0/1 tensor) zeroes a bubble
     draw; ``pipeline_staleness`` / ``dynamic`` discount the weights
-    (:func:`_attenuate_post_scale`).  Returns (grads, weights)."""
-    z_new = forward_a(params_a, entry["batch"])
-    return _grad_a_tail(z_new, params_a, entry["z"], entry["dz"], cos_xi,
+    (:func:`_attenuate_post_scale`); ``functional`` picks :func:`_vjp`'s
+    route.  Returns (grads, weights)."""
+    z_new, pull = _vjp(lambda: forward_a(params_a, entry["batch"]),
+                       params_a, functional=functional)
+    return _grad_a_tail(z_new, pull, entry["z"], entry["dz"], cos_xi,
                         weighting=weighting, mask=mask,
                         pipeline_staleness=pipeline_staleness,
                         dynamic=dynamic)
@@ -373,7 +442,7 @@ def _ring_view(store):
     return store.v if isinstance(store, CastLeaf) else store
 
 
-def _fused_ring_sample(slot, z_new, z_store, dz_store, cos_xi: float):
+def _fused_ring_sample(slot, z_new, z_store, dz_store, cos_xi):
     """One-pass sample off the ring in its storage form: gather the slot,
     dequantise, row cosine against the ad-hoc z, threshold, scale the
     stale cotangent (K1 for fp32 / bf16, K4 for int8, K5 for int4).
@@ -390,10 +459,10 @@ def _fused_ring_sample(slot, z_new, z_store, dz_store, cos_xi: float):
                                     _ring_view(dz_store), cos_xi)
 
 
-def local_grad_a_cached(forward_a, params_a, ws, slot, cos_xi: float, *,
+def local_grad_a_cached(forward_a, params_a, ws, slot, cos_xi, *,
                         weighting: bool = True, cache_fused: bool = True,
                         mask=None, pipeline_staleness: int = 0,
-                        dynamic: bool = False):
+                        dynamic: bool = False, functional: bool = False):
     """Feature-party local update straight off the workset ring.  Only the
     party's own cached features are gathered; with ``cache_fused`` the cut
     statistics ⟨Z, ∇Z⟩ go through the fused ring-sample kernel of the
@@ -404,39 +473,47 @@ def local_grad_a_cached(forward_a, params_a, ws, slot, cos_xi: float, *,
     buf = ws["buf"]
     idx = slot.reshape(1).long()
     batch = tree_map(lambda b: _take(b, idx), buf["batch"])
-    z_new = forward_a(params_a, batch)
+    z_new, pull = _vjp(lambda: forward_a(params_a, batch), params_a,
+                       functional=functional)
     if weighting and cache_fused:
         w, cot = _fused_ring_sample(slot, z_new.detach(), buf["z"],
                                     buf["dz"], cos_xi)
         w, cot = _attenuate_post_scale(w, cot, pipeline_staleness, dynamic)
-        return _backward_a(z_new, params_a, w, cot, mask)
+        return _backward_a(z_new, pull, w, cot, mask)
     entry = workset_entry(ws, slot)
-    return _grad_a_tail(z_new, params_a, entry["z"], entry["dz"], cos_xi,
+    return _grad_a_tail(z_new, pull, entry["z"], entry["dz"], cos_xi,
                         weighting=weighting, mask=mask,
                         pipeline_staleness=pipeline_staleness,
                         dynamic=dynamic)
 
 
-def _weighted_grad_b(loss_b, params_b, zs, batch_b, w):
-    li, aux = loss_b(params_b, zs, batch_b)
-    return torch.autograd.grad((w * li).mean() + aux, _params(params_b))
+def _weighted_grad_b(loss_b, params_b, zs, batch_b, w, functional=False):
+    def loss():
+        li, aux = loss_b(params_b, zs, batch_b)
+        return (w * li).mean() + aux
+    out, pull = _vjp(loss, params_b, functional=functional)
+    return pull(torch.ones_like(out))
 
 
-def _ad_hoc_dz(loss_b, params_b, zs, batch_b):
+def _ad_hoc_dz(loss_b, params_b, zs, batch_b, functional=False):
     """∇Z_i of the mean loss at the cached Z_i (paper footnote 2): the
     first of Party B's two autograd passes, used only for the weights.
     As in the reference, the cached Z_i enter in fp32, so a bf16 cut
     tensor (the LLM's) runs the layers after the fusion in fp32, and the
     gradient is taken with respect to Z alone: the backward reaches only
     those layers."""
-    zl = [z.float().detach().requires_grad_(True) for z in zs]
-    li, _ = loss_b(params_b, zl, batch_b)
-    return torch.autograd.grad(li.mean(), zl)
+    def loss(*zl):
+        li, _ = loss_b(params_b, list(zl), batch_b)
+        return li.mean()
+    out, pull = _vjp(loss, None, [z.float() for z in zs],
+                     functional=functional)
+    return pull(torch.ones_like(out))
 
 
-def local_grad_b(loss_b, params_b, entry, cos_xi: float, *,
+def local_grad_b(loss_b, params_b, entry, cos_xi, *,
                  weighting: bool = True, mask=None,
-                 pipeline_staleness: int = 0, dynamic: bool = False):
+                 pipeline_staleness: int = 0, dynamic: bool = False,
+                 functional: bool = False):
     """Label-party local update on a materialised entry: stale Z_i's +
     own features; the ad-hoc ∇Z_i only measure staleness, then the
     weighted per-instance losses drive the backward pass.  K>1: the
@@ -444,7 +521,7 @@ def local_grad_b(loss_b, params_b, entry, cos_xi: float, *,
     the pipeline staleness.  Returns (grads, weights)."""
     zs, dzs, batch_b = entry["z"], entry["dz"], entry["batch"]
     if weighting:
-        dz_new = _ad_hoc_dz(loss_b, params_b, zs, batch_b)
+        dz_new = _ad_hoc_dz(loss_b, params_b, zs, batch_b, functional)
         w = staleness_weights(dz_new[0], dzs[0], cos_xi)
         for i in range(1, len(zs)):
             w = torch.minimum(w, staleness_weights(dz_new[i], dzs[i], cos_xi))
@@ -453,10 +530,11 @@ def local_grad_b(loss_b, params_b, entry, cos_xi: float, *,
         w = torch.ones(zs[0].shape[0], device=zs[0].device)
     if mask is not None:
         w = w * mask
-    return _weighted_grad_b(loss_b, params_b, zs, batch_b, w), w
+    return _weighted_grad_b(loss_b, params_b, zs, batch_b, w,
+                            functional), w
 
 
-def _fused_ring_weights(slot, dz_new, dz_store, cos_xi: float):
+def _fused_ring_weights(slot, dz_new, dz_store, cos_xi):
     """Weights-only fused sample for Party B: the slot's stale ∇Z_i read
     straight off the ring in its storage form and row-cosined against the
     ad-hoc derivative (K1, K4 or K5 with no cotangent)."""
@@ -470,10 +548,10 @@ def _fused_ring_weights(slot, dz_new, dz_store, cos_xi: float):
                                      cos_xi)
 
 
-def local_grad_b_cached(loss_b, params_b, ws, slot, cos_xi: float, *,
+def local_grad_b_cached(loss_b, params_b, ws, slot, cos_xi, *,
                         weighting: bool = True, cache_fused: bool = True,
                         mask=None, pipeline_staleness: int = 0,
-                        dynamic: bool = False):
+                        dynamic: bool = False, functional: bool = False):
     """Label-party local update straight off the workset ring.  The loss
     consumes the cached Z list, so it is gathered and decoded with plain
     ops; with ``cache_fused`` the ∇Z side is read by the weights-only ring
@@ -485,7 +563,7 @@ def local_grad_b_cached(loss_b, params_b, ws, slot, cos_xi: float, *,
     batch_b = tree_map(lambda b: _take(b, idx), buf["batch"])
     zs = decode_entry(take_slot(buf["z"], slot))
     if weighting:
-        dz_new = _ad_hoc_dz(loss_b, params_b, zs, batch_b)
+        dz_new = _ad_hoc_dz(loss_b, params_b, zs, batch_b, functional)
         if cache_fused:
             stale = buf["dz"]
             weigh = lambda i: _fused_ring_weights(  # noqa: E731
@@ -502,7 +580,8 @@ def local_grad_b_cached(loss_b, params_b, ws, slot, cos_xi: float, *,
         w = torch.ones(zs[0].shape[0], device=zs[0].device)
     if mask is not None:
         w = w * mask
-    return _weighted_grad_b(loss_b, params_b, zs, batch_b, w), w
+    return _weighted_grad_b(loss_b, params_b, zs, batch_b, w,
+                            functional), w
 
 
 # --------------------------------------------------------------------------
@@ -577,7 +656,8 @@ def _opt_step(opt, module, grads, opt_state, scale=None):
 
 def _make_stages(task: KPartyTask, opt: Optimizer, celu: CELUConfig, *,
                  n_local: int, tp, pipeline_staleness: int = 0,
-                 lr_damping: float = 0.0):
+                 lr_damping: float = 0.0, cos_xi=None, uniforms=None,
+                 functional: bool = False):
     """The round's stages over the shared state layout:
 
       * ``exchange_compute(params, tstate, batches_a, batch_b, round_,
@@ -600,10 +680,20 @@ def _make_stages(task: KPartyTask, opt: Optimizer, celu: CELUConfig, *,
     merge) takes the dynamic path instead: it replaces the depth, the
     discount is always applied, the uniform draws fold it in, and with
     ``lr_damping`` (the ``c`` of ``1 / (1 + c·s)``) positive the stage's
-    optimizer updates are damped."""
+    optimizer updates are damped.
+
+    The fleet's overrides (the reference's ``cos_xi=`` / ``rng_keys=``):
+    ``cos_xi`` replaces ``celu.xi_degrees``'s threshold (a float, or a
+    0-d fp32 tensor: under ``vmap`` each job's own); ``uniforms`` (a
+    uniform source) replaces the one the stages are handed and the
+    state's; ``functional`` takes every gradient through
+    ``torch.func.vjp`` (:func:`_vjp`), so ``torch.func.vmap`` can carry
+    the stages."""
     if celu.sampling not in ("round_robin", "consecutive", "uniform"):
         raise ValueError(f"sampling={celu.sampling!r}")
-    cos_xi = xi_to_cos(celu.xi_degrees)
+    if cos_xi is None:
+        cos_xi = xi_to_cos(celu.xi_degrees)
+    fn = functional
     s_pipe = int(pipeline_staleness)
     uniform = celu.sampling == "uniform"
 
@@ -617,7 +707,9 @@ def _make_stages(task: KPartyTask, opt: Optimizer, celu: CELUConfig, *,
                             * np.float32(staleness)))
 
     def exchange_compute(params, tstate, batches_a, batch_b, round_,
-                         uniforms):
+                         src):
+        if uniforms is not None:
+            src = uniforms
         pas, pb = params["a"], params["b"]
         K = len(pas)
         missing = [d for d in tp.stateful_directions if d not in tstate]
@@ -630,25 +722,28 @@ def _make_stages(task: KPartyTask, opt: Optimizer, celu: CELUConfig, *,
         down_res = list(tstate["down"]) if "down" in tstate else [None] * K
 
         def key(j):     # wire send j of 2K: 2i up, 2i + 1 down
-            return wire_key(uniforms, round_, 2 * K, j)
+            return wire_key(src, round_, 2 * K, j)
 
         # uplinks: every A_i's forward -> Z_i, released in wire precision;
         # the wire value becomes a fresh leaf on Party B's side
-        z_out, zs = [], []
+        z_out, pulls, zs = [], [], []
         for i in range(K):
-            z = task.forward_a(pas[i], batches_a[i])
+            z, pull = _vjp(lambda i=i: task.forward_a(pas[i], batches_a[i]),
+                           pas[i], functional=fn)
             z_out.append(z)
+            pulls.append(pull)
             zi, up_res[i] = tp.send(key(2 * i), z.detach(), up_res[i], "up")
             zs.append(zi)
-        z_leaves = [z.detach().requires_grad_(True) for z in zs]
 
         # Party B: loss + grads wrt (params_b, all Z_i) in one pass
-        li, aux = task.loss_b(pb, z_leaves, batch_b)
-        loss = li.mean() + aux
-        pb_params = _params(pb)
-        grads = torch.autograd.grad(loss, pb_params + z_leaves)
-        g_b = grads[:len(pb_params)]
-        dzs = list(grads[len(pb_params):])
+        def loss_fn(*z_leaves):
+            li, aux = task.loss_b(pb, list(z_leaves), batch_b)
+            return li.mean() + aux
+        loss, pull_b = _vjp(loss_fn, pb, zs, functional=fn)
+        n_b = len(_params(pb))
+        grads = pull_b(torch.ones_like(loss))
+        g_b = grads[:n_b]
+        dzs = list(grads[n_b:])
         for i in range(K):
             dzs[i], down_res[i] = tp.send(key(2 * i + 1), dzs[i],
                                           down_res[i], "down")
@@ -659,14 +754,14 @@ def _make_stages(task: KPartyTask, opt: Optimizer, celu: CELUConfig, *,
             new_tstate["down"] = down_res
 
         # every A_i's backward with its (wire-precision) cotangent
-        g_as = [torch.autograd.grad(z_out[i], _params(pas[i]),
-                                    grad_outputs=dzs[i].to(z_out[i].dtype))
-                for i in range(K)]
+        g_as = [pulls[i](dzs[i].to(z_out[i].dtype)) for i in range(K)]
         return {"zs": zs, "dzs": dzs, "g_as": g_as, "g_b": g_b,
                 "loss": loss.detach(), "tstate": new_tstate}
 
     def exchange_apply(state, fresh, batches_a, batch_b, batch_idx,
-                       uniforms, staleness=None):
+                       src, staleness=None):
+        if uniforms is not None:
+            src = uniforms
         pas, pb = state["params"]["a"], state["params"]["b"]
         K = len(pas)
         zs, dzs = fresh["zs"], fresh["dzs"]
@@ -684,10 +779,10 @@ def _make_stages(task: KPartyTask, opt: Optimizer, celu: CELUConfig, *,
         for i in range(K):
             workset_insert(state["ws"]["a"][i],
                            {"z": zs[i], "dz": dzs[i], "batch": batches_a[i]},
-                           batch_idx, key=insert_key(uniforms, round_, i))
+                           batch_idx, key=insert_key(src, round_, i))
         workset_insert(state["ws"]["b"],
                        {"z": zs, "dz": dzs, "batch": batch_b}, batch_idx,
-                       key=insert_key(uniforms, round_, K))
+                       key=insert_key(src, round_, K))
         for s in state["steps"]["a"]:
             s.add_(1)
         state["steps"]["b"].add_(1)
@@ -717,7 +812,8 @@ def _make_stages(task: KPartyTask, opt: Optimizer, celu: CELUConfig, *,
         # the uniform draws' keys: the scan's round and local step, then
         # the party; the dynamic path folds the staleness in first, since
         # the depth-D queue can run several scans at one round
-        round_, src = state["round"], state["uniforms"]
+        round_ = state["round"]
+        src = state["uniforms"] if uniforms is None else uniforms
         s_key = s_loc if dynamic else None
 
         def draw(ws, j, party):
@@ -733,9 +829,11 @@ def _make_stages(task: KPartyTask, opt: Optimizer, celu: CELUConfig, *,
             return slot, valid, vf, (vf if damp is None else vf * damp)
 
         def account(n, valid, vf, w, w_means, w_zeros):
-            n.add_((valid if party_mask is None else vf > 0).to(torch.int32))
+            # out of place: under the fleet's vmap the count is batched
             w_means.append(w.mean())
             w_zeros.append((w == 0.0).float().mean())
+            return n + (valid if party_mask is None
+                        else vf > 0).to(torch.int32)
 
         for j in range(n_local):
             w_means, w_zeros = [], []
@@ -744,17 +842,19 @@ def _make_stages(task: KPartyTask, opt: Optimizer, celu: CELUConfig, *,
                 g, w = local_grad_a_cached(
                     task.forward_a, pas[i], wsas[i], slot, cos_xi,
                     weighting=celu.weighting, cache_fused=celu.cache_fused,
-                    mask=vf, pipeline_staleness=s_loc, dynamic=dynamic)
+                    mask=vf, pipeline_staleness=s_loc, dynamic=dynamic,
+                    functional=fn)
                 oas[i] = _opt_step(opt, pas[i], g, oas[i], uf)
-                account(nas[i], valid, vf, w, w_means, w_zeros)
+                nas[i] = account(nas[i], valid, vf, w, w_means, w_zeros)
 
             slot_b, valid, vf, uf = draw(wsb, j, K)
             g, w = local_grad_b_cached(
                 task.loss_b, pb, wsb, slot_b, cos_xi,
                 weighting=celu.weighting, cache_fused=celu.cache_fused,
-                mask=vf, pipeline_staleness=s_loc, dynamic=dynamic)
+                mask=vf, pipeline_staleness=s_loc, dynamic=dynamic,
+                functional=fn)
             state["opt"]["b"] = _opt_step(opt, pb, g, state["opt"]["b"], uf)
-            account(nb, valid, vf, w, w_means, w_zeros)
+            nb = account(nb, valid, vf, w, w_means, w_zeros)
             w_mean_steps.append(sum(w_means) * scale)
             w_zero_steps.append(sum(w_zeros) * scale)
 

@@ -13,7 +13,7 @@ Every clock (``insert_time``, ``use_count``, ``batch_idx``, ``cursor``,
 ``time``) is an int32 tensor on the table's device, and a draw returns the
 slot and its valid flag as device tensors too: a local update never waits
 for the host.  Unlike the reference, whose arrays are immutable, the port
-updates the table IN PLACE (``index_copy_`` / ``index_add_`` at a device
+updates the table IN PLACE (``index_put_`` / ``index_add_`` at a device
 index) and returns the same dict.
 
 Round-robin sampling (paper §3.2): a cursor walks slots in insertion
@@ -319,9 +319,11 @@ def _index(slot):
 
 def _store_(store, idx, value) -> None:
     """Write the entry-level ``value`` into ``store`` at ring slot
-    ``idx`` (a (1,) long device tensor), in place."""
+    ``idx`` (a (1,) long device tensor), in place.  ``index_put_``, not
+    ``index_copy_``: ``torch.func.vmap`` has a batching rule for the
+    former only (the fleet's rings), and the two write the same bits."""
     for t, v in zip(_leaf_tensors(store), _leaf_tensors(value)):
-        t.index_copy_(0, idx, v.detach().unsqueeze(0).to(t.dtype))
+        t.index_put_((idx,), v.detach().unsqueeze(0).to(t.dtype))
 
 
 def workset_insert(ws: Dict[str, Any], entry: Dict[str, Any],
@@ -347,7 +349,7 @@ def workset_insert(ws: Dict[str, Any], entry: Dict[str, Any],
                              "its rounding uniforms")
         _store_(store, idx, _encode_leaf(
             store, value, None if key is None else key.fold(i)))
-    ws["insert_time"].index_copy_(0, idx, t.reshape(1))
+    ws["insert_time"].index_put_((idx,), t.reshape(1))
     ws["use_count"].index_fill_(0, idx, 0)
     ws["batch_idx"].index_fill_(0, idx, int(batch_idx))
     ws["time"].add_(1)

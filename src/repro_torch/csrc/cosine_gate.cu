@@ -64,6 +64,16 @@
 // At the LLM cut tensor (W, B, F) = (2, 2, 3,932,160) over a bf16 ring
 // the bytes are 94.4 MB: 28.2 us.
 //
+// The job axis (the fleet's vmap rule, kernels/jobs.py): one launch runs
+// n_jobs gates, the grid's last axis over the jobs ((ceil(B / 4), n_jobs)
+// narrow, (chunks, B, n_jobs) split-row).  Every operand, the slot and the
+// threshold carry a job stride in elements; a stride of 0 is one operand
+// that every job shares, read in place.  The outputs and the workspace
+// are the jobs' own, contiguous.  A job's threshold is read through a
+// pointer (the scalar call keeps its by-value float: no host-to-device
+// copy a local step).  The per-job arithmetic is the one-job launch's,
+// so job n of a batched launch is bitwise that job's one-job launch.
+//
 // K6 / K11 (ring_dequant) gather ring slot *slot of an int8 or packed
 // int4 ring and write it dequantised, (B, F) fp32: the serving engine's
 // read of the decode activation ring.  Each element is the codec's
@@ -200,6 +210,52 @@ struct Q4 {
   }
 };
 
+// The operands of one gate call: a job-batched call (the fleet's vmap
+// rule) runs n_jobs jobs in one launch, the grid's last axis over the
+// jobs.  Operand x of job n starts at x + n * js_x elements; a job stride
+// of 0 is one operand that every job shares (vmap left it unbatched),
+// read in place, never expanded or copied.  The outputs are the jobs'
+// own: w (n_jobs, B), cot (n_jobs, B, F) and the workspace
+// (n_jobs, B, chunks, 3), each contiguous.  thr, when not null, holds
+// the jobs' thresholds (stride js_thr) and replaces the by-value thresh
+// (the scalar call passes thresh by value: no host-to-device copy).
+template <class C>
+struct GateArgs {
+  using Elem = typename C::Elem;
+  const int* slot;
+  int n_slots;
+  const float* a;
+  const Elem* z;
+  const float* zs;
+  const Elem* dz;
+  const float* dzs;
+  float* w;
+  float* cot;
+  float* part;
+  int B, F, chunks;
+  float thresh;
+  const float* thr;
+  long long js_slot, js_a, js_z, js_zs, js_dz, js_dzs, js_thr;
+};
+
+// the operands of job `job`: every pointer moved by its job stride (64-bit
+// offsets), and the job's threshold
+template <class C>
+__device__ __forceinline__ GateArgs<C> for_job(GateArgs<C> g, long long job) {
+  if (g.slot != nullptr) g.slot += job * g.js_slot;
+  g.a += job * g.js_a;
+  g.z += job * g.js_z;
+  if (g.zs != nullptr) g.zs += job * g.js_zs;
+  if (g.dz != nullptr) g.dz += job * g.js_dz;
+  if (g.dzs != nullptr) g.dzs += job * g.js_dzs;
+  g.w += job * g.B;
+  if (g.cot != nullptr) g.cot += job * static_cast<long long>(g.B) * g.F;
+  if (g.part != nullptr)
+    g.part += job * static_cast<long long>(g.B) * g.chunks * 3;
+  if (g.thr != nullptr) g.thresh = __ldg(g.thr + job * g.js_thr);
+  return g;
+}
+
 // the ring row's index among the ring's (slot, row)s: row itself for
 // materialised rows (slot == nullptr), else in slot *slot, read from
 // device memory; a slot outside the ring traps
@@ -257,47 +313,44 @@ __device__ __forceinline__ void gate_scale(const typename C::Elem* dr,
   store_f32<kVec>(cr + j, dv);
 }
 
-// The narrow path: one warp per row.  kVec elements per lane per chunk;
-// the host picks kVec > 1 only when F and every base pointer allow
-// aligned 16-byte accesses.  zs / dzs are the per-row scales of a scaled
-// codec (indexed like the ring's rows).
+// The narrow path: one warp per row, grid (ceil(B / 4), n_jobs).  kVec
+// elements per lane per chunk; the host picks kVec > 1 only when F, every
+// base pointer and every job stride allow aligned 16-byte accesses.  zs /
+// dzs are the per-row scales of a scaled codec (indexed like the ring's
+// rows).
 template <class C, int kVec>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
-cosine_gate_kernel(const int* __restrict__ slot, int n_slots,
-                   const float* __restrict__ a,
-                   const typename C::Elem* __restrict__ z,
-                   const float* __restrict__ zs,
-                   const typename C::Elem* __restrict__ dz,
-                   const float* __restrict__ dzs, float* __restrict__ w_out,
-                   float* __restrict__ cot, int B, int F, float thresh) {
+cosine_gate_kernel(const GateArgs<C> args) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= B) return;  // whole warp leaves together: shuffles stay full
+  if (row >= args.B) return;  // whole warp leaves together: shuffles stay full
+  const GateArgs<C> g = for_job(args, blockIdx.y);
+  const int B = g.B, F = g.F;
   const long long row_units = C::units(F);
-  const long long srow = ring_row(slot, n_slots, row, B);
-  const float* ar = a + static_cast<long long>(row) * F;
-  const typename C::Elem* zr = z + srow * row_units;
-  const float zscale = C::kScaled ? __ldg(zs + srow) : 1.f;
+  const long long srow = ring_row(g.slot, g.n_slots, row, B);
+  const float* ar = g.a + static_cast<long long>(row) * F;
+  const typename C::Elem* zr = g.z + srow * row_units;
+  const float zscale = C::kScaled ? __ldg(g.zs + srow) : 1.f;
 
   float num = 0.f, aa = 0.f, zz = 0.f;
   for (int j = lane * kVec; j < F; j += 32 * kVec)
     gate_sums<C, kVec>(ar, zr, zscale, j, num, aa, zz);
   const float w = gate_weight(warp_sum(num), warp_sum(aa), warp_sum(zz),
-                              thresh);
-  if (lane == 0) w_out[row] = w;
-  if (dz == nullptr) return;
+                              g.thresh);
+  if (lane == 0) g.w[row] = w;
+  if (g.dz == nullptr) return;
 
-  const typename C::Elem* dr = dz + srow * row_units;
-  const float dscale = C::kScaled ? __ldg(dzs + srow) : 1.f;
-  float* cr = cot + static_cast<long long>(row) * F;
+  const typename C::Elem* dr = g.dz + srow * row_units;
+  const float dscale = C::kScaled ? __ldg(g.dzs + srow) : 1.f;
+  float* cr = g.cot + static_cast<long long>(row) * F;
   for (int j = lane * kVec; j < F; j += 32 * kVec)
     gate_scale<C, kVec>(dr, dscale, w, j, cr);
 }
 
 // The split-row path, for few rows of a wide F: each row is cut into
 // `chunks` chunks of whole vectors, one block of kSplitThreads threads a
-// (chunk, row).  Chunk c of a row of n vectors holds vectors [c * per,
-// min(n, (c + 1) * per)), per = ceil(n / chunks).
+// (chunk, row, job).  Chunk c of a row of n vectors holds vectors
+// [c * per, min(n, (c + 1) * per)), per = ceil(n / chunks).
 constexpr int kSplitThreads = 256;
 
 __device__ __forceinline__ void chunk_range(int F, int kVec, int chunks,
@@ -332,21 +385,18 @@ __device__ __forceinline__ void block_sums(float& num, float& aa,
   }
 }
 
-// Pass 1: block (c, row) sums num, aa and zz over its chunk (each thread
-// as the narrow path's lanes do, then block_sums) and writes them to
-// part[(row * chunks + c) * 3 + {0, 1, 2}].
+// Pass 1: block (c, row, job) sums num, aa and zz over its chunk (each
+// thread as the narrow path's lanes do, then block_sums) and writes them
+// to the job's part[(row * chunks + c) * 3 + {0, 1, 2}].
 template <class C, int kVec>
 __global__ void __launch_bounds__(kSplitThreads)
-gate_partials_kernel(const int* __restrict__ slot, int n_slots,
-                     const float* __restrict__ a,
-                     const typename C::Elem* __restrict__ z,
-                     const float* __restrict__ zs, float* __restrict__ part,
-                     int B, int F, int chunks) {
-  const int c = blockIdx.x, row = blockIdx.y;
-  const long long srow = ring_row(slot, n_slots, row, B);
-  const float* ar = a + static_cast<long long>(row) * F;
-  const typename C::Elem* zr = z + srow * C::units(F);
-  const float zscale = C::kScaled ? __ldg(zs + srow) : 1.f;
+gate_partials_kernel(const GateArgs<C> args) {
+  const GateArgs<C> g = for_job(args, blockIdx.z);
+  const int c = blockIdx.x, row = blockIdx.y, F = g.F, chunks = g.chunks;
+  const long long srow = ring_row(g.slot, g.n_slots, row, g.B);
+  const float* ar = g.a + static_cast<long long>(row) * F;
+  const typename C::Elem* zr = g.z + srow * C::units(F);
+  const float zscale = C::kScaled ? __ldg(g.zs + srow) : 1.f;
   int j0, j1;
   chunk_range(F, kVec, chunks, c, j0, j1);
 
@@ -355,28 +405,24 @@ gate_partials_kernel(const int* __restrict__ slot, int n_slots,
     gate_sums<C, kVec>(ar, zr, zscale, j, num, aa, zz);
   block_sums(num, aa, zz);
   if (threadIdx.x == 0) {
-    float* out = part + (static_cast<long long>(row) * chunks + c) * 3;
+    float* out = g.part + (static_cast<long long>(row) * chunks + c) * 3;
     out[0] = num;
     out[1] = aa;
     out[2] = zz;
   }
 }
 
-// Pass 2: block (c, row) reduces the row's `chunks` partials in one fixed
-// order (thread t takes chunks t, t + 256, ..., then block_sums), so every
-// block of the row finds the same w; block (0, row) writes w, and with dz
-// each block writes its chunk of cot = w * dz.  The weights-only call
-// launches the chunk-0 blocks alone.
+// Pass 2: block (c, row, job) reduces the row's `chunks` partials in one
+// fixed order (thread t takes chunks t, t + 256, ..., then block_sums), so
+// every block of the row finds the same w; block (0, row) writes w, and
+// with dz each block writes its chunk of cot = w * dz.  The weights-only
+// call launches the chunk-0 blocks alone.
 template <class C, int kVec>
 __global__ void __launch_bounds__(kSplitThreads)
-gate_apply_kernel(const int* __restrict__ slot, int n_slots,
-                  const float* __restrict__ part,
-                  const typename C::Elem* __restrict__ dz,
-                  const float* __restrict__ dzs, float* __restrict__ w_out,
-                  float* __restrict__ cot, int B, int F, int chunks,
-                  float thresh) {
-  const int c = blockIdx.x, row = blockIdx.y;
-  const float* pr = part + static_cast<long long>(row) * chunks * 3;
+gate_apply_kernel(const GateArgs<C> args) {
+  const GateArgs<C> g = for_job(args, blockIdx.z);
+  const int c = blockIdx.x, row = blockIdx.y, F = g.F, chunks = g.chunks;
+  const float* pr = g.part + static_cast<long long>(row) * chunks * 3;
   float num = 0.f, aa = 0.f, zz = 0.f;
   for (int i = threadIdx.x; i < chunks; i += kSplitThreads) {
     num += pr[3 * i];
@@ -384,13 +430,13 @@ gate_apply_kernel(const int* __restrict__ slot, int n_slots,
     zz += pr[3 * i + 2];
   }
   block_sums(num, aa, zz);
-  const float w = gate_weight(num, aa, zz, thresh);
-  if (c == 0 && threadIdx.x == 0) w_out[row] = w;
-  if (dz == nullptr) return;
-  const long long srow = ring_row(slot, n_slots, row, B);
-  const typename C::Elem* dr = dz + srow * C::units(F);
-  const float dscale = C::kScaled ? __ldg(dzs + srow) : 1.f;
-  float* cr = cot + static_cast<long long>(row) * F;
+  const float w = gate_weight(num, aa, zz, g.thresh);
+  if (c == 0 && threadIdx.x == 0) g.w[row] = w;
+  if (g.dz == nullptr) return;
+  const long long srow = ring_row(g.slot, g.n_slots, row, g.B);
+  const typename C::Elem* dr = g.dz + srow * C::units(F);
+  const float dscale = C::kScaled ? __ldg(g.dzs + srow) : 1.f;
+  float* cr = g.cot + static_cast<long long>(row) * F;
   int j0, j1;
   chunk_range(F, kVec, chunks, c, j0, j1);
   for (int j = j0 + threadIdx.x * kVec; j < j1; j += kSplitThreads * kVec)
@@ -401,58 +447,80 @@ bool aligned16(const void* p) {
   return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
+// a job stride of `js` elements of `bytes` bytes keeps every job's base
+// on a 16-byte boundary
+bool stride16(long long js, int bytes) { return (js * bytes) % 16 == 0; }
+
 // The narrow path with no workspace (chunks <= 1), the split-row path in
 // two launches with one (chunks = its partials a row; the caller's rule,
 // kernels/cosine_weight.py::gate_chunks, gives a workspace when
 // ceil(B / 4) blocks of the narrow path cannot fill the card and F is
-// wide).
+// wide).  Both grids take the jobs on their last axis.
 template <class C, int kVec>
-int launch(const int* slot, int n_slots, const float* a, const void* z,
-           const float* zs, const void* dz, const float* dzs, float* w,
-           float* cot, int B, int F, float thresh, float* part, int chunks,
-           cudaStream_t stream) {
-  using Elem = typename C::Elem;
-  const Elem* ze = static_cast<const Elem*>(z);
-  const Elem* dze = static_cast<const Elem*>(dz);
-  if (chunks <= 1) {
-    const dim3 grid((B + kWarpsPerBlock - 1) / kWarpsPerBlock);
-    cosine_gate_kernel<C, kVec><<<grid, 32 * kWarpsPerBlock, 0, stream>>>(
-        slot, n_slots, a, ze, zs, dze, dzs, w, cot, B, F, thresh);
+int launch(const GateArgs<C>& g, int n_jobs, cudaStream_t stream) {
+  if (g.chunks <= 1) {
+    const dim3 grid((g.B + kWarpsPerBlock - 1) / kWarpsPerBlock, n_jobs);
+    cosine_gate_kernel<C, kVec><<<grid, 32 * kWarpsPerBlock, 0, stream>>>(g);
     return static_cast<int>(cudaGetLastError());
   }
-  gate_partials_kernel<C, kVec><<<dim3(chunks, B), kSplitThreads, 0,
-                                  stream>>>(slot, n_slots, a, ze, zs, part,
-                                            B, F, chunks);
+  gate_partials_kernel<C, kVec><<<dim3(g.chunks, g.B, n_jobs), kSplitThreads,
+                                  0, stream>>>(g);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  gate_apply_kernel<C, kVec><<<dim3(dz ? chunks : 1, B), kSplitThreads, 0,
-                               stream>>>(slot, n_slots, part, dze, dzs, w,
-                                         cot, B, F, chunks, thresh);
+  gate_apply_kernel<C, kVec><<<dim3(g.dz ? g.chunks : 1, g.B, n_jobs),
+                               kSplitThreads, 0, stream>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 
 // 16-byte loads need F to fill whole vectors (so every row, and every
-// slot, starts on a 16-byte boundary) and 16-byte aligned base pointers.
-// part: null, or the split-row path's workspace of part_floats = B *
-// chunks * 3 fp32 values.
+// slot, starts on a 16-byte boundary), 16-byte aligned base pointers and
+// job strides that keep each job's base aligned.  part: null, or the
+// split-row path's workspace of part_floats = n_jobs * B * chunks * 3
+// fp32 values.  js: the job strides {slot, a, z, zs, dz, dzs, thr}.
 template <class C>
 int dispatch(const int* slot, int n_slots, const float* a, const void* z,
              const float* zs, const void* dz, const float* dzs, float* w,
              float* cot, int B, int F, float thresh, float* part,
-             long long part_floats, cudaStream_t stream) {
-  const long long chunks_ll = part_floats / (3LL * B);
+             long long part_floats, int n_jobs, const float* thr,
+             const long long* js, cudaStream_t stream) {
+  if (n_jobs <= 0 || n_jobs > 65535 || js == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long per_job = 3LL * B * n_jobs;
+  const long long chunks_ll = part_floats / per_job;
   if ((part == nullptr) != (part_floats == 0) || part_floats < 0 ||
-      part_floats % (3LL * B) || chunks_ll > F ||
+      part_floats % per_job || chunks_ll > F ||
       (chunks_ll > 1 && B > 65535))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int chunks = static_cast<int>(chunks_ll);
+  using Elem = typename C::Elem;
+  GateArgs<C> g;
+  g.slot = slot;
+  g.n_slots = n_slots;
+  g.a = a;
+  g.z = static_cast<const Elem*>(z);
+  g.zs = zs;
+  g.dz = static_cast<const Elem*>(dz);
+  g.dzs = dzs;
+  g.w = w;
+  g.cot = cot;
+  g.part = part;
+  g.B = B;
+  g.F = F;
+  g.chunks = static_cast<int>(chunks_ll);
+  g.thresh = thresh;
+  g.thr = thr;
+  g.js_slot = js[0];
+  g.js_a = js[1];
+  g.js_z = js[2];
+  g.js_zs = js[3];
+  g.js_dz = js[4];
+  g.js_dzs = js[5];
+  g.js_thr = js[6];
+  const int eb = static_cast<int>(sizeof(Elem));
   const bool vec = F % C::kVec == 0 && aligned16(a) && aligned16(z) &&
-                   aligned16(dz) && aligned16(cot);
-  if (vec)
-    return launch<C, C::kVec>(slot, n_slots, a, z, zs, dz, dzs, w, cot, B, F,
-                              thresh, part, chunks, stream);
-  return launch<C, 1>(slot, n_slots, a, z, zs, dz, dzs, w, cot, B, F,
-                      thresh, part, chunks, stream);
+                   aligned16(dz) && aligned16(cot) && stride16(g.js_a, 4) &&
+                   stride16(g.js_z, eb) && stride16(g.js_dz, eb);
+  if (vec) return launch<C, C::kVec>(g, n_jobs, stream);
+  return launch<C, 1>(g, n_jobs, stream);
 }
 
 }  // namespace
@@ -460,14 +528,20 @@ int dispatch(const int* slot, int n_slots, const float* a, const void* z,
 // K1 / K2.  ring_dtype: 0 = float32, 1 = bfloat16 (the z / dz operands;
 // a, w and cot are float32).  slot_stride must be B * F (one ring slot).
 // part: null (the narrow path, part_floats 0) or the split-row path's
-// fp32 workspace of part_floats = B * chunks * 3 values, 2 <= chunks <= F
-// (its partial sums; allocated by the caller).  Returns the cudaError_t
-// of the launches (0 on success).
+// fp32 workspace of part_floats = n_jobs * B * chunks * 3 values,
+// 2 <= chunks <= F (its partial sums; allocated by the caller).  n_jobs
+// jobs run in one launch: js (host memory) holds the job strides {slot,
+// a, z, zs, dz, dzs, thr} in elements (zs, dzs unused here), thr the
+// jobs' thresholds or null (then thresh for every job); the scalar call
+// is n_jobs = 1 with zero strides.  Returns the cudaError_t of the
+// launches (0 on success).
 extern "C" int cosine_gate(const int* slot, int n_slots, long long slot_stride,
                            const float* a, const void* z, const void* dz,
                            float* w, float* cot, int B, int F, float thresh,
                            int ring_dtype, float* part,
-                           long long part_floats, void* stream) {
+                           long long part_floats, int n_jobs,
+                           const float* thr, const long long* js,
+                           void* stream) {
   if (B <= 0 || F <= 0 || (dz == nullptr) != (cot == nullptr) ||
       (slot != nullptr && slot_stride != static_cast<long long>(B) * F))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -475,25 +549,27 @@ extern "C" int cosine_gate(const int* slot, int n_slots, long long slot_stride,
   if (ring_dtype == 0)
     return dispatch<Dense<float>>(slot, n_slots, a, z, nullptr, dz, nullptr,
                                   w, cot, B, F, thresh, part, part_floats,
-                                  st);
+                                  n_jobs, thr, js, st);
   if (ring_dtype == 1)
     return dispatch<Dense<__nv_bfloat16>>(slot, n_slots, a, z, nullptr, dz,
                                           nullptr, w, cot, B, F, thresh,
-                                          part, part_floats, st);
+                                          part, part_floats, n_jobs, thr, js,
+                                          st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K4 (bits = 8: int8 codes (n_slots, B, F)) and K5 (bits = 4: packed
 // uint8 (n_slots, B, F / 2), F even), each with fp32 row scales
 // (n_slots, B).  a is (B, F) fp32; dzq == nullptr gives weights only.
-// part, part_floats: as for cosine_gate.
+// part, part_floats, n_jobs, thr, js: as for cosine_gate.
 extern "C" int cosine_gate_quant(const int* slot, int n_slots,
                                  const float* a, const void* zq,
                                  const float* zs, const void* dzq,
                                  const float* dzs, float* w, float* cot,
                                  int B, int F, float thresh, int bits,
                                  float* part, long long part_floats,
-                                 void* stream) {
+                                 int n_jobs, const float* thr,
+                                 const long long* js, void* stream) {
   if (slot == nullptr || B <= 0 || F <= 0 ||
       (dzq == nullptr) != (cot == nullptr) ||
       (dzq != nullptr) != (dzs != nullptr) || zs == nullptr)
@@ -501,10 +577,10 @@ extern "C" int cosine_gate_quant(const int* slot, int n_slots,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bits == 8)
     return dispatch<Q8>(slot, n_slots, a, zq, zs, dzq, dzs, w, cot, B, F,
-                        thresh, part, part_floats, st);
+                        thresh, part, part_floats, n_jobs, thr, js, st);
   if (bits == 4 && F % 2 == 0)
     return dispatch<Q4>(slot, n_slots, a, zq, zs, dzq, dzs, w, cot, B, F,
-                        thresh, part, part_floats, st);
+                        thresh, part, part_floats, n_jobs, thr, js, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -54,9 +54,9 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # c_void_p, or ctypes would pass them as 32-bit ints)
 _SIGNATURES = {
     "cosine_gate": [_P, _I, _LL, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P,
-                    _LL, _P],
+                    _LL, _I, _P, _P, _P],
     "cosine_gate_quant": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
-                          _I, _P, _LL, _P],
+                          _I, _P, _LL, _I, _P, _P, _P],
     "quantize_sr": [_P, _P, _P, _P, _I, _I, _F, _P],
     "fused_adagrad": [_P, _P, _F, _F, _I, _P],
     "fused_adagrad_q8": [_P, _P, _F, _F, _I, _P],
@@ -222,29 +222,55 @@ def _numel(t) -> int:
     return 0 if t is None else t.numel()
 
 
+# the job strides' order in the gate entry points' ``js`` array
+GATE_STRIDES = ("slot", "a", "z", "zs", "dz", "dzs", "thr")
+
+
+def _job_strides(strides) -> ctypes.Array:
+    """{operand: job stride in elements} -> the C ``js`` array (0 for an
+    operand not named: one shared by every job, or none)."""
+    strides = strides or {}
+    unknown = set(strides) - set(GATE_STRIDES)
+    if unknown:
+        raise ValueError(f"unknown gate operands {sorted(unknown)}")
+    return (_LL * len(GATE_STRIDES))(*[int(strides.get(k, 0))
+                                       for k in GATE_STRIDES])
+
+
 def launch_cosine_gate(name: str, *, slot, n_slots: int, slot_stride: int,
-                       a, z, dz, w, cot, part, thresh: float) -> None:
+                       a, z, dz, w, cot, part, thresh: float, n_jobs: int = 1,
+                       thr=None, strides=None) -> None:
     """Launch the fp32/bf16 gate of ``csrc/cosine_gate.cu`` (K1, K2).  The
     caller has checked devices, dtypes, shapes and contiguity and
     allocated ``w`` / ``cot`` and the split-row path's workspace ``part``
-    (None for the narrow path)."""
-    B, F = a.shape
+    (None for the narrow path).  A job-batched call (``n_jobs`` > 1) runs
+    all its jobs in this one launch: ``a`` is then one job's (B, F)
+    (``a`` of job n at ``a + n * strides["a"]``), ``strides`` the job
+    strides of :data:`GATE_STRIDES` (0 or absent: shared), ``thr`` the
+    jobs' fp32 thresholds (None: ``thresh`` for every job), and ``w`` /
+    ``cot`` / ``part`` hold every job's."""
+    B, F = a.shape[-2:]
+    js = _job_strides(strides)
     _launch(name, "cosine_gate", a.device, _ptr(slot), n_slots, slot_stride,
             _ptr(a), _ptr(z), _ptr(dz), _ptr(w), _ptr(cot), B, F, thresh,
-            DTYPE_CODES[z.dtype], _ptr(part), _numel(part))
+            DTYPE_CODES[z.dtype], _ptr(part), _numel(part), n_jobs,
+            _ptr(thr), ctypes.addressof(js))
 
 
 def launch_cosine_gate_quant(name: str, *, bits: int, slot, n_slots: int,
                              a, zq, zs, dzq, dzs, w, cot, part,
-                             thresh: float) -> None:
+                             thresh: float, n_jobs: int = 1, thr=None,
+                             strides=None) -> None:
     """Launch the int8 (``bits=8``, K4) or packed int4 (``bits=4``, K5)
     ring gate of ``csrc/cosine_gate.cu``; ``a`` is (B, F) with F the
-    unpacked (even, for int4) row width; ``part`` as for
-    :func:`launch_cosine_gate`."""
-    B, F = a.shape
+    unpacked (even, for int4) row width; ``part``, ``n_jobs``, ``thr``
+    and ``strides`` as for :func:`launch_cosine_gate`."""
+    B, F = a.shape[-2:]
+    js = _job_strides(strides)
     _launch(name, "cosine_gate_quant", a.device, _ptr(slot), n_slots,
             _ptr(a), _ptr(zq), _ptr(zs), _ptr(dzq), _ptr(dzs), _ptr(w),
-            _ptr(cot), B, F, thresh, bits, _ptr(part), _numel(part))
+            _ptr(cot), B, F, thresh, bits, _ptr(part), _numel(part), n_jobs,
+            _ptr(thr), ctypes.addressof(js))
 
 
 def launch_quantize_sr(name: str, *, x, u, q, scale, levels: float) -> None:

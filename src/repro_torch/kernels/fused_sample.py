@@ -34,27 +34,35 @@ decode step.  They share the ring codecs of ``csrc/cosine_gate.cu`` with
 K4 / K5 and are bitwise their plain versions (one multiply an element).
 Bytes bound them, and at the serving shape (W = 4, C = 8, F = 960) the
 launch is the cost.
+
+K1, K4 and K5 are ``torch.library`` ops (``kernels/jobs.py``): under the
+fleet's ``vmap`` one launch runs every job's gate, each job with its own
+ring, slot and threshold (``cos_xi`` a tensor).
 """
 from __future__ import annotations
 
 import torch
 
 from . import _cuda
-from .cosine_weight import (check_operands, f32_threshold,
-                            gate_weights_plain, gate_workspace)
+from .cosine_weight import (check_jobs, check_operands, gate_job_outputs,
+                            gate_plain, gate_workspace, threshold_operands)
+from .jobs import register_gate
 
 QUANT_NAMES = {8: "fused_sample_q8_2d", 4: "fused_sample_q4_2d"}
 DEQUANT_NAMES = {8: "fused_dequant_q8_2d", 4: "fused_dequant_q4_2d"}
 
 
+def _k1_plain(slot, a, z, dz, thr, thresh):
+    idx = slot.reshape(1).long()
+    return gate_plain(a, z.index_select(0, idx)[0],
+                      None if dz is None else dz.index_select(0, idx)[0],
+                      thr, thresh)
+
+
 def fused_sample_plain(slot, ad_hoc, z_ring, dz_ring, cos_xi):
     """Gather slot, gate, scale: the CPU path and the kernel's oracle."""
-    idx = slot.reshape(1).long()
-    w = gate_weights_plain(ad_hoc, z_ring.index_select(0, idx)[0],
-                           f32_threshold(cos_xi))
-    if dz_ring is None:
-        return w, None
-    return w, dz_ring.index_select(0, idx)[0].float() * w[:, None]
+    return _k1_plain(slot, ad_hoc, z_ring, dz_ring,
+                     *threshold_operands(cos_xi))
 
 
 def check_ring(slot, ad_hoc, z_ring, dz_ring) -> None:
@@ -71,24 +79,62 @@ def check_ring(slot, ad_hoc, z_ring, dz_ring) -> None:
                          f"{tuple(slot.shape)} on {slot.device}")
 
 
+def take_job_slots(ring, slot):
+    """(n, W, ...) rings and (n, 1) or (n,) slots -> each job's slot,
+    (n, ...)."""
+    n = ring.shape[0]
+    return ring[torch.arange(n, device=ring.device),
+                slot.reshape(n).long()]
+
+
+def _k1_single(slot, a, z, zs, dz, dzs, thr, thresh):
+    if a.device.type == "cpu":
+        return _k1_plain(slot, a, z, dz, thr, thresh)
+    check_ring(slot, a, z, dz)
+    B, F = a.shape
+    w = torch.empty(B, dtype=torch.float32, device=a.device)
+    cot = None if dz is None else torch.empty(
+        (B, F), dtype=torch.float32, device=a.device)
+    _cuda.launch_cosine_gate("fused_sample_2d", slot=slot,
+                             n_slots=z.shape[0], slot_stride=B * F, a=a,
+                             z=z, dz=dz, w=w, cot=cot,
+                             part=gate_workspace(B, F, a.device),
+                             thresh=thresh, thr=thr)
+    return w, cot
+
+
+def _k1_jobs(n, ops, thresh):
+    """K1 over ``n`` jobs: one launch (the plain version on the CPU)."""
+    slot, a, z, dz, thr = (ops[k] for k in ("slot", "a", "z", "dz", "thr"))
+    if a.t.device.type == "cpu":
+        s = slot.per_job(n)
+        return gate_plain(a.per_job(n), take_job_slots(z.per_job(n), s),
+                          None if dz.t is None
+                          else take_job_slots(dz.per_job(n), s),
+                          thr.per_job(n), thresh)
+    check_jobs("fused_sample_2d", n, ops)
+    check_ring(slot.job(0), a.job(0), z.job(0), dz.job(0))
+    B, F = a.job(0).shape
+    w, cot, part = gate_job_outputs(n, a.job(0), dz.t is not None)
+    _cuda.launch_cosine_gate(
+        "fused_sample_2d", slot=slot.t, n_slots=z.job(0).shape[0],
+        slot_stride=B * F, a=a.t, z=z.t, dz=dz.t, w=w, cot=cot, part=part,
+        thresh=thresh, n_jobs=n, thr=thr.t,
+        strides={k: ops[k].stride for k in ("slot", "a", "z", "dz", "thr")})
+    return w, cot
+
+
+K1_OP = register_gate("fused_sample_2d", _k1_single, _k1_jobs)
+
+
 def fused_sample_2d(slot, ad_hoc, z_ring, dz_ring, cos_xi):
     """K1.  slot: (1,) int32 on the ring's device; ad_hoc: (B, F);
     z_ring / dz_ring: (W, B, F) fp32 or bf16 (``dz_ring=None``: weights
-    only).  -> (weights (B,) fp32, weighted cotangent (B, F) fp32 or
-    None)."""
-    if ad_hoc.device.type == "cpu":
-        return fused_sample_plain(slot, ad_hoc, z_ring, dz_ring, cos_xi)
-    check_ring(slot, ad_hoc, z_ring, dz_ring)
-    B, F = ad_hoc.shape
-    w = torch.empty(B, dtype=torch.float32, device=ad_hoc.device)
-    cot = None if dz_ring is None else torch.empty(
-        (B, F), dtype=torch.float32, device=ad_hoc.device)
-    _cuda.launch_cosine_gate("fused_sample_2d", slot=slot,
-                             n_slots=z_ring.shape[0], slot_stride=B * F,
-                             a=ad_hoc, z=z_ring, dz=dz_ring, w=w, cot=cot,
-                             part=gate_workspace(B, F, ad_hoc.device),
-                             thresh=f32_threshold(cos_xi))
-    return w, cot
+    only); ``cos_xi`` a number or an fp32 tensor.  -> (weights (B,) fp32,
+    weighted cotangent (B, F) fp32 or None)."""
+    thr, thresh = threshold_operands(cos_xi)
+    w, cot = K1_OP(slot, ad_hoc, z_ring, None, dz_ring, None, thr, thresh)
+    return w, (None if dz_ring is None else cot)
 
 
 # --------------------------------------------------------------------------
@@ -112,27 +158,30 @@ def unpack_nibbles(packed):
 
 
 def dequant_rows(codes, scale, bits: int):
-    """(B, F) int8 or (B, F / 2) packed codes and (B,) row scales ->
-    (B, F) fp32, in the reference's order: code to float, times the row
-    scale."""
+    """(..., B, F) int8 or (..., B, F / 2) packed codes and (..., B) row
+    scales -> (..., B, F) fp32, in the reference's order: code to float,
+    times the row scale."""
     if bits == 4:
         codes = unpack_nibbles(codes)
-    return codes.float() * scale[:, None]
+    return codes.float() * scale[..., None]
+
+
+def _quant_plain(bits, slot, a, zq, zs, dzq, dzs, thr, thresh):
+    idx = slot.reshape(1).long()
+
+    def take(q, s):
+        return dequant_rows(q.index_select(0, idx)[0],
+                            s.index_select(0, idx)[0], bits)
+    return gate_plain(a, take(zq, zs), None if dzq is None
+                      else take(dzq, dzs), thr, thresh)
 
 
 def fused_sample_quant_plain(bits: int, slot, ad_hoc, zq, zscale, dzq,
                              dzscale, cos_xi):
     """Gather slot, dequantise, gate, scale: the CPU path and the
     oracle of K4 (``bits=8``) and K5 (``bits=4``)."""
-    idx = slot.reshape(1).long()
-
-    def take(q, s):
-        return dequant_rows(q.index_select(0, idx)[0],
-                            s.index_select(0, idx)[0], bits)
-    w = gate_weights_plain(ad_hoc, take(zq, zscale), f32_threshold(cos_xi))
-    if dzq is None:
-        return w, None
-    return w, take(dzq, dzscale) * w[:, None]
+    return _quant_plain(bits, slot, ad_hoc, zq, zscale, dzq, dzscale,
+                        *threshold_operands(cos_xi))
 
 
 def check_quant_ring(bits: int, slot, ad_hoc, zq, zscale, dzq,
@@ -173,29 +222,70 @@ def check_quant_ring(bits: int, slot, ad_hoc, zq, zscale, dzq,
                          f"{slot.dtype} {tuple(slot.shape)}")
 
 
+def _quant_single(bits):
+    def single(slot, a, zq, zs, dzq, dzs, thr, thresh):
+        if a.device.type == "cpu":
+            return _quant_plain(bits, slot, a, zq, zs, dzq, dzs, thr,
+                                thresh)
+        check_quant_ring(bits, slot, a, zq, zs, dzq, dzs)
+        B, F = a.shape
+        w = torch.empty(B, dtype=torch.float32, device=a.device)
+        cot = None if dzq is None else torch.empty(
+            (B, F), dtype=torch.float32, device=a.device)
+        _cuda.launch_cosine_gate_quant(
+            QUANT_NAMES[bits], bits=bits, slot=slot, n_slots=zq.shape[0],
+            a=a, zq=zq, zs=zs, dzq=dzq, dzs=dzs, w=w, cot=cot,
+            part=gate_workspace(B, F, a.device), thresh=thresh, thr=thr)
+        return w, cot
+    return single
+
+
+def _quant_jobs(bits):
+    def jobs(n, ops, thresh):
+        """K4 / K5 over ``n`` jobs: one launch (the plain version on the
+        CPU)."""
+        slot, a, zq, zs, dzq, dzs, thr = (ops[k] for k in (
+            "slot", "a", "z", "zs", "dz", "dzs", "thr"))
+        if a.t.device.type == "cpu":
+            s = slot.per_job(n)
+
+            def take(q, sc):
+                return dequant_rows(take_job_slots(q.per_job(n), s),
+                                    take_job_slots(sc.per_job(n), s), bits)
+            return gate_plain(a.per_job(n), take(zq, zs),
+                              None if dzq.t is None else take(dzq, dzs),
+                              thr.per_job(n), thresh)
+        name = QUANT_NAMES[bits]
+        check_jobs(name, n, ops)
+        check_quant_ring(bits, slot.job(0), a.job(0), zq.job(0), zs.job(0),
+                         dzq.job(0), dzs.job(0))
+        w, cot, part = gate_job_outputs(n, a.job(0), dzq.t is not None)
+        _cuda.launch_cosine_gate_quant(
+            name, bits=bits, slot=slot.t, n_slots=zq.job(0).shape[0],
+            a=a.t, zq=zq.t, zs=zs.t, dzq=dzq.t, dzs=dzs.t, w=w, cot=cot,
+            part=part, thresh=thresh, n_jobs=n, thr=thr.t,
+            strides={k: op.stride for k, op in ops.items()})
+        return w, cot
+    return jobs
+
+
+QUANT_OPS = {bits: register_gate(QUANT_NAMES[bits], _quant_single(bits),
+                                 _quant_jobs(bits)) for bits in (8, 4)}
+
+
 def _fused_sample_quant(bits, slot, ad_hoc, zq, zscale, dzq, dzscale,
                         cos_xi):
-    if ad_hoc.device.type == "cpu":
-        return fused_sample_quant_plain(bits, slot, ad_hoc, zq, zscale, dzq,
-                                        dzscale, cos_xi)
-    check_quant_ring(bits, slot, ad_hoc, zq, zscale, dzq, dzscale)
-    B, F = ad_hoc.shape
-    w = torch.empty(B, dtype=torch.float32, device=ad_hoc.device)
-    cot = None if dzq is None else torch.empty(
-        (B, F), dtype=torch.float32, device=ad_hoc.device)
-    _cuda.launch_cosine_gate_quant(
-        QUANT_NAMES[bits], bits=bits, slot=slot, n_slots=zq.shape[0],
-        a=ad_hoc, zq=zq, zs=zscale, dzq=dzq, dzs=dzscale, w=w, cot=cot,
-        part=gate_workspace(B, F, ad_hoc.device),
-        thresh=f32_threshold(cos_xi))
-    return w, cot
+    thr, thresh = threshold_operands(cos_xi)
+    w, cot = QUANT_OPS[bits](slot, ad_hoc, zq, zscale, dzq, dzscale, thr,
+                             thresh)
+    return w, (None if dzq is None else cot)
 
 
 def fused_sample_q8_2d(slot, ad_hoc, zq, zscale, dzq, dzscale, cos_xi):
     """K4.  slot: (1,) int32; ad_hoc: (B, F) fp32; zq / dzq: (W, B, F)
     int8 codes; zscale / dzscale: (W, B) fp32 row scales (``dzq=None``:
-    weights only).  -> (weights (B,) fp32, weighted cotangent (B, F) fp32
-    or None)."""
+    weights only); ``cos_xi`` a number or an fp32 tensor.  -> (weights
+    (B,) fp32, weighted cotangent (B, F) fp32 or None)."""
     return _fused_sample_quant(8, slot, ad_hoc, zq, zscale, dzq, dzscale,
                                cos_xi)
 

@@ -1,0 +1,135 @@
+"""The job axis of the gate and quantiser kernels: ``torch.library`` ops.
+
+The fleet (``repro_torch/fleet``) runs a cohort of CELU-VFL jobs as one
+batched program under ``torch.func.vmap``, so each launch serves every
+job.  For that, the Algorithm-2 gate entry points (K1
+``fused_sample_2d``, K2a ``cosine_weight_2d``, K2b ``cosine_weights_2d``,
+K4 ``fused_sample_q8_2d``, K5 ``fused_sample_q4_2d``) and the quantiser
+(K3 ``quantize_sr_2d``) are custom ops, ``torch.ops.repro_torch.<name>``,
+each with
+
+  * its one-job implementation (the kernel module's wrapper: the kernel on
+    a CUDA tensor, its plain version on a CPU tensor);
+  * a fake rule: the output shapes, for meta and fake tensors;
+  * a ``vmap`` rule: ONE job-batched call for the N jobs.  On a CUDA
+    tensor that is one launch of the job-batched kernel
+    (``csrc/cosine_gate.cu``'s grid takes the jobs on its last axis; K3
+    folds the jobs into its rows, since its scales are per row), counted
+    once in ``_cuda.LAUNCHES``; on a CPU tensor the plain version runs over
+    the job axis.  It never loops scalar launches.
+
+Every gate op takes ``(slot, a, z, zs, dz, dzs, thr, thresh)``: the ring
+slot (None for K2's materialised rows), the ad-hoc rows, the stale z and
+its row scales (K4 / K5), the stale ∇Z and its scales (None: weights
+only, returned as an empty cotangent), and the threshold, either
+``thresh`` by value (``thr`` None) or the fp32 tensor ``thr`` (a job's own
+cos ξ under ``vmap``).  An operand that ``vmap`` leaves unbatched is
+shared by every job: the kernel reads it with a job stride of 0, and
+nothing is expanded or copied.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import torch
+
+GATE_OPERANDS = ("slot", "a", "z", "zs", "dz", "dzs", "thr")
+
+
+class JobOperand(NamedTuple):
+    """An operand of a job-batched call: ``t`` with its jobs on dim 0
+    (``batched``) or one operand that every job shares; ``stride`` is
+    the job stride in elements (0 when shared)."""
+    t: Optional[torch.Tensor]
+    stride: int
+    batched: bool
+
+    def per_job(self, n: int):
+        """(n, ...) for the plain version: a shared operand expanded (a
+        view)."""
+        if self.t is None or self.batched:
+            return self.t
+        return self.t.expand((n,) + tuple(self.t.shape))
+
+    def job(self, i: int):
+        """Job ``i``'s operand (the shared one for every job)."""
+        if self.t is None or not self.batched:
+            return self.t
+        return self.t[i]
+
+
+def job_operand(x, bdim) -> JobOperand:
+    """An operand as ``vmap`` hands it to a rule -> :class:`JobOperand`.
+    A batched one gets its jobs on dim 0 (a view) and is made contiguous
+    per job only where it is not; a shared one (``bdim`` None) keeps its
+    shape and a stride of 0."""
+    if x is None or bdim is None:
+        return JobOperand(x, 0, False)
+    x = x.movedim(bdim, 0)
+    if not x[0].is_contiguous():
+        x = x.contiguous()
+    return JobOperand(x, x.stride(0), True)
+
+
+def register_gate(name: str, single: Callable, jobs: Callable):
+    """Register ``torch.ops.repro_torch.<name>``.  ``single(slot, a, z,
+    zs, dz, dzs, thr, thresh)`` is the one-job wrapper, -> (w, cot or
+    None); ``jobs(n, ops, thresh)`` the job-batched one, ``ops`` mapping
+    :data:`GATE_OPERANDS` to :class:`JobOperand` s, -> (w (n, B), cot
+    (n, B, F) or None)."""
+    def op(slot: Optional[torch.Tensor], a: torch.Tensor, z: torch.Tensor,
+           zs: Optional[torch.Tensor], dz: Optional[torch.Tensor],
+           dzs: Optional[torch.Tensor], thr: Optional[torch.Tensor],
+           thresh: float) -> Tuple[torch.Tensor, torch.Tensor]:
+        w, cot = single(slot, a, z, zs, dz, dzs, thr, thresh)
+        return w, (a.new_empty(0) if cot is None else cot)
+
+    op.__name__ = name
+    cop = torch.library.custom_op(f"repro_torch::{name}", op,
+                                  mutates_args=())
+
+    def fake(slot, a, z, zs, dz, dzs, thr, thresh):
+        B, F = a.shape
+        return (a.new_empty((B,), dtype=torch.float32),
+                a.new_empty((B, F) if dz is not None else (0,),
+                            dtype=torch.float32))
+    cop.register_fake(fake)
+
+    def rule(info, in_dims, slot, a, z, zs, dz, dzs, thr, thresh):
+        ops = {k: job_operand(x, d) for k, x, d in zip(
+            GATE_OPERANDS, (slot, a, z, zs, dz, dzs, thr), in_dims)}
+        w, cot = jobs(info.batch_size, ops, thresh)
+        if cot is None:
+            return (w, a.new_empty(0)), (0, None)
+        return (w, cot), (0, 0)
+    cop.register_vmap(rule)
+    return cop
+
+
+def register_quantize(rows: Callable):
+    """Register ``torch.ops.repro_torch.quantize_sr_2d(x, u, levels)``.
+    ``rows(x, u, levels)`` is K3 on (T, L) rows; the vmap rule folds the
+    jobs into the rows (one scale a row, so the jobs' rows are K3's rows)
+    and calls it once."""
+    def quantize_sr_2d(x: torch.Tensor, u: torch.Tensor,
+                       levels: float) -> Tuple[torch.Tensor, torch.Tensor]:
+        return rows(x, u, levels)
+
+    cop = torch.library.custom_op("repro_torch::quantize_sr_2d",
+                                  quantize_sr_2d, mutates_args=())
+
+    def fake(x, u, levels):
+        return (x.new_empty(x.shape, dtype=torch.int8),
+                x.new_empty(x.shape[:1], dtype=torch.float32))
+    cop.register_fake(fake)
+
+    def rule(info, in_dims, x, u, levels):
+        n = info.batch_size
+        x, u = (job_operand(t, d).per_job(n)
+                for t, d in ((x, in_dims[0]), (u, in_dims[1])))
+        T, L = x.shape[1:]
+        q, scale = rows(x.reshape(n * T, L).contiguous(),
+                        u.reshape(n * T, L).contiguous(), levels)
+        return (q.reshape(n, T, L), scale.reshape(n, T)), (0, 0)
+    cop.register_vmap(rule)
+    return cop

@@ -16,12 +16,17 @@ counterpart of ``repro/kernels/ref.py::quantize_sr_ref``.
 Bandwidth-bound: x and u are read and the codes written (9 bytes an
 element) plus one fp32 scale a tile.  At the workset insert's (256, 256)
 that is 590,848 B, 0.176 us at 3.35 TB/s.
+
+``quantize_sr_2d`` is a ``torch.library`` op (``kernels/jobs.py``): under
+the fleet's ``vmap`` its rule folds the jobs into the rows (the scales
+are per row) and makes one call, one launch on the card.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _cuda
+from .jobs import register_quantize
 
 EPS = 1e-12
 
@@ -56,9 +61,8 @@ def check_operands(x, u) -> None:
         raise ValueError("quantize_sr_2d: operands must be contiguous")
 
 
-def quantize_sr_2d(x, u, levels):
-    """K3.  x, u: (T, L) float32; levels: max code magnitude.  -> (codes
-    int8 (T, L), scales float32 (T,))."""
+def _quantize_rows(x, u, levels):
+    """K3 on (T, L) rows: one launch (the plain version on the CPU)."""
     if x.device.type == "cpu":
         return quantize_sr_plain(x, u, levels)
     check_operands(x, u)
@@ -67,3 +71,12 @@ def quantize_sr_2d(x, u, levels):
     _cuda.launch_quantize_sr("quantize_sr_2d", x=x, u=u, q=q, scale=scale,
                              levels=float(levels))
     return q, scale
+
+
+K3_OP = register_quantize(_quantize_rows)
+
+
+def quantize_sr_2d(x, u, levels):
+    """K3.  x, u: (T, L) float32; levels: max code magnitude.  -> (codes
+    int8 (T, L), scales float32 (T,))."""
+    return K3_OP(x, u, float(levels))

@@ -39,17 +39,26 @@ def jax_key(tag):
     ``("draw_s", s, round, j, party)`` — the same on the pipelined
     scheduler's dynamic path, folded by the staleness ``s`` first;
     ``("seed", s, *folds)`` — ``PRNGKey(s)``; then ``fold_in`` by each
-    fold."""
+    fold.  ``("job", seed, *tag)`` is a fleet job's chain
+    (``repro_torch.fleet.JobUniforms``): the engine chains' bases (17,
+    0xCE1, 29) start from ``fold_in(PRNGKey(base), seed)``, as the
+    reference's ``JobHyper.for_spec`` keys do."""
     kind, *rest = tag
+    job = None
+    if kind == "job":
+        job, kind, *rest = rest
+
+    def base(b):
+        key = jax.random.PRNGKey(b)
+        return key if job is None else jax.random.fold_in(key, job)
     if kind in ("draw", "draw_s"):
-        key, folds = jax.random.PRNGKey(29), rest
+        key, folds = base(29), rest
     elif kind == "wire":
         rnd, n, j, *folds = rest
-        key = jax.random.split(
-            jax.random.fold_in(jax.random.PRNGKey(17), rnd), n)[j]
+        key = jax.random.split(jax.random.fold_in(base(17), rnd), n)[j]
     elif kind == "insert":
         rnd, *folds = rest
-        key = jax.random.fold_in(jax.random.PRNGKey(0xCE1), rnd)
+        key = jax.random.fold_in(base(0xCE1), rnd)
     elif kind == "optim":
         t, *folds = rest
         key = jax.random.fold_in(jax.random.PRNGKey(0xAD49), t)
