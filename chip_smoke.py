@@ -20,7 +20,10 @@ Phases, each on its own printed lines (any failure exits non-zero):
      with and without the mask, and the updates) bitwise over
      WDL-Criteo's and smollm-360m's party lists and a 100-leaf ragged
      list (three launches; 1-element and unaligned leaves), bf16
-     params, gradients and state included; a step captured in a CUDA
+     params, gradients and state included, and over granite-moe-3b-
+     a800m's two party lists and xlstm-125m's Party B (55 leaves: two
+     launches) at full width, each leaf in its training dtype (bf16 or
+     fp32) with fp32 state; a step captured in a CUDA
      graph and replayed against eager steps; no allocation in an eager
      step; times from CUDA events beside the least time the card could
      take (the steps warm and cold, beside ``torch._fused_adagrad_``);
@@ -126,9 +129,11 @@ Phases, each on its own printed lines (any failure exits non-zero):
      tensor-core instructions in the SASS of K9-LSE's fp32 kernel and of
      K10's bf16 and fp32 kernels (none fails) and their TFLOP/s, K9-LSE's
      fp32 beside SDPA's fp32 forward; K1 on its split-row path at the
-     LLM cut tensor (2, 2, 3,932,160) and a wide ragged row (2, 3,
-     1,000,003), full and weights-only, against its plain version,
-     bitwise the same on a second run, timed beside its bound;
+     LLM cut tensors, smollm-360m's (2, 2, 3,932,160) on a bf16 ring and
+     granite-moe-3b-a800m's (2, 2, 6,291,456) on an fp32 ring, and a
+     wide ragged row (2, 3, 1,000,003), full and weights-only, against
+     its plain version, bitwise the same on a second run, timed beside
+     its bound;
  12. the LLM training path: ``repro_torch.launch.train`` at smollm-360m's
      full width (B = 2, S = 4,096, R = W = 2, 3 celu rounds, fp32 cache,
      AdaGrad through K7, remat on) with the exact launch counts of
@@ -144,7 +149,24 @@ Phases, each on its own printed lines (any failure exits non-zero):
      against the same run through the plain attention, and the serving
      engine on 3,072-token prompts, the prefill's logits against the
      plain attention's;
- 14. a JSON line of per-kernel results, then the last line
+ 14. the moe, hybrid and ssm / xlstm text families: granite-moe-3b-a800m
+     at full width and depth trained as phase 12 trains smollm-360m
+     (K9-LSE, K10, K9, K1 and K7 launches derived by ``_llm_launches``
+     from each tower's attention-bearing layers and K7's 48-tensor
+     tables; losses; host ms per round, busy ms and the top device ops
+     of the last round; peak memory beside the budget), its B = 1 train
+     step against the plain attention with each MoE layer's routing
+     recorded on both routes, K9 and K9-LSE at its prefill's (1, 4096,
+     24, 64) with its 8 KV heads repeated against the plain attention,
+     and served (8 requests, 4 lanes,
+     4,096-token prompts: K9 in all 32 layers, K3, K6; the fp32 engine's
+     lanes against the sequential loop); hymba-1.5b at full widths cut
+     to 8 layers (B = 1, S = 4,096) and xlstm-125m at full width and
+     depth (B = 2, S = 1,024; Party B's 55 tensors take two K7 launches
+     an update) trained two rounds each and served briefly; each text
+     family's reduced config two celu rounds on the card against the
+     CPU, counters exact, losses within 4e-3;
+ 15. a JSON line of per-kernel results, then the last line
      ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
@@ -333,13 +355,18 @@ LSE_REL, LSE_ATOL = 2.0 ** -17, 1e-5
 # outputs, lse as every lse
 K9_F32_LIMITS = (("out", K10_REL["float32"], K10_ATOL["float32"]),
                  ("lse", LSE_REL, LSE_ATOL))
-# K1 at the training path's cut tensor (W, B, S·d): the fp32 sums of
-# 3,932,160 products a row in other orders; the weights are cosines in
-# [-1, 1] and the cotangent is |dz| <= ~5 times a weight.  Also at a wide
-# ragged row (F odd: one element a lane), both on the split-row path.
+# K1 at the training paths' cut tensors (W, B, S·d): smollm-360m's on a
+# bf16 ring and granite-moe-3b-a800m's on the fp32 ring its training
+# runs, the fp32 sums of 3,932,160 and 6,291,456 products a row in other
+# orders; the weights are cosines in [-1, 1] and the cotangent is |dz| <=
+# ~5 times a weight.  Also at a wide ragged row (F odd: one element a
+# lane), all on the split-row path.  Each with its ring's dtype and the
+# model width d (the first token's d values of a row).
 LLM_GATE_SHAPE = (2, 2, 4096 * 960)
+GRANITE_GATE_SHAPE = (2, 2, 4096 * 1536)
 RAGGED_GATE_SHAPE = (2, 3, 1_000_003)
-GATE_SINK = 960                   # the first token's d values of a row
+GATE_CASES = ((LLM_GATE_SHAPE, "bf16", 960), (RAGGED_GATE_SHAPE, "bf16", 960),
+              (GRANITE_GATE_SHAPE, "fp32", 1536))
 LLM_GATE_TOL = 1e-4
 # the training phase: smollm-360m at full width
 TRAIN_ARGS = {"batch_size": 2, "seq_len": 4096, "R": 2, "W": 2}
@@ -367,6 +394,33 @@ REDUCED_TRAIN_ARGS = {"batch_size": 2, "seq_len": REDUCED_SEQ, "R": 2,
 REDUCED_ROUNDS = 2
 REDUCED_SERVE_ARGS = {"--requests": 4, "--capacity": 2,
                       "--prompt-len": REDUCED_SEQ, "--gen": 8, "--rate": 0}
+# The families phase (the moe, hybrid and ssm / xlstm text families):
+# granite-moe-3b-a800m at full width and depth trained (as the smollm-360m
+# training phase: B = 2, S = 4,096, R = W = 2, 3 celu rounds, fp32 cache
+# and wire, AdaGrad through K7, remat on) and served (8 requests, 4 lanes,
+# 4,096-token prompts, 16 new tokens); hymba-1.5b at full widths cut to 8
+# layers (2 / 4 / 2) and xlstm-125m at full width and depth, each trained
+# two rounds and served briefly; each text family's reduced() config two
+# celu rounds on the card against the same rounds on the CPU, the losses
+# held to FAMILY_CPU_RTOL (the CPU tests hold the port's rounds to the
+# reference's at 4e-3: tests/test_torch_families.py).
+GRANITE = "granite-moe-3b-a800m"
+FAMILY_ROUNDS = 3
+GRANITE_SERVE_ARGS = {"--requests": 8, "--capacity": 4, "--prompt-len": 4096,
+                      "--gen": 16, "--rate": 0}
+HYMBA_LAYERS = 8
+HYMBA_TRAIN_ARGS = {"batch_size": 1, "seq_len": 4096, "R": 2, "W": 2}
+XLSTM_TRAIN_ARGS = {"batch_size": 2, "seq_len": 1024, "R": 2, "W": 2}
+SHORT_ROUNDS = 2
+HYMBA_SERVE_ARGS = {"--requests": 2, "--capacity": 2, "--prompt-len": 4096,
+                    "--gen": 8, "--rate": 0}
+XLSTM_SERVE_ARGS = {"--requests": 4, "--capacity": 2, "--prompt-len": 256,
+                    "--gen": 8, "--rate": 0}
+FAMILY_ARCHS = ("granite-moe-3b-a800m", "llama4-scout-17b-a16e",
+                "hymba-1.5b", "xlstm-125m")
+FAMILY_REDUCED_ARGS = {"batch_size": 2, "seq_len": 32, "R": 2, "W": 2,
+                       "reduced": True}
+FAMILY_CPU_RTOL = 4e-3
 # K10's bf16 kernels (csrc/flash_attention_bwd.cu): name of the wrapper ->
 # (the kernel's name in the library, the products it issues)
 K10_MMA = {"flash_attention_bwd_dkv": ("flash_bwd_dkv_mma", 6),
@@ -802,14 +856,36 @@ def _adagrad_lists(torch) -> dict:
     return lists
 
 
+def _family_adagrad_lists(torch) -> dict:
+    """{name: [(shape, dtype)]}: granite-moe-3b-a800m's Party A and B and
+    xlstm-125m's Party B (55 leaves: two K7 tables) at full width, each
+    leaf with the dtype its training gives it (bf16, the router's and
+    the recurrent cells' fp32 leaves fp32), in the reference's leaf
+    order; built on the meta device."""
+    from repro_torch.bridge import reference_parameters
+    from repro_torch.configs import get_config
+    from repro_torch.launch.budget import _param_shapes
+    from repro_torch.models import vfl
+    lists = {}
+    for arch, parties in ((GRANITE, "ab"), ("xlstm-125m", "b")):
+        tree = _param_shapes(get_config(arch))
+        for p in parties:
+            lists[f"{arch} {p}"] = [
+                (tuple(t.shape), t.dtype) for t in reference_parameters(
+                    vfl.PartyParams(tree[p]))]
+    return lists
+
+
 def _k7_operands(torch, gen, shapes, grad_dtype, state_dtype, param_dtype,
                  ragged=False):
     """Random (grads, accumulators, params) on the card; with ``ragged``
-    every third leaf's operands are views one element in."""
+    every third leaf's operands are views one element in.  A dtype is
+    one for every leaf or a list of one a leaf."""
     def make(shape, dtype, i, fill):
         x = torch.empty(shape, device="cuda")
         fill(x)
-        return _view(x.to(dtype), int(ragged and i % 3 == 1))
+        dt = dtype[i] if isinstance(dtype, list) else dtype
+        return _view(x.to(dt), int(ragged and i % 3 == 1))
     grads = [make(s, grad_dtype, i, lambda x: x.normal_(
         generator=gen).mul_(0.1)) for i, s in enumerate(shapes)]
     accums = [make(s, state_dtype, i, lambda x: x.uniform_(
@@ -852,6 +928,7 @@ def _k7_check(torch, label, ops, scale) -> None:
     fag.fused_adagrad_step_plain(g, ap, pp, lr, eps, scale)
     torch.cuda.synchronize()
     _same("fused_adagrad", f"{label} step", ak + pk, ap + pp)
+    del ak, pk, ap, pp     # a party of granite's fills half the card
     uk, ank = fag.fused_adagrad_list(g, a, lr, eps)
     up, anp = fag.fused_adagrad_list_plain(g, a, lr, eps)
     torch.cuda.synchronize()
@@ -1102,6 +1179,18 @@ def phase_adagrad_kernels(torch):
         _k8_check(torch, f"{name}, bf16 grads and params, mask 0.7", q8,
                   mask)
         del q8
+        torch.cuda.empty_cache()
+    # the text families' party lists as their training runs them: each
+    # grad and parameter in its leaf's dtype, fp32 state
+    for name, leaves in _family_adagrad_lists(torch).items():
+        shapes, dts = [s for s, _ in leaves], [d for _, d in leaves]
+        ops = _k7_operands(torch, gen, shapes, dts, f32, dts)
+        kinds = sorted({str(d).split(".")[-1] for d in dts})
+        for scale, what in ((None, "no mask"), (mask, "mask 0.7")):
+            _k7_check(torch, f"{name}, grads and params in the leaves' "
+                      f"dtypes ({'/'.join(kinds)}), fp32 state, {what}",
+                      ops, scale)
+        del ops
         torch.cuda.empty_cache()
     _adagrad_graph_and_allocations(torch, lists, gen)
 
@@ -3715,9 +3804,10 @@ def _k10_tensor_cores(times):
 
 
 def _gate_at_llm_width(torch):
-    """K1 on its split-row path: at the training path's cut tensor (ring
-    rows of S·d = 3,932,160 bf16 values, B = 2 rows, the fp32 ad-hoc row)
-    and at a wide ragged row (RAGGED_GATE_SHAPE), full and weights-only,
+    """K1 on its split-row path: at the training paths' cut tensors (ring
+    rows of S·d = 3,932,160 bf16 and 6,291,456 fp32 values, B = 2 rows,
+    the fp32 ad-hoc row) and at a wide ragged row (GATE_CASES), full and
+    weights-only,
     against its plain version (weights and cotangent within LLM_GATE_TOL),
     bitwise the same on a second run and the weights-only call's weights
     bitwise the full call's; timed beside its bound and plain version."""
@@ -3727,7 +3817,8 @@ def _gate_at_llm_width(torch):
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     cos_xi = xi_to_cos(60.0)
-    for W, B, F in (LLM_GATE_SHAPE, RAGGED_GATE_SHAPE):
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    for (W, B, F), ring, sink in GATE_CASES:
         a = torch.randn((B, F), generator=gen, device="cuda")
         z = torch.randn((W, B, F), generator=gen, device="cuda")
         mix = torch.tensor([0.9, -0.5, 1.5][:B], device="cuda")[:, None]
@@ -3736,11 +3827,12 @@ def _gate_at_llm_width(torch):
         # activations and change little between rounds: 30 times the
         # rest, and the stale z close to the ad-hoc a there, so that the
         # first chunk of a row moves its cosine by about 0.02
-        a[:, :GATE_SINK] *= 30.0
-        z[1, :, :GATE_SINK] = a[:, :GATE_SINK] + 0.05 * z[1, :, :GATE_SINK]
-        z = z.to(torch.bfloat16)
+        a[:, :sink] *= 30.0
+        z[1, :, :sink] = a[:, :sink] + 0.05 * z[1, :, :sink]
+        z = z.to(dtypes[ring])
         dz = torch.randn((W, B, F), generator=gen, device="cuda").to(
-            torch.bfloat16)
+            dtypes[ring])
+        zb = z.element_size()
         slot = torch.tensor([1], dtype=torch.int32, device="cuda")
 
         def kern(d=dz):
@@ -3753,7 +3845,7 @@ def _gate_at_llm_width(torch):
         torch.cuda.synchronize()
         err = max((w - w0).abs().max().item(),
                   (cot - cot0).abs().max().item())
-        label = f"fused_sample_2d at {(W, B, F)} bf16 ring"
+        label = f"fused_sample_2d at {(W, B, F)} {ring} ring"
         check(math.isfinite(err) and err <= LLM_GATE_TOL
               and w[1].item() == 0.0 and w[0].item() > 0.5,
               f"{label}: weights {w.tolist()} against {w0.tolist()}, max "
@@ -3770,14 +3862,15 @@ def _gate_at_llm_width(torch):
               f"full call's", flush=True)
         # ad-hoc read, the slot's z (and dz) read, w (and the cotangent)
         # written, the slot
-        _timed(torch, f"{'fused_sample_2d':30s} W,B,F={W},{B},{F} bf16 ring "
-               f"({chunks} chunks a row)", kern, plain, err,
-               4 * B * F + 2 * 2 * B * F + 4 * B * F + 4 * B + 4, 7 * B * F,
+        _timed(torch, f"{'fused_sample_2d':30s} W,B,F={W},{B},{F} {ring} "
+               f"ring ({chunks} chunks a row)", kern, plain, err,
+               4 * B * F + 2 * zb * B * F + 4 * B * F + 4 * B + 4, 7 * B * F,
                iters=10)
         _timed(torch, f"{'fused_sample_2d weights-only':30s} W,B,F={W},{B},"
-               f"{F} bf16 ring ({chunks} chunks a row)", lambda: kern(None),
-               lambda: plain(None), (wo - w0).abs().max().item(),
-               4 * B * F + 2 * B * F + 4 * B + 4, 6 * B * F, iters=10)
+               f"{F} {ring} ring ({chunks} chunks a row)",
+               lambda: kern(None), lambda: plain(None),
+               (wo - w0).abs().max().item(),
+               4 * B * F + zb * B * F + 4 * B + 4, 6 * B * F, iters=10)
 
 
 def _pipeline_schedule(depth: int, rounds: int):
@@ -3820,10 +3913,12 @@ def _llm_launches(cfg, R: int, rounds: int, remat: bool, party_tensors,
     """The kernels' launches over ``rounds`` celu rounds of the LLM
     split at pipeline depth ``depth``, derived from the engine's code:
     ``rounds`` exchanges, and the local scans and merges of
-    :func:`_pipeline_schedule`.  Layers: Party A's La, Party B's Lb
-    (bottom) and Lt (top).  Each forward through a layer runs K9-LSE
-    once, each backward K10 (dkv and dq) once, and with remat each
-    backward first recomputes the layer's forward (K9-LSE again):
+    :func:`_pipeline_schedule`.  Layers: the attention-bearing layers
+    (:func:`_attention_layers`; an xLSTM cell has no attention) of Party
+    A's tower, La, and of Party B's bottom and top towers, Lb and Lt.
+    Each forward through such a layer runs K9-LSE once, each backward K10
+    (dkv and dq) once, and with remat each backward first recomputes the
+    layer's forward (K9-LSE again):
 
       * exchange: A's and B's forwards; B's backward through all its
         layers (its parameters and Z); A's backward;
@@ -3836,8 +3931,7 @@ def _llm_launches(cfg, R: int, rounds: int, remat: bool, party_tensors,
       * each update of a party (R a scan, one a merge) is one K7 launch
         per table of its ``party_tensors``.
     """
-    La = cfg.vfl_split.layers_a
-    Lb, Lt = cfg.vfl_split.layers_b, cfg.vfl_split.layers_top
+    La, Lb, Lt = _attention_layers(cfg)
     rec = int(remat)
     ex_fwd = La + (Lb + Lt) + rec * ((Lb + Lt) + La)
     ex_bwd = (Lb + Lt) + La
@@ -3990,17 +4084,27 @@ def _plain_attention(route: str) -> list:
             mock.patch.object(L, "flash_attention", fa.flash_attention_plain)]
 
 
+def _attention_layers(cfg):
+    """-> the attention-bearing layers (dense, moe and hybrid blocks) of
+    the split model's towers: (Party A's, Party B's bottom, its top)."""
+    from repro_torch.models import vfl
+    return tuple(sum(rep * sum(bt in ("dense", "moe", "hybrid")
+                               for bt in pattern)
+                     for pattern, rep in stages(cfg))
+                 for stages in (vfl.stages_a, vfl.stages_b, vfl.stages_top))
+
+
 def _layers(cfg) -> int:
     """Attention layers of the split model (both parties)."""
-    s = cfg.vfl_split
-    return s.layers_a + s.layers_b + s.layers_top
+    return sum(_attention_layers(cfg))
 
 
-def _step_vs_plain(torch, cfg, seq_len: int, label: str) -> None:
+def _step_vs_plain(torch, cfg, seq_len: int, label: str,
+                   on_route=None) -> None:
     """One ``launch/steps.py`` train step (B = 1) through K9-LSE / K10
     against the same step through the plain attention on the card: the
     loss to GRAD_LOSS_ATOL, each gradient leaf to GRAD_REL_L2 relative
-    L2."""
+    L2.  ``on_route(route)`` is called before each route's step."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import _cuda
     from repro_torch.launch import steps
@@ -4017,6 +4121,8 @@ def _step_vs_plain(torch, cfg, seq_len: int, label: str) -> None:
         with contextlib.ExitStack() as stack:
             for patch in _plain_attention(route):
                 stack.enter_context(patch)
+            if on_route is not None:
+                on_route(route)
             _cuda.reset_launches()
             _, _, loss = steps.make_train_step(cfg, opt)(joint, {}, batch)
             torch.cuda.synchronize()
@@ -4033,15 +4139,360 @@ def _step_vs_plain(torch, cfg, seq_len: int, label: str) -> None:
            for a, b in zip(gk, gp)]
     worst = max(rel)
     print(f"[train] {label} train step (B=1, S={seq_len}, hd "
-          f"{cfg.head_dim}), K9-LSE / K10 against the plain attention on "
-          f"the card: loss {lk:.6f} / {lp:.6f} (|dev| {abs(lk - lp):.3g}, "
-          f"limit {GRAD_LOSS_ATOL}); {len(rel)} gradient leaves, relative "
-          f"L2 error worst {worst:.3g} (limit {GRAD_REL_L2}), median "
-          f"{sorted(rel)[len(rel) // 2]:.3g}", flush=True)
+          f"{cfg.resolved_head_dim}), K9-LSE / K10 against the plain "
+          f"attention on the card: loss {lk:.6f} / {lp:.6f} (|dev| "
+          f"{abs(lk - lp):.3g}, limit {GRAD_LOSS_ATOL}); {len(rel)} "
+          f"gradient leaves, relative L2 error worst {worst:.3g} (limit "
+          f"{GRAD_REL_L2}), median {sorted(rel)[len(rel) // 2]:.3g}",
+          flush=True)
     check(math.isfinite(lk) and abs(lk - lp) <= GRAD_LOSS_ATOL,
           f"{label} train step loss {lk} against {lp}")
     check(worst <= GRAD_REL_L2, f"{label} train step gradients: relative "
           f"L2 errors {rel}")
+
+
+# --------------------------------------------------------------------------
+# the families phase
+# --------------------------------------------------------------------------
+def _serve_launches(n_req: int, steps: int) -> dict:
+    """K6 and K3 launches of a ``serve_engine`` run of ``n_req`` requests
+    over ``steps`` decode steps, int8 ring and wire, R = 1: warm() runs
+    one admit and one step of each kind (one exchange); each admit sends
+    its (S, d) prefill up (K3), each exchange step sends its lane rows
+    (K3) and inserts them into the ring (K3), and every step reads the
+    ring (K6)."""
+    return {"fused_dequant_q8_2d": steps + 2,
+            "quantize_sr_2d": n_req + 1 + 2 * (steps + 1)}
+
+
+def _serve_family(torch, card, label, cfg, params, argv_map, want_k9):
+    """One int8 ``serve_engine`` run; -> (completions, stats, launches)."""
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch import serve as cli
+    argv = [a for kv in argv_map.items() for a in map(str, kv)]
+    args = cli.build_parser().parse_args(argv)
+    _cuda.reset_launches()
+    comps, stats, eng = cli.serve_engine(args, cfg, params)
+    c = dict(_cuda.LAUNCHES)
+    steps = stats["decode_steps"]
+    walls = sorted(stats["step_walls"])
+    print(f"[families] {label} serving: launches {c}; {steps} decode "
+          f"steps, {1e3 * walls[len(walls) // 2]:.3f} ms per step "
+          f"(median), {stats['req_per_s']:.3f} req/s, "
+          f"{stats['tok_per_s']:.1f} tok/s, p50 {stats['p50_ms']:.3f} / "
+          f"p99 {stats['p99_ms']:.3f} ms per token; card {card}",
+          flush=True)
+    n_req = args.requests
+    want = _serve_launches(n_req, steps)
+    if want_k9:     # K9 in every attention layer of each prefill
+        want["flash_attention"] = _layers(cfg) * (n_req + 1)
+    _want(f"{label} serving", c, **want)
+    check(stats["n_requests"] == n_req and all(
+        ((cp.tokens >= 0) & (cp.tokens < cfg.vocab_size)).all()
+        for cp in comps), f"{label} serving: {stats['n_requests']} of "
+          f"{n_req} served, or a token out of the vocabulary")
+    return comps, stats, c
+
+
+def _family_train(torch, card, label, cfg, args, profile_last=True):
+    """``train_llm`` over ``cfg`` with the launch counts, losses, host
+    ms per round, peak memory against ``party_hbm_budget`` and, with
+    ``profile_last``, the busy ms and top device ops of the last round
+    (the profiler on for it alone); -> the launch counts."""
+    from unittest import mock
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import engine
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.budget import party_hbm_budget
+    from repro_torch.launch import train as T
+
+    params = T.llm_params(cfg, args.seed, "cuda")
+    n_tensors = [len(list(p.parameters())) for p in params.values()]
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    make_round = engine.make_round
+
+    def profiled_round(*a, **kw):
+        rnd, calls = make_round(*a, **kw), [0]
+
+        def run(*ra, **rkw):
+            calls[0] += 1
+            if calls[0] == args.rounds and profile_last:
+                torch.cuda.synchronize()
+                prof.start()
+            return rnd(*ra, **rkw)
+        return run
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    # ``cfg`` in place of ``--arch``'s config (hymba's is cut in depth)
+    with mock.patch.object(engine, "make_round", profiled_round), \
+            mock.patch.object(T, "get_config", lambda arch: cfg):
+        out = T.train_llm(args, params=params)
+    torch.cuda.synchronize()
+    if profile_last:
+        prof.stop()
+    counts = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = _llm_launches(cfg, args.R, args.rounds, args.remat, n_tensors)
+    print(f"[families] {label}: {cfg.n_layers} layers, B={args.batch_size} "
+          f"S={args.seq_len} R={args.R} W={args.W} celu, {args.rounds} "
+          f"rounds, remat on; parameter tensors a party {n_tensors}; "
+          f"launches {counts}", flush=True)
+    _want(f"{label} training", counts, **want)
+    losses = out["losses"]
+    check(all(math.isfinite(x) for x in losses)
+          and abs(losses[0] - math.log(cfg.vocab_size)) < 1.0,
+          f"{label} training losses {losses} (a random model starts near "
+          f"ln V = {math.log(cfg.vocab_size):.3f})")
+    ms = [1e3 * t for t in out["round_s"]]
+    budget = party_hbm_budget(cfg, batch_size=args.batch_size,
+                              seq_len=args.seq_len, W=args.W)
+    total = budget["hbm_total_bytes_a"] + budget["hbm_total_bytes_b"]
+    print(f"[families] {label}: losses per round {losses}; ms per round on "
+          f"the host clock {[round(x, 3) for x in ms]}"
+          f"{' (the last under the profiler)' if profile_last else ''}; "
+          f"peak device memory {peak:,} B against the budget's "
+          f"parameters + optimizer state + rings {total:,} B of both "
+          f"parties; card {card}", flush=True)
+    if profile_last:
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.device_time_total for e in kernels) / 1e3
+        print(f"[families] {label}: round {args.rounds} profiled: device "
+              f"busy {busy:.3f} ms in {len(kernels)} kernels, "
+              f"{ms[-1]:.3f} ms on the host clock "
+              f"({100 * busy / ms[-1]:.1f} % busy); card {card}",
+              flush=True)
+        top = sorted(prof.key_averages(),
+                     key=lambda e: -e.self_device_time_total)
+        for e in top[:10]:
+            print(f"[families]   {e.self_device_time_total / 1e3:9.3f} ms  "
+                  f"{e.count:7d} calls  {e.key[:70]}")
+    del out, params, prof
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in want}
+
+
+def _granite_step_routing(torch, cfg):
+    """The B = 1 train step through K9-LSE / K10 against the plain
+    attention (``_step_vs_plain``) with the MoE routing pinned: the
+    kernels' step records each MoE layer pass's top-k experts, the plain
+    step routes every pass as the kernels' did, so the gradients differ
+    by the attention's arithmetic alone (an ulp in a router's input
+    moves a near-tie token to another expert, which moves the expert
+    weights' gradients by far more).  Prints how many tokens the plain
+    step would have routed to other experts."""
+    from unittest import mock
+
+    from repro_torch.models import moe as M
+    orig = M.top_k
+    state = {"route": None, "seen": [], "at": 0, "moved": 0, "tokens": 0}
+
+    def pinned(logits, k):
+        vals, idx = orig(logits, k)
+        if state["route"] == "kernels":
+            state["seen"].append(idx)
+            return vals, idx
+        want = state["seen"][state["at"]]
+        state["at"] += 1
+        same = torch.sort(idx, dim=-1)[0] == torch.sort(want, dim=-1)[0]
+        state["moved"] += int((~same.all(-1)).sum())
+        state["tokens"] += idx[..., 0].numel()
+        return torch.gather(logits, -1, want), want
+
+    def on_route(route):
+        state["route"] = route
+    try:
+        with mock.patch.object(M, "top_k", pinned):
+            _step_vs_plain(torch, cfg, 4096, f"{cfg.name} full-width, "
+                           f"routing pinned", on_route=on_route)
+    finally:
+        print(f"[families] {cfg.name} train step: {state['at']} of "
+              f"{len(state['seen'])} MoE layer passes replayed (the remat "
+              f"recomputes among them); through the plain attention "
+              f"{state['moved']} of {state['tokens']} token routings "
+              f"(top-{cfg.moe.top_k} of {cfg.moe.n_experts}) would go to "
+              f"other experts than through K9-LSE / K10", flush=True)
+    check(state["at"] == len(state["seen"]) > 0,
+          f"granite train step: {state['at']} of {len(state['seen'])} "
+          f"routings replayed")
+
+
+def _granite_k9(torch, cfg):
+    """K9 and K9-LSE at granite's serving prefill (B = 1, S = 4,096, its
+    query heads, its KV heads repeated to them as the attention layer
+    does) against the plain attention: every element of out (and lse)
+    within the K9 limits, K9-LSE's out bitwise K9's."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    S, H, Kv, hd = (GRANITE_SERVE_ARGS["--prompt-len"], cfg.n_heads,
+                    cfg.n_kv_heads, cfg.resolved_head_dim)
+
+    def draw(heads):
+        return torch.randn((1, S, heads, hd), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+    q = draw(H)
+    k, v = (L._repeat_kv(draw(Kv), H).contiguous() for _ in range(2))
+    o = fa.flash_attention(q, k, v)
+    o_lse, lse = fa.flash_attention_fwd_lse(q, k, v)
+    o_ref, lse_ref = fa.flash_attention_fwd_lse_plain(q, k, v)
+    torch.cuda.synchronize()
+    tag = f"B,S,H,hd=1,{S},{H},{hd} ({Kv} KV heads) causal"
+    check(torch.equal(o, o_lse), f"flash_attention_fwd_lse {tag}: the "
+          f"output differs from K9's without the LSE pointer")
+    err, w_o = _per_element("flash_attention", f"{tag} out", o, o_ref,
+                            K9_REL_TOL, K9_ATOL)
+    _, w_l = _per_element("flash_attention_fwd_lse", f"{tag} lse", lse,
+                          lse_ref, LSE_REL, LSE_ATOL)
+    print(f"[families] {cfg.name} {'flash_attention':17s} {tag}: max "
+          f"|err| {err:.3g}, worst err / limit out {w_o:.3g} (limit "
+          f"2^-7 |ref| + {K9_ATOL:g}), lse {w_l:.3g}; K9-LSE's out "
+          f"bitwise K9's", flush=True)
+
+
+def _granite_lanes_vs_loop(torch, card, cfg, params):
+    """The fp32 ring and wire engine against the sequential loop at
+    granite's full width: each lane's logits at every token against its
+    own request's loop (fed the same tokens), as the serving phase holds
+    smollm-360m's."""
+    from repro_torch.launch import serve as cli
+    from repro_torch.serve import LoadSpec, synth_requests
+    rec = _Recorder()
+    argv = [a for kv in GRANITE_SERVE_ARGS.items() for a in map(str, kv)]
+    args = cli.build_parser().parse_args(
+        argv + ["--cache-dtype", "float32", "--fp32-wire"])
+    with contextlib.ExitStack() as stack:
+        for p in rec.patches():
+            stack.enter_context(p)
+        comps, stats, _ = cli.serve_engine(args, cfg, params)
+    S, gen = args.prompt_len, args.gen
+    spec = LoadSpec(n_requests=args.requests, rate=0.0, prompt_len=S,
+                    max_new_tokens=gen, min_new_tokens=max(1, gen // 4),
+                    seed=0)
+    reqs = {r.req_id: r for r in synth_requests(spec, cfg)}
+    eng_logits = rec.logits(torch, reqs.values(), S)
+    devs, far, total = [], 0, 0
+    for comp in comps:
+        r = reqs[comp.req_id]
+        batch = {"tokens": torch.as_tensor(r.prompt[None]).cuda(),
+                 "tokens_a": torch.as_tensor(r.prompt_a[None]).cuda()}
+        n = len(comp.tokens)
+        loop = _loop_logits(torch, params, cfg, batch, S + gen, comp.tokens)
+        d = (eng_logits[comp.req_id][:n] - loop).abs().amax(-1)
+        devs.append(d.max().item())
+        far += int((d > LANE_LOGIT_ATOL).sum())
+        total += n
+    dev = max(devs)
+    print(f"[families] {cfg.name} fp32 engine against the sequential loop: "
+          f"each lane's logits at all {total} tokens within {dev:.4g} of "
+          f"its own request's (limit {LANE_LOGIT_ATOL}; {far} tokens past "
+          f"it); card {card}", flush=True)
+    check(math.isfinite(dev) and dev <= LANE_LOGIT_ATOL,
+          f"{cfg.name} fp32 engine logits deviate from the loop's by "
+          f"{devs}")
+
+
+def _reduced_card_vs_cpu(torch, arch):
+    """Two celu rounds of ``arch``'s reduced config on the card against
+    the same rounds on the CPU from the same parameters: counters exact,
+    losses within FAMILY_CPU_RTOL; -> the card run's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.train import train_llm
+    from repro_torch.models import vfl
+    from repro_torch.models.backbone import tree_map
+
+    cfg = get_config(arch).reduced()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        args = train_args(arch, rounds=SHORT_ROUNDS, device=dev,
+                          **FAMILY_REDUCED_ARGS)
+        tree = tree_map(lambda t: t.to(dev), vfl.init_all(0, cfg, "cpu"))
+        params = {p: vfl.PartyParams(tree[p]) for p in ("a", "b")}
+        _cuda.reset_launches()
+        out = train_llm(args, params=params)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = dict(_cuda.LAUNCHES)
+        st = out["state"]
+        runs[dev] = (out["losses"], int(st["comm_rounds"]),
+                     int(st["steps"]["b"]), int(st["steps"]["a"][0]))
+    (lg, *cg), (lc, *cc) = runs["cuda"], runs["cpu"]
+    devs = [abs(a - b) / abs(b) for a, b in zip(lg, lc)]
+    print(f"[families] {cfg.name}: {SHORT_ROUNDS} celu rounds card / CPU: "
+          f"losses {lg} / {lc} (rel dev {[float(f'{d:.3g}') for d in devs]},"
+          f" limit {FAMILY_CPU_RTOL}); comm rounds, B's and A's steps "
+          f"{cg} / {cc}; launches {counts}", flush=True)
+    check(cg == cc and all(math.isfinite(x) for x in lg)
+          and max(devs) <= FAMILY_CPU_RTOL,
+          f"{cfg.name} reduced rounds card vs CPU: {runs}")
+    return counts
+
+
+def phase_families(torch, card):
+    """The moe, hybrid and ssm / xlstm text families; -> the kernels'
+    launch counts over the phase's runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.models import vfl
+
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    # (a) granite-moe-3b-a800m training at full width
+    cfg = get_config(GRANITE)
+    add(_family_train(torch, card, cfg.name, cfg,
+                      train_args(GRANITE, rounds=FAMILY_ROUNDS,
+                                 **TRAIN_ARGS)))
+    _granite_step_routing(torch, cfg)
+
+    # (b) granite serving at full width: K9 at its prefill's shape against
+    # the plain attention; int8 ring and wire (K9 in all 32 layers of
+    # every prefill, K3, K6), then the fp32 engine against the sequential
+    # loop
+    _granite_k9(torch, cfg)
+    params = vfl.init_all(0, cfg, "cuda")
+    _, _, c = _serve_family(torch, card, cfg.name, cfg, params,
+                            GRANITE_SERVE_ARGS, want_k9=True)
+    add(c)
+    _granite_lanes_vs_loop(torch, card, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) hymba-1.5b (8 layers) and xlstm-125m at full widths
+    hymba = dataclasses.replace(get_config("hymba-1.5b"),
+                                n_layers=HYMBA_LAYERS)
+    xlstm = get_config("xlstm-125m")
+    for cfg, targs, sargs, k9 in (
+            (hymba, HYMBA_TRAIN_ARGS, HYMBA_SERVE_ARGS, True),
+            (xlstm, XLSTM_TRAIN_ARGS, XLSTM_SERVE_ARGS, False)):
+        # not profiled: hymba's 176 thousand and xlstm's 678 thousand
+        # kernels a round take the profiler minutes to collect
+        add(_family_train(torch, card, cfg.name, cfg,
+                          train_args(cfg.name, rounds=SHORT_ROUNDS,
+                                     **targs), profile_last=False))
+        params = vfl.init_all(0, cfg, "cuda")
+        if cfg is xlstm:
+            n_b = len(list(vfl.PartyParams(params["b"]).parameters()))
+            check(n_b > _cuda.ADAGRAD_LEAVES,
+                  f"xlstm-125m's Party B has {n_b} tensors: its update "
+                  f"should take more than one K7 table")
+        _, _, c = _serve_family(torch, card, cfg.name, cfg, params, sargs,
+                                want_k9=k9)
+        add(c)
+        del params
+        torch.cuda.empty_cache()
+
+    # (d) each family's reduced config, card against CPU
+    for arch in FAMILY_ARCHS:
+        add(_reduced_card_vs_cpu(torch, arch))
+    return counts
 
 
 def phase_reduced(torch, card):
@@ -4213,7 +4664,13 @@ def main() -> None:
     print(f"[phase] reduced model {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    # 14. results: each kernel's launches over every path that ran it
+    # 14. the moe, hybrid and ssm / xlstm text families
+    t0 = time.perf_counter()
+    for k, v in phase_families(torch, card).items():
+        pipeline_counts[k] = pipeline_counts.get(k, 0) + v
+    print(f"[phase] families {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 15. results: each kernel's launches over every path that ran it
     for k, v in pipeline_counts.items():
         counts[k] = counts.get(k, 0) + v
     rows = []

@@ -7,12 +7,15 @@ seed), draws the model's weights from ``--seed``, serves the load through
 the fixed-capacity lane array with the compressed uplink and the
 quantised decode activation ring, and prints requests/s, tokens/s,
 p50/p99 token latency and the exact wire and ring bytes.  It runs on the
-card unless ``--device cpu`` is given.  The dense archs only: the other
-families (the cross-attention vlm / audio ones among them) come with
-slice 7c of the port.
+card unless ``--device cpu`` is given.  The text-family archs (dense,
+moe, hybrid, ssm / xlstm); the cross-attention families (vlm / audio)
+come with slice 7d of the port.  llama4-scout-17b-a16e's full widths
+(216 GB of bf16 parameters) do not fit one card: serve it reduced.
 
   python -m repro_torch.launch.serve --arch smollm-360m --full \\
       --requests 32 --capacity 8 --prompt-len 16 --gen 16
+  python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --full \\
+      --requests 8 --capacity 4 --prompt-len 4096 --gen 16
   python -m repro_torch.launch.serve --device cpu \\
       --requests 8 --capacity 4 --prompt-len 8 --gen 6
 """
@@ -127,7 +130,7 @@ def main(argv=None):
     check_args(args)
     try:
         cfg = get_config(args.arch)
-    except NotImplementedError as e:      # another family: slice 7c
+    except NotImplementedError as e:      # vlm / audio: slice 7d
         raise SystemExit(f"repro_torch.launch.serve: {e}") from None
     if not args.full:
         cfg = cfg.reduced()

@@ -35,12 +35,12 @@ from ..optim import Optimizer, apply_updates
 
 
 def batch_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
-    """The text family's training / prefill batch: {key: (shape,
+    """The text families' training / prefill batch: {key: (shape,
     dtype)}, keys in the reference's order."""
-    if cfg.family != "dense":
+    if cfg.family in ("vlm", "audio"):
         raise NotImplementedError(
             f"{cfg.name} (the {cfg.family} family): its batches come with "
-            f"slice 7c of the port (ROADMAP.md)")
+            f"slice 7d of the port (ROADMAP.md)")
     B, S = shape.global_batch, shape.seq_len
     spec: Dict[str, Any] = {"tokens": ((B, S), torch.int64)}
     if shape.kind == "train":

@@ -4,16 +4,18 @@ train.py``).
 ``--arch wdl-criteo | dssm-avazu`` trains on the synthetic vertically
 partitioned stream with the selected protocol (vanilla | fedbcd | celu)
 and reports AUC and communication accounting (rounds, bytes, simulated-WAN
-seconds).  ``--arch`` one of the dense LLM ids (smollm-360m, deepseek-7b,
-yi-34b, codeqwen1.5-7b) runs the same round over the split LLM on the
-synthetic token stream (``--batch-size``, ``--seq-len``; ``--reduced``
-for the small CPU geometry; ``--remat/--no-remat`` for the towers'
-activation checkpointing) and reports the loss; past 2,048 tokens its
-attention takes gradients through K9-LSE and K10.  The other LLM
-families come with slice 7c.  ``--cache-dtype`` sets the workset rings'
-at-rest precision (float32 | bfloat16 | int8 | int4) and
-``--compression`` the wire codec (a ``core.compression.CODEC_SPECS`` name
-or ``up/down``).  ``--pipeline-depth D`` drives the pipelined scheduler
+seconds).  ``--arch`` one of the text-family LLM ids (dense:
+smollm-360m, deepseek-7b, yi-34b, codeqwen1.5-7b; moe:
+granite-moe-3b-a800m, llama4-scout-17b-a16e; hybrid: hymba-1.5b; ssm:
+xlstm-125m) runs the same round over the split LLM on the synthetic
+token stream (``--batch-size``, ``--seq-len``; ``--reduced`` for the
+small CPU geometry; ``--remat/--no-remat`` for the towers' activation
+checkpointing) and reports the loss; past 2,048 tokens its attention
+takes gradients through K9-LSE and K10.  The cross-attention families
+(vlm / audio) only serve, as in the reference.  ``--cache-dtype`` sets
+the workset rings' at-rest precision (float32 | bfloat16 | int8 | int4)
+and ``--compression`` the wire codec (a ``core.compression.CODEC_SPECS``
+name or ``up/down``).  ``--pipeline-depth D`` drives the pipelined scheduler
 (``engine.make_pipeline``): D = 1 overlaps round t+1's exchange with round
 t's local updates, D >= 2 keeps a D-deep queue of exchanges whose
 per-slot staleness discounts the weights and damps the updates by
@@ -46,6 +48,9 @@ the card unless ``--device cpu`` is given.
         --fault-drop-prob 0.3 --resume /tmp/c.npz
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
         --device cpu --reduced --rounds 4 --batch-size 2 --seq-len 16
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch granite-moe-3b-a800m --device cpu --reduced --rounds 3 \\
+        --batch-size 2 --seq-len 16
 
 As in the reference, the LLM path takes no fault plan and no
 checkpoint: it ignores those flags.
@@ -85,24 +90,18 @@ def _sync(device: torch.device) -> None:
 
 
 def refuse_unported(args) -> None:
-    """Exit with a message on any flag whose feature this slice of the
-    port does not have."""
-    later = []
-    family = LATER_ARCH_IDS.get(args.arch)
-    if family in ("vlm", "audio"):
+    """Exit with a message on an arch the training CLI does not take: the
+    cross-attention families (vlm / audio), which the reference only
+    serves and dry-runs, and unknown ids."""
+    if LATER_ARCH_IDS.get(args.arch) in ("vlm", "audio"):
         raise SystemExit("protocol training demo uses text-family archs; "
                          "vlm/audio exercise the serving path "
-                         "(launch.serve) and the dry-run")
-    if family is not None:
-        later.append(f"--arch {args.arch} (the {family} family, slice 7c)")
-    elif args.arch not in DLRM_IDS + ARCH_IDS:
+                         "(launch.serve) and the dry-run (in the port: "
+                         "slice 7d, ROADMAP.md)")
+    if args.arch not in DLRM_IDS + ARCH_IDS:
         raise SystemExit(f"repro_torch.launch.train: unknown arch "
                          f"{args.arch!r}: the ids are "
                          f"{DLRM_IDS + ARCH_IDS}")
-    if later:
-        raise SystemExit("repro_torch.launch.train: not in the port yet: "
-                         + "; ".join(later)
-                         + " (see ROADMAP.md; repro.launch.train has them)")
 
 
 def make_opt(args, uniforms=None):
@@ -408,8 +407,8 @@ def train_dlrm(args, uniforms=None, opt=None, celu=None) -> Dict[str, Any]:
 
 
 def llm_task(cfg: ArchConfig, remat: bool = True) -> VFLTask:
-    """The two-party task over the LLM split (text family): the parties'
-    parameters are ``vfl.PartyParams``; ``remat`` toggles the towers'
+    """The two-party task over the LLM split (text families): the
+    parties' parameters are ``vfl.PartyParams``; ``remat`` toggles the towers'
     activation checkpointing."""
     def forward_a(pa, batch_a):
         return vfl.forward_a(pa, cfg, batch_a, train=True, remat=remat)

@@ -1,3 +1,4 @@
 """Models of the port: the paper's DLRMs (``models/tabular.py``) and the
 LLM split models (``models/vfl.py`` over ``backbone.py`` / ``layers.py``,
-the dense family)."""
+with ``moe.py``, ``ssm.py`` and ``xlstm.py``: the dense, moe, hybrid and
+ssm / xlstm text families)."""

@@ -1,25 +1,32 @@
 """Family backbones: blocks and stage-stacked towers.
 
-Port of ``repro/models/backbone.py`` for the dense (llama) family.  A
-*tower* is a list of stages; each stage is ``(pattern, repeat)``, where
-``pattern`` is a tuple of block types forming a super-block that repeats
-``repeat`` times.  As in the reference, a stage's parameters stack the
-repeats along a leading L axis on every leaf; the reference scans over L,
-the port loops over it in Python.
+Port of ``repro/models/backbone.py`` for the text families.  A *tower* is
+a list of stages; each stage is ``(pattern, repeat)``, where ``pattern``
+is a tuple of block types forming a super-block that repeats ``repeat``
+times.  As in the reference, a stage's parameters stack the repeats along
+a leading L axis on every leaf; the reference scans over L, the port
+loops over it in Python.
 
 Block types:
-  dense : RMSNorm -> GQA attn -> RMSNorm -> gated MLP     (llama family)
+  dense   : RMSNorm -> GQA attn -> RMSNorm -> gated MLP     (llama family)
+  moe     : RMSNorm -> GQA attn -> RMSNorm -> MoE FFN
+  hybrid  : RMSNorm -> (attn ∥ mamba)/2 -> RMSNorm -> MLP   (hymba)
+  mlstm   : RMSNorm -> mLSTM cell                            (xlstm)
+  slstm   : RMSNorm -> sLSTM cell                            (xlstm)
 
-The other families' block types of the reference (``moe``, ``hybrid``,
-``mlstm``, ``slstm``, ``cross``, ``enc``) come with slice 7c of the port
-(ROADMAP.md): :func:`tower_stages` refuses a config of another family.
+The cross-attention block types of the reference (``cross``, ``enc``:
+the vlm / audio families) come with slice 7d of the port (ROADMAP.md):
+:func:`tower_stages` refuses a config of those families.
 
 Three execution modes share block code: full sequence, prefill (full
-sequence that also emits the decode caches) and decode (one token against
-the caches, which it updates in place).  In training (``Ctx.train``) with
+sequence that also emits the decode caches: KV rings, the SSM's state and
+conv tail, the xLSTM cells' states) and decode (one token against the
+caches, which it updates in place).  In training (``Ctx.train``) with
 ``Ctx.remat`` each layer of the full-sequence forward runs under
 ``torch.utils.checkpoint``, as the reference wraps its stage-scan body in
-``jax.checkpoint``: the backward recomputes the layer's activations.
+``jax.checkpoint``: the backward recomputes the layer's activations.  A
+block's full-sequence forward returns its auxiliary loss (the MoE's
+load-balance term, 0.0 for the others), summed over the tower.
 """
 from __future__ import annotations
 
@@ -31,6 +38,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from . import layers as L
+from . import moe as M
+from . import ssm as S
+from . import xlstm as X
 
 
 def tree_map(fn, tree, *rest):
@@ -48,15 +58,32 @@ def tree_map(fn, tree, *rest):
 # --------------------------------------------------------------------------
 # Tower stage layouts
 # --------------------------------------------------------------------------
+TEXT_FAMILIES = ("dense", "moe", "hybrid", "ssm")
+
+
 def tower_stages(cfg: ArchConfig, n_layers: int
                  ) -> Sequence[Tuple[Tuple[str, ...], int]]:
-    """The text tower of ``n_layers`` dense blocks, one stage."""
-    if cfg.family != "dense":
+    """The text tower of ``n_layers`` layers (the reference's
+    ``role="text"`` layouts): one stage of the family's block, or for
+    xlstm an ``("slstm",) + ("mlstm",) * (k - 1)`` super-block per
+    ``slstm_every`` = k layers and an ``("mlstm",)`` remainder."""
+    if cfg.family not in TEXT_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name} (the {cfg.family} family): its blocks come with "
-            f"slice 7c of the port (ROADMAP.md); the port runs the dense "
-            f"family")
-    return [(("dense",), n_layers)] if n_layers > 0 else []
+            f"{cfg.name} (the {cfg.family} family): its cross-attention "
+            f"blocks come with slice 7d of the port (ROADMAP.md); the port "
+            f"runs the text families {TEXT_FAMILIES}")
+    if n_layers <= 0:
+        return []
+    if cfg.family == "ssm":  # xlstm
+        k = cfg.xlstm.slstm_every if cfg.xlstm else 4
+        stages = []
+        n_super, rem = divmod(n_layers, k)
+        if n_super:
+            stages.append((("slstm",) + ("mlstm",) * (k - 1), n_super))
+        if rem:
+            stages.append((("mlstm",), rem))
+        return stages
+    return [((cfg.family,), n_layers)]
 
 
 # --------------------------------------------------------------------------
@@ -64,18 +91,35 @@ def tower_stages(cfg: ArchConfig, n_layers: int
 # --------------------------------------------------------------------------
 def block_init(gen, cfg: ArchConfig, btype: str, lead=()):
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    return {"ln1": L.rmsnorm_init(d, gen.device, lead),
-            "ln2": L.rmsnorm_init(d, gen.device, lead),
-            "attn": L.attention_init(gen, d, cfg.n_heads, cfg.n_kv_heads,
-                                     hd, qkv_bias=cfg.qkv_bias, lead=lead),
-            "ffn": L.mlp_init(gen, d, cfg.d_ff, lead)}
+    dev = gen.device
+
+    def ln():
+        return L.rmsnorm_init(d, dev, lead)
+    if btype in ("dense", "moe"):
+        p = {"ln1": ln(), "ln2": ln(),
+             "attn": L.attention_init(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                      hd, qkv_bias=cfg.qkv_bias, lead=lead)}
+        p["ffn"] = M.moe_init(gen, d, cfg.d_ff, cfg.moe, lead) \
+            if btype == "moe" else L.mlp_init(gen, d, cfg.d_ff, lead)
+        return p
+    if btype == "hybrid":
+        return {"ln1": ln(), "lnm": ln(), "ln2": ln(),
+                "attn": L.attention_init(gen, d, cfg.n_heads,
+                                         cfg.n_kv_heads, hd, lead=lead),
+                "mamba": S.mamba_init(gen, d, cfg.ssm, lead),
+                "ffn": L.mlp_init(gen, d, cfg.d_ff, lead)}
+    if btype == "mlstm":
+        return {"ln1": ln(), "cell": X.mlstm_init(gen, d, cfg.n_heads, lead)}
+    if btype == "slstm":
+        return {"ln1": ln(), "cell": X.slstm_init(gen, d, cfg.n_heads, lead)}
+    raise ValueError(btype)
 
 
 @dataclass
 class Ctx:
     """What a block needs besides its parameters and input (the
     reference's ``Ctx`` less the cross-attention memory, which comes with
-    slice 7c)."""
+    slice 7d)."""
     cfg: ArchConfig
     positions: Any = None          # (S,) int32 for full/prefill
     window: int = 0                # sliding window (0 = full)
@@ -87,24 +131,60 @@ class Ctx:
     remat: bool = True
 
 
+def _ffn(params, x, cfg, btype):
+    if btype == "moe":
+        return M.moe_apply(params["ffn"], x, cfg.moe)
+    return L.mlp_apply(params["ffn"], x), 0.0
+
+
+# mLSTM trains in the chunkwise-parallel form; sLSTM is sequential
+_CELLS = {"mlstm": X.mlstm_apply_chunked, "slstm": X.slstm_apply}
+_DECODE_CELLS = {"mlstm": X.mlstm_decode, "slstm": X.slstm_decode}
+
+
 def block_apply_full(params, x, btype: str, ctx: Ctx):
     """Full-sequence forward.  Returns (x, aux_loss)."""
     cfg = ctx.cfg
     eps = cfg.norm_eps
+    if btype in _CELLS:
+        h, _ = _CELLS[btype](params["cell"],
+                             L.rmsnorm(params["ln1"], x, eps))
+        return x + h, 0.0
     h = L.rmsnorm(params["ln1"], x, eps)
-    x = x + L.attention_apply(params["attn"], h, positions=ctx.positions,
-                              theta=cfg.rope_theta, causal=ctx.causal,
-                              window=ctx.window)
+    a = L.attention_apply(params["attn"], h, positions=ctx.positions,
+                          theta=cfg.rope_theta, causal=ctx.causal,
+                          window=ctx.window)
+    if btype == "hybrid":
+        m = S.mamba_apply(params["mamba"],
+                          L.rmsnorm(params["lnm"], x, eps), cfg.ssm)
+        x = x + (a + m) * 0.5
+    else:
+        x = x + a
     h2 = L.rmsnorm(params["ln2"], x, eps)
-    return x + L.mlp_apply(params["ffn"], h2), 0.0
+    y, aux = _ffn(params, h2, cfg, btype)
+    return x + y, aux
 
 
 # ---- caches ---------------------------------------------------------------
 def block_make_cache(cfg: ArchConfig, btype: str, batch: int,
                      capacity: int, device, lead=()):
-    return {"attn": L.make_kv_cache(batch, capacity, cfg.n_kv_heads,
-                                    cfg.resolved_head_dim, device,
-                                    lead=lead)}
+    d, H = cfg.d_model, cfg.n_heads
+    if btype in _CELLS:
+        make = X.make_mlstm_state if btype == "mlstm" else \
+            X.make_slstm_state
+        return {"state": make(batch, H, d // H, device, lead=lead)}
+    cache = {"attn": L.make_kv_cache(batch, capacity, cfg.n_kv_heads,
+                                     cfg.resolved_head_dim, device,
+                                     lead=lead)}
+    if btype == "hybrid":
+        cache["ssm"] = S.make_ssm_cache(batch, d, cfg.ssm, device,
+                                        lead=lead)
+    return cache
+
+
+def _copy_into(cache, new):
+    """Copy a tree of new state tensors into ``cache``'s, in place."""
+    tree_map(lambda c, n: c.copy_(n), cache, new)
 
 
 def block_decode(params, x, btype: str, ctx: Ctx, cache):
@@ -112,19 +192,37 @@ def block_decode(params, x, btype: str, ctx: Ctx, cache):
     cache)."""
     cfg = ctx.cfg
     eps = cfg.norm_eps
+    if btype in _DECODE_CELLS:
+        h, st = _DECODE_CELLS[btype](params["cell"],
+                                     L.rmsnorm(params["ln1"], x, eps),
+                                     cache["state"])
+        _copy_into(cache["state"], st)
+        return x + h, 0.0, cache
     h = L.rmsnorm(params["ln1"], x, eps)
     a, _ = L.attention_decode(params["attn"], h, cache["attn"], ctx.pos,
                               theta=cfg.rope_theta, window=ctx.window)
-    x = x + a
+    if btype == "hybrid":
+        m, _ = S.mamba_decode(params["mamba"],
+                              L.rmsnorm(params["lnm"], x, eps),
+                              cache["ssm"], cfg.ssm)
+        x = x + (a + m) * 0.5
+    else:
+        x = x + a
     h2 = L.rmsnorm(params["ln2"], x, eps)
-    return x + L.mlp_apply(params["ffn"], h2), 0.0, cache
+    y, aux = _ffn(params, h2, cfg, btype)
+    return x + y, aux, cache
 
 
 def block_prefill(params, x, btype: str, ctx: Ctx, capacity: int):
-    """Full-sequence forward that also emits the decode cache: the last
-    ``capacity`` positions' K / V, recomputed from the normed block input
-    as in the reference."""
+    """Full-sequence forward that also emits the decode cache: an xLSTM
+    cell's last state; otherwise the last ``capacity`` positions' K / V,
+    recomputed from the normed block input as in the reference, and for
+    hybrid blocks the SSM's last state and conv tail, recomputed too."""
     cfg = ctx.cfg
+    if btype in _CELLS:
+        h, st = _CELLS[btype](params["cell"],
+                              L.rmsnorm(params["ln1"], x, cfg.norm_eps))
+        return x + h, 0.0, {"state": st}
     y, aux = block_apply_full(params, x, btype, ctx)
     B, Sq = x.shape[0], x.shape[1]
     h = L.rmsnorm(params["ln1"], x, cfg.norm_eps)
@@ -143,7 +241,12 @@ def block_prefill(params, x, btype: str, ctx: Ctx, capacity: int):
     cache["k"][:, slots] = k[:, Sq - tail:]
     cache["v"][:, slots] = v[:, Sq - tail:]
     cache["slot_pos"][:, slots] = tail_pos
-    return y, aux, {"attn": cache}
+    out = {"attn": cache}
+    if btype == "hybrid":
+        out["ssm"] = S.mamba_last_state(
+            params["mamba"], L.rmsnorm(params["lnm"], x, cfg.norm_eps),
+            cfg.ssm)
+    return y, aux, out
 
 
 # --------------------------------------------------------------------------

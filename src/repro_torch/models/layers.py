@@ -1,6 +1,6 @@
 """Core transformer layers: RMSNorm, RoPE, GQA attention, gated MLP.
 
-Port of ``repro/models/layers.py`` (the dense family's part).  Pure
+Port of ``repro/models/layers.py`` (the text families' part).  Pure
 functions over parameter dicts, with the reference's bf16 / fp32 cast
 points: norms, rotary angles and the softmax run in fp32; projections,
 the attention score product and the weighted value sum in the
@@ -26,7 +26,7 @@ Decode differs from the reference in two ways.  ``pos`` may differ per
 batch row (the serving engine's lanes are the batch), so the cache keeps
 one ``slot_pos`` row per batch entry; and the cache is updated in place.
 
-Cross-attention (the vlm / audio families) comes with slice 7c of the
+Cross-attention (the vlm / audio families) comes with slice 7d of the
 port (ROADMAP.md).
 """
 from __future__ import annotations

@@ -1,24 +1,27 @@
 """VFL split model: Party A bottom tower, Party B bottom + top towers.
 
-Port of ``repro/models/vfl.py`` for the text families with token-aligned
-fusion (``fusion="add"``): Party A has a token-aligned auxiliary feature
-stream and its tower's output ``Z_A`` is the activation that crosses the
-party boundary; Party B adds ``Z_A @ fuse_proj`` between its bottom and
-top towers.  The party boundary is the argument list: ``forward_a`` /
-``prefill_a`` / ``decode_step_a`` touch only Party A's parameters, and
-Party B's halves take ``Z_A`` as an argument.
+Port of ``repro/models/vfl.py`` for the text families (dense, moe,
+hybrid, ssm / xlstm) with token-aligned fusion (``fusion="add"``): Party
+A has a token-aligned auxiliary feature stream and its tower's output
+``Z_A`` is the activation that crosses the party boundary; Party B adds
+``Z_A @ fuse_proj`` between its bottom and top towers.  The party
+boundary is the argument list: ``forward_a`` / ``prefill_a`` /
+``decode_step_a`` touch only Party A's parameters, and Party B's halves
+take ``Z_A`` as an argument.
 
-The other families, the vlm / audio ones with cross-attention fusion
-among them, come with slice 7c (``backbone.tower_stages`` refuses them).
-Decode updates the caches in place.
+The vlm / audio families, with cross-attention fusion, come with slice
+7d (``backbone.tower_stages`` refuses them).  Decode updates the caches
+(KV rings, SSM and xLSTM states) in place.
 
 Training: ``per_instance_loss`` is Party B's objective and
-``joint_loss`` the vanilla one; ``train`` / ``remat`` switch on the
-towers' activation checkpointing.  The round engine takes each party's
-parameters as an ``nn.Module``: :class:`PartyParams` holds a party's
-nested tree with parameter paths equal to the reference's pytree paths;
-``forward_a``, ``forward_b``, ``per_instance_loss`` and ``joint_loss``
-take either a tree or a :class:`PartyParams`.
+``joint_loss`` the vanilla one, both carrying the towers' auxiliary loss
+(the MoE load-balance term; ``forward_a`` drops Party A's, as the
+reference does); ``train`` / ``remat`` switch on the towers' activation
+checkpointing.  The round engine takes each party's parameters as an
+``nn.Module``: :class:`PartyParams` holds a party's nested tree with
+parameter paths equal to the reference's pytree paths; ``forward_a``,
+``forward_b``, ``per_instance_loss`` and ``joint_loss`` take either a
+tree or a :class:`PartyParams`.
 """
 from __future__ import annotations
 

@@ -25,10 +25,13 @@ uplink), Party B fuses it and emits the next token (the downlink).
     ``wire_bytes((S, d))`` per prefill.  The downlink is one token id
     (4 bytes), identity by contract.
 
-The engine serves the dense family, whose split is token-aligned
-(``fusion="add"``).  The other families, among them the cross-attention
-ones (vlm / audio) that exchange their memory once at prefill, come with
-slice 7c of the port (ROADMAP.md).
+The engine serves the text families (dense, moe, hybrid, ssm / xlstm),
+whose split is token-aligned (``fusion="add"``): a lane's decode state is
+its KV rings and, for hybrid and xlstm blocks, the SSM's state and conv
+tail and the xLSTM cells' states, each written per lane at admission and
+updated in place by every step.  The cross-attention families (vlm /
+audio), which exchange their memory once at prefill, come with slice 7d
+of the port (ROADMAP.md).
 
 Randomness: the rounding uniforms come from a uniform source
 (``core/uniforms.py``) under tags naming the reference's chain, the

@@ -339,20 +339,40 @@ def test_init_all_shapes_match_reference():
         [(jax.tree_util.keystr(p), s.shape, s.dtype) for p, s in tl]
 
 
-@pytest.mark.parametrize("arch", sorted(LATER_ARCH_IDS))
+@pytest.mark.parametrize("arch", [
+    "granite-moe-3b-a800m", "hymba-1.5b", "llama-3.2-vision-90b",
+    "llama4-scout-17b-a16e", "seamless-m4t-large-v2", "xlstm-125m"])
 def test_other_families_name_their_slice(arch):
+    """The configs of the families beyond dense: the text ones (moe,
+    hybrid, ssm; slice 7c) are the reference's, field for field; the
+    cross-attention ones (vlm, audio) are refused, naming slice 7d."""
     assert jget_config(arch).family != "dense"
-    with pytest.raises(NotImplementedError, match="slice 7c"):
-        get_config(arch)
+    if arch in LATER_ARCH_IDS:
+        assert jget_config(arch).family in ("vlm", "audio")
+        with pytest.raises(NotImplementedError, match="slice 7d"):
+            get_config(arch)
+        return
+    assert arch in ARCH_IDS
+    assert dataclasses.asdict(get_config(arch)) == \
+        dataclasses.asdict(jget_config(arch))
 
 
 @pytest.mark.parametrize("family", ["moe", "hybrid", "ssm", "vlm", "audio"])
 def test_towers_refuse_other_families(family):
-    """A config of another family built by hand is refused where the
-    towers are laid out, before any parameter is drawn."""
-    cfg = dataclasses.replace(CFG, family=family)
-    with pytest.raises(NotImplementedError, match="slice 7c"):
-        TV.init_all(0, cfg)
+    """The towers' stage layouts: a text family's (moe, hybrid, ssm) are
+    the reference's for 1-9 layers; a cross-attention family's (vlm,
+    audio) config built by hand is refused where the towers are laid
+    out, before any parameter is drawn, naming slice 7d."""
+    arch = {"moe": "granite-moe-3b-a800m", "hybrid": "hymba-1.5b",
+            "ssm": "xlstm-125m"}.get(family)
+    if arch is None:
+        cfg = dataclasses.replace(CFG, family=family)
+        with pytest.raises(NotImplementedError, match="slice 7d"):
+            TV.init_all(0, cfg)
+        return
+    for n in range(1, 10):
+        assert TB.tower_stages(get_config(arch), n) == \
+            JB.tower_stages(jget_config(arch), n, "text")
 
 
 def test_make_serve_cache_matches_prefill_layout(params):

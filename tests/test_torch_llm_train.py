@@ -573,12 +573,21 @@ def test_cli_trains_reduced_smollm_on_the_cpu(capsys):
     assert "[done] smollm-360m celu" in text
 
 
-@pytest.mark.parametrize("arch", sorted(LATER_ARCH_IDS))
+@pytest.mark.parametrize("arch", [
+    "granite-moe-3b-a800m", "hymba-1.5b", "llama-3.2-vision-90b",
+    "llama4-scout-17b-a16e", "seamless-m4t-large-v2", "xlstm-125m"])
 def test_cli_refuses_other_families(arch):
-    family = LATER_ARCH_IDS[arch]
-    match = "text-family" if family in ("vlm", "audio") else "slice 7c"
-    with pytest.raises(SystemExit, match=match):
-        TTrain.main(["--arch", arch, "--reduced", "--device", "cpu"])
+    """The cross-attention families (vlm, audio) are refused in the
+    reference's words, naming slice 7d; the other text families train a
+    reduced round on the CPU."""
+    if arch in LATER_ARCH_IDS:
+        with pytest.raises(SystemExit, match="text-family.*slice 7d"):
+            TTrain.main(["--arch", arch, "--reduced", "--device", "cpu"])
+        return
+    out = TTrain.main(["--arch", arch, "--reduced", "--device", "cpu",
+                       "--rounds", "1", "--batch-size", "2", "--seq-len",
+                       "16", "--R", "1", "--W", "2"])
+    assert len(out["losses"]) == 1 and np.isfinite(out["losses"][0])
 
 
 def _count_kernel_calls(monkeypatch):

@@ -281,10 +281,10 @@ def test_cross_attn_family_rejected_with_pointer():
     """The reference serves the cross-attention families through
     naive_generate; the port has neither their configs nor their blocks
     yet and names the slice that brings them."""
-    with pytest.raises(NotImplementedError, match="slice 7c"):
+    with pytest.raises(NotImplementedError, match="slice 7d"):
         get_config("llama-3.2-vision-90b")
     vcfg = dataclasses.replace(CFG, family="vlm")
-    with pytest.raises(NotImplementedError, match="slice 7c"):
+    with pytest.raises(NotImplementedError, match="slice 7d"):
         TV.make_serve_cache(vcfg, 1, PROMPT + 3)
 
 
@@ -507,11 +507,20 @@ def test_cli_default_device_is_cuda():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--arch", "llama-3.2-vision-90b"], "slice 7c"),
-    (["--arch", "seamless-m4t-large-v2"], "slice 7c"),
-    (["--arch", "granite-moe-3b-a800m"], "slice 7c"),
+    (["--arch", "llama-3.2-vision-90b"], "slice 7d"),
+    (["--arch", "seamless-m4t-large-v2"], "slice 7d"),
+    (["--arch", "granite-moe-3b-a800m"], None),
     (["--prompt-len", "3000"], "multiple of 1024"),
 ])
 def test_cli_refuses_what_the_port_does_not_serve(argv, match):
+    """The cross-attention families (slice 7d) and a long prompt off the
+    blockwise grid are refused; granite-moe-3b-a800m (slice 7c) serves,
+    reduced, on the CPU."""
+    if match is None:
+        comps, stats = cli.main(["--device", "cpu", "--requests", "2",
+                                 "--capacity", "2", "--prompt-len", "8",
+                                 "--gen", "3"] + argv)
+        assert len(comps) == 2 and stats["n_requests"] == 2
+        return
     with pytest.raises(SystemExit, match=match):
         cli.main(["--device", "cpu"] + argv)

@@ -215,10 +215,16 @@ def test_cli_rejects_tuning_flags_of_later_slices(flag, capsys, tmp_path):
 
 
 def test_cli_refuses_llm_arch():
-    """The dense LLM archs train here (tests/test_torch_llm_train.py);
-    the other families' come with slice 7c."""
-    with pytest.raises(SystemExit, match="slice 7"):
-        train.main(["--arch", "granite-moe-3b-a800m"] + SMALL)
+    """The text-family LLM archs train (tests/test_torch_llm_train.py,
+    tests/test_torch_families.py): granite-moe-3b-a800m, refused before
+    slice 7c, trains a reduced round here; the cross-attention families
+    are refused, naming slice 7d."""
+    with pytest.raises(SystemExit, match="slice 7d"):
+        train.main(["--arch", "llama-3.2-vision-90b"] + SMALL)
+    out = train.main(["--arch", "granite-moe-3b-a800m", "--reduced",
+                      "--device", "cpu", "--rounds", "1", "--batch-size",
+                      "2", "--seq-len", "16", "--R", "1", "--W", "2"])
+    assert len(out["losses"]) == 1 and np.isfinite(out["losses"][0])
 
 
 def test_default_device_is_cuda():
