@@ -23,7 +23,11 @@ K9's bf16 kernel (``flash_fwd_mma``), in the serving kernel phase:
     ``window`` positions behind each row;
   * ``k9_p_lo_dropped``: for the query tiles from row 3,584 on, o takes
     p's bf16 high half alone (p rounded once to bf16, its low half
-    dropped), so the per-element limit must catch single rounding.
+    dropped), so the per-element limit must catch single rounding;
+  * ``k9_unmasked_made_causal``: with ``causal=False`` and no window (the
+    audio encoder's bidirectional attention) each row still hides the
+    keys after it, so only the non-causal, unwindowed cases (the S = 320
+    tiles at hd 32 and 64; hd 128 masks no tile there) can catch it.
 
 K10's bf16 kernels, in the training kernel phase:
 
@@ -128,6 +132,9 @@ MUTANTS = {
     "window_edge": (
         "vis = vis && (!window || dist < window);",
         "vis = vis && (!window || dist <= window);"),
+    "k9_unmasked_made_causal": (
+        "bool vis = !causal || dist >= 0;",
+        "bool vis = (!causal && window) || dist >= 0;"),
     "k9_p_lo_dropped": (
         "split_frag(s[2 * kk], s[2 * kk + 1], ph, pl);",
         f"split_frag(s[2 * kk], s[2 * kk + 1], ph, pl);"

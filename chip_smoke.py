@@ -45,12 +45,13 @@ Phases, each on its own printed lines (any failure exits non-zero):
   6. the pipelined scheduler (``engine.make_pipeline``): the goldens at
      depth 0 on the card, within the tests' tolerance and bitwise the
      port's ``make_round``; WDL-Criteo at full width through
-     ``train_dlrm`` at ``--pipeline-depth`` 1, 2 and 4 (50 rounds; K1 and
-     K7 launches against the counts derived from the schedule,
+     ``train_dlrm`` at ``--pipeline-depth`` 1, 2 and 4 (50, 50 and 20
+     rounds; K1 and K7 launches against the counts derived from the schedule,
      ``_pipeline_schedule``), uniform sampling at depth 2 and DP
      (sigma 0.5) over the int8 wire (K3), each also five rounds on the
      card against the CPU; ms per round on the host clock (depths 0, 1,
-     2 in turns), device busy ms per round (profiler), the simulated WAN
+     2 in turns), device busy ms per round (profiler, 8-round runs),
+     the simulated WAN
      seconds against the sequential charge and the AUC; smollm-360m at
      full width through ``train_llm`` at depth 1 (3 rounds; K9-LSE, K10,
      K9, K1 and K7 launches derived by ``_llm_launches``), its losses,
@@ -84,19 +85,21 @@ Phases, each on its own printed lines (any failure exits non-zero):
      the scalar ``PipelinedEngine``; 16 lanes of one spec bitwise each
      other; WDL-Criteo at full width over the reference benchmark's job
      grid (lr cycling, seed j, ξ 60° / 45°), 8 rounds and the drain, at
-     N = 1 (bitwise the scalar run), 16 and 128 (depth 0) and 16 (depth
-     2), lanes against their scalar runs, K1 launches derived from the
-     schedule (the same at every N); a ``--no-cache-fusion`` and an
-     int8-cache cohort (K2a / K2b, K3 + K4); job-rounds per second, busy
-     and host ms per fleet round against the sequential loop of scalar
-     runs, in turns;
+     N = 1 (bitwise the scalar run), 16 and 128 (4 rounds; depth 0) and
+     16 (depth 2), lanes against their scalar runs, K1 launches derived
+     from the schedule (the same at every N of a round count); a
+     ``--no-cache-fusion`` and an int8-cache cohort (K2a / K2b, K3 +
+     K4); job-rounds per second, busy (profiled 4-round runs) and host
+     ms per fleet round against the sequential loop of scalar runs, in
+     turns;
   9. the serving kernels against their plain versions: K6 and K11
      bitwise at the serving shape (W = 4 ring slots, C = 8 lanes,
      F = 960) and at a wide ring, K9 at the long-prompt shape
      (1, 4096, 15, 64) bf16, causal, with a window of 1,024, at head
      dim 128 and at the reduced model's (2, 3072, 4, 32), and K9 and
      K9-LSE at S = 320 (an odd number of 64-row tiles) at each head
-     dim, each element within a bf16 ulp of its own magnitude, timed beside
+     dim (causal, windowed, non-causal windowed and with no mask at
+     all), each element within a bf16 ulp of its own magnitude, timed beside
      ``F.scaled_dot_product_attention``, with the rate of the two
      products of its work and of the three it issues, and the
      tensor-core instructions in the SASS of its bf16 kernel (none
@@ -115,9 +118,11 @@ Phases, each on its own printed lines (any failure exits non-zero):
      forward with the row log-sum-exp) and K10's dkv and dq kernels at
      (1, 4096, 15, 64) bf16, causal, with a window of 1,024, at head dim
      128 and in fp32, at the training phase's (2, 4096, 15, 64) in bf16
-     and fp32, at (1, 4096, 15, 128) fp32 and at the reduced model's
-     (2, 3072, 4, 32) in bf16 and fp32, K9-LSE in fp32 at S = 320 at
-     each head dim (causal, windowed, non-causal) and K10 at S = 320 (an
+     and fp32, at (1, 4096, 15, 128) fp32, at the reduced model's
+     (2, 3072, 4, 32) in bf16 and fp32 and at seamless-m4t-large-v2's
+     decoder (2, 4096, 16, 64) bf16, K9-LSE in fp32 at S = 320 at each
+     head dim (causal, windowed, non-causal windowed and with no mask)
+     and K10 at S = 320 (an
      odd number of 64-row tiles) in both dtypes at each head dim, each
      element within a limit of its own magnitude (K10's fp32 cases at
      S = 320 against the fp64 plain version); every fp32 case of K9-LSE
@@ -163,10 +168,25 @@ Phases, each on its own printed lines (any failure exits non-zero):
      lanes against the sequential loop); hymba-1.5b at full widths cut
      to 8 layers (B = 1, S = 4,096) and xlstm-125m at full width and
      depth (B = 2, S = 1,024; Party B's 55 tensors take two K7 launches
-     an update) trained two rounds each and served briefly; each text
-     family's reduced config two celu rounds on the card against the
-     CPU, counters exact, losses within 4e-3;
- 15. a JSON line of per-kernel results, then the last line
+     an update) trained one round each and served briefly; each
+     text family's reduced config two celu rounds on the card against
+     the CPU, counters exact, losses within 4e-3;
+ 15. the cross-attention families (vlm, audio): K9 and K9-LSE at
+     seamless-m4t-large-v2's encoder prefill (1, 4096, 16, 64) with no
+     mask and llama-3.2-vision-90b's decoder prefill (1, 4096, 64, 128,
+     8 KV heads repeated) against the plain attention, timed beside
+     SDPA; seamless-m4t-large-v2 at its published widths and depth
+     trained three ``launch/steps.py`` train steps (B = 2, S = 4,096,
+     AdaGrad through K7; K9-LSE, K10 and K7 launches derived by
+     ``_cross_step_launches``; losses, ms a step, busy ms, peak
+     memory), one B = 1 step through K9-LSE / K10 against the plain
+     attention, and served through the CLI's ``serve_naive`` (4
+     requests, 4,096-token prompts and frames: K9 in the encoder's 24
+     layers, with no mask, and the decoder's 24); the vision config at
+     full widths cut to 10 layers served (2 requests); each family's
+     reduced config (and the vlm one with a cross layer a tower) one
+     train step and one served request on the card against the CPU;
+ 16. a JSON line of per-kernel results, then the last line
      ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
@@ -283,10 +303,13 @@ WIDE_RING = (4, 64, 64 * 960)
 K9_CASES = [((1, 4096, 15, 64), True, 0), ((1, 4096, 15, 64), True, 1024),
             ((1, 4096, 15, 128), True, 0), ((2, 3072, 4, 32), True, 0)]
 # K9 and K9-LSE at S = 320, five 64-row tiles (S % 64 == 0 is all the
-# kernels ask), causal, with a window of 100, and without the causal mask,
-# at each head dim: out and lse held to the same limits
+# kernels ask), causal, with a window of 100, and without the causal mask
+# (with that window, and with no mask at all: the audio encoder's
+# bidirectional attention), at each head dim: out and lse held to the
+# same limits
+ODD_MASKS = ((True, 0), (True, 100), (False, 100), (False, 0))
 K9_ODD_TILES = [((1, 320, 2, hd), causal, window) for hd in (32, 64, 128)
-                for causal, window in ((True, 0), (True, 100), (False, 100))]
+                for causal, window in ODD_MASKS]
 K9_REL_TOL = 2.0 ** -7
 K9_ATOL = 1e-5
 LONG_ARGS = {"--requests": 4, "--capacity": 2, "--prompt-len": 4096,
@@ -323,9 +346,12 @@ K10_CASES = [((1, 4096, 15, 64), "bfloat16", 0),
              ((2, 4096, 15, 64), "float32", 0),
              ((2, 3072, 4, 32), "bfloat16", 0),
              ((1, 4096, 15, 128), "float32", 0),
-             ((2, 3072, 4, 32), "float32", 0)]
+             ((2, 3072, 4, 32), "float32", 0),
+             ((2, 4096, 16, 64), "bfloat16", 0)]
 # The (2, 3072, 4, 32) cases are the reduced model's attention (head dim
-# 32) past 2,048 tokens, whose ad-hoc ∇Z pass takes fp32.  K10's bf16
+# 32) past 2,048 tokens, whose ad-hoc ∇Z pass takes fp32; the
+# (2, 4096, 16, 64) case is seamless-m4t-large-v2's decoder in its train
+# step.  K10's bf16
 # kernels take p and ds into their tensor-core products as bf16 hi + lo,
 # its fp32 kernels take every operand of every product as three bf16
 # parts, six products for each (csrc/flash_attention_bwd.cu); either keeps
@@ -336,15 +362,15 @@ K10_REL = {"bfloat16": 2.0 ** -7, "float32": 2.0 ** -17}
 K10_ATOL = {"bfloat16": 1e-5, "float32": 2e-6}
 # K10 at S = 320, five 64-row tiles (S % 64 == 0 is all the kernels ask,
 # and the fp32 kernels walk 32- or 16-row tiles), in both dtypes at each
-# head dim, causal, with a window of 100, and without the causal mask.
+# head dim, causal, with a window of 100, and without the causal mask
+# (with that window, and with no mask at all).
 # The fp32 cases are held against the fp64 plain version only (on five
 # draws, the fp32 plain version's distance printed beside): on the
 # smoke's draw at hd 128 with the window the fp32 plain version is itself
 # past the limit against fp64 (PERF.md §7 q6).
 K10_ODD_TILES = [((1, 320, 2, hd), dt, causal, window)
                  for dt in ("float32", "bfloat16") for hd in (32, 64, 128)
-                 for causal, window in ((True, 0), (True, 100),
-                                        (False, 100))]
+                 for causal, window in ODD_MASKS]
 # Every fp32 case is also run on four more draws, and on each of the five
 # (the smoke's own draw first) K10 is held to the same limits against the
 # fp64 plain version on the same inputs (the fp32 plain version's own
@@ -374,6 +400,11 @@ TRAIN_ROUNDS = 3
 # the pipeline phase's DP run: noise at sigma · clip on clipped rows
 DP_SIGMA = 0.5
 DP_CLIP = 1.0
+# The pipeline phase's profiled runs (busy ms per round at depths 0-2)
+# and its depth-4 run are cut short for the smoke's time limit: the
+# profiler's collection is the cost of a profiled run
+PIPELINE_BUSY_ROUNDS = 8
+DEPTH4_ROUNDS = 20
 # The full-width train step through K9-LSE / K10 against the same step
 # through the plain attention on the card (B = 1, S = 4,096): both round
 # each layer's attention output and its gradients to bf16, so one-ulp
@@ -400,7 +431,7 @@ REDUCED_SERVE_ARGS = {"--requests": 4, "--capacity": 2,
 # and wire, AdaGrad through K7, remat on) and served (8 requests, 4 lanes,
 # 4,096-token prompts, 16 new tokens); hymba-1.5b at full widths cut to 8
 # layers (2 / 4 / 2) and xlstm-125m at full width and depth, each trained
-# two rounds and served briefly; each text family's reduced() config two
+# one round and served briefly; each text family's reduced() config two
 # celu rounds on the card against the same rounds on the CPU, the losses
 # held to FAMILY_CPU_RTOL (the CPU tests hold the port's rounds to the
 # reference's at 4e-3: tests/test_torch_families.py).
@@ -412,6 +443,9 @@ HYMBA_LAYERS = 8
 HYMBA_TRAIN_ARGS = {"batch_size": 1, "seq_len": 4096, "R": 2, "W": 2}
 XLSTM_TRAIN_ARGS = {"batch_size": 2, "seq_len": 1024, "R": 2, "W": 2}
 SHORT_ROUNDS = 2
+# hymba's and xlstm's full-width rounds are host-bound (8-13 and 26-30 s
+# a round): one round each, for the smoke's time limit
+HOST_BOUND_ROUNDS = 1
 HYMBA_SERVE_ARGS = {"--requests": 2, "--capacity": 2, "--prompt-len": 4096,
                     "--gen": 8, "--rate": 0}
 XLSTM_SERVE_ARGS = {"--requests": 4, "--capacity": 2, "--prompt-len": 256,
@@ -421,6 +455,35 @@ FAMILY_ARCHS = ("granite-moe-3b-a800m", "llama4-scout-17b-a16e",
 FAMILY_REDUCED_ARGS = {"batch_size": 2, "seq_len": 32, "R": 2, "W": 2,
                        "reduced": True}
 FAMILY_CPU_RTOL = 4e-3
+# The cross-attention phase (the vlm and audio families, slice 7d):
+# seamless-m4t-large-v2 at its published widths and depth (24 encoder and
+# 24 decoder layers, split 24 / 18 / 6) trained CROSS_STEPS
+# ``launch/steps.py`` train steps (AdaGrad lr 0.01 through K7, fp32
+# state; B = 2, S = 4,096, so 1,024 audio frames; remat on) and served
+# through the CLI's ``serve_naive`` (B = 1, 4,096-token prompts and as
+# many frames, so the encoder's bidirectional attention takes K9 too);
+# llama-3.2-vision-90b at its full widths cut to 10 layers (one super-
+# block of 4 dense + 1 cross layers a tower: ``VISION_SPLIT``) served
+# only (AdaGrad would need some 88 GB); each family's reduced config, and
+# the vlm one at ``VISION_X_SPLIT`` (a cross layer a tower: the reduced
+# split has none), one train step and one served request on the card
+# against the CPU: the step's loss and the request's loss (the mean
+# negative log-probability of its greedy tokens, both sides fed the CPU's)
+# held to FAMILY_CPU_RTOL relative, its greedy tokens equal wherever the
+# CPU's top-1 margin passes BATCH_MARGIN.
+AUDIO = "seamless-m4t-large-v2"
+VISION = "llama-3.2-vision-90b"
+CROSS_STEPS = 3
+CROSS_TRAIN = {"batch": 2, "seq_len": 4096}
+CROSS_LR = 0.01
+CROSS_PEAK = 75e9                 # past it: train at B = 1 (not reached)
+AUDIO_SERVE_ARGS = {"--requests": 4, "--prompt-len": 4096, "--gen": 16}
+VISION_SPLIT = (0, 5, 5, "cross_attn")
+VISION_SERVE_ARGS = {"--requests": 2, "--prompt-len": 4096, "--gen": 8}
+VISION_X_SPLIT = (0, 2, 2, "cross_attn")
+CROSS_REDUCED = ((VISION, None), (VISION, VISION_X_SPLIT), (AUDIO, None))
+CROSS_REDUCED_TRAIN = {"batch": 2, "seq_len": 32}
+CROSS_REDUCED_SERVE = {"prompt": 16, "gen": 6}
 # K10's bf16 kernels (csrc/flash_attention_bwd.cu): name of the wrapper ->
 # (the kernel's name in the library, the products it issues)
 K10_MMA = {"flash_attention_bwd_dkv": ("flash_bwd_dkv_mma", 6),
@@ -1617,9 +1680,10 @@ def phase_pipeline(torch, card):
     rounds = 50
     runs = {}
     for depth in (1, 2, 4):
-        args = train_args("wdl-criteo", rounds=rounds, pipeline_depth=depth)
+        n = DEPTH4_ROUNDS if depth == 4 else rounds
+        args = train_args("wdl-criteo", rounds=n, pipeline_depth=depth)
         runs[depth], c = _pipeline_run(
-            f"wdl-criteo celu --pipeline-depth {depth}, {rounds} rounds",
+            f"wdl-criteo celu --pipeline-depth {depth}, {n} rounds",
             args, depth, n_wdl)
         check(_adagrad_launches(_party_tensors(runs[depth])) == n_wdl,
               "wdl-criteo: one K7 launch a party update")
@@ -1684,14 +1748,15 @@ def phase_pipeline(torch, card):
         times[depth].append(out)
     for depth, outs in times.items():
         busy, n = _busy_ms_per_round(torch, train_args(
-            "wdl-criteo", rounds=20, pipeline_depth=depth))
+            "wdl-criteo", rounds=PIPELINE_BUSY_ROUNDS, pipeline_depth=depth))
         o = outs[0]
         host = " and ".join(f"{x['steady_round_ms']:.3f}" for x in outs)
         flush = " and ".join(f"{x['flush_ms']:.3f}" for x in outs)
         print(f"[time] wdl-criteo full width B=256 R=W=5 celu "
               f"--pipeline-depth {depth}: {host} ms per round (host clock, "
               f"rounds 2-20 of two runs in turns; the drain {flush} ms); "
-              f"device busy {busy:.3f} ms per round over rounds 2-20 "
+              f"device busy {busy:.3f} ms per round over rounds "
+              f"2-{PIPELINE_BUSY_ROUNDS} "
               f"({n:.0f} kernels per round, evaluation included); "
               f"simulated WAN {o['sim_wan_s']:.3f} s "
               f"against {o['sim_wan_sequential_s']:.3f} s sequential "
@@ -1700,7 +1765,8 @@ def phase_pipeline(torch, card):
               flush=True)
     for depth in (1, 2, 4):
         o = runs[depth]
-        print(f"[time] wdl-criteo --pipeline-depth {depth}, {rounds} rounds: "
+        n = DEPTH4_ROUNDS if depth == 4 else rounds
+        print(f"[time] wdl-criteo --pipeline-depth {depth}, {n} rounds: "
               f"{o['steady_round_ms']:.3f} ms per round (host clock), "
               f"simulated WAN {o['sim_wan_s']:.3f} s against "
               f"{o['sim_wan_sequential_s']:.3f} s sequential, AUC "
@@ -2311,6 +2377,9 @@ def phase_chaos(torch, card):
 # The fleet (repro_torch.fleet)
 # --------------------------------------------------------------------------
 FLEET_ROUNDS = 8                  # benchmarks/fleet.py: ROUNDS
+# N = 128 runs half the rounds, and every profiled run as many (the
+# smoke's time limit: the profiler's collection is its cost)
+FLEET_BIG_ROUNDS = 4
 FLEET_SIZES = (1, 16, 128)        # the reference's, less 512 (time)
 FLEET_LRS = (0.05, 0.03, 0.08, 0.02)   # benchmarks/fleet.py: job_specs
 FLEET_XI = (60.0, 45.0)           # two thresholds: each job its own
@@ -2803,12 +2872,13 @@ def phase_fleet(torch, card):
     fleet; map lanes bitwise the scalar engine; WDL-Criteo at full width
     (B = 256, R = W = 5, fp32 cache and wire) over the reference
     benchmark's job grid, 8 rounds and the drain, at N = 1, 16 and 128
-    (depth 0) and N = 16 at depth 2, each lane of N = 16 against its
-    scalar run, K1 launches per fleet round derived from the schedule
-    (the same at every N); a ``--no-cache-fusion`` cohort (K2a / K2b) and
-    an int8-cache cohort (K3 + K4); job-rounds per second, busy and host
-    ms per fleet round against the sequential loop of scalar runs, in
-    turns.  -> the launches of the phase's runs."""
+    (4 rounds; depth 0) and N = 16 at depth 2, each lane of N = 16
+    against its scalar run, K1 launches per fleet round derived from the
+    schedule (the same at every N); a ``--no-cache-fusion`` cohort (K2a /
+    K2b) and an int8-cache cohort (K3 + K4); job-rounds per second, busy
+    (a profiled 4-round run) and host ms per fleet round against the
+    sequential loop of scalar runs, in turns.  -> the launches of the
+    phase's runs."""
     counts = {}
     t0 = time.perf_counter()
 
@@ -2839,10 +2909,12 @@ def phase_fleet(torch, card):
     for n, depth in [(1, 0), (16, 0), (128, 0), (16, 2)]:
         specs = _fleet_specs(celu, nloc, n, depth)
         label = f"fleet vmap N={n} depth {depth}"
-        res, c, _ = _fleet_vmap_run(torch, wl, specs, FLEET_ROUNDS, label)
-        scans, _ = _pipeline_schedule(depth, FLEET_ROUNDS)
+        rounds = FLEET_BIG_ROUNDS if n == 128 else FLEET_ROUNDS
+        res, c, _ = _fleet_vmap_run(torch, wl, specs, rounds, label)
+        scans, _ = _pipeline_schedule(depth, rounds)
         _want(label, c, fused_sample_2d=2 * R * scans)
         add(c)
+        k1 = c["fused_sample_2d"]
         if n == 1:
             _fleet_bitwise(res, 0, scalar16[0], label)
             print(f"[fleet] {label}: bitwise the scalar PipelinedEngine "
@@ -2855,12 +2927,14 @@ def phase_fleet(torch, card):
                 torch, wl, s, FLEET_ROUNDS) for s in specs[:2]], label)
         busy = None
         if depth == 0:      # the profiled run: busy ms, kernels a round
-            _, c, busy = _fleet_vmap_run(torch, wl, specs, FLEET_ROUNDS,
-                                         label, profile_it=True)
+            _, c, busy = _fleet_vmap_run(torch, wl, specs,
+                                         FLEET_BIG_ROUNDS, label,
+                                         profile_it=True)
             add(c)
         results[(n, depth)] = {"host": [res.wall_s], "busy": busy,
-                               "compile_s": res.compile_s}
-        print(f"[fleet] {label}: K1 launches {c['fused_sample_2d']} "
+                               "compile_s": res.compile_s,
+                               "rounds": rounds}
+        print(f"[fleet] {label}: K1 launches {k1} "
               f"(schedule: {2 * R * scans}, at every N); compile "
               f"{res.compile_s:.2f} s", flush=True)
         lap(label)
@@ -2881,17 +2955,18 @@ def phase_fleet(torch, card):
           f"job-round, host clock, set-up left out); card {card}",
           flush=True)
     for (n, depth), r in results.items():
-        timed = FLEET_ROUNDS - 1          # round 1 is the warm-up
+        timed = r["rounds"] - 1           # round 1 is the warm-up
         rates = [n * timed / w for w in r["host"]]
         host_ms = [1e3 * w / timed for w in r["host"]]
         busy = "not profiled" if r["busy"] is None else (
             f"device busy {r['busy'][0]:.3f} ms per fleet round "
-            f"({r['busy'][1]:.0f} kernels per round, warm-up included)")
+            f"({r['busy'][1]:.0f} kernels per round, warm-up included; a "
+            f"profiled {FLEET_BIG_ROUNDS}-round run)")
         print(f"[time] fleet N={n} depth {depth}: "
               f"{' / '.join(f'{x:.2f}' for x in rates)} job-rounds per s "
               f"({max(rates) / max(seq_rate):.2f}x the sequential loop's "
               f"best); host {' / '.join(f'{x:.3f}' for x in host_ms)} ms "
-              f"per fleet round (rounds 2-{FLEET_ROUNDS} and the drain); "
+              f"per fleet round (rounds 2-{r['rounds']} and the drain); "
               f"{busy}; card {card}", flush=True)
 
     # the other gate kernels in a cohort: K2a / K2b and K3 + K4
@@ -3714,10 +3789,16 @@ def phase_train_kernels(torch):
             with torch.no_grad():
                 lib_f = device_ms(torch, library, 10)
                 fwd_names = _profiled(torch, library)[1]
+            # the backward alone: the forward and the backward captured
+            # in a CUDA graph, less the forward (the profiler can miss
+            # cuDNN's kernels once an earlier profiler ran in the process;
+            # it names the kernels only)
+            def both():
+                return torch.autograd.grad(library(), (qt, kt, vt), do_t)
+            lib_b = device_ms(torch, both, 10) - lib_f
             out = library()
-            # the backward alone, of a graph kept from one forward
-            lib_b, bwd_names = _profiled(torch, lambda: torch.autograd.grad(
-                out, (qt, kt, vt), do_t, retain_graph=True))
+            bwd_names = _profiled(torch, lambda: torch.autograd.grad(
+                out, (qt, kt, vt), do_t, retain_graph=True))[1]
             del out
             print(f"[kernel] F.scaled_dot_product_attention {tag}: backend "
                   f"{_sdpa_backend(torch, qt, kt, vt)}; forward "
@@ -4084,19 +4165,29 @@ def _plain_attention(route: str) -> list:
             mock.patch.object(L, "flash_attention", fa.flash_attention_plain)]
 
 
-def _attention_layers(cfg):
-    """-> the attention-bearing layers (dense, moe and hybrid blocks) of
-    the split model's towers: (Party A's, Party B's bottom, its top)."""
+def _attention_layers(cfg, frames: int = 0):
+    """-> the layers whose self-attention runs past 2,048 tokens on the
+    long path (dense, moe, hybrid and cross blocks; an audio encoder's
+    ``enc`` blocks when its ``frames`` pass the threshold too) of the
+    split model's towers: (Party A's, Party B's bottom, its top)."""
     from repro_torch.models import vfl
-    return tuple(sum(rep * sum(bt in ("dense", "moe", "hybrid")
-                               for bt in pattern)
+    from repro_torch.models.layers import BLOCKWISE_THRESHOLD
+    kinds = ("dense", "moe", "hybrid", "cross") + (
+        ("enc",) if frames > BLOCKWISE_THRESHOLD else ())
+    return tuple(sum(rep * sum(bt in kinds for bt in pattern)
                      for pattern, rep in stages(cfg))
                  for stages in (vfl.stages_a, vfl.stages_b, vfl.stages_top))
 
 
-def _layers(cfg) -> int:
-    """Attention layers of the split model (both parties)."""
-    return sum(_attention_layers(cfg))
+def _layers(cfg, frames: int = 0) -> int:
+    """Long-path attention layers of the split model (both parties)."""
+    return sum(_attention_layers(cfg, frames))
+
+
+def _train_frames(cfg, seq_len: int) -> int:
+    """Audio frames of a training batch of ``seq_len`` tokens (0 for the
+    other families): ``launch/steps.py`` draws S // audio_downsample."""
+    return seq_len // cfg.audio_downsample if cfg.family == "audio" else 0
 
 
 def _step_vs_plain(torch, cfg, seq_len: int, label: str,
@@ -4113,7 +4204,7 @@ def _step_vs_plain(torch, cfg, seq_len: int, label: str,
     shape = ShapeConfig(f"train_{seq_len}", seq_len=seq_len, global_batch=1,
                         kind="train")
     batch = steps.concrete_batch(cfg, shape, seed=0, device="cuda")
-    layers = _layers(cfg)
+    layers = _layers(cfg, _train_frames(cfg, seq_len))
     grads = {}
     for route in ("kernels", "plain"):
         joint = PartyParams(init_all(1, cfg, "cuda"))
@@ -4469,14 +4560,16 @@ def phase_families(torch, card):
     hymba = dataclasses.replace(get_config("hymba-1.5b"),
                                 n_layers=HYMBA_LAYERS)
     xlstm = get_config("xlstm-125m")
-    for cfg, targs, sargs, k9 in (
-            (hymba, HYMBA_TRAIN_ARGS, HYMBA_SERVE_ARGS, True),
-            (xlstm, XLSTM_TRAIN_ARGS, XLSTM_SERVE_ARGS, False)):
+    for cfg, targs, rounds, sargs, k9 in (
+            (hymba, HYMBA_TRAIN_ARGS, HOST_BOUND_ROUNDS, HYMBA_SERVE_ARGS,
+             True),
+            (xlstm, XLSTM_TRAIN_ARGS, HOST_BOUND_ROUNDS, XLSTM_SERVE_ARGS,
+             False)):
         # not profiled: hymba's 176 thousand and xlstm's 678 thousand
         # kernels a round take the profiler minutes to collect
         add(_family_train(torch, card, cfg.name, cfg,
-                          train_args(cfg.name, rounds=SHORT_ROUNDS,
-                                     **targs), profile_last=False))
+                          train_args(cfg.name, rounds=rounds, **targs),
+                          profile_last=False))
         params = vfl.init_all(0, cfg, "cuda")
         if cfg is xlstm:
             n_b = len(list(vfl.PartyParams(params["b"]).parameters()))
@@ -4577,6 +4670,343 @@ def phase_reduced(torch, card):
     return counts
 
 
+# --------------------------------------------------------------------------
+# the cross-attention phase (vlm, audio)
+# --------------------------------------------------------------------------
+def _cross_cfg(arch, split=None, reduced=False):
+    """``arch``'s config (reduced), its split replaced by ``split``."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import VFLConfig
+    cfg = get_config(arch)
+    cfg = cfg.reduced() if reduced else cfg
+    return cfg if split is None else dataclasses.replace(
+        cfg, vfl=VFLConfig(*split))
+
+
+def _cross_step_launches(cfg, seq_len: int, steps: int, n_tensors: int):
+    """The kernels' launches of ``steps`` ``launch/steps.py`` train steps
+    (the joint loss with remat, one AdaGrad update): each long-path
+    attention layer runs K9-LSE in the forward and again in the
+    backward's recompute, and K10 (dkv, dq) once; each update is one K7
+    launch a table of at most 48 of the model's ``n_tensors``."""
+    layers = _layers(cfg, _train_frames(cfg, seq_len))
+    return {"flash_attention_fwd_lse": 2 * layers * steps,
+            "flash_attention_bwd_dkv": layers * steps,
+            "flash_attention_bwd_dq": layers * steps,
+            "fused_adagrad": _adagrad_launches([n_tensors]) * steps}
+
+
+def _cross_k9(torch, card):
+    """K9 and K9-LSE at the cross families' prefill shapes against the
+    plain attention, every element within the K9 / LSE limits, K9-LSE's
+    out bitwise K9's: seamless' encoder (1, 4096, 16, 64) with no mask
+    and the vision decoder's (1, 4096, 64, 128), causal, its 8 KV heads
+    repeated; each timed beside its bound, the plain version and SDPA
+    with the same ``is_causal``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    for label, cfg, causal in (("seamless encoder", _cross_cfg(AUDIO),
+                                False),
+                               ("vision prefill", _cross_cfg(VISION), True)):
+        S, H, Kv, hd = (4096, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.resolved_head_dim)
+
+        def draw(heads):
+            return torch.randn((1, S, heads, hd), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+        q = draw(H)
+        k, v = (L._repeat_kv(draw(Kv), H).contiguous() for _ in range(2))
+        kw = dict(causal=causal, window=0)
+        o = fa.flash_attention(q, k, v, **kw)
+        o_lse, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
+        o_ref, lse_ref = fa.flash_attention_fwd_lse_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        tag = f"B,S,H,hd=1,{S},{H},{hd} ({Kv} KV heads) causal={causal}"
+        check(torch.equal(o, o_lse), f"flash_attention_fwd_lse {tag}: the "
+              f"output differs from K9's without the LSE pointer")
+        err, w_o = _per_element("flash_attention", f"{tag} out", o, o_ref,
+                                K9_REL_TOL, K9_ATOL)
+        _, w_l = _per_element("flash_attention_fwd_lse", f"{tag} lse", lse,
+                              lse_ref, LSE_REL, LSE_ATOL)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal), 10)
+        flops = fa.flops(1, S, H, hd, causal, 0)
+        t = _timed(torch, f"{'flash_attention':30s} {label} {tag}",
+                   lambda: fa.flash_attention(q, k, v, **kw),
+                   lambda: fa.flash_attention_plain(q, k, v, **kw), err,
+                   fa.nbytes(q), flops,
+                   library=f"F.scaled_dot_product_attention(is_causal="
+                   f"{causal}) {lib_ms * 1e3:.2f} us",
+                   peak=PEAK_BF16_FLOPS, iters=10)
+        print(f"[cross] {label} {'flash_attention':17s} {tag}: max |err| "
+              f"{err:.3g}, worst err / limit out {w_o:.3g} (limit 2^-7 "
+              f"|ref| + {K9_ATOL:g}), lse {w_l:.3g}; K9-LSE's out bitwise "
+              f"K9's; {t['ms'] * 1e3:.2f} us ({flops / t['ms'] / 1e9:.1f} "
+              f"TFLOP/s of its work), bound {t['bound_ms'] * 1e3:.3f} us "
+              f"({t['bound_by']}), plain {t['plain_ms'] * 1e3:.2f} us, SDPA "
+              f"{lib_ms * 1e3:.2f} us; card {card}", flush=True)
+        del q, k, v, o, o_lse, o_ref, lse, lse_ref, qt, kt, vt
+    torch.cuda.empty_cache()
+
+
+def _cross_train(torch, card):
+    """seamless-m4t-large-v2 at full width: CROSS_STEPS train steps with
+    AdaGrad through K7 (fp32 state), the launches derived by
+    ``_cross_step_launches``, each step's loss and host ms, the last step
+    under the profiler (busy ms, kernels); the peak memory.  -> the
+    launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.bridge import reference_parameters
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch import steps
+    from repro_torch.models.initializers import _leaves
+    from repro_torch.models.vfl import PartyParams, init_all
+    from repro_torch.optim import make_optimizer
+
+    cfg = _cross_cfg(AUDIO)
+    B, S = CROSS_TRAIN["batch"], CROSS_TRAIN["seq_len"]
+    shape = ShapeConfig("train", seq_len=S, global_batch=B, kind="train")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tree = init_all(0, cfg, "cuda")
+    n_party = [sum(t.numel() for t in _leaves(tree[p])) for p in "ab"]
+    params = PartyParams(tree)
+    leaves = reference_parameters(params)
+    opt = make_optimizer("adagrad", CROSS_LR, use_pallas=True)
+    state = opt.init(leaves)
+    step = steps.make_train_step(cfg, opt)
+    batch = steps.concrete_batch(cfg, shape, seed=0, device="cuda")
+    print(f"[cross] {cfg.name}: {cfg.enc_layers} encoder + {cfg.n_layers} "
+          f"decoder layers (split {cfg.vfl_split.layers_a} / "
+          f"{cfg.vfl_split.layers_b} / {cfg.vfl_split.layers_top}), d "
+          f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.resolved_head_dim}, "
+          f"vocabulary {cfg.vocab_size} ({cfg.padded_vocab} padded); "
+          f"parameters a party {n_party} ({len(leaves)} tensors); batch "
+          f"{ {k: tuple(v.shape) for k, v in batch.items()} }", flush=True)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    _cuda.reset_launches()
+    losses, ms = [], []
+    for i in range(CROSS_STEPS):
+        if i == CROSS_STEPS - 1:
+            prof.start()
+        t0 = time.perf_counter()
+        _, state, loss = step(params, state, batch)
+        losses.append(float(loss))          # syncs
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    prof.stop()
+    counts = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = _cross_step_launches(cfg, S, CROSS_STEPS, len(leaves))
+    print(f"[cross] {cfg.name} train steps (B={B}, S={S}, "
+          f"{_train_frames(cfg, S)} frames, AdaGrad lr {CROSS_LR} through "
+          f"K7, remat on): launches {counts}", flush=True)
+    _want(f"{cfg.name} train steps", counts, **want)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kernels) / 1e3
+    print(f"[cross] {cfg.name}: losses per step {losses}; ms per step on "
+          f"the host clock {[round(x, 3) for x in ms]} (the last under the "
+          f"profiler: device busy {busy:.3f} ms in {len(kernels)} kernels, "
+          f"{100 * busy / ms[-1]:.1f} % busy); peak device memory "
+          f"{peak:,} B (limit {CROSS_PEAK:,.0f}); card {card}", flush=True)
+    top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    for e in top[:8]:
+        print(f"[cross]   {e.self_device_time_total / 1e3:9.3f} ms  "
+              f"{e.count:7d} calls  {e.key[:70]}")
+    check(all(math.isfinite(x) for x in losses)
+          and abs(losses[0] - math.log(cfg.vocab_size)) < 1.0,
+          f"{cfg.name} train losses {losses} (a random model starts near "
+          f"ln V = {math.log(cfg.vocab_size):.3f})")
+    check(peak <= CROSS_PEAK, f"{cfg.name} train step peak memory {peak:,} "
+          f"B past {CROSS_PEAK:,.0f}")
+    del params, leaves, state, tree, batch, prof, kernels, top
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in want}
+
+
+def _cross_serve(torch, card, arch, cfg, argv_map, frames):
+    """``python -m repro_torch.launch.serve --arch arch --full`` over
+    ``cfg`` (its ``get_config`` patched in this scope to give ``cfg``, so
+    a config cut in depth serves too), which serves a cross-attention
+    family through ``serve_naive``: K9 in every long-path attention
+    layer of each prefill (``frames`` the encoder's), warm call
+    included; then one more request under the profiler.  -> (launches,
+    stats)."""
+    from unittest import mock
+
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch import serve as cli
+    from repro_torch.models import vfl
+    from repro_torch.models.initializers import _leaves
+    argv = ["--arch", arch, "--full"] + [
+        a for kv in argv_map.items() for a in map(str, kv)]
+    args = cli.build_parser().parse_args(argv)
+    _cuda.reset_launches()
+    with mock.patch.object(cli, "get_config", lambda arch: cfg):
+        toks, stats = cli.main(argv)
+    c = dict(_cuda.LAUNCHES)
+    params = vfl.init_all(args.seed, cfg, "cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    want = {"flash_attention": _layers(cfg, frames) * (args.requests + 1)}
+    walls = [round(1e3 * w, 3) for w in stats["walls"]]
+    split = cfg.vfl_split
+    print(f"[cross] {cfg.name} served (split {split.layers_a} / "
+          f"{split.layers_b} / {split.layers_top}, {n_params:,} "
+          f"parameters): {args.requests} requests of a "
+          f"{args.prompt_len}-token prompt and {args.gen} new tokens "
+          f"through serve_naive: {stats['tok_per_s']:.2f} tok/s, "
+          f"{stats['ms_per_token']:.3f} ms per token, ms per request "
+          f"{walls}; launches {c}; tokens {toks.tolist()}; card {card}",
+          flush=True)
+    _want(f"{cfg.name} serving", c, **want)
+    check(((toks >= 0) & (toks < cfg.vocab_size)).all().item(),
+          f"{cfg.name} serving: a token out of the vocabulary")
+    # one more request, outside the counted run, under the profiler: the
+    # card's busy time and its top ops
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import make_naive_fns, naive_generate
+    batch = cli.naive_batch(cfg, args.prompt_len, args.seed, "cuda")
+    fns = make_naive_fns(cfg, args.prompt_len + args.gen)
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        naive_generate(params, cfg, batch, args.gen, fns=fns).cpu()
+        wall = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kernels) / 1e3
+    print(f"[cross] {cfg.name} one request under the profiler: {wall:.3f} "
+          f"ms on the host clock, device busy {busy:.3f} ms in "
+          f"{len(kernels)} kernels ({100 * busy / wall:.1f} % busy)",
+          flush=True)
+    for e in sorted(prof.key_averages(),
+                    key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"[cross]   {e.self_device_time_total / 1e3:9.3f} ms  "
+              f"{e.count:7d} calls  {e.key[:70]}")
+    del params, prof, kernels, batch
+    torch.cuda.empty_cache()
+    return c, stats
+
+
+def _cross_reduced_card_vs_cpu(torch, arch, split):
+    """One train step and one served request of ``arch``'s reduced config
+    (its split replaced by ``split``) on the card against the same on
+    the CPU from the same parameters: the step's loss and the request's
+    (the mean negative log-probability of the CPU's greedy tokens at the
+    prefill and each decode step, both sides fed those tokens) within
+    FAMILY_CPU_RTOL relative; the card's greedy tokens the CPU's wherever
+    the CPU's top-1 margin passes BATCH_MARGIN.  -> the card's
+    launches."""
+    from repro_torch.bridge import reference_parameters
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch import steps
+    from repro_torch.models import vfl
+    from repro_torch.models.backbone import tree_map
+    from repro_torch.optim import make_optimizer
+
+    cfg = _cross_cfg(arch, split, reduced=True)
+    tree0 = vfl.init_all(0, cfg, "cpu")
+    B, S = CROSS_REDUCED_TRAIN["batch"], CROSS_REDUCED_TRAIN["seq_len"]
+    P, G = CROSS_REDUCED_SERVE["prompt"], CROSS_REDUCED_SERVE["gen"]
+    train = ShapeConfig("train", seq_len=S, global_batch=B, kind="train")
+    pre = ShapeConfig("prefill", seq_len=P, global_batch=1, kind="prefill")
+    runs, tokens = {}, None
+    counts = {}
+    for dev in ("cpu", "cuda"):
+        tree = tree_map(lambda t: t.to(dev), tree0)
+        params = vfl.PartyParams(tree_map(torch.clone, tree))
+        opt = make_optimizer("adagrad", CROSS_LR, use_pallas=True)
+        state = opt.init(reference_parameters(params))
+        _cuda.reset_launches()
+        _, _, loss = steps.make_train_step(cfg, opt)(
+            params, state, steps.concrete_batch(cfg, train, 0, dev))
+        batch = steps.concrete_batch(cfg, pre, 1, dev)
+        with torch.no_grad():
+            logits, caches = vfl.prefill(tree, cfg, batch, P + G)
+            rows = [logits[0, -1]]
+            if tokens is None:              # the CPU's greedy tokens
+                tokens = [int(rows[0].argmax())]
+            for i in range(G - 1):
+                sb = {"token": torch.tensor([[tokens[i]]], device=dev)}
+                logits, caches = vfl.decode_step(tree, cfg, caches, sb,
+                                                 P + i)
+                rows.append(logits[0, -1])
+                if len(tokens) < G:
+                    tokens.append(int(rows[-1].argmax()))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = dict(_cuda.LAUNCHES)
+        own = [int(r.argmax()) for r in rows]
+        runs[dev] = (float(loss), torch.stack(rows).float().cpu(), own)
+    (lc, rc, tc), (lg, rg, tg) = runs["cpu"], runs["cuda"]
+    loss_dev = abs(lg - lc) / abs(lc)
+    idx = torch.tensor(tc)[:, None]
+    nll = [-torch.log_softmax(r, -1).gather(1, idx).mean().item()
+           for r in (rg, rc)]
+    nll_dev = abs(nll[0] - nll[1]) / abs(nll[1])
+    top2 = rc.topk(2, -1).values
+    wide = ((top2[:, 0] - top2[:, 1]) > BATCH_MARGIN).tolist()
+    same = [a == b for a, b in zip(tg, tc)]
+    name = cfg.name + ("" if split is None else f" split {split[:3]}")
+    print(f"[cross] {name}: train step card / CPU loss {lg:.6f} / {lc:.6f} "
+          f"(rel dev {loss_dev:.3g}); served request ({P}-token prompt, "
+          f"{G} tokens): loss {nll[0]:.6f} / {nll[1]:.6f} (rel dev "
+          f"{nll_dev:.3g}; limit {FAMILY_CPU_RTOL} for both), logits max "
+          f"|dev| {(rg - rc).abs().max().item():.3g}; greedy tokens {tg} / "
+          f"{tc} ({sum(wide)} of {G} past the margin {BATCH_MARGIN}); "
+          f"launches { {k: v for k, v in counts.items() if v} }",
+          flush=True)
+    check(math.isfinite(lg) and loss_dev <= FAMILY_CPU_RTOL
+          and nll_dev <= FAMILY_CPU_RTOL
+          and all(s for s, w in zip(same, wide) if w),
+          f"{name} reduced card vs CPU: loss {lg} / {lc}, request loss "
+          f"{nll}, tokens {tg} / {tc}, margins past {BATCH_MARGIN} {wide}")
+    _want(f"{name} reduced train step", counts,
+          fused_adagrad=_adagrad_launches(
+              [len(reference_parameters(vfl.PartyParams(tree0)))]))
+    return counts
+
+
+def phase_cross(torch, card):
+    """The cross-attention families (vlm, audio; see CROSS_STEPS); ->
+    the kernels' launch counts over the phase's runs."""
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    # (a) seamless-m4t-large-v2 at full width: the train steps, one B = 1
+    # step through the kernels against the plain attention, K9 at the
+    # encoder's prefill shape, the served requests (the encoder over
+    # 4,096 frames: K9 with no mask in its 24 layers)
+    _cross_k9(torch, card)
+    add(_cross_train(torch, card))
+    cfg = _cross_cfg(AUDIO)
+    _step_vs_plain(torch, cfg, CROSS_TRAIN["seq_len"],
+                   f"{cfg.name} full-width")
+    torch.cuda.empty_cache()
+    add(_cross_serve(torch, card, AUDIO, cfg, AUDIO_SERVE_ARGS,
+                     AUDIO_SERVE_ARGS["--prompt-len"])[0])
+
+    # (b) llama-3.2-vision-90b at full widths, 10 layers: served
+    add(_cross_serve(torch, card, VISION, _cross_cfg(VISION, VISION_SPLIT),
+                     VISION_SERVE_ARGS, 0)[0])
+
+    # (c) the reduced configs, card against CPU
+    for arch, split in CROSS_REDUCED:
+        add(_cross_reduced_card_vs_cpu(torch, arch, split))
+    return counts
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"run from a checkout of the repository: {SRC}/repro_torch "
@@ -4670,7 +5100,13 @@ def main() -> None:
         pipeline_counts[k] = pipeline_counts.get(k, 0) + v
     print(f"[phase] families {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 15. results: each kernel's launches over every path that ran it
+    # 15. the vlm and audio families (cross-attention)
+    t0 = time.perf_counter()
+    for k, v in phase_cross(torch, card).items():
+        pipeline_counts[k] = pipeline_counts.get(k, 0) + v
+    print(f"[phase] cross {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 16. results: each kernel's launches over every path that ran it
     for k, v in pipeline_counts.items():
         counts[k] = counts.get(k, 0) + v
     rows = []

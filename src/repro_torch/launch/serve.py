@@ -6,11 +6,14 @@ seeded load (``serve/loadgen.py``, the reference's traffic for one
 seed), draws the model's weights from ``--seed``, serves the load through
 the fixed-capacity lane array with the compressed uplink and the
 quantised decode activation ring, and prints requests/s, tokens/s,
-p50/p99 token latency and the exact wire and ring bytes.  It runs on the
-card unless ``--device cpu`` is given.  The text-family archs (dense,
-moe, hybrid, ssm / xlstm); the cross-attention families (vlm / audio)
-come with slice 7d of the port.  llama4-scout-17b-a16e's full widths
-(216 GB of bf16 parameters) do not fit one card: serve it reduced.
+p50/p99 token latency and the exact wire and ring bytes.  The
+token-aligned (``fusion="add"``) archs run the engine; the
+cross-attention families (vlm / audio) exchange their memory once at
+prefill and decode on Party B alone, so they take the sequential
+:func:`repro_torch.serve.naive_generate` loop (:func:`serve_naive`), as
+in the reference.  It runs on the card unless ``--device cpu`` is given.
+llama4-scout-17b-a16e's full widths (216 GB of bf16 parameters) and
+llama-3.2-vision-90b's (181.5 GB) do not fit one card: serve them reduced.
 
   python -m repro_torch.launch.serve --arch smollm-360m --full \\
       --requests 32 --capacity 8 --prompt-len 16 --gen 16
@@ -18,6 +21,10 @@ come with slice 7d of the port.  llama4-scout-17b-a16e's full widths
       --requests 8 --capacity 4 --prompt-len 4096 --gen 16
   python -m repro_torch.launch.serve --device cpu \\
       --requests 8 --capacity 4 --prompt-len 8 --gen 6
+  python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 --full \\
+      --requests 4 --prompt-len 4096 --gen 16
+  python -m repro_torch.launch.serve --arch llama-3.2-vision-90b \\
+      --device cpu --requests 2 --prompt-len 8 --gen 4
 """
 from __future__ import annotations
 
@@ -25,12 +32,14 @@ import argparse
 import time
 
 import numpy as np
+import torch
 
 from .. import resolve_device
-from ..configs import ARCH_IDS, LATER_ARCH_IDS, get_config
+from ..configs import ARCH_IDS, get_config
 from ..models import layers as L
 from ..models import vfl
-from ..serve import LoadSpec, ServeConfig, ServeEngine, synth_requests
+from ..serve import (LoadSpec, ServeConfig, ServeEngine, make_naive_fns,
+                     naive_generate, synth_requests)
 
 
 def percentiles(comps):
@@ -86,10 +95,60 @@ def serve_engine(args, cfg, params, uniforms=None):
     return comps, stats, eng
 
 
+def naive_batch(cfg, prompt_len: int, seed: int, device):
+    """The one request :func:`serve_naive` serves, drawn as the reference
+    draws it (B = 1): prompt tokens, then the patch embeddings (vlm) or
+    ``prompt_len`` frame embeddings (audio), from
+    ``np.random.default_rng(seed)``."""
+    B, S = 1, prompt_len
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S),
+                                    dtype=np.int32).astype(np.int64)}
+    if cfg.family == "vlm":
+        batch["patches"] = rng.normal(
+            size=(B, cfg.n_patches, cfg.d_frontend)).astype(np.float32)
+    else:
+        batch["frames"] = rng.normal(
+            size=(B, S, cfg.d_frontend)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+@torch.no_grad()
+def serve_naive(args, cfg, params):
+    """The sequential loop for the cross-attention families: the memory
+    crosses once at prefill, decode is Party B's alone.  One warm call,
+    then ``--requests`` timed generations of one request (B = 1).  ->
+    (the last generation's tokens (1, gen), stats: ``walls`` (s a
+    request), ``tok_per_s``, ``ms_per_token``)."""
+    dev = params["b"]["embed"].device
+    S = args.prompt_len
+    fns = make_naive_fns(cfg, S + args.gen)
+    batch = naive_batch(cfg, S, args.seed, dev)
+    naive_generate(params, cfg, batch, args.gen, fns=fns).cpu()   # warm
+    walls = []
+    toks = None
+    for _ in range(args.requests):
+        t0 = time.perf_counter()
+        toks = naive_generate(params, cfg, batch, args.gen, fns=fns).cpu()
+        walls.append(time.perf_counter() - t0)
+    total = sum(walls)
+    stats = {"walls": walls,
+             "tok_per_s": args.requests * args.gen / total,
+             "ms_per_token": total / args.requests / args.gen * 1e3}
+    print(f"arch={cfg.name} ({cfg.family}): cross-attn family — memory "
+          f"crosses once at prefill; sequential naive_generate loop; "
+          f"device={dev}")
+    print(f"{args.requests} requests x {args.gen} tokens in {total:.2f} s "
+          f"-> {stats['tok_per_s']:.0f} tok/s, "
+          f"{stats['ms_per_token']:.1f} ms/token")
+    print("generated token ids (first request):", toks.numpy()[0][:16])
+    return toks, stats
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="smollm-360m",
-                    choices=ARCH_IDS + tuple(LATER_ARCH_IDS))
+                    choices=ARCH_IDS)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--requests", type=int, default=32)
@@ -126,16 +185,17 @@ def check_args(args) -> None:
 
 
 def main(argv=None):
+    """-> (completions, stats) of the engine, or (tokens, stats) of
+    :func:`serve_naive` for a cross-attention family."""
     args = build_parser().parse_args(argv)
     check_args(args)
-    try:
-        cfg = get_config(args.arch)
-    except NotImplementedError as e:      # vlm / audio: slice 7d
-        raise SystemExit(f"repro_torch.launch.serve: {e}") from None
+    cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
     dev = resolve_device(args.device)
     params = vfl.init_all(args.seed, cfg, dev)
+    if cfg.vfl_split.fusion != "add":
+        return serve_naive(args, cfg, params)
     comps, stats, _ = serve_engine(args, cfg, params)
     return comps, stats
 

@@ -35,17 +35,23 @@ from ..optim import Optimizer, apply_updates
 
 
 def batch_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
-    """The text families' training / prefill batch: {key: (shape,
-    dtype)}, keys in the reference's order."""
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name} (the {cfg.family} family): its batches come with "
-            f"slice 7d of the port (ROADMAP.md)")
+    """A family's training / prefill batch: {key: (shape, dtype)}, keys
+    in the reference's order.  The frontends are stubs: a vlm batch
+    carries patch embeddings (B, n_patches, d_frontend), an audio batch
+    frame embeddings (B, S // audio_downsample, d_frontend), both fp32;
+    a text batch Party A's token stream."""
     B, S = shape.global_batch, shape.seq_len
     spec: Dict[str, Any] = {"tokens": ((B, S), torch.int64)}
     if shape.kind == "train":
         spec["labels"] = ((B, S), torch.int64)
-    spec["tokens_a"] = ((B, S), torch.int64)
+    if cfg.family == "vlm":
+        spec["patches"] = ((B, cfg.n_patches, cfg.d_frontend),
+                           torch.float32)
+    elif cfg.family == "audio":
+        spec["frames"] = ((B, S // cfg.audio_downsample, cfg.d_frontend),
+                          torch.float32)
+    else:
+        spec["tokens_a"] = ((B, S), torch.int64)
     return spec
 
 
@@ -53,13 +59,17 @@ def concrete_batch(cfg: ArchConfig, shape: ShapeConfig, seed: int = 0,
                    device="cpu") -> Dict[str, torch.Tensor]:
     """A batch of ``batch_specs`` drawn from ``np.random.default_rng(seed)``
     key by key, as the reference draws it: token ids below the vocabulary
-    (the auxiliary one for ``tokens_a``)."""
+    (the auxiliary one for ``tokens_a``), embeddings standard normal."""
     rng = np.random.default_rng(seed)
     out = {}
-    for k, (shp, _) in batch_specs(cfg, shape).items():
-        hi = cfg.vocab_size if k != "tokens_a" else cfg.aux_vocab_size
-        ids = rng.integers(0, hi, size=shp, dtype=np.int32)
-        out[k] = torch.from_numpy(ids.astype(np.int64)).to(device)
+    for k, (shp, dtype) in batch_specs(cfg, shape).items():
+        if dtype == torch.float32:
+            x = rng.normal(size=shp).astype(np.float32)
+        else:
+            hi = cfg.vocab_size if k != "tokens_a" else cfg.aux_vocab_size
+            x = rng.integers(0, hi, size=shp, dtype=np.int32).astype(
+                np.int64)
+        out[k] = torch.from_numpy(x).to(device)
     return out
 
 
@@ -84,9 +94,13 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, *,
     the slice), and divides loss and gradients by their number."""
 
     def grads_of(params, leaves, batch):
+        # a leaf the loss does not reach (Party A's, where no cross layer
+        # reads Z_A) gets a zero gradient, as jax.grad gives it
         with torch.enable_grad():
             loss = vfl.joint_loss(params, cfg, batch, train=True)
-            return loss, torch.autograd.grad(loss, leaves)
+            return loss, torch.autograd.grad(loss, leaves,
+                                             allow_unused=True,
+                                             materialize_grads=True)
 
     def train_step(params, opt_state, batch):
         leaves = reference_parameters(params)

@@ -12,7 +12,8 @@ token stream (``--batch-size``, ``--seq-len``; ``--reduced`` for the
 small CPU geometry; ``--remat/--no-remat`` for the towers' activation
 checkpointing) and reports the loss; past 2,048 tokens its attention
 takes gradients through K9-LSE and K10.  The cross-attention families
-(vlm / audio) only serve, as in the reference.  ``--cache-dtype`` sets
+(vlm / audio) are refused, as in the reference: they serve
+(``launch/serve.py``) and train by ``launch/steps.py``'s train step.  ``--cache-dtype`` sets
 the workset rings' at-rest precision (float32 | bfloat16 | int8 | int4)
 and ``--compression`` the wire codec (a ``core.compression.CODEC_SPECS``
 name or ``up/down``).  ``--pipeline-depth D`` drives the pipelined scheduler
@@ -66,7 +67,7 @@ import torch
 
 from .. import checkpoint as ckpt
 from .. import resolve_device
-from ..configs import ARCH_IDS, DLRM_IDS, LATER_ARCH_IDS, get_config
+from ..configs import ARCH_IDS, DLRM_IDS, get_config
 from ..configs.base import ArchConfig, CELUConfig, DropoutSpan, FaultPlan
 from ..core import engine
 from ..core.faults import ChaosEngine
@@ -91,13 +92,13 @@ def _sync(device: torch.device) -> None:
 
 def refuse_unported(args) -> None:
     """Exit with a message on an arch the training CLI does not take: the
-    cross-attention families (vlm / audio), which the reference only
-    serves and dry-runs, and unknown ids."""
-    if LATER_ARCH_IDS.get(args.arch) in ("vlm", "audio"):
+    cross-attention families (vlm / audio), in the reference's words, and
+    unknown ids."""
+    if args.arch in ARCH_IDS and \
+            get_config(args.arch).family in vfl.CROSS_FAMILIES:
         raise SystemExit("protocol training demo uses text-family archs; "
                          "vlm/audio exercise the serving path "
-                         "(launch.serve) and the dry-run (in the port: "
-                         "slice 7d, ROADMAP.md)")
+                         "(launch.serve) and the dry-run")
     if args.arch not in DLRM_IDS + ARCH_IDS:
         raise SystemExit(f"repro_torch.launch.train: unknown arch "
                          f"{args.arch!r}: the ids are "

@@ -1,6 +1,6 @@
 """Family backbones: blocks and stage-stacked towers.
 
-Port of ``repro/models/backbone.py`` for the text families.  A *tower* is
+Port of ``repro/models/backbone.py``.  A *tower* is
 a list of stages; each stage is ``(pattern, repeat)``, where ``pattern``
 is a tuple of block types forming a super-block that repeats ``repeat``
 times.  As in the reference, a stage's parameters stack the repeats along
@@ -13,10 +13,12 @@ Block types:
   hybrid  : RMSNorm -> (attn ∥ mamba)/2 -> RMSNorm -> MLP   (hymba)
   mlstm   : RMSNorm -> mLSTM cell                            (xlstm)
   slstm   : RMSNorm -> sLSTM cell                            (xlstm)
+  cross   : RMSNorm -> self attn -> RMSNorm -> cross attn -> RMSNorm -> MLP
+  enc     : RMSNorm -> bidirectional attn -> RMSNorm -> MLP  (audio encoder)
 
-The cross-attention block types of the reference (``cross``, ``enc``:
-the vlm / audio families) come with slice 7d of the port (ROADMAP.md):
-:func:`tower_stages` refuses a config of those families.
+A ``cross`` block attends to ``Ctx.memory`` (the other party's Z) with no
+rotary embedding; in decode it reads the memory's K / V, projected once
+at prefill into its cache's ``xmem``.
 
 Three execution modes share block code: full sequence, prefill (full
 sequence that also emits the decode caches: KV rings, the SSM's state and
@@ -58,22 +60,28 @@ def tree_map(fn, tree, *rest):
 # --------------------------------------------------------------------------
 # Tower stage layouts
 # --------------------------------------------------------------------------
-TEXT_FAMILIES = ("dense", "moe", "hybrid", "ssm")
-
-
-def tower_stages(cfg: ArchConfig, n_layers: int
+def tower_stages(cfg: ArchConfig, n_layers: int, role: str = "text"
                  ) -> Sequence[Tuple[Tuple[str, ...], int]]:
-    """The text tower of ``n_layers`` layers (the reference's
-    ``role="text"`` layouts): one stage of the family's block, or for
-    xlstm an ``("slstm",) + ("mlstm",) * (k - 1)`` super-block per
-    ``slstm_every`` = k layers and an ``("mlstm",)`` remainder."""
-    if cfg.family not in TEXT_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name} (the {cfg.family} family): its cross-attention "
-            f"blocks come with slice 7d of the port (ROADMAP.md); the port "
-            f"runs the text families {TEXT_FAMILIES}")
+    """The stages of a tower of ``n_layers`` layers.  ``role``: ``enc``
+    (the audio encoder, ``enc`` blocks), ``audio_dec`` (a ``cross``
+    block in every layer), ``vlm`` (a ``("dense",) * (k - 1) +
+    ("cross",)`` super-block per ``cross_attn_every`` = k layers and a
+    ``("dense",)`` remainder) or ``text``: one stage of the family's
+    block, or for xlstm an ``("slstm",) + ("mlstm",) * (k - 1)``
+    super-block per ``slstm_every`` = k layers and an ``("mlstm",)``
+    remainder."""
     if n_layers <= 0:
         return []
+    if role == "enc":
+        return [(("enc",), n_layers)]
+    if role == "audio_dec":
+        return [(("cross",), n_layers)]
+    if role == "vlm":
+        k = cfg.cross_attn_every
+        n_super, rem = divmod(n_layers, k)
+        stages = [(("dense",) * (k - 1) + ("cross",), n_super)] \
+            if n_super else []
+        return stages + ([(("dense",), rem)] if rem else [])
     if cfg.family == "ssm":  # xlstm
         k = cfg.xlstm.slstm_every if cfg.xlstm else 4
         stages = []
@@ -83,7 +91,8 @@ def tower_stages(cfg: ArchConfig, n_layers: int
         if rem:
             stages.append((("mlstm",), rem))
         return stages
-    return [((cfg.family,), n_layers)]
+    return [(({"moe": "moe", "hybrid": "hybrid"}.get(cfg.family, "dense"),),
+             n_layers)]
 
 
 # --------------------------------------------------------------------------
@@ -95,7 +104,7 @@ def block_init(gen, cfg: ArchConfig, btype: str, lead=()):
 
     def ln():
         return L.rmsnorm_init(d, dev, lead)
-    if btype in ("dense", "moe"):
+    if btype in ("dense", "moe", "enc"):
         p = {"ln1": ln(), "ln2": ln(),
              "attn": L.attention_init(gen, d, cfg.n_heads, cfg.n_kv_heads,
                                       hd, qkv_bias=cfg.qkv_bias, lead=lead)}
@@ -108,6 +117,13 @@ def block_init(gen, cfg: ArchConfig, btype: str, lead=()):
                                          cfg.n_kv_heads, hd, lead=lead),
                 "mamba": S.mamba_init(gen, d, cfg.ssm, lead),
                 "ffn": L.mlp_init(gen, d, cfg.d_ff, lead)}
+    if btype == "cross":
+        return {"ln1": ln(), "lnx": ln(), "ln2": ln(),
+                "attn": L.attention_init(gen, d, cfg.n_heads,
+                                         cfg.n_kv_heads, hd, lead=lead),
+                "xattn": L.attention_init(gen, d, cfg.n_heads,
+                                          cfg.n_kv_heads, hd, lead=lead),
+                "ffn": L.mlp_init(gen, d, cfg.d_ff, lead)}
     if btype == "mlstm":
         return {"ln1": ln(), "cell": X.mlstm_init(gen, d, cfg.n_heads, lead)}
     if btype == "slstm":
@@ -117,11 +133,11 @@ def block_init(gen, cfg: ArchConfig, btype: str, lead=()):
 
 @dataclass
 class Ctx:
-    """What a block needs besides its parameters and input (the
-    reference's ``Ctx`` less the cross-attention memory, which comes with
-    slice 7d)."""
+    """What a block needs besides its parameters and input."""
     cfg: ArchConfig
     positions: Any = None          # (S,) int32 for full/prefill
+    memory: Any = None             # (B, S_mem, d) for cross blocks
+    memory_positions: Any = None
     window: int = 0                # sliding window (0 = full)
     causal: bool = True
     pos: Any = None                # decode: int or (B,) int32
@@ -152,7 +168,8 @@ def block_apply_full(params, x, btype: str, ctx: Ctx):
         return x + h, 0.0
     h = L.rmsnorm(params["ln1"], x, eps)
     a = L.attention_apply(params["attn"], h, positions=ctx.positions,
-                          theta=cfg.rope_theta, causal=ctx.causal,
+                          theta=cfg.rope_theta,
+                          causal=ctx.causal and btype != "enc",
                           window=ctx.window)
     if btype == "hybrid":
         m = S.mamba_apply(params["mamba"],
@@ -160,6 +177,13 @@ def block_apply_full(params, x, btype: str, ctx: Ctx):
         x = x + (a + m) * 0.5
     else:
         x = x + a
+    if btype == "cross":
+        hx = L.rmsnorm(params["lnx"], x, eps)
+        x = x + L.attention_apply(params["xattn"], hx,
+                                  positions=ctx.positions,
+                                  theta=cfg.rope_theta, memory=ctx.memory,
+                                  memory_positions=ctx.memory_positions,
+                                  use_rope=False)
     h2 = L.rmsnorm(params["ln2"], x, eps)
     y, aux = _ffn(params, h2, cfg, btype)
     return x + y, aux
@@ -167,7 +191,9 @@ def block_apply_full(params, x, btype: str, ctx: Ctx):
 
 # ---- caches ---------------------------------------------------------------
 def block_make_cache(cfg: ArchConfig, btype: str, batch: int,
-                     capacity: int, device, lead=()):
+                     capacity: int, device, lead=(), memory_len: int = 0):
+    """A block's decode cache; a ``cross`` block's holds the memory's
+    K / V (``xmem``: (B, memory_len, Kv, hd) bf16), written at prefill."""
     d, H = cfg.d_model, cfg.n_heads
     if btype in _CELLS:
         make = X.make_mlstm_state if btype == "mlstm" else \
@@ -179,6 +205,11 @@ def block_make_cache(cfg: ArchConfig, btype: str, batch: int,
     if btype == "hybrid":
         cache["ssm"] = S.make_ssm_cache(batch, d, cfg.ssm, device,
                                         lead=lead)
+    if btype == "cross":
+        shape = tuple(lead) + (batch, memory_len, cfg.n_kv_heads,
+                               cfg.resolved_head_dim)
+        cache["xmem"] = {n: torch.zeros(shape, dtype=L.PARAM_DTYPE,
+                                        device=device) for n in "kv"}
     return cache
 
 
@@ -208,6 +239,9 @@ def block_decode(params, x, btype: str, ctx: Ctx, cache):
         x = x + (a + m) * 0.5
     else:
         x = x + a
+    if btype == "cross":
+        hx = L.rmsnorm(params["lnx"], x, eps)
+        x = x + L.cross_attention_decode(params["xattn"], hx, cache["xmem"])
     h2 = L.rmsnorm(params["ln2"], x, eps)
     y, aux = _ffn(params, h2, cfg, btype)
     return x + y, aux, cache
@@ -216,8 +250,9 @@ def block_decode(params, x, btype: str, ctx: Ctx, cache):
 def block_prefill(params, x, btype: str, ctx: Ctx, capacity: int):
     """Full-sequence forward that also emits the decode cache: an xLSTM
     cell's last state; otherwise the last ``capacity`` positions' K / V,
-    recomputed from the normed block input as in the reference, and for
-    hybrid blocks the SSM's last state and conv tail, recomputed too."""
+    recomputed from the normed block input as in the reference, for
+    hybrid blocks the SSM's last state and conv tail, recomputed too, and
+    for cross blocks the memory's K / V."""
     cfg = ctx.cfg
     if btype in _CELLS:
         h, st = _CELLS[btype](params["cell"],
@@ -226,13 +261,8 @@ def block_prefill(params, x, btype: str, ctx: Ctx, capacity: int):
     y, aux = block_apply_full(params, x, btype, ctx)
     B, Sq = x.shape[0], x.shape[1]
     h = L.rmsnorm(params["ln1"], x, cfg.norm_eps)
-    attn = params["attn"]
-    k = L._proj(h, attn["wk"])
-    v = L._proj(h, attn["wv"])
-    if "bk" in attn:
-        k = k + attn["bk"]
-        v = v + attn["bv"]
-    k = L.rope(k, ctx.positions, cfg.rope_theta)
+    kv = L.project_memory_kv(params["attn"], h)
+    k, v = L.rope(kv["k"], ctx.positions, cfg.rope_theta), kv["v"]
     tail = min(capacity, Sq)
     tail_pos = ctx.positions[Sq - tail:].to(torch.int32)
     slots = torch.remainder(tail_pos, capacity).long()
@@ -246,6 +276,8 @@ def block_prefill(params, x, btype: str, ctx: Ctx, capacity: int):
         out["ssm"] = S.mamba_last_state(
             params["mamba"], L.rmsnorm(params["lnm"], x, cfg.norm_eps),
             cfg.ssm)
+    if btype == "cross":
+        out["xmem"] = L.project_memory_kv(params["xattn"], ctx.memory)
     return y, aux, out
 
 
@@ -264,9 +296,10 @@ def tower_init(gen, cfg: ArchConfig, stages):
 
 
 def tower_make_cache(cfg: ArchConfig, stages, batch: int, capacity: int,
-                     device):
+                     device, memory_len: int = 0):
     return [{f"b{i}": block_make_cache(cfg, bt, batch, capacity, device,
-                                       lead=(repeat,))
+                                       lead=(repeat,),
+                                       memory_len=memory_len)
              for i, bt in enumerate(pattern)}
             for (pattern, repeat) in stages]
 

@@ -1,6 +1,6 @@
 """Core transformer layers: RMSNorm, RoPE, GQA attention, gated MLP.
 
-Port of ``repro/models/layers.py`` (the text families' part).  Pure
+Port of ``repro/models/layers.py``.  Pure
 functions over parameter dicts, with the reference's bf16 / fp32 cast
 points: norms, rotary angles and the softmax run in fp32; projections,
 the attention score product and the weighted value sum in the
@@ -19,15 +19,18 @@ Attention supports:
     (K9-LSE forward, K10 backward) when one is.  The kernels take the
     score product in fp32, the blockwise oracle rounds it to bf16
     first, so long sequences differ from the reference by that
-    rounding;
-  * one-token decode against a ring-buffer KV cache.
+    rounding.  Non-causal attention (the audio encoder) takes the same
+    kernels with no mask;
+  * cross-attention to a memory (the vlm / audio families): queries of
+    one length against keys and values projected from a memory of
+    another, always through the dense ``_sdpa`` with an all-true mask,
+    as in the reference, whatever the lengths;
+  * one-token decode against a ring-buffer KV cache, and against
+    memory K / V projected once at prefill (:func:`project_memory_kv`).
 
 Decode differs from the reference in two ways.  ``pos`` may differ per
 batch row (the serving engine's lanes are the batch), so the cache keeps
 one ``slot_pos`` row per batch entry; and the cache is updated in place.
-
-Cross-attention (the vlm / audio families) comes with slice 7d of the
-port (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -129,15 +132,26 @@ def _proj(x, w):
         x.shape[:-1] + (h, k))
 
 
-def _project_qkv(params, x):
+def _project_q(params, x):
     q = _proj(x, params["wq"])
-    k = _proj(x, params["wk"])
-    v = _proj(x, params["wv"])
-    if "bq" in params:
-        q = q + params["bq"]
+    return q + params["bq"] if "bq" in params else q
+
+
+def project_memory_kv(params, memory):
+    """K / V projected from ``memory`` (B, S_mem, d): the self-attention's
+    from its own input, the cross-attention's from the other party's Z
+    (precomputed once for decode).  -> {"k", "v"}: (B, S_mem, Kv, hd)."""
+    k = _proj(memory, params["wk"])
+    v = _proj(memory, params["wv"])
+    if "bk" in params:
         k = k + params["bk"]
         v = v + params["bv"]
-    return q, k, v
+    return {"k": k, "v": v}
+
+
+def _project_qkv(params, x, kv_src=None):
+    kv = project_memory_kv(params, x if kv_src is None else kv_src)
+    return _project_q(params, x), kv["k"], kv["v"]
 
 
 def _out_proj(out, wo):
@@ -178,19 +192,31 @@ def _causal_mask(q_pos, k_pos, window: int):
 
 
 def attention_apply(params, x, *, positions, theta: float = 10000.0,
-                    causal: bool = True, window: int = 0):
-    """Full-sequence self-attention.  ``positions`` are the tokens'
-    absolute positions ``arange(S)`` (the long path's kernels mask by
-    index).  Past ``BLOCKWISE_THRESHOLD`` tokens a gradient, when one is
-    taken, goes through K10."""
+                    causal: bool = True, window: int = 0, memory=None,
+                    memory_positions=None, use_rope: bool = True):
+    """Full-sequence attention.  ``positions`` are the tokens' absolute
+    positions ``arange(S)`` (the long path's kernels mask by index).
+    Self-attention past ``BLOCKWISE_THRESHOLD`` tokens takes the flash
+    kernels, and a gradient, when one is taken, goes through K10.  With
+    ``memory`` (B, S_mem, d) it is cross-attention: K / V come from the
+    memory, no mask, and no rotary embedding on them unless
+    ``memory_positions`` are given."""
     n_heads = params["wq"].shape[1]
-    q, k, v = _project_qkv(params, x)
+    q, k, v = _project_qkv(params, x, memory)
     S = x.shape[1]
-    q = rope(q, positions, theta)
-    k = rope(k, positions, theta)
+    if use_rope:
+        q = rope(q, positions, theta)
+        if memory is None:
+            k = rope(k, positions, theta)
+        elif memory_positions is not None:
+            k = rope(k, memory_positions, theta)
     k = _repeat_kv(k, n_heads)
     v = _repeat_kv(v, n_heads)
-    if S > BLOCKWISE_THRESHOLD:
+    if memory is not None:
+        mask = torch.ones((1, 1, S, k.shape[1]), dtype=torch.bool,
+                          device=x.device)
+        out = _sdpa(q, k, v, mask)
+    elif S > BLOCKWISE_THRESHOLD:
         if S % KV_BLOCK:
             raise ValueError(
                 f"a sequence longer than {BLOCKWISE_THRESHOLD} tokens must "
@@ -265,6 +291,19 @@ def attention_decode(params, x, cache, pos, *, theta: float = 10000.0,
         valid &= dist < window
     out = _sdpa(q, k, v, valid[:, None, None, :])
     return _out_proj(out, params["wo"]), cache
+
+
+def cross_attention_decode(params, x, memory_kv):
+    """Decode-time cross-attention of x (B, 1, d) against memory K / V
+    projected at prefill (``memory_kv``: {"k", "v"}, (B, S_mem, Kv, hd)):
+    no rotary embedding and no mask, as in the reference."""
+    n_heads = params["wq"].shape[1]
+    q = _project_q(params, x)
+    k = _repeat_kv(memory_kv["k"], n_heads)
+    v = _repeat_kv(memory_kv["v"], n_heads)
+    mask = torch.ones((1, 1, 1, k.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    return _out_proj(_sdpa(q, k, v, mask), params["wo"])
 
 
 # --------------------------------------------------------------------------

@@ -1,17 +1,22 @@
 """VFL split model: Party A bottom tower, Party B bottom + top towers.
 
-Port of ``repro/models/vfl.py`` for the text families (dense, moe,
-hybrid, ssm / xlstm) with token-aligned fusion (``fusion="add"``): Party
-A has a token-aligned auxiliary feature stream and its tower's output
-``Z_A`` is the activation that crosses the party boundary; Party B adds
-``Z_A @ fuse_proj`` between its bottom and top towers.  The party
-boundary is the argument list: ``forward_a`` / ``prefill_a`` /
-``decode_step_a`` touch only Party A's parameters, and Party B's halves
-take ``Z_A`` as an argument.
+Port of ``repro/models/vfl.py``.  ``Z_A``, the output of Party A's
+half, is the activation that crosses the party boundary.  Families:
 
-The vlm / audio families, with cross-attention fusion, come with slice
-7d (``backbone.tower_stages`` refuses them).  Decode updates the caches
-(KV rings, SSM and xLSTM states) in place.
+  text  (dense, moe, hybrid, ssm / xlstm): Party A has a token-aligned
+        auxiliary feature stream; Party B adds ``Z_A @ fuse_proj``
+        between its bottom and top towers (``fusion="add"``);
+  vlm   : Party A owns the image: patch embeddings through a two-layer
+          projector; Party B's towers cross-attend to ``Z_A`` every
+          ``cross_attn_every``-th layer (``fusion="cross_attn"``);
+  audio : Party A runs the audio encoder over frame embeddings; every
+          layer of Party B's decoder cross-attends to ``Z_A``.
+
+The party boundary is the argument list: ``forward_a`` / ``prefill_a``
+/ ``decode_step_a`` touch only Party A's parameters, and Party B's
+halves take ``Z_A`` as an argument.  A cross-attention family's memory
+crosses once, at prefill, and decode runs on Party B alone.  Decode
+updates the caches (KV rings, SSM and xLSTM states) in place.
 
 Training: ``per_instance_loss`` is Party B's objective and
 ``joint_loss`` the vanilla one, both carrying the towers' auxiliary loss
@@ -33,7 +38,9 @@ from ..configs.base import ArchConfig
 from . import layers as L
 from .backbone import (Ctx, tower_apply, tower_decode, tower_init,
                        tower_make_cache, tower_prefill, tower_stages)
-from .initializers import dense_init, embed_init
+from .initializers import PARAM_DTYPE, dense_init, embed_init
+
+CROSS_FAMILIES = ("vlm", "audio")
 
 class PartyParams(torch.nn.Module):
     """A nested tree of tensors (dicts and lists, as the reference's
@@ -66,16 +73,23 @@ def as_tree(params):
     return params.tree() if isinstance(params, PartyParams) else params
 
 
+def _role(cfg: ArchConfig) -> str:
+    return {"vlm": "vlm", "audio": "audio_dec"}.get(cfg.family, "text")
+
+
 def stages_a(cfg: ArchConfig):
-    return tower_stages(cfg, cfg.vfl_split.layers_a)
+    if cfg.family == "vlm":
+        return []                       # the projector only
+    return tower_stages(cfg, cfg.vfl_split.layers_a,
+                        "enc" if cfg.family == "audio" else "text")
 
 
 def stages_b(cfg: ArchConfig):
-    return tower_stages(cfg, cfg.vfl_split.layers_b)
+    return tower_stages(cfg, cfg.vfl_split.layers_b, _role(cfg))
 
 
 def stages_top(cfg: ArchConfig):
-    return tower_stages(cfg, cfg.vfl_split.layers_top)
+    return tower_stages(cfg, cfg.vfl_split.layers_top, _role(cfg))
 
 
 def _embed(table, tokens):
@@ -92,18 +106,27 @@ def _arange(S: int, device):
 # Init
 # --------------------------------------------------------------------------
 def init_party_a(gen: torch.Generator, cfg: ArchConfig):
+    if cfg.family == "vlm":
+        return {"proj1": dense_init(gen, cfg.d_frontend, cfg.d_model),
+                "proj2": dense_init(gen, cfg.d_model, cfg.d_model)}
+    if cfg.family == "audio":
+        return {"proj": dense_init(gen, cfg.d_frontend, cfg.d_model),
+                "tower": tower_init(gen, cfg, stages_a(cfg)),
+                "ln": L.rmsnorm_init(cfg.d_model, gen.device)}
     vocab_a = ((cfg.aux_vocab_size + 255) // 256) * 256
     return {"embed": embed_init(gen, vocab_a, cfg.d_model),
             "tower": tower_init(gen, cfg, stages_a(cfg))}
 
 
 def init_party_b(gen: torch.Generator, cfg: ArchConfig):
-    return {"embed": embed_init(gen, cfg.padded_vocab, cfg.d_model),
-            "bottom": tower_init(gen, cfg, stages_b(cfg)),
-            "top": tower_init(gen, cfg, stages_top(cfg)),
-            "ln_f": L.rmsnorm_init(cfg.d_model, gen.device),
-            "head": dense_init(gen, cfg.d_model, cfg.padded_vocab),
-            "fuse_proj": dense_init(gen, cfg.d_model, cfg.d_model)}
+    p = {"embed": embed_init(gen, cfg.padded_vocab, cfg.d_model),
+         "bottom": tower_init(gen, cfg, stages_b(cfg)),
+         "top": tower_init(gen, cfg, stages_top(cfg)),
+         "ln_f": L.rmsnorm_init(cfg.d_model, gen.device),
+         "head": dense_init(gen, cfg.d_model, cfg.padded_vocab)}
+    if cfg.vfl_split.fusion == "add":
+        p["fuse_proj"] = dense_init(gen, cfg.d_model, cfg.d_model)
+    return p
 
 
 def init_all(seed: int, cfg: ArchConfig, device="cpu"):
@@ -119,8 +142,22 @@ def init_all(seed: int, cfg: ArchConfig, device="cpu"):
 # --------------------------------------------------------------------------
 def forward_a(params_a, cfg: ArchConfig, batch: Dict[str, Any],
               train: bool = False, remat: bool = True):
-    """-> Z_A (B, S, d)."""
+    """-> Z_A.  text: (B, S, d); vlm: (B, P, d) (the projector's SiLU in
+    fp32, cast back to bf16); audio: (B, S_a, d) (the frames cast to
+    bf16, projected, through the bidirectional encoder and a final
+    RMSNorm)."""
     params_a = as_tree(params_a)
+    if cfg.family == "vlm":
+        h = L._mm(batch["patches"].to(PARAM_DTYPE), params_a["proj1"])
+        h = torch.nn.functional.silu(h.float()).to(PARAM_DTYPE)
+        return L._mm(h, params_a["proj2"])
+    if cfg.family == "audio":
+        x = L._mm(batch["frames"].to(PARAM_DTYPE), params_a["proj"])
+        ctx = Ctx(cfg, positions=_arange(x.shape[1], x.device),
+                  causal=False, window=cfg.sliding_window, train=train,
+                  remat=remat)
+        x, _ = tower_apply(params_a["tower"], x, cfg, stages_a(cfg), ctx)
+        return L.rmsnorm(params_a["ln"], x, cfg.norm_eps)
     x = _embed(params_a["embed"], batch["tokens_a"])
     ctx = Ctx(cfg, positions=_arange(x.shape[1], x.device),
               window=cfg.sliding_window, train=train, remat=remat)
@@ -143,18 +180,27 @@ def _logits(h, params_b, cfg: ArchConfig):
 
 
 def _fuse(x, z_a, params_b):
-    """x + Z_A · fuse_proj; an fp32 Z_A (the ad-hoc ∇Z pass) makes the
-    sum, and the top tower after it, fp32, as in the reference."""
+    """x + Z_A · fuse_proj under the additive fusion (an fp32 Z_A, the
+    ad-hoc ∇Z pass, makes the sum, and the top tower after it, fp32, as
+    in the reference); x itself under cross-attention, where Z_A is the
+    towers' memory."""
+    if "fuse_proj" not in params_b:
+        return x
     return x + L._mm(z_a, params_b["fuse_proj"])
+
+
+def _memory(cfg: ArchConfig, z_a):
+    return z_a if cfg.vfl_split.fusion == "cross_attn" else None
 
 
 def forward_b(params_b, cfg: ArchConfig, z_a, batch: Dict[str, Any],
               train: bool = False, remat: bool = True):
-    """-> (logits, aux): Z_A enters by the split's additive fusion."""
+    """-> (logits, aux): Z_A enters by the fusion the split declares."""
     params_b = as_tree(params_b)
     x = _embed(params_b["embed"], batch["tokens"])
     ctx = Ctx(cfg, positions=_arange(x.shape[1], x.device),
-              window=cfg.sliding_window, train=train, remat=remat)
+              memory=_memory(cfg, z_a), window=cfg.sliding_window,
+              train=train, remat=remat)
     x, aux1 = tower_apply(params_b["bottom"], x, cfg, stages_b(cfg), ctx)
     x = _fuse(x, z_a, params_b)
     x, aux2 = tower_apply(params_b["top"], x, cfg, stages_top(cfg), ctx)
@@ -192,19 +238,26 @@ def serve_capacity(cfg: ArchConfig, seq_len: int) -> int:
 
 
 def make_serve_cache(cfg: ArchConfig, batch: int, seq_len: int,
-                     device="cpu"):
+                     memory_len: int = 0, device="cpu"):
+    """Empty decode caches; ``memory_len`` sizes a cross-attention
+    family's memory K / V (Party A keeps no decode state there)."""
     cap = serve_capacity(cfg, seq_len)
-    return {
-        "a": tower_make_cache(cfg, stages_a(cfg), batch, cap, device),
-        "b": tower_make_cache(cfg, stages_b(cfg), batch, cap, device),
-        "top": tower_make_cache(cfg, stages_top(cfg), batch, cap, device),
-    }
+    cache = {} if cfg.family in CROSS_FAMILIES else {
+        "a": tower_make_cache(cfg, stages_a(cfg), batch, cap, device)}
+    for k, stages in (("b", stages_b), ("top", stages_top)):
+        cache[k] = tower_make_cache(cfg, stages(cfg), batch, cap, device,
+                                    memory_len)
+    return cache
 
 
 def prefill_a(params_a, cfg: ArchConfig, batch, total_len: int = 0):
     """Party A's half of prefill -> (z_a, cache_a): z_a is the activation
     that crosses the party boundary (the only thing Party B may see);
-    cache_a is Party A's private decode KV state."""
+    cache_a is Party A's private decode KV state (None for the
+    cross-attention families, whose memory crosses once here and is
+    cached inside Party B's towers)."""
+    if cfg.family in CROSS_FAMILIES:
+        return forward_a(params_a, cfg, batch), None
     tokens_a = batch["tokens_a"]
     S = tokens_a.shape[1]
     cap = serve_capacity(cfg, max(total_len, S))
@@ -225,7 +278,7 @@ def prefill_b(params_b, cfg: ArchConfig, z_a, batch, total_len: int = 0):
     caches: Dict[str, Any] = {}
     x = _embed(params_b["embed"], tokens)
     ctx = Ctx(cfg, positions=_arange(S, x.device),
-              window=cfg.sliding_window)
+              memory=_memory(cfg, z_a), window=cfg.sliding_window)
     x, _, caches["b"] = tower_prefill(params_b["bottom"], x, cfg,
                                       stages_b(cfg), ctx, cap)
     x = _fuse(x, z_a, params_b)
@@ -236,11 +289,12 @@ def prefill_b(params_b, cfg: ArchConfig, z_a, batch, total_len: int = 0):
 
 def prefill(params, cfg: ArchConfig, batch, total_len: int = 0):
     """Full-context forward -> (last-position logits, decode caches
-    {"a", "b", "top"}).  ``total_len`` (prompt + generation) sizes the KV
-    rings.  Composed from the party halves."""
+    {"a", "b", "top"}; no "a" for a cross-attention family).
+    ``total_len`` (prompt + generation) sizes the KV rings.  Composed
+    from the party halves."""
     z_a, cache_a = prefill_a(params["a"], cfg, batch, total_len)
     logits, caches_b = prefill_b(params["b"], cfg, z_a, batch, total_len)
-    return logits, {"a": cache_a, **caches_b}
+    return logits, ({} if cache_a is None else {"a": cache_a}) | caches_b
 
 
 def decode_step_a(params_a, cfg: ArchConfig, cache_a, token_a, pos):
@@ -257,7 +311,8 @@ def decode_step_a(params_a, cfg: ArchConfig, cache_a, token_a, pos):
 def decode_step_b(params_b, cfg: ArchConfig, caches, token, z_a_t, pos):
     """Party B's half of one-token decode.  caches: {"b", "top"}; z_a_t
     is the (possibly cache-served, possibly dequantised) Party A
-    activation.  -> (logits (B, 1, V), caches, updated in place)."""
+    activation (None for a cross-attention family, whose memory is in
+    the caches).  -> (logits (B, 1, V), caches, updated in place)."""
     pos = L.batch_positions(pos, token.shape[0], token.device)
     ctx = Ctx(cfg, pos=pos, window=cfg.sliding_window)
     x = _embed(params_b["embed"], token)
@@ -270,11 +325,14 @@ def decode_step_b(params_b, cfg: ArchConfig, caches, token, z_a_t, pos):
 
 
 def decode_step(params, cfg: ArchConfig, caches, step_batch, pos):
-    """One-token decode.  step_batch: {"token": (B, 1), "token_a":
-    (B, 1)}.  -> (logits (B, 1, V), caches, updated in place).  Composed
-    from the party halves."""
-    z_a_t, _ = decode_step_a(params["a"], cfg, caches["a"],
-                             step_batch["token_a"], pos)
+    """One-token decode.  step_batch: {"token": (B, 1)[, "token_a":
+    (B, 1)]} (no ``token_a`` for a cross-attention family).  -> (logits
+    (B, 1, V), caches, updated in place).  Composed from the party
+    halves."""
+    z_a_t = None
+    if cfg.family not in CROSS_FAMILIES:
+        z_a_t, _ = decode_step_a(params["a"], cfg, caches["a"],
+                                 step_batch["token_a"], pos)
     logits, _ = decode_step_b(params["b"], cfg, caches, step_batch["token"],
                               z_a_t, pos)
     return logits, caches

@@ -30,8 +30,9 @@ whose split is token-aligned (``fusion="add"``): a lane's decode state is
 its KV rings and, for hybrid and xlstm blocks, the SSM's state and conv
 tail and the xLSTM cells' states, each written per lane at admission and
 updated in place by every step.  The cross-attention families (vlm /
-audio), which exchange their memory once at prefill, come with slice 7d
-of the port (ROADMAP.md).
+audio) exchange their memory once at prefill and decode on Party B
+alone: the engine refuses them, and :func:`naive_generate` serves them,
+as in the reference.
 
 Randomness: the rounding uniforms come from a uniform source
 (``core/uniforms.py``) under tags naming the reference's chain, the
@@ -274,6 +275,11 @@ class ServeEngine:
 
     def __init__(self, params, cfg: ArchConfig, scfg: ServeConfig,
                  transport=None, uniforms=None):
+        if cfg.vfl_split.fusion != "add":
+            raise ValueError(
+                f"ServeEngine needs a token-aligned (fusion='add') arch; "
+                f"{cfg.name} ({cfg.family}) exchanges its memory once at "
+                f"prefill — serve it with naive_generate")
         if scfg.ring_slots < 1 or scfg.refresh_every < 1:
             raise ValueError("ring_slots and refresh_every must be >= 1")
         self.params = params
@@ -311,7 +317,7 @@ class ServeEngine:
         C, dev = scfg.capacity, self.device
         caches = vfl.make_serve_cache(cfg, C,
                                       scfg.prompt_len + scfg.max_new_tokens,
-                                      dev)
+                                      device=dev)
 
         def i32():
             return torch.zeros(C, dtype=torch.int32, device=dev)
@@ -477,7 +483,8 @@ def naive_generate(params, cfg: ArchConfig, batch: Dict[str, Any],
     """Greedy decode through the monolithic ``vfl.prefill`` /
     ``vfl.decode_step``: the sequential baseline and the oracle the
     engine must match (same aux rule: ``token_a = token % aux_vocab``).
-    -> (B, max_new_tokens) int32 tokens."""
+    Works for every family (a cross-attention family decodes on Party B
+    alone, with no ``token_a``).  -> (B, max_new_tokens) int32 tokens."""
     S = batch["tokens"].shape[1]
     total_len = total_len or S + max_new_tokens
     prefill, decode = fns if fns is not None else \
@@ -486,8 +493,9 @@ def naive_generate(params, cfg: ArchConfig, batch: Dict[str, Any],
     tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
     out = [tok]
     for i in range(max_new_tokens - 1):
-        sb = {"token": tok[:, None],
-              "token_a": torch.remainder(tok, cfg.aux_vocab_size)[:, None]}
+        sb = {"token": tok[:, None]}
+        if cfg.family not in vfl.CROSS_FAMILIES:
+            sb["token_a"] = torch.remainder(tok, cfg.aux_vocab_size)[:, None]
         logits, caches = decode(params, caches, sb, S + i)
         tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
         out.append(tok)

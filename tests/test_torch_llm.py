@@ -33,7 +33,7 @@ from repro.models import backbone as JB
 from repro.models import layers as JL
 from repro.models import vfl as JV
 from repro_torch.bridge import tree_to_torch
-from repro_torch.configs import ARCH_IDS, LATER_ARCH_IDS, get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import backbone as TB
 from repro_torch.models import layers as TL
 from repro_torch.models import vfl as TV
@@ -343,16 +343,15 @@ def test_init_all_shapes_match_reference():
     "granite-moe-3b-a800m", "hymba-1.5b", "llama-3.2-vision-90b",
     "llama4-scout-17b-a16e", "seamless-m4t-large-v2", "xlstm-125m"])
 def test_other_families_name_their_slice(arch):
-    """The configs of the families beyond dense: the text ones (moe,
-    hybrid, ssm; slice 7c) are the reference's, field for field; the
-    cross-attention ones (vlm, audio) are refused, naming slice 7d."""
+    """The configs of the families beyond dense, the text ones (moe,
+    hybrid, ssm; slice 7c) and the cross-attention ones (vlm, audio;
+    slice 7d), are the reference's, field for field, with its splits."""
     assert jget_config(arch).family != "dense"
-    if arch in LATER_ARCH_IDS:
-        assert jget_config(arch).family in ("vlm", "audio")
-        with pytest.raises(NotImplementedError, match="slice 7d"):
-            get_config(arch)
-        return
     assert arch in ARCH_IDS
+    for j, t in ((jget_config(arch), get_config(arch)),
+                 (jget_config(arch).reduced(), get_config(arch).reduced())):
+        assert dataclasses.asdict(t.vfl_split) == \
+            dataclasses.asdict(j.vfl_split)
     assert dataclasses.asdict(get_config(arch)) == \
         dataclasses.asdict(jget_config(arch))
 
@@ -361,14 +360,23 @@ def test_other_families_name_their_slice(arch):
 def test_towers_refuse_other_families(family):
     """The towers' stage layouts: a text family's (moe, hybrid, ssm) are
     the reference's for 1-9 layers; a cross-attention family's (vlm,
-    audio) config built by hand is refused where the towers are laid
-    out, before any parameter is drawn, naming slice 7d."""
+    audio) are the reference's for 1-9 layers in each of its roles, and
+    its split model's three towers too, at full width and reduced."""
     arch = {"moe": "granite-moe-3b-a800m", "hybrid": "hymba-1.5b",
-            "ssm": "xlstm-125m"}.get(family)
-    if arch is None:
-        cfg = dataclasses.replace(CFG, family=family)
-        with pytest.raises(NotImplementedError, match="slice 7d"):
-            TV.init_all(0, cfg)
+            "ssm": "xlstm-125m", "vlm": "llama-3.2-vision-90b",
+            "audio": "seamless-m4t-large-v2"}[family]
+    if family in ("vlm", "audio"):
+        roles = ("vlm",) if family == "vlm" else ("enc", "audio_dec")
+        for n in range(1, 10):
+            for role in roles:
+                assert TB.tower_stages(get_config(arch), n, role) == \
+                    JB.tower_stages(jget_config(arch), n, role)
+        for j, t in ((jget_config(arch), get_config(arch)),
+                     (jget_config(arch).reduced(),
+                      get_config(arch).reduced())):
+            for part in ("a", "b", "top"):
+                assert getattr(TV, f"stages_{part}")(t) == \
+                    getattr(JV, f"stages_{part}")(j)
         return
     for n in range(1, 10):
         assert TB.tower_stages(get_config(arch), n) == \

@@ -279,13 +279,19 @@ def test_refresh_every_2_halves_decode_uplink():
 
 def test_cross_attn_family_rejected_with_pointer():
     """The reference serves the cross-attention families through
-    naive_generate; the port has neither their configs nor their blocks
-    yet and names the slice that brings them."""
-    with pytest.raises(NotImplementedError, match="slice 7d"):
-        get_config("llama-3.2-vision-90b")
-    vcfg = dataclasses.replace(CFG, family="vlm")
-    with pytest.raises(NotImplementedError, match="slice 7d"):
-        TV.make_serve_cache(vcfg, 1, PROMPT + 3)
+    naive_generate, and its engine refuses them with a pointer there;
+    the port's engine refuses them in the same words, before it draws
+    any state."""
+    jcfg = jget_config("llama-3.2-vision-90b").reduced()
+    vcfg = get_config("llama-3.2-vision-90b").reduced()
+    jparams = JV.init_all(jax.random.PRNGKey(0), jcfg)
+    with pytest.raises(ValueError, match="naive_generate") as want:
+        JServeEngine(jparams, jcfg, JServeConfig(capacity=2,
+                                                 prompt_len=PROMPT))
+    with pytest.raises(ValueError, match="naive_generate") as got:
+        ServeEngine(TV.init_all(0, vcfg), vcfg,
+                    ServeConfig(capacity=2, prompt_len=PROMPT))
+    assert str(got.value) == str(want.value)
 
 
 # ---------------------------------------------------------------------------
@@ -507,15 +513,21 @@ def test_cli_default_device_is_cuda():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--arch", "llama-3.2-vision-90b"], "slice 7d"),
-    (["--arch", "seamless-m4t-large-v2"], "slice 7d"),
+    (["--arch", "llama-3.2-vision-90b"], "serve_naive"),
+    (["--arch", "seamless-m4t-large-v2"], "serve_naive"),
     (["--arch", "granite-moe-3b-a800m"], None),
     (["--prompt-len", "3000"], "multiple of 1024"),
 ])
 def test_cli_refuses_what_the_port_does_not_serve(argv, match):
-    """The cross-attention families (slice 7d) and a long prompt off the
-    blockwise grid are refused; granite-moe-3b-a800m (slice 7c) serves,
-    reduced, on the CPU."""
+    """A long prompt off the blockwise grid is refused; granite-moe-3b-
+    a800m (slice 7c) serves, reduced, on the CPU through the engine, and
+    the cross-attention families (slice 7d) through the sequential loop
+    (``serve_naive``), as the reference's CLI serves them."""
+    if match == "serve_naive":
+        toks, stats = cli.main(["--device", "cpu", "--requests", "2",
+                                "--prompt-len", "8", "--gen", "3"] + argv)
+        assert tuple(toks.shape) == (1, 3) and len(stats["walls"]) == 2
+        return
     if match is None:
         comps, stats = cli.main(["--device", "cpu", "--requests", "2",
                                  "--capacity", "2", "--prompt-len", "8",
