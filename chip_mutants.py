@@ -2,7 +2,7 @@
 """Mutation check of ``chip_smoke.py``'s per-element limits for K9 and
 K10, of its check of K1 at the LLM width, of its bitwise checks of the
 AdaGrad table kernels (K7) and of the job-batched gate, and of its chaos
-phase, on one NVIDIA GPU.
+and pod phases, on one NVIDIA GPU.
 
 Builds the flash-attention forward (``src/repro_torch/csrc/
 flash_attention.cu``) or backward (``flash_attention_bwd.cu``), or the
@@ -93,6 +93,18 @@ name ``chaos``:
     place of copying into the reference's (``_chaos_checkpoint``);
   * ``checkpoint_generator_left_out``: the uniform generator's position
     is left out of the file (``_chaos_checkpoint``).
+
+The pod transport (``core/engine.py``'s ``PodTransport``), in the
+smoke's pod phase (``phase_pods``), whose checks name ``pods``:
+
+  * ``pod_wait_skipped``: a permute hands back its receive buffer
+    without waiting for the transfer, so a pod reads a stale or unfilled
+    cut tensor (the rings on the two ends of the link then differ);
+  * ``pod_gate_cot_unweighted``: K2a (``csrc/cosine_gate.cu``) writes
+    Party A's cotangent as ∇Z unweighted (the weight kept as a 0 / 1
+    gate), so only the leaves' updates against the CPU round show it;
+  * ``pod_adagrad_last_chunk_dropped``: ``adagrad_last_chunk_dropped``
+    (K7, ``csrc/fused_adagrad.cu``) on the pod party's table.
 
     python3 chip_mutants.py               # every mutant
     python3 chip_mutants.py NAME [NAME]   # the named ones
@@ -202,6 +214,17 @@ MUTANTS = {
     "checkpoint_generator_left_out": (
         "        flat[_UNIFORMS] = rs.uniforms.get_state().numpy()",
         "        pass"),
+    # the pod transport (Python source), and K2a / K7 on the pod round
+    "pod_wait_skipped": (
+        "        for w in self.works:\n            w.wait()",
+        "        for w in ():\n            w.wait()"),
+    "pod_gate_cot_unweighted": (
+        "for (int k = 0; k < kVec; ++k) dv[k] *= w;",
+        "for (int k = 0; k < kVec; ++k) dv[k] *= w > 0.f ? 1.f : 0.f;"),
+    "pod_adagrad_last_chunk_dropped": (
+        "const long long end = min(begin + kChunk, L.n);",
+        "const long long end = blockIdx.x + 1 == gridDim.x"
+        " ? begin : min(begin + kChunk, L.n);"),
 }
 # K10's mutants: name -> the wrapper whose check must fail
 K10_MUTANTS = {name: "flash_attention_bwd_dq" if name.startswith("dq_")
@@ -237,6 +260,11 @@ TARGETS.update({
     "checkpoint_generator_left_out": (
         "src/repro_torch/checkpoint/checkpoint.py", "_chaos_checkpoint",
         "chaos"),
+    "pod_wait_skipped": ("src/repro_torch/core/engine.py", "phase_pods",
+                         "pods"),
+    "pod_gate_cot_unweighted": ("cosine_gate.cu", "phase_pods", "pods"),
+    "pod_adagrad_last_chunk_dropped": ("fused_adagrad.cu", "phase_pods",
+                                       "pods"),
 })
 for _name in MUTANTS:
     TARGETS.setdefault(_name, ("flash_attention.cu", "phase_serve_kernels",
@@ -313,7 +341,7 @@ def main() -> None:
     shutil.rmtree(top, ignore_errors=True)
     if survived:
         sys.exit(f"chip_mutants: FAILED: {survived} passed the smoke's "
-                 f"K9 / K10 / K1 / K7 / fleet / chaos checks")
+                 f"K9 / K10 / K1 / K7 / fleet / chaos / pods checks")
     print("chip_mutants: every mutant caught")
 
 

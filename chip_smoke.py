@@ -236,6 +236,7 @@ QUANT_CPU_CUDA_RTOL = 3e-3
 OPT_CPU_CUDA_RTOL = 1e-3
 SHAPES = [(5, 256, 256), (2, 37, 8), (2, 37, 13), (2, 64, 64 * 960)]
 MAIN_SHAPE = (5, 256, 256)
+POD_GATE_SHAPE = (5, 4096, 256)   # K2a / K2b in the pod phase's timed rounds
 WIRE_SHAPE = (512, 128)           # B · z_dim = 65,536 values in 128-tiles
 R = 5
 GATE = "src/repro_torch/csrc/cosine_gate.cu"
@@ -631,7 +632,7 @@ def phase_kernels(torch):
     thresh = cw.f32_threshold(cos_xi)
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {k: {"max_abs_err": 0.0} for k in DENSE_GATES}
-    for (W, B, F) in SHAPES:
+    for (W, B, F) in SHAPES + [POD_GATE_SHAPE]:
         for dtype in (torch.float32, torch.bfloat16):
             def randn(*shape):
                 return torch.randn(shape, generator=gen, device="cuda")
@@ -894,9 +895,9 @@ def _copy(x):
 
 
 def _adagrad_lists(torch) -> dict:
-    """{name: parameter shapes}: WDL-Criteo's Party A and B and
-    smollm-360m's, each in the reference's leaf order, and the ragged
-    list."""
+    """{name: parameter shapes}: WDL-Criteo's Party A and B,
+    smollm-360m's and the pod phase's Party B (``POD_RUN``), each in the
+    reference's leaf order, and the ragged list."""
     import numpy as np
 
     from repro_torch.bridge import reference_parameters
@@ -911,6 +912,14 @@ def _adagrad_lists(torch) -> dict:
         m[p])] for name, m in (("wdl-criteo", wdl), ("smollm-360m", llm))
         for p in ("a", "b")}
     del wdl, llm
+    from repro_torch.core import engine
+    from repro_torch.core import pod_protocol as pp
+    stacked = pp.stacked_wdl_init(
+        torch.Generator().manual_seed(0), POD_RUN["n_fields"],
+        POD_RUN["vocab"], POD_RUN["embed_dim"], POD_RUN["z_dim"],
+        POD_RUN["hidden"])
+    lists["pod b"] = [tuple(t.shape) for t in
+                      engine._params(pp.pod_party(stacked, 1))]
     rng = np.random.default_rng(20)
     sizes = RAGGED_SIZES + [int(x) for x in rng.integers(
         1, 70_000, RAGGED_LEAVES - len(RAGGED_SIZES))]
@@ -1153,7 +1162,8 @@ def _adagrad_graph_and_allocations(torch, lists, gen) -> None:
 def phase_adagrad_kernels(torch):
     """K7 and K8 against their plain versions on the card, bitwise: one
     leaf at the main path's leaf shapes (the updates), and the table
-    kernels over WDL-Criteo's and smollm-360m's party lists and a ragged
+    kernels over WDL-Criteo's, the pod phase's Party B's and smollm-360m's
+    party lists and a ragged
     list of more than two tables (the in-place step with and without the
     mask, and the updates), bf16 params, gradients and state included;
     a captured step; no allocation in a step; µs per party update beside
@@ -1203,7 +1213,7 @@ def phase_adagrad_kernels(torch):
     f32, bf16 = torch.float32, torch.bfloat16
     mask0 = torch.zeros((), device="cuda")
     mask = torch.full((), 0.7, device="cuda")
-    for name in ("wdl-criteo a", "wdl-criteo b", "ragged"):
+    for name in ("wdl-criteo a", "wdl-criteo b", "pod b", "ragged"):
         shapes, ragged = lists[name], name == "ragged"
         ops = _k7_operands(torch, gen, shapes, f32, f32, f32, ragged)
         if ragged:
@@ -2991,6 +3001,144 @@ def phase_fleet(torch, card):
         print(f"[fleet] {label} cohort N={FLEET_SIDE_JOBS}, "
               f"{FLEET_SIDE_ROUNDS} rounds: launches "
               f"{ {k: v for k, v in c.items() if v} }", flush=True)
+    return counts
+
+
+# the party-to-pod round (phase_pods): the WDL-Criteo widths in the
+# party-stacked demo model (Party B's 13 fields padded to 26 with dead
+# fields), R = W = 5, xi 60 degrees, AdaGrad lr 0.01, labels from a
+# teacher over the live fields
+POD_RUN = dict(n_fields=26, fields_b=13, vocab=1024, embed_dim=16,
+               hidden=512, z_dim=256, R=5, W=5, xi_degrees=60.0, lr=0.01,
+               teacher=True)
+POD_PARITY_B, POD_PARITY_ROUNDS = 256, 10
+POD_TIMED_B, POD_WARM, POD_TIMED = 4096, 2, 20
+# each shadowed round (card against CPU from the same state): both pods'
+# losses within POD_LOSS_ATOL; each leaf's update, each leaf's
+# accumulator increment and each ring within POD_*_RTOL of its own norm
+# (what the round's K2a / K2b / K7 launches computed, against the plain
+# versions on the CPU).  Read on an H100 (PERF.md): losses within
+# 4.77e-7; updates within 5.2e-4 at B = 256 and 1.09e-2 at B = 4,096
+# (the first round from the initial state: AdaGrad's first step moves a
+# coordinate by ±lr whatever its gradient's size, and the next step
+# divides by that gradient), accumulators within 6.4e-4, rings within
+# 7.7e-4; so each limit is 4.5-8x its reading.  K2a's cotangent left
+# unweighted reads 0.594 in an update, K7's last chunk dropped 3.67
+# (``chip_mutants.py``).
+POD_LOSS_ATOL = 1e-3
+POD_UPDATE_RTOL, POD_ACCUM_RTOL, POD_RING_RTOL = 5e-2, 5e-3, 5e-3
+
+
+def _pod_checks(label, res, run, staged) -> None:
+    """A pod world's invariants: the link's and the staging's bytes
+    exact, the rings on both ends of the link bitwise equal (what pod 0
+    sent up is pod 1's z, what pod 1 sent down is pod 0's dz), pod 0's
+    dead top unchanged, finite losses."""
+    n = run["rounds"] + run.get("timed", 0)
+    msg = run["batch"] * run["z_dim"] * 4
+    for pod, r in enumerate(res):
+        c = r["counters"]
+        check(c["sent_bytes"] == c["recv_bytes"] == 2 * n * msg,
+              f"pods {label}: pod {pod} moved {c} over {n} rounds, want "
+              f"{2 * n * msg} B each way")
+        want = 4 * n * msg if staged else 0
+        check(c["staged_bytes"] == want,
+              f"pods {label}: pod {pod} staged {c['staged_bytes']} B, want "
+              f"{want}")
+        check(all(math.isfinite(v) for v in r["losses"]),
+              f"pods {label}: pod {pod} losses {r['losses']}")
+    for k in ("z", "dz"):
+        a, b = res[0]["ws"][k], res[1]["ws"][k]
+        check((a == b).all(), f"pods {label}: the {k} rings differ across "
+              f"the link in {(a != b).sum()} elements")
+    check(res[0]["dead_top_kept"],
+          f"pods {label}: pod 0's dead top copy moved")
+
+
+def phase_pods(torch, card=None):
+    """The party-to-pod round (``core/pod_protocol.py``) on the card: two
+    ranks (one a pod, ``launch.dist.run_ranks``) share the H100 over gloo,
+    the transport staging each cut tensor through pinned host memory
+    (``PodTransport(staged=True)``).  10 rounds at B = 256 at depths 0 and
+    1, each round also run on the CPU from the card's state at its start
+    (``pod_worker``'s ``shadow``: the two ranks' CPU round over a CPU
+    transport), both pods' losses within POD_LOSS_ATOL and each leaf's
+    update and accumulator increment and each ring within POD_*_RTOL of
+    its norm; 2 + 20 rounds at B = 4,096 at each depth, the 2 shadowed
+    likewise, the 20 timed in ms a round on the host clock (ending in
+    ``torch.cuda.synchronize()``); every run's link and staging bytes
+    exact, its rings equal across the link, pod 0's dead top unchanged,
+    its K2a / K2b / K7 launches those of ``pod_protocol.pod_launches``.
+    -> the launches of the card's runs."""
+    from repro_torch.core import pod_protocol as pp
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.dist import run_ranks
+    _cuda.build()             # the ranks load the library, never build it
+    counts = {}
+    t0 = time.perf_counter()
+    runs = [{**pp.POD_DEFAULTS, **POD_RUN, "batch": POD_PARITY_B,
+             "rounds": POD_PARITY_ROUNDS, "depth": d, "shadow": True}
+            for d in (0, 1)]
+    runs += [{**pp.POD_DEFAULTS, **POD_RUN, "batch": POD_TIMED_B,
+              "rounds": POD_WARM, "timed": POD_TIMED, "depth": d,
+              "shadow": True} for d in (0, 1)]
+    runs = [{**r, "device": "cuda", "staged": True} for r in runs]
+    try:
+        res = run_ranks(pp.pod_worker, 2, backend="gloo", args=(runs,))
+    except Exception as e:        # a rank raised or died
+        fail(f"pods world: the ranks failed: "
+             f"{str(e).strip().splitlines()[-1][-500:]}")
+    print(f"[pods] two ranks on the card, gloo, staged: done at "
+          f"{time.perf_counter() - t0:.1f} s into the phase", flush=True)
+    for i, run in enumerate(runs):
+        pair = [res[0][i], res[1][i]]
+        label = f"B {run['batch']} depth {run['depth']}"
+        _pod_checks(label, pair, run, staged=True)
+        n = run["rounds"] + run["timed"]
+        want = pp.pod_launches(run["R"], n)
+        got = {k: pair[0]["launches"][k] + pair[1]["launches"][k]
+               for k in want}
+        check(got == want, f"pods {label}: launches {got}, want {want} "
+              f"(pod_launches)")
+        check(pair[0]["launches"]["cosine_weights_2d"] == 0
+              and pair[1]["launches"]["cosine_weight_2d"] == 0,
+              f"pods {label}: K2a runs on pod 0 only, K2b on pod 1 only: "
+              f"{pair[0]['launches']} / {pair[1]['launches']}")
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+        if run["shadow"]:
+            devs = {"loss": max(abs(a - b) for r in pair for a, b in
+                                zip(r["losses"], r["cpu_losses"]))}
+            for k in ("update", "accum", "ring"):
+                devs[k] = max(max(r[f"{k}_dev"]) for r in pair)
+            limits = {"loss": POD_LOSS_ATOL, "update": POD_UPDATE_RTOL,
+                      "accum": POD_ACCUM_RTOL, "ring": POD_RING_RTOL}
+            print(f"[pods] {label}: {run['rounds']} rounds, each against "
+                  f"the CPU from the same state: losses within "
+                  f"{devs['loss']:.3g} (limit {POD_LOSS_ATOL}); largest "
+                  f"relative deviation of a leaf's update "
+                  f"{devs['update']:.3g} (limit {POD_UPDATE_RTOL}), of a "
+                  f"leaf's accumulator increment {devs['accum']:.3g} (limit "
+                  f"{POD_ACCUM_RTOL}), of a ring {devs['ring']:.3g} (limit "
+                  f"{POD_RING_RTOL}); largest parameter deviation "
+                  f"{max(max(r['param_dev']) for r in pair):.3g}; losses "
+                  f"pod 1 {[round(v, 6) for v in pair[1]['losses']]}",
+                  flush=True)
+            for k, v in devs.items():
+                check(v <= limits[k], f"pods {label}: card against CPU, "
+                      f"the {k} deviation {v:.3g} is past {limits[k]}")
+        if run["timed"]:
+            msg = run["batch"] * run["z_dim"] * 4
+            print(f"[pods] staged=True gloo, B {run['batch']}, depth "
+                  f"{run['depth']}: {pair[0]['ms_per_round']:.3f} / "
+                  f"{pair[1]['ms_per_round']:.3f} ms a round (pod 0 / pod "
+                  f"1, host clock, {run['timed']} rounds), staging "
+                  f"{pair[0]['stage_ms_per_round']:.3f} / "
+                  f"{pair[1]['stage_ms_per_round']:.3f} ms a round; link "
+                  f"{4 * msg} B a round between the pods, staged "
+                  f"{8 * msg} B a round (both pods); K2a {run['R']}, K2b "
+                  f"{run['R']}, K7 {2 * (run['R'] + 1)} launches a round; "
+                  f"{card}", flush=True)
     return counts
 
 
@@ -5069,6 +5217,10 @@ def main() -> None:
     for k, v in phase_fleet(torch, card).items():
         pipeline_counts[k] = pipeline_counts.get(k, 0) + v
     print(f"[phase] fleet {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    for k, v in phase_pods(torch, card).items():
+        pipeline_counts[k] = pipeline_counts.get(k, 0) + v
+    print(f"[phase] pods {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 9.-10. serving
     t0 = time.perf_counter()

@@ -1,7 +1,7 @@
 """The K-party CELU-VFL round engine (paper Algorithms 1-2): the
 sequential round and the pipelined scheduler.
 
-Port of ``repro/core/engine.py`` (less the pod transport).  A *round*
+Port of ``repro/core/engine.py``.  A *round*
 exchanges ⟨Z_i, ∇Z_i⟩ once for every feature party A_i, applies the fresh
 update to all parties, inserts the released statistics into each party's
 workset ring, then runs ``R`` staleness-weighted local updates per party
@@ -61,11 +61,17 @@ How the JAX engine maps onto PyTorch:
     ``autograd.Function`` of K9-LSE / K10.  Both routes give the same
     numbers (``tests/test_torch_fleet.py`` holds map lanes bitwise to the
     scalar engine).
+  * The party-to-pod round (:func:`make_pod_round`) runs one process a
+    pod: rank p of the pod group holds party p, and the cut tensors cross
+    between ranks by point-to-point ``torch.distributed`` sends
+    (:class:`PodTransport`, the reference's ``lax.ppermute`` pair).
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
+import time
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, \
     Tuple
 
@@ -288,6 +294,127 @@ def make_transport(celu: CELUConfig, compression: Optional[str] = None):
         return SimWANTransport(celu)
     up, down = make_codec_pair(name)
     return CompressedWANTransport(celu, up, down)
+
+
+class _PendingPermute(NamedTuple):
+    """A started permute: ``wait()`` gives the received tensor."""
+    tp: "PodTransport"
+    works: list
+    recv: Optional[torch.Tensor]
+    like: torch.Tensor
+
+    def wait(self) -> torch.Tensor:
+        for w in self.works:
+            w.wait()
+        if self.recv is None:          # no pair sends to this pod
+            return torch.zeros_like(self.like)
+        return self.tp._stage_in(self.recv, self.like)
+
+
+class PodTransport:
+    """Cut-tensor exchange between pods: the reference's ``lax.ppermute``
+    pair over the ``pod`` axis, as point-to-point ``torch.distributed``
+    sends.  Party A lives on pod 0, Party B on pod 1 by default.
+
+    ``up`` / ``down`` are (source pod, destination pod) pairs; a send is
+    one ``batch_isend_irecv`` over them, which computes what ``ppermute``
+    does (a pod no pair sends to receives zeros).  ``group`` is the pod
+    process group (default: the world); a pod is its rank there.
+
+    ``staged=True`` carries each CUDA tensor through a pinned host buffer
+    (one copy out before the send, one copy in after the receive), for a
+    backend that moves host memory (gloo): the transport mode of two pods
+    that share one card, and of a link that leaves the card through the
+    host.  ``staged=False`` hands the tensors to the backend as they are.
+
+    Counters (this pod's): ``sent_bytes`` / ``recv_bytes`` over the link,
+    ``staged_bytes`` copied between card and host, ``stage_s`` the
+    seconds those copies took."""
+
+    def __init__(self, up: Sequence[Tuple[int, int]] = ((0, 1), (1, 0)),
+                 down: Sequence[Tuple[int, int]] = ((1, 0), (0, 1)), *,
+                 group=None, staged: bool = False):
+        self.up = [tuple(p) for p in up]
+        self.down = [tuple(p) for p in down]
+        self.group = group
+        self.staged = staged
+        self.sent_bytes = 0
+        self.recv_bytes = 0
+        self.staged_bytes = 0
+        self.stage_s = 0.0
+        self._host = {}
+
+    def pod(self) -> int:
+        import torch.distributed as dist
+        return dist.get_rank(self.group)
+
+    def _peer(self, pod: int) -> int:
+        import torch.distributed as dist
+        return pod if self.group is None \
+            else dist.get_global_rank(self.group, pod)
+
+    def _host_buffer(self, role: str, like: torch.Tensor) -> torch.Tensor:
+        key = (role, tuple(like.shape), like.dtype)
+        buf = self._host.get(key)
+        if buf is None:
+            buf = torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+            self._host[key] = buf
+        return buf
+
+    def _stage_out(self, x: torch.Tensor, role: str) -> torch.Tensor:
+        if not self.staged:
+            return x.contiguous()
+        if x.device.type != "cuda":
+            raise ValueError("staged=True carries CUDA tensors through the "
+                             "host; this one is on " + str(x.device))
+        t0 = time.perf_counter()
+        buf = self._host_buffer(role, x)
+        buf.copy_(x)                   # synchronous: ready for the send
+        self.stage_s += time.perf_counter() - t0
+        self.staged_bytes += x.numel() * x.element_size()
+        return buf
+
+    def _stage_in(self, recv: torch.Tensor, like: torch.Tensor):
+        if not self.staged:
+            return recv
+        t0 = time.perf_counter()
+        out = recv.to(like.device)
+        self.stage_s += time.perf_counter() - t0
+        self.staged_bytes += out.numel() * out.element_size()
+        return out
+
+    def start(self, x: torch.Tensor, pairs, role: str) -> _PendingPermute:
+        """Start the permute of ``x`` over ``pairs`` (``role`` names the
+        direction's host buffers) and return at once."""
+        import torch.distributed as dist
+        me = self.pod()
+        wire = self._stage_out(x.detach(), role + "_out")
+        ops, recv = [], None
+        nbytes = x.numel() * x.element_size()
+        for src, dst in pairs:
+            if src == me:
+                ops.append(dist.P2POp(dist.isend, wire, self._peer(dst),
+                                      group=self.group))
+                self.sent_bytes += nbytes
+            if dst == me:
+                recv = self._host_buffer(role + "_in", x) if self.staged \
+                    else torch.empty_like(wire)
+                ops.append(dist.P2POp(dist.irecv, recv, self._peer(src),
+                                      group=self.group))
+                self.recv_bytes += nbytes
+        works = dist.batch_isend_irecv(ops) if ops else []
+        return _PendingPermute(self, works, recv, x)
+
+    def start_up(self, z) -> _PendingPermute:
+        return self.start(z, self.up, "up")
+
+    def send_up(self, z) -> torch.Tensor:
+        """Z_A: feature pod -> label pod."""
+        return self.start_up(z).wait()
+
+    def send_down(self, dz) -> torch.Tensor:
+        """∇Z_A: label pod -> feature pod."""
+        return self.start(dz, self.down, "down").wait()
 
 
 # --------------------------------------------------------------------------
@@ -1193,3 +1320,124 @@ def preset_config(name: str, base: CELUConfig) -> Tuple[CELUConfig, int]:
     if name == "celu":
         return base, base.R
     raise ValueError(name)
+
+
+# --------------------------------------------------------------------------
+# Party-to-pod round (PodTransport between the pod ranks)
+# --------------------------------------------------------------------------
+def make_pod_round(mesh, opt: Optimizer, *, R: int, cos_xi: float,
+                   weighting: bool = True, tower_fwd=None, top_loss=None,
+                   transport: Optional[PodTransport] = None,
+                   pipeline_depth: int = 0):
+    """Build the party-to-pod CELU round; it runs in every pod's process.
+
+    Rank p of the pod group (``mesh``'s ``"pod"`` dimension, or the world
+    when ``mesh`` is None) holds party p: its slice of the reference's
+    party-stacked state.  ``tower_fwd(tower, x) -> Z`` and
+    ``top_loss(top, z_a, z_b, y) -> per-instance loss`` define the model
+    (``core.pod_protocol`` has the WDL demo); a pod's parameters are one
+    module with ``tower`` and ``top`` children, and pod 0's ``top`` is a
+    dead copy that gets zero gradients.
+
+    The round, ``round_fn(party, opt_state, ws, x, y) -> (party,
+    opt_state, ws, loss)``, takes this pod's features ``x`` (B, F) and
+    label slot ``y`` (B,) and updates the state in place.  Each pod
+    computes only its own branch of the reference's ``jnp.where(pod ==
+    0, ...)``: the selected values are the same.  The exchange is the
+    transport's up and down permutes, the only traffic between pods.
+
+    ``pipeline_depth=1`` starts the up permute, runs the R local updates
+    against the previous rounds' workset and the dispatch-time parameters,
+    then waits for the permute; the fresh gradients are taken at the
+    dispatch-time parameters (a copy) and applied to the post-scan ones.
+    Depth 0 is the sequential schedule: exchange, update, insert, then the
+    local updates over the refreshed workset.
+
+    The gate runs through :func:`weighted_cotangent` (Party A, K2a) and
+    :func:`staleness_weights` (Party B, K2b); every update is one
+    :func:`_opt_step` over the pod's tensors (AdaGrad's kernel route: one
+    K7 launch)."""
+    if pipeline_depth not in (0, 1):
+        raise ValueError(
+            f"make_pod_round supports pipeline_depth 0 or 1 (got "
+            f"{pipeline_depth}): the D-deep exchange queue is scheduled on "
+            f"the host by PipelinedEngine, which keeps the in-flight "
+            f"exchanges between its stage calls; the pod round runs one "
+            f"exchange a round.  Use make_pipeline / PipelinedEngine for "
+            f"D >= 2, or depth 1 here (the overlapped two-worker "
+            f"schedule).")
+    assert tower_fwd is not None and top_loss is not None
+    tp = transport if transport is not None else PodTransport(
+        group=None if mesh is None else mesh.get_group("pod"))
+    depth = pipeline_depth
+
+    def b_loss(party, z_list, batch):
+        """Party B's towers as a K-party ``loss_b`` over its module."""
+        z_b = tower_fwd(party.tower, batch["x"])
+        return top_loss(party.top, z_list[0], z_b, batch["y"]), 0.0
+
+    def zeros_top(party):
+        return [torch.zeros_like(p) for p in _params(party.top)]
+
+    def local_scan(party, opt_state, ws, is_a):
+        W = ws["z"].shape[0]
+        n_alive = max(min(ws["time"], W), 1)
+        for j in range(R):
+            slot = j % n_alive
+            zs, dzs = ws["z"][slot].float(), ws["dz"][slot].float()
+            xs, ys = ws["x"][slot], ws["y"][slot]
+            if is_a:
+                g_tower, _ = local_grad_a(
+                    tower_fwd, party.tower, {"z": zs, "dz": dzs,
+                                             "batch": xs},
+                    cos_xi, weighting=weighting, pipeline_staleness=depth)
+                grads = zeros_top(party) + list(g_tower)
+            else:
+                grads, _ = local_grad_b(
+                    b_loss, party, {"z": [zs], "dz": [dzs],
+                                    "batch": {"x": xs, "y": ys}},
+                    cos_xi, weighting=weighting, pipeline_staleness=depth)
+            opt_state = _opt_step(opt, party, grads, opt_state)
+        return opt_state
+
+    def round_fn(party, opt_state, ws, x, y):
+        is_a = tp.pod() == 0
+        # the fresh exchange reads the dispatch-time parameters; at depth 1
+        # the scan updates the pod's own in place meanwhile
+        fresh = copy.deepcopy(party) if depth else party
+        tower_p = _params(fresh.tower)
+        z_mine = tower_fwd(fresh.tower, x)
+        pending = tp.start_up(z_mine)        # pod 1 receives Z_A
+        if depth:
+            opt_state = local_scan(party, opt_state, ws, is_a)
+        z_other = pending.wait().detach().requires_grad_(True)
+        loss = top_loss(fresh.top, z_other, z_mine, y).mean()
+        if is_a:
+            # pod 0's top is dead: only its ∇ of the received Z goes down
+            (dz_sent,) = torch.autograd.grad(loss, [z_other],
+                                             retain_graph=True)
+            dz_back = tp.send_down(dz_sent)  # ∇Z_A from pod 1
+            g_tower = torch.autograd.grad(z_mine, tower_p,
+                                          grad_outputs=dz_back)
+            grads = zeros_top(fresh) + list(g_tower)
+            z_cache, dz_cache = z_mine.detach(), dz_back
+        else:
+            g = torch.autograd.grad(loss, _params(fresh) + [z_other])
+            grads, dz_sent = list(g[:-1]), g[-1]
+            tp.send_down(dz_sent)
+            z_cache, dz_cache = z_other.detach(), dz_sent
+        opt_state = _opt_step(opt, party, grads, opt_state)
+
+        with torch.no_grad():
+            W = ws["z"].shape[0]
+            slot = ws["time"] % W
+            ws["z"][slot] = z_cache.to(ws["z"].dtype)
+            ws["dz"][slot] = dz_cache.to(ws["dz"].dtype)
+            ws["x"][slot] = x
+            ws["y"][slot] = y
+            ws["time"] += 1
+        if not depth:
+            opt_state = local_scan(party, opt_state, ws, is_a)
+        return party, opt_state, ws, loss.detach()
+
+    return round_fn

@@ -37,7 +37,8 @@ the draw in the reference's terms — ``("wire", round, 2K, j, *folds)``,
 the clock), ``("draw", round, j, party)`` (``("draw_s", s, round, j,
 party)`` on the dynamic path), ``("optim", t, *folds)``, ``("seed",
 seed, n, *folds)`` or
-``("lanes", seed, n, C, *folds)`` — so a parity test can hand in a source
+``("lanes", seed, n, C, *folds)`` or ``("lane", seed, n, C, c, *folds)``
+(lane c's alone) — so a parity test can hand in a source
 that computes the reference's uniforms from it.  A ``"lanes"`` draw is
 one batched draw for all C lanes: its shape leads with C, and row c is
 the draw of ``split(fold_in(PRNGKey(seed), n), C)[c]`` folded by
@@ -136,3 +137,11 @@ def lanes_key(source, seed: int, n: int, lanes: int) -> UniformKey:
     """All of ``split(fold_in(PRNGKey(seed), n), lanes)`` at once: a draw
     of shape (lanes, *shape) whose row c is lane c's."""
     return UniformKey(source, ("lanes", seed, n, lanes))
+
+
+def lane_key(key: UniformKey, lane: int) -> UniformKey:
+    """Lane ``lane``'s own key of a ``lanes_key``: the draws of
+    ``split(fold_in(PRNGKey(seed), n), lanes)[lane]`` alone."""
+    kind, seed, n, lanes, *folds = key.tag
+    assert kind == "lanes" and not folds, key.tag
+    return UniformKey(key.source, ("lane", seed, n, lanes, int(lane)))

@@ -19,9 +19,11 @@ the program), and runs each cohort's rounds and drain:
 Per-job knobs (lr, seed, ξ) batch inside a cohort through
 :class:`~repro_torch.fleet.scheduler.JobHyper`; every job shares the
 cohort's batch schedule (the sweep-grid regime: jobs that need their own
-data belong in their own cohort).  Sharding the job axis over several
-cards (the reference's ``shard=True`` / ``mesh=``) is slice 10 of the
-port and is refused.
+data belong in their own cohort).  ``shard=True`` / ``mesh=`` split
+each cohort's jobs over the ranks of a ``("fleet",)`` device mesh
+(``launch.mesh.make_fleet_mesh``), one contiguous block of jobs a rank,
+as the reference's ``P("fleet")`` splits them over devices; every rank
+runs its block and the stacked results are gathered on every rank.
 
 Under ``vmap`` the parties' modules are templates: each call binds the
 stacked parameters' batched slices into them
@@ -317,11 +319,20 @@ def run_fleet(configs: Sequence[JobSpec], rounds: int, *,
     """Train every job for ``rounds`` communication rounds (plus the
     queue drain) and return stacked per-job metrics.  ``device`` defaults
     to the card (``"cpu"`` only when asked for); see the module docstring
-    for ``mode``.  ``shard`` / ``mesh`` are refused (slice 10)."""
+    for ``mode``.  ``shard=True`` splits every cohort's jobs over the
+    ranks of ``mesh`` (default: ``make_fleet_mesh()`` over the process
+    group), and each rank returns the whole fleet's result; a cohort the
+    mesh's size does not divide is refused."""
+    n_dev, rank, group = 1, 0, None
     if shard or mesh is not None:
-        raise NotImplementedError(
-            "sharding the fleet's job axis over several cards is slice 10 "
-            "of the port (ROADMAP.md): run_fleet runs on one device")
+        from ..launch.mesh import make_fleet_mesh
+        m_ = mesh if mesh is not None else make_fleet_mesh()
+        if "fleet" not in (getattr(m_, "mesh_dim_names", None) or ()):
+            raise ValueError("the fleet shards over a DeviceMesh with a "
+                             "'fleet' dimension (launch.mesh.make_fleet_mesh)")
+        n_dev = m_.shape[m_.mesh_dim_names.index("fleet")]
+        rank = m_.get_local_rank("fleet")
+        group = m_.get_group("fleet")
     if mode not in ("vmap", "map"):
         raise ValueError(f"mode must be 'vmap' or 'map', got {mode!r}")
     if not configs:
@@ -352,6 +363,13 @@ def run_fleet(configs: Sequence[JobSpec], rounds: int, *,
     wall = 0.0
     compile_wall = 0.0
     for jobs in cohorts.values():
+        if len(jobs) % n_dev != 0:
+            raise ValueError(
+                f"cohort of {len(jobs)} jobs does not divide the "
+                f"{n_dev}-device fleet mesh — pad the sweep or pass "
+                f"shard=False")
+        block = len(jobs) // n_dev
+        jobs = jobs[rank * block:(rank + 1) * block]
         spec0 = configs[jobs[0]]
         celu, depth = spec0.celu, spec0.resolved_depth()
         tp = engine.make_transport(celu, spec0.compression)
@@ -452,6 +470,26 @@ def run_fleet(configs: Sequence[JobSpec], rounds: int, *,
             steps_b[j] = int(fin["steps"]["b"])
             rbytes[j] = per_round
             finals[j] = fin
+
+    if n_dev > 1:
+        # every rank ran its block of each cohort: gather the blocks
+        mine = {j: (losses[j], w_mean[j], w_zero[j], lsteps[j],
+                    {k: flush_m[k][j] for k in flush_m}, commr[j],
+                    steps_a[j], steps_b[j], rbytes[j], finals[j])
+                for js in cohorts.values() for j in
+                js[rank * (len(js) // n_dev):(rank + 1) * (len(js) // n_dev)]}
+        import torch.distributed as dist
+        packs = [None] * n_dev
+        dist.all_gather_object(packs, (mine, wall, compile_wall),
+                               group=group)
+        for pack, w_, cw_ in packs:
+            wall, compile_wall = max(wall, w_), max(compile_wall, cw_)
+            for j, (lo, wm, wz, ls, fm, cr, sa, sb, rb, fin) in pack.items():
+                losses[j], w_mean[j], w_zero[j], lsteps[j] = lo, wm, wz, ls
+                for k in flush_m:
+                    flush_m[k][j] = fm[k]
+                commr[j], steps_a[j], steps_b[j] = cr, sa, sb
+                rbytes[j], finals[j] = rb, fin
 
     return FleetResult(
         losses=losses, w_mean=w_mean, w_zero_frac=w_zero,

@@ -47,6 +47,9 @@ LAUNCHES = {"fused_sample_2d": 0, "cosine_weight_2d": 0,
             "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
 
 _lib = None
+# False in a spawned rank (``launch/dist.py``): the caller builds the
+# library before it starts the world, and a rank that finds none raises
+BUILD = True
 
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
@@ -153,6 +156,10 @@ def build() -> dict:
     out = library_path()
     if out.exists():
         return {"path": str(out), "seconds": 0.0, "log": ""}
+    if not BUILD:
+        raise RuntimeError(f"{out} is not built: build the kernels "
+                           f"(kernels._cuda.build()) before starting the "
+                           f"ranks")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     nvcc = _nvcc()

@@ -7,14 +7,18 @@
                         over ``microbatches`` batch slices;
 ``make_prefill_step`` — the full-context forward emitting decode caches;
 ``make_serve_step``   — one new token against the caches;
-``make_step``         — the step a shape kind runs.
+``make_step``         — the step a shape kind runs;
+``make_sharded_train_step`` — the train step over a device mesh, its
+                        parameters placed by ``sharding.rules`` through
+                        :func:`shard_params` and its batch by
+                        :func:`shard_batch`.
 
 ``batch_specs`` gives a shape's batch as {key: (shape, dtype)} in the
 reference's key order, and ``concrete_batch`` draws it from a numpy
 generator in that order, so one seed gives the reference's batch.  The
 dry-run half of the reference module (``input_specs``, ``decode_specs``,
-``abstract_params``, ``unroll_microbatches``) comes with slice 10
-(ROADMAP.md).
+``abstract_params``, ``unroll_microbatches``) is not ported yet
+(ROADMAP.md, slice 10b).
 
 The parameters of a train step are one module over the whole split
 model, ``vfl.PartyParams({"a": tree_a, "b": tree_b})``: its parameters
@@ -153,3 +157,65 @@ def make_step(cfg: ArchConfig, shape: ShapeConfig, opt: Optimizer = None, *,
     if shape.kind == "prefill":
         return make_prefill_step(cfg)
     return make_serve_step(cfg)
+
+
+# --------------------------------------------------------------------------
+# The train step over a device mesh (DTensor)
+# --------------------------------------------------------------------------
+def shard_params(params, mesh):
+    """Replace each parameter of ``params`` (a ``vfl.PartyParams``) by a
+    DTensor over ``mesh`` placed by ``rules.params_pspecs`` with the big
+    leaves also over ``data`` (``fsdp_axis="data"``; every rank passes
+    the same full parameters), in place.  -> ``params``."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from ..sharding.rules import placements, params_pspecs
+    specs = params_pspecs(dict(params.named_parameters()), mesh,
+                          fsdp_axis="data")
+    for name, p in list(params.named_parameters()):
+        *path, leaf = name.split(".")
+        sub = params
+        for c in path:
+            sub = getattr(sub, c)
+        sub._parameters[leaf] = torch.nn.Parameter(distribute_tensor(
+            p.detach(), mesh, placements(mesh, specs[name])))
+    return params
+
+
+def shard_batch(batch, mesh):
+    """Each batch leaf as a DTensor placed by ``rules.batch_pspec`` over
+    the mesh's data axes."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from ..sharding.rules import batch_pspec, placements
+    from .mesh import data_axes
+    axes = data_axes(mesh)
+    return {k: distribute_tensor(v, mesh, placements(
+        mesh, batch_pspec(v.shape, mesh, data_axes=axes)))
+        for k, v in batch.items()}
+
+
+def make_sharded_train_step(cfg: ArchConfig, opt: Optimizer, mesh):
+    """:func:`make_train_step` over ``mesh`` (axes ``data`` and
+    ``model``, ``pod`` optional): the parameters and the batch are
+    DTensors (:func:`shard_params`, :func:`shard_batch`).  During the
+    step the layers' activation hints pin the batch dim over the data
+    axes and the logits' vocab dim over ``model``
+    (``layers.set_batch_axes``), and the plain tensors the model makes
+    (positions, masks) take part as replicated DTensors
+    (``implicit_replication``)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from ..models import layers as L
+    from .mesh import data_axes
+    step = make_train_step(cfg, opt)
+
+    def sharded_step(params, opt_state, batch):
+        L.set_batch_axes(data_axes(mesh), vocab_axis="model", mesh=mesh)
+        try:
+            with implicit_replication():
+                return step(params, opt_state, batch)
+        finally:
+            L.set_batch_axes(None)
+
+    return sharded_step

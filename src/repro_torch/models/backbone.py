@@ -327,6 +327,7 @@ def tower_apply(params, x, cfg: ArchConfig, stages, ctx: Ctx):
                                   preserve_rng_state=False)
             else:
                 x, a = _layer_apply(sp, li, x, pattern, ctx)
+            x = L.shard_batch_dim(x)   # pin the batch sharding each layer
             aux = aux + a
     return x, aux
 

@@ -34,6 +34,8 @@ one ``slot_pos`` row per batch entry; and the cache is updated in place.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -48,6 +50,92 @@ BLOCKWISE_THRESHOLD = 2048
 KV_BLOCK = 1024
 NEG_INF = -1e30
 EMPTY_SLOT = -(2 ** 30)
+
+
+# --------------------------------------------------------------------------
+# Activation-sharding hints.  The launch layer installs the data-axis names
+# and a ``DeviceMesh`` here; ``shard_batch_dim`` then redistributes dim 0 of
+# key activations that are DTensors over the batch axes, as the reference
+# pins it with ``with_sharding_constraint``, and ``shard_logits`` the
+# logits' batch and vocab dims.  No-ops outside a mesh and on plain tensors.
+_BATCH_AXES = None
+_BATCH_AXES_SIZE = 1
+_VOCAB_AXIS = None
+_VOCAB_AXIS_SIZE = 1
+_MESH = None
+
+
+def set_batch_axes(axes, vocab_axis=None, mesh=None):
+    """axes: mesh axis names carrying the batch dim (None disables);
+    vocab_axis: the mesh axis sharding the logits' vocab dim; mesh: the
+    ``DeviceMesh`` the DTensors live on, whose shape gives the axes'
+    sizes (without one the hints stay no-ops)."""
+    global _BATCH_AXES, _BATCH_AXES_SIZE, _VOCAB_AXIS, _VOCAB_AXIS_SIZE
+    global _MESH
+    _MESH = mesh if axes else None
+    sizes = dict(zip(_MESH.mesh_dim_names, _MESH.shape)) \
+        if _MESH is not None else {}
+    _BATCH_AXES = tuple(axes) if axes else None
+    _BATCH_AXES_SIZE = math.prod(sizes.get(a, 1) for a in _BATCH_AXES) \
+        if _BATCH_AXES else 1
+    _VOCAB_AXIS = vocab_axis
+    _VOCAB_AXIS_SIZE = sizes.get(vocab_axis, 1) if vocab_axis else 1
+
+
+def _pin(x, parts):
+    """Redistribute the DTensor ``x`` to the spec ``parts`` (one axis name,
+    tuple or None a dim; the other mesh dims replicate)."""
+    from ..sharding.rules import placements
+    return x.redistribute(_MESH, placements(_MESH, tuple(parts)))
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def shard_logits(x):
+    """Pin (batch, ..., vocab) sharding on the logits, so the loss never
+    replicates the vocab dim."""
+    if _MESH is None or x.dim() == 0 or not _is_dtensor(x):
+        return x
+    parts = [None] * x.dim()
+    if _BATCH_AXES is not None and _BATCH_AXES_SIZE > 1 \
+            and x.shape[0] % _BATCH_AXES_SIZE == 0 \
+            and x.shape[0] >= _BATCH_AXES_SIZE:
+        parts[0] = _BATCH_AXES if len(_BATCH_AXES) > 1 else _BATCH_AXES[0]
+    if _VOCAB_AXIS is not None and _VOCAB_AXIS_SIZE > 1 \
+            and x.shape[-1] % _VOCAB_AXIS_SIZE == 0:
+        parts[-1] = _VOCAB_AXIS
+    if all(p is None for p in parts):
+        return x
+    return _pin(x, parts)
+
+
+def shard_batch_dim(x):
+    """Pin dim 0 of an activation over the batch axes."""
+    if _MESH is None or _BATCH_AXES is None or x.dim() == 0 \
+            or _BATCH_AXES_SIZE <= 1 or not _is_dtensor(x):
+        return x
+    if x.shape[0] % _BATCH_AXES_SIZE != 0 or x.shape[0] < _BATCH_AXES_SIZE:
+        return x
+    ax = _BATCH_AXES if len(_BATCH_AXES) > 1 else _BATCH_AXES[0]
+    return _pin(x, (ax,) + (None,) * (x.dim() - 1))
+
+
+def replicate_last_dim(x):
+    """A DTensor whose last dim is sharded, with that dim replicated (the
+    other placements kept); other tensors as they are.  For a gather along
+    the last dim: DTensor's gather rule on a sharded dim makes a masked
+    partial whose reduction fails on 2-D indices."""
+    if not _is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    last = x.dim() - 1
+    pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == last else p
+               for p in x.placements)
+    return x if pl == tuple(x.placements) else \
+        x.redistribute(x.device_mesh, pl)
 
 
 def _mm(x, w):

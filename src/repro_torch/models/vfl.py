@@ -176,7 +176,7 @@ def _logits(h, params_b, cfg: ArchConfig):
             torch.full((pad,), -1e30, dtype=torch.float32,
                        device=h.device)])
         logits = logits + mask
-    return logits
+    return L.shard_logits(logits)
 
 
 def _fuse(x, z_a, params_b):
@@ -217,7 +217,8 @@ def per_instance_loss(params_b, cfg: ArchConfig, z_a, batch,
                             remat=remat)
     lse = torch.logsumexp(logits, dim=-1)
     labels = batch["labels"].long()
-    label_logit = torch.gather(logits, -1, labels[..., None])[..., 0]
+    label_logit = torch.gather(L.replicate_last_dim(logits), -1,
+                               labels[..., None])[..., 0]
     return (lse - label_logit).mean(dim=-1), aux
 
 

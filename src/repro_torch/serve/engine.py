@@ -55,8 +55,8 @@ from ..configs.base import ArchConfig, CELUConfig
 from ..core import workset as WS
 from ..core.compression import StochasticQuantCodec
 from ..core.engine import make_transport
-from ..core.uniforms import (GeneratorUniforms, clock_key, lanes_key,
-                             seed_key)
+from ..core.uniforms import (GeneratorUniforms, clock_key, lane_key,
+                             lanes_key, seed_key)
 from ..kernels import ops as kops
 from ..models import vfl
 from ..models.backbone import tree_map
@@ -132,28 +132,24 @@ def _ring_read(buf, width: int):
 def _send_rows(tp, key, rows, direction: str):
     """Each row of ``rows`` (C, n) through ``direction`` of the wire on its
     own, as the reference's per-lane sends do; ``key`` is a
-    ``lanes_key``."""
+    ``lanes_key``.  The quantiser's rows go in one K3 launch; a top-k or
+    chained codec's payload depends on the whole row, so those rows are
+    sent one lane at a time, each on its lane's key."""
     codec = getattr(tp, "codecs", {}).get(direction)
     if codec is None or getattr(codec, "exact", False):
         return tp.send(key, rows, None, direction)[0]
-    y = codec.roundtrip_rows(key.fold(1), tp._wire_cast(rows))
-    return y.to(rows.dtype)
+    if isinstance(codec, StochasticQuantCodec):
+        y = codec.roundtrip_rows(key.fold(1), tp._wire_cast(rows))
+        return y.to(rows.dtype)
+    return torch.stack([tp.send(lane_key(key, c), rows[c], None,
+                                direction)[0]
+                        for c in range(rows.shape[0])])
 
 
 def _check_wire(tp) -> None:
-    """The engine sends lane rows in one batch: it takes the plain wire,
-    the identity codec or a stochastic-rounding quantiser uplink, and an
-    exact downlink."""
+    """The downlink carries token ids: it must be exact."""
     codecs = getattr(tp, "codecs", None)
-    if codecs is None:
-        return
-    up, down = codecs["up"], codecs["down"]
-    if not (getattr(up, "exact", False)
-            or isinstance(up, StochasticQuantCodec)):
-        raise NotImplementedError(
-            f"serving uplink codec {type(up).__name__}: the port's engine "
-            f"sends lane rows through the identity, int8 or int4 codec")
-    if not getattr(down, "exact", False):
+    if codecs is not None and not getattr(codecs["down"], "exact", False):
         raise ValueError("the serving downlink carries token ids: it "
                          "rides the identity codec")
 

@@ -26,7 +26,8 @@ The cases mirror ``tests/test_fleet.py`` on the port:
     fleet and keep the caller's order, and ``average_flush_metrics``;
   * the int8-cache (K3 + K4) and ``cache_fused=False`` (K2a / K2b)
     cohorts run under vmap, each lane against its scalar engine;
-  * ``shard=True`` and ``mesh=`` are refused, naming slice 10.
+  * ``shard=True`` without a process group, and a ``mesh=`` that is not
+    a fleet mesh, are refused.
 """
 import math
 
@@ -415,9 +416,14 @@ def test_average_flush_metrics_passthrough_and_average():
         / np.float32(2.0))
 
 
-@pytest.mark.parametrize("kw", [{"shard": True}, {"mesh": object()}])
-def test_fleet_sharding_is_refused(kw, workload):
-    with pytest.raises(NotImplementedError, match="slice 10"):
+@pytest.mark.parametrize("kw,err,match", [
+    ({"shard": True}, RuntimeError, "process group"),
+    ({"mesh": object()}, ValueError, "'fleet' dimension")])
+def test_fleet_sharding_is_refused(kw, err, match, workload):
+    """Sharding needs a fleet mesh over a process group: without one it
+    is refused before anything runs (``tests/test_torch_pod.py`` runs
+    the sharded fleet over two ranks)."""
+    with pytest.raises(err, match=match):
         run_fleet([JobSpec(celu=BASE)], 2, workload=workload, device="cpu",
                   **kw)
 

@@ -2,9 +2,9 @@
 reference's, on the CPU at the golden geometry.
 
 The cases mirror ``tests/test_pipeline.py`` and
-``tests/test_pipeline_depth.py`` one for one, on the port.  The
-reference's ``test_pod_round_rejects_deep_queue`` has no counterpart yet:
-the pod round is slice 10 of the port (ROADMAP.md).
+``tests/test_pipeline_depth.py`` one for one, on the port, except the
+reference's ``test_pod_round_rejects_deep_queue``, whose counterpart is
+in ``tests/test_torch_pod.py`` with the pod round.
 
 Beyond those: depth 0 reproduces both goldens and is bitwise the port's
 ``make_round``; depths 1, 2 and 4 (round-robin and uniform sampling, the

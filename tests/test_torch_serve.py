@@ -65,7 +65,16 @@ QUANT_MARGIN = 0.05
 def jax_uniforms(tag, shape):
     """The reference's uniforms for a port tag; a ``("lanes", seed, n, C,
     *folds)`` draw stacks lane c's ``split(fold_in(PRNGKey(seed), n),
-    C)[c]`` draws, folded by ``folds``."""
+    C)[c]`` draws, folded by ``folds``; ``("lane", seed, n, C, c,
+    *folds)`` is lane c's alone."""
+    if tag[0] == "lane":
+        _, seed, n, lanes, c, *folds = tag
+        key = jax.random.split(
+            jax.random.fold_in(jax.random.PRNGKey(seed), n), lanes)[c]
+        for f in folds:
+            key = jax.random.fold_in(key, f)
+        return torch.from_numpy(np.array(
+            jax.random.uniform(key, shape, jnp.float32)))
     if tag[0] == "lanes":
         _, seed, n, lanes, *folds = tag
         keys = jax.random.split(
@@ -334,7 +343,8 @@ def test_int8_wire_strictly_smaller_than_fp32():
     assert e8.token_down_bytes == e32.token_down_bytes == 4
 
 
-@pytest.mark.parametrize("spec", ["int8", "int4"])
+@pytest.mark.parametrize("spec", ["int8", "int4", "topk_int8", "topk",
+                                  "int4x2"])
 def test_lane_uplink_is_each_lane_sent_alone(spec):
     """The batched lane uplink equals the reference's per-lane send of
     each row, on the reference's uniforms (decoded values bitwise)."""
@@ -354,6 +364,38 @@ def test_lane_uplink_is_each_lane_sent_alone(spec):
     got = _send_rows(eng.tp, lanes_key(jax_uniforms, seed, n, C),
                      torch.from_numpy(rows), "up")
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("spec,step_bytes", [("topk_int8", 196),
+                                             ("int4x2", 136),
+                                             ("topk/identity", 192)])
+def test_lossy_uplink_engine_bytes_match_reference(spec, step_bytes):
+    """The top-k and chained uplinks serve: each request's wire bytes and
+    the decode steps equal the reference engine's, on its uniforms."""
+    jp, params = _params(seed=2)
+    reqs = _requests(2, gens=[4, 3], seed=2)
+    kw = dict(capacity=2, prompt_len=PROMPT, max_new_tokens=4,
+              compression=spec, cache_dtype="int8", ring_slots=3)
+    jeng = JServeEngine(jp, JCFG, JServeConfig(**kw))
+    jcomps, jstats = jeng.run(
+        [JRequest(r.req_id, r.prompt, r.prompt_a, r.max_new_tokens)
+         for r in reqs])
+    eng = ServeEngine(params, CFG, ServeConfig(**kw), uniforms=jax_uniforms)
+    comps, stats = eng.run(reqs)
+    assert eng.step_up_bytes == jeng.step_up_bytes == step_bytes
+    for c, j in zip(comps, jcomps):
+        assert (c.wire_up_bytes, c.wire_down_bytes) == \
+            (j.wire_up_bytes, j.wire_down_bytes)
+        np.testing.assert_array_equal(c.tokens, j.tokens)
+    assert stats["decode_steps"] == jstats["decode_steps"]
+
+
+def test_lossy_downlink_refused():
+    """The token id rides the identity codec: a lossy downlink is
+    refused."""
+    with pytest.raises(ValueError, match="identity codec"):
+        ServeEngine(_params()[1], CFG,
+                    ServeConfig(capacity=2, compression="topk/int8"))
 
 
 # ---------------------------------------------------------------------------
