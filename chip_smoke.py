@@ -45,8 +45,7 @@ Phases, each on its own printed lines (any failure exits non-zero):
   6. the pipelined scheduler (``engine.make_pipeline``): the goldens at
      depth 0 on the card, within the tests' tolerance and bitwise the
      port's ``make_round``; WDL-Criteo at full width through
-     ``train_dlrm`` at ``--pipeline-depth`` 1, 2 and 4 (50, 50 and 20
-     rounds; K1 and K7 launches against the counts derived from the schedule,
+     ``train_dlrm`` at ``--pipeline-depth`` 1, 2 and 4 (20 rounds each; K1 and K7 launches against the counts derived from the schedule,
      ``_pipeline_schedule``), uniform sampling at depth 2 and DP
      (sigma 0.5) over the int8 wire (K3), each also five rounds on the
      card against the CPU; ms per round on the host clock (depths 0, 1,
@@ -85,11 +84,11 @@ Phases, each on its own printed lines (any failure exits non-zero):
      the scalar ``PipelinedEngine``; 16 lanes of one spec bitwise each
      other; WDL-Criteo at full width over the reference benchmark's job
      grid (lr cycling, seed j, ξ 60° / 45°), 8 rounds and the drain, at
-     N = 1 (bitwise the scalar run), 16 and 128 (4 rounds; depth 0) and
+     N = 1 (bitwise the scalar run), 16 and 128 (3 rounds; depth 0) and
      16 (depth 2), lanes against their scalar runs, K1 launches derived
      from the schedule (the same at every N of a round count); a
      ``--no-cache-fusion`` and an int8-cache cohort (K2a / K2b, K3 +
-     K4); job-rounds per second, busy (profiled 4-round runs) and host
+     K4); job-rounds per second, busy (profiled 3-round runs) and host
      ms per fleet round against the sequential loop of scalar runs, in
      turns;
   9. the serving kernels against their plain versions: K6 and K11
@@ -186,7 +185,23 @@ Phases, each on its own printed lines (any failure exits non-zero):
      full widths cut to 10 layers served (2 requests); each family's
      reduced config (and the vlm one with a cross layer a tower) one
      train step and one served request on the card against the CPU;
- 16. a JSON line of per-kernel results, then the last line
+ 16. the dry-run (``launch/dryrun.py``): (a) its CLI in subprocesses,
+     on the CPU, on the reference's two integration-test triples
+     (smollm-360m train_4k on the 2 x 16 x 16 mesh, xlstm-125m
+     long_500k on 16 x 16), one ok line each with finite roofline
+     terms; (b) its trace of the unsharded ``launch/steps.py`` train
+     step (B = 2, S = 4,096, AdaGrad through K7) on fake CUDA tensors
+     for smollm-360m and seamless-m4t-large-v2, the predicted peak
+     device memory held to ``torch.cuda.max_memory_allocated`` of the
+     same step within DRYRUN_PEAK_RTOL, the predicted compute and memory
+     terms printed beside the step's measured busy ms; (c) the sharded
+     train step over a one-rank NCCL mesh at smollm-360m's full width
+     (B = 2, S = 4,096), its attention on the shards (K9-LSE, K10, K7
+     launches derived by ``_cross_step_launches``), against the
+     unsharded step (the loss to GRAD_LOSS_ATOL, each leaf's gradient
+     magnitude to GRAD_REL_L2, each leaf's update (updated less
+     initial) to DRYRUN_UPDATE_RTOL by relative L2);
+ 17. a JSON line of per-kernel results, then the last line
      ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
@@ -404,8 +419,16 @@ DP_CLIP = 1.0
 # The pipeline phase's profiled runs (busy ms per round at depths 0-2)
 # and its depth-4 run are cut short for the smoke's time limit: the
 # profiler's collection is the cost of a profiled run
-PIPELINE_BUSY_ROUNDS = 8
+PIPELINE_BUSY_ROUNDS = 4
 DEPTH4_ROUNDS = 20
+# For the time limit (with the dry-run phase the smoke took 1,336 s on a
+# slow host, PERF.md) the long WDL-Criteo runs of the main path and the
+# pipeline phase take WDL_ROUNDS (50 before), their timing-only runs in
+# turns TIMED_ROUNDS (20 before) and their profiled runs PROFILED_ROUNDS
+# (20 before); every check and its derived count is unchanged
+WDL_ROUNDS = 20
+TIMED_ROUNDS = 6
+PROFILED_ROUNDS = 4
 # The full-width train step through K9-LSE / K10 against the same step
 # through the plain attention on the card (B = 1, S = 4,096): both round
 # each layer's attention output and its gradients to bf16, so one-ulp
@@ -1399,7 +1422,7 @@ def phase_main_path(torch, card):
     upd = 1 + R              # optimizer updates per party a round
     # WDL-Criteo at full width, the default fused ring sample (K1) and
     # fused AdaGrad (K7: one launch per party update)
-    rounds = 50
+    rounds = WDL_ROUNDS
     wdl, c = _run(f"wdl-criteo celu {rounds} rounds",
                   train_args("wdl-criteo", rounds=rounds))
     check(_party_tensors(wdl) == [7, 13], f"wdl-criteo has "
@@ -1512,10 +1535,10 @@ def phase_main_path(torch, card):
           f"inside the limit {OPT_CPU_CUDA_RTOL}")
 
     # time: the celu round against the vanilla round (no local updates)
-    vanilla, c = _run("wdl-criteo vanilla 20 rounds",
+    vanilla, c = _run(f"wdl-criteo vanilla {TIMED_ROUNDS} rounds",
                       train_args("wdl-criteo", protocol="vanilla",
-                                 rounds=20))
-    _want("vanilla", c, fused_adagrad=n_wdl * 20)     # 2 a round
+                                 rounds=TIMED_ROUNDS))
+    _want("vanilla", c, fused_adagrad=n_wdl * TIMED_ROUNDS)   # 2 a round
     round_ms = wdl["steady_round_ms"]
     local_ms = (round_ms - vanilla["steady_round_ms"]) / R
     print(f"[time] wdl-criteo full width B=256 R=W=5 celu: "
@@ -1528,14 +1551,15 @@ def phase_main_path(torch, card):
               f"{out['steady_round_ms']:.3f} ms per round (fp32 cache "
               f"{round_ms:.3f}); card {card}", flush=True)
     # the four AdaGrad routes in turns (plain, K7, int8 / K8, bf16 / K7,
-    # then back), 20 rounds each
+    # then back), TIMED_ROUNDS each
     routes = {"plain AdaGrad (6 launches a tensor)": {},
               "K7 (--opt-state-dtype float32)": {},
               "int8 state, K8": {"opt_state_dtype": "int8"},
               "bf16 state, K7": {"opt_state_dtype": "bfloat16"}}
     times = {k: [] for k in routes}
     for name in list(routes) + list(routes)[::-1]:
-        args = train_args("wdl-criteo", rounds=20, **routes[name])
+        args = train_args("wdl-criteo", rounds=TIMED_ROUNDS,
+                          **routes[name])
         opt = make_optimizer("adagrad", args.lr) if name.startswith("plain") \
             else None
         times[name].append(train_dlrm(args, opt=opt)["steady_round_ms"])
@@ -1547,7 +1571,7 @@ def phase_main_path(torch, card):
     # the card's busy time per round, from a profiled run of each route
     # (the profiler slows the host, not the kernels)
     from torch.profiler import ProfilerActivity, profile
-    rounds = 20
+    rounds = PROFILED_ROUNDS
     for name, kw in routes.items():
         args = train_args("wdl-criteo", rounds=rounds, **kw)
         opt = make_optimizer("adagrad", args.lr) if name.startswith("plain") \
@@ -1687,7 +1711,7 @@ def phase_pipeline(torch, card):
             counts[k] = counts.get(k, 0) + v
 
     n_wdl = 2            # one K7 launch a party update (7 and 13 tensors)
-    rounds = 50
+    rounds = WDL_ROUNDS
     runs = {}
     for depth in (1, 2, 4):
         n = DEPTH4_ROUNDS if depth == 4 else rounds
@@ -1753,7 +1777,7 @@ def phase_pipeline(torch, card):
     # time per round from a profiled run of each
     times = {d: [] for d in (0, 1, 2)}
     for depth in (0, 1, 2, 2, 1, 0):
-        out = train_dlrm(train_args("wdl-criteo", rounds=20,
+        out = train_dlrm(train_args("wdl-criteo", rounds=TIMED_ROUNDS,
                                     pipeline_depth=depth))
         times[depth].append(out)
     for depth, outs in times.items():
@@ -1764,14 +1788,16 @@ def phase_pipeline(torch, card):
         flush = " and ".join(f"{x['flush_ms']:.3f}" for x in outs)
         print(f"[time] wdl-criteo full width B=256 R=W=5 celu "
               f"--pipeline-depth {depth}: {host} ms per round (host clock, "
-              f"rounds 2-20 of two runs in turns; the drain {flush} ms); "
+              f"rounds 2-{TIMED_ROUNDS} of two runs in turns; the drain "
+              f"{flush} ms); "
               f"device busy {busy:.3f} ms per round over rounds "
               f"2-{PIPELINE_BUSY_ROUNDS} "
               f"({n:.0f} kernels per round, evaluation included); "
               f"simulated WAN {o['sim_wan_s']:.3f} s "
               f"against {o['sim_wan_sequential_s']:.3f} s sequential "
               f"({o['sim_wan_sequential_s'] / o['sim_wan_s']:.3f}x); AUC "
-              f"{o['final_auc']:.4f} after 20 rounds; card {card}",
+              f"{o['final_auc']:.4f} after {TIMED_ROUNDS} rounds; card "
+              f"{card}",
               flush=True)
     for depth in (1, 2, 4):
         o = runs[depth]
@@ -2121,7 +2147,9 @@ def _chaos_fault_matrix(torch, card=None):
 def _chaos_times(torch, card):
     """Host ms and busy ms per scheduler round of the fault matrix
     against ``plan=None`` at depth 1: each profiled once over rounds
-    2-20 (busy), then timed over rounds 2-50 in turns (host clock)."""
+    2-PROFILED_ROUNDS (busy; before the dropout span), then timed over
+    rounds 2-CHAOS_ROUNDS in turns (host clock; the whole matrix, the
+    dropout span included)."""
     from torch.profiler import ProfilerActivity, profile
     host = {True: [], False: []}
     busy = {}
@@ -2135,11 +2163,12 @@ def _chaos_times(torch, card):
             prof = profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA])
             with prof:
-                rs, _ = _drive(pe, rs, it, 19)
+                rs, _ = _drive(pe, rs, it, PROFILED_ROUNDS - 1)
                 torch.cuda.synchronize()
             kern = _kernels(torch, prof)
             busy[chaos] = (sum(e.device_time_total for e in kern) / 1e3
-                           / 19, len(kern) / 19)
+                           / (PROFILED_ROUNDS - 1),
+                           len(kern) / (PROFILED_ROUNDS - 1))
         else:
             t0 = time.perf_counter()
             rs, _ = _drive(pe, rs, it, CHAOS_ROUNDS - 1)
@@ -2153,7 +2182,9 @@ def _chaos_times(torch, card):
               f"{' and '.join(f'{x:.3f}' for x in host[chaos])} ms per "
               f"scheduler round (host clock, rounds 2-{CHAOS_ROUNDS} of two "
               f"runs in turns); device busy {busy[chaos][0]:.3f} ms per "
-              f"round over rounds 2-20 ({busy[chaos][1]:.0f} kernels per "
+              f"round over rounds 2-{PROFILED_ROUNDS}, before the dropout "
+              f"span at {CHAOS_SPAN[0]} ({busy[chaos][1]:.0f} "
+              f"kernels per "
               f"round); card {card}", flush=True)
 
 
@@ -2387,9 +2418,9 @@ def phase_chaos(torch, card):
 # The fleet (repro_torch.fleet)
 # --------------------------------------------------------------------------
 FLEET_ROUNDS = 8                  # benchmarks/fleet.py: ROUNDS
-# N = 128 runs half the rounds, and every profiled run as many (the
+# N = 128 runs FLEET_BIG_ROUNDS, and every profiled run as many (the
 # smoke's time limit: the profiler's collection is its cost)
-FLEET_BIG_ROUNDS = 4
+FLEET_BIG_ROUNDS = 3
 FLEET_SIZES = (1, 16, 128)        # the reference's, less 512 (time)
 FLEET_LRS = (0.05, 0.03, 0.08, 0.02)   # benchmarks/fleet.py: job_specs
 FLEET_XI = (60.0, 45.0)           # two thresholds: each job its own
@@ -3012,7 +3043,7 @@ POD_RUN = dict(n_fields=26, fields_b=13, vocab=1024, embed_dim=16,
                hidden=512, z_dim=256, R=5, W=5, xi_degrees=60.0, lr=0.01,
                teacher=True)
 POD_PARITY_B, POD_PARITY_ROUNDS = 256, 10
-POD_TIMED_B, POD_WARM, POD_TIMED = 4096, 2, 20
+POD_TIMED_B, POD_WARM, POD_TIMED = 4096, 2, 10
 # each shadowed round (card against CPU from the same state): both pods'
 # losses within POD_LOSS_ATOL; each leaf's update, each leaf's
 # accumulator increment and each ring within POD_*_RTOL of its own norm
@@ -3923,8 +3954,6 @@ def phase_train_kernels(torch):
 
         # times; SDPA at the causal, unwindowed shapes (fp32 with TF32 off)
         pairs = fa.visible_pairs(S, True, window)
-        esize = q.element_size()
-        lse_b = 4 * B * H * S
         lib_f = lib_b = None
         if window == 0:
             qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
@@ -3961,15 +3990,15 @@ def phase_train_kernels(torch):
                      library="none" if lib_f is None else
                      f"F.scaled_dot_product_attention forward "
                      f"{lib_f * 1e3:.2f} us", peak=peak, iters=10)
-        n = q.numel() * esize
+        # each kernel's products and bytes, as the dry-run costs it
+        kv_flops, kv_bytes = fab.bwd_costs(names[1], q, True, window)
+        q_flops, q_bytes = fab.bwd_costs(names[2], q, True, window)
         t_kv = _timed(torch, f"{names[1]:30s} {tag}", dkv, dkv_plain,
-                      max(errs["dk"][0], errs["dv"][0]),
-                      6 * n + 2 * lse_b, 8 * hd * H * B * pairs,
+                      max(errs["dk"][0], errs["dv"][0]), kv_bytes, kv_flops,
                       library="none", peak=peak, iters=10)
         t_q = _timed(torch, f"{names[2]:30s} {tag}", dq, dq_plain,
-                     errs["dq"][0], 5 * n + 2 * lse_b,
-                     6 * hd * H * B * pairs, library="none", peak=peak,
-                     iters=10)
+                     errs["dq"][0], q_bytes, q_flops, library="none",
+                     peak=peak, iters=10)
         times[(shape, dt, window)] = {names[0]: t_f["ms"],
                                       names[1]: t_kv["ms"],
                                       names[2]: t_q["ms"], "sdpa": lib_f}
@@ -5155,6 +5184,256 @@ def phase_cross(torch, card):
     return counts
 
 
+# --------------------------------------------------------------------------
+# the dry-run phase
+# --------------------------------------------------------------------------
+# (a) the reference's integration-test triples: (arch, shape, multi-pod)
+DRYRUN_TRIPLES = (("smollm-360m", "train_4k", True),
+                  ("xlstm-125m", "long_500k", False))
+DRYRUN_CLI_TIMEOUT = 400
+# (b) the predicted peak of a train step (params, AdaGrad state, batch
+# and the step's own allocations, as the caching allocator counts them)
+# against the measured one: the trace sees every tensor the step makes,
+# but not the scratch that a library call takes from the allocator for
+# itself (cuBLAS, reductions), so the limit is stated in PERF.md before
+# the first run
+DRYRUN_PEAK_RTOL = 0.10
+DRYRUN_STEP = {"batch": 2, "seq_len": 4096}
+# (c) each leaf's update (updated less initial) against the unsharded
+# step's by relative L2, as ``tests/test_torch_sharded_long.py`` holds
+# it: AdaGrad's first step moves a coordinate by about ±lr whatever its
+# gradient's size, so a few coordinates whose gradient rounds to the
+# other sign read small, and a leaf the step never wrote back reads 1
+DRYRUN_UPDATE_RTOL = 1e-2
+
+
+def _dryrun_cli_start():
+    """Start ``python -m repro_torch.launch.dryrun`` on each triple, on
+    the CPU (no card: ``CUDA_VISIBLE_DEVICES`` empty) -> the processes."""
+    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="2")
+    procs = []
+    for arch, shape, multi_pod in DRYRUN_TRIPLES:
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                arch, "--shape", shape] + (["--multi-pod"] if multi_pod
+                                           else [])
+        procs.append(((arch, shape), subprocess.Popen(
+            argv, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def _dryrun_cli_check(procs, card) -> None:
+    """Each triple printed one ok line with finite, positive roofline
+    terms."""
+    for (arch, shape), proc in procs:
+        try:
+            out, err = proc.communicate(timeout=DRYRUN_CLI_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"dry-run {arch} {shape}: past {DRYRUN_CLI_TIMEOUT} s")
+        lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+        check(proc.returncode == 0 and len(lines) == 1 and lines[0]["ok"],
+              f"dry-run {arch} {shape}: rc {proc.returncode}, lines "
+              f"{lines}, stderr {err[-2000:]}")
+        r = lines[0]
+        terms = r["roofline"]
+        check(all(math.isfinite(v) and v > 0 for v in terms.values()),
+              f"dry-run {arch} {shape}: roofline terms {terms}")
+        print(f"[dryrun] CLI {arch} {shape} on {r['mesh']} ({r['chips']} "
+              f"GPUs, traced on the CPU in {r['compile_s']} s): per device "
+              f"{r['hlo_flops_per_dev']:.4g} FLOP, {r['hlo_bytes_per_dev']:.4g} "
+              f"B accessed, collectives {r['collectives']}, peak "
+              f"{r['memory']['peak_bytes']:,} B; terms (a model from the "
+              f"H100 data sheet) {terms}, {r['dominant']}; kernels "
+              f"{r['kernels']}", flush=True)
+
+
+def _dryrun_peak(torch, card, arch):
+    """(b) for one arch: the dry-run's trace of the train step on fake
+    CUDA tensors against the same step run on the card.  -> the
+    deviation of the predicted peak."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.bridge import reference_parameters
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+    from repro_torch.models.vfl import PartyParams, init_all
+    from repro_torch.optim import make_optimizer
+
+    cfg = get_config(arch)
+    B, S = DRYRUN_STEP["batch"], DRYRUN_STEP["seq_len"]
+    shape = ShapeConfig("train", seq_len=S, global_batch=B, kind="train")
+    opt = make_optimizer("adagrad", CROSS_LR, use_pallas=True)
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        fparams = PartyParams(init_all(0, cfg, "cuda"))
+        fstate = opt.init(reference_parameters(fparams))
+        fbatch = steps.input_specs(cfg, shape, device="cuda")["batch"]
+        t = trace_step(steps.make_train_step(cfg, opt), fparams, fstate,
+                       fbatch)
+    trace_s = time.perf_counter() - t0
+    del fparams, fstate, fbatch
+    predicted = t["peak_bytes"]
+
+    # what the process holds before the step's arguments are made: the
+    # measured side owes nothing to the trace's argument bytes
+    torch.cuda.synchronize()
+    other = torch.cuda.memory_allocated()
+    params = PartyParams(init_all(0, cfg, "cuda"))
+    state = opt.init(reference_parameters(params))
+    batch = steps.concrete_batch(cfg, shape, seed=0, device="cuda")
+    step = steps.make_train_step(cfg, opt)
+    step(params, state, batch)          # warm: the libraries' handles
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, loss = step(params, state, batch)
+        torch.cuda.synchronize()
+    raw = torch.cuda.max_memory_allocated()
+    measured = raw - other
+    busy = sum(e.device_time_total for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    dev = abs(predicted - measured) / measured
+    print(f"[dryrun] {arch} train step (B={B}, S={S}, unsharded, AdaGrad "
+          f"through K7): peak predicted by the dry-run's trace {predicted:,} "
+          f"B (arguments {t['argument_bytes']:,} B; traced in "
+          f"{trace_s:.1f} s), measured {measured:,} B "
+          f"(torch.cuda.max_memory_allocated {raw:,} B less {other:,} B "
+          f"held before the step's arguments were made): deviation {dev:.2%} (limit "
+          f"{DRYRUN_PEAK_RTOL:.0%}); predicted compute term "
+          f"{1e3 * t['flops'] / PEAK_FLOPS_BF16:.3f} ms ({t['flops']:.4g} "
+          f"FLOP) and memory term {1e3 * t['bytes'] / HBM_BW:.3f} ms "
+          f"({t['bytes']:.4g} B, un-fused) beside the measured busy "
+          f"{busy:.3f} ms; loss {float(loss):.4f}; kernels {t['kernels']}; "
+          f"card {card}", flush=True)
+    check(math.isfinite(float(loss)), f"{arch} dry-run step loss {loss}")
+    check(dev <= DRYRUN_PEAK_RTOL, f"{arch}: the dry-run's peak {predicted:,}"
+          f" B against the measured {measured:,} B")
+    del params, state, batch, prof, t
+    torch.cuda.empty_cache()
+    return dev
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _rel_l2(got, want) -> float:
+    """||got - want|| / ||want||; 0 where both are zero (a leaf the loss
+    does not reach), infinite where only ``want`` is."""
+    num, den = float((got - want).norm()), float(want.norm())
+    return num / den if den > 0 else (0.0 if num == 0 else math.inf)
+
+
+def _dryrun_sharded(torch, card):
+    """(c) the sharded train step on a one-rank mesh against the unsharded
+    step.  -> its launch counts."""
+    import torch.distributed as dist
+
+    from repro_torch.bridge import reference_parameters
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.vfl import PartyParams, init_all
+    from repro_torch.optim import make_optimizer
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        cfg = get_config("smollm-360m")
+        B, S = DRYRUN_STEP["batch"], DRYRUN_STEP["seq_len"]
+        shape = ShapeConfig("train", seq_len=S, global_batch=B, kind="train")
+        batch = steps.concrete_batch(cfg, shape, seed=0, device="cuda")
+        opt = make_optimizer("adagrad", CROSS_LR, use_pallas=True)
+
+        ref = PartyParams(init_all(0, cfg, "cuda"))
+        init = [p.detach().clone() for p in reference_parameters(ref)]
+        rstate = opt.init(reference_parameters(ref))
+        _, rstate, rloss = steps.make_train_step(cfg, opt)(ref, rstate,
+                                                           batch)
+        params = steps.shard_params(PartyParams(init_all(0, cfg, "cuda")),
+                                    mesh)
+        state = opt.init(reference_parameters(params))
+        step = steps.make_sharded_train_step(cfg, opt, mesh)
+        sbatch = steps.shard_batch(batch, mesh)
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        _, state, loss = step(params, state, sbatch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        counts = dict(_cuda.LAUNCHES)
+        want = _cross_step_launches(cfg, S, 1, len(init))
+        print(f"[dryrun] smollm-360m sharded train step over a one-rank "
+              f"(data, model) mesh (B={B}, S={S}, attention on the shards "
+              f"through local_map): launches {counts}; {ms:.1f} ms on the "
+              f"host clock; card {card}", flush=True)
+        _want("the sharded train step", counts, **want)
+        loss, rloss = float(loss.full_tensor()), float(rloss)
+        leaves = [p.full_tensor().detach()
+                  for p in reference_parameters(params)]
+        rleaves = [p.detach() for p in reference_parameters(ref)]
+        grad_rel = [float((a.full_tensor().sqrt() - b.sqrt()).norm()
+                          / b.sqrt().norm().clamp_min(1e-30))
+                    for a, b in zip(state["accum"], rstate["accum"])]
+        update_rel = [_rel_l2(a.float() - p0.float(), b.float() - p0.float())
+                      for a, b, p0 in zip(leaves, rleaves, init)]
+        worst = max(range(len(update_rel)), key=update_rel.__getitem__)
+        moved = max(float((b.float() - p0.float()).abs().max())
+                    for b, p0 in zip(rleaves, init))
+        print(f"[dryrun] sharded against unsharded: loss {loss:.6f} / "
+              f"{rloss:.6f} (|dev| {abs(loss - rloss):.3g}, limit "
+              f"{GRAD_LOSS_ATOL}); gradient magnitudes (the AdaGrad "
+              f"accumulators' roots) relative L2 worst {max(grad_rel):.3g} "
+              f"(limit {GRAD_REL_L2}); each leaf's update relative L2 "
+              f"worst {update_rel[worst]:.3g} (leaf {worst} of "
+              f"{len(update_rel)}, {leaves[worst].numel():,} elements; "
+              f"limit {DRYRUN_UPDATE_RTOL}; the unsharded step moved a "
+              f"coordinate by up to {moved:.3g})", flush=True)
+        check(math.isfinite(loss) and abs(loss - rloss) <= GRAD_LOSS_ATOL,
+              f"sharded step loss {loss} against {rloss}")
+        check(max(grad_rel) <= GRAD_REL_L2, f"sharded step gradient "
+              f"magnitudes: relative L2 errors {grad_rel}")
+        check(max(update_rel) <= DRYRUN_UPDATE_RTOL,
+              f"sharded step leaves: updates' relative L2 errors "
+              f"{update_rel}")
+        del params, state, ref, rstate, leaves, rleaves, init, batch, sbatch
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in want}
+
+
+def phase_dryrun(torch, card):
+    """The dry-run's three checks (the module's note, item 16); (a) runs
+    in subprocesses on the CPU while (b) and (c) run.  -> the launch
+    counts of (c)."""
+    procs = _dryrun_cli_start()
+    try:
+        for arch in ("smollm-360m", AUDIO):
+            _dryrun_peak(torch, card, arch)
+        counts = _dryrun_sharded(torch, card)
+        _dryrun_cli_check(procs, card)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return counts
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"run from a checkout of the repository: {SRC}/repro_torch "
@@ -5258,7 +5537,13 @@ def main() -> None:
         pipeline_counts[k] = pipeline_counts.get(k, 0) + v
     print(f"[phase] cross {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 16. results: each kernel's launches over every path that ran it
+    # 16. the dry-run
+    t0 = time.perf_counter()
+    for k, v in phase_dryrun(torch, card).items():
+        pipeline_counts[k] = pipeline_counts.get(k, 0) + v
+    print(f"[phase] dryrun {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 17. results: each kernel's launches over every path that ran it
     for k, v in pipeline_counts.items():
         counts[k] = counts.get(k, 0) + v
     rows = []

@@ -4,10 +4,11 @@
 Ids use the public pool spelling (dashes); module names use underscores.
 :data:`ARCH_IDS` are the reference's LLM configs, in its order: the text
 families (dense, moe, hybrid, ssm / xlstm) and the cross-attention ones
-(vlm, audio)."""
-from .base import (ArchConfig, CELUConfig, MoEConfig, ShapeConfig,  # noqa: F401
-                   SSMConfig, VFLConfig, XLSTMConfig,
-                   validate_pipeline_depth)
+(vlm, audio).  :func:`arch_for_shape` gives the config a dry-run shape
+of :data:`SHAPES` runs."""
+from .base import (LONG_CONTEXT_WINDOW, SHAPES,  # noqa: F401
+                   ArchConfig, CELUConfig, MoEConfig, ShapeConfig, SSMConfig,
+                   VFLConfig, XLSTMConfig, validate_pipeline_depth)
 
 ARCH_IDS = (
     "hymba-1.5b",
@@ -34,3 +35,13 @@ def get_config(arch_id: str):
     import importlib
     name = arch_id.replace("-", "_").replace(".", "_")
     return importlib.import_module(f".{name}", __package__).CONFIG
+
+
+def arch_for_shape(arch_id: str, shape_name: str):
+    """The config a shape runs: at ``long_500k`` every family but ssm
+    takes its sliding-window variant (window :data:`LONG_CONTEXT_WINDOW`);
+    the ssm family decodes in O(1) state and keeps its config."""
+    cfg = get_config(arch_id)
+    if shape_name == "long_500k" and cfg.family != "ssm":
+        return cfg.with_sliding_window(LONG_CONTEXT_WINDOW)
+    return cfg

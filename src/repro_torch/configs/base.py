@@ -2,7 +2,9 @@
 ``validate_pipeline_depth``, ``CELUConfig``, the chaos engine's
 ``DropoutSpan`` and ``FaultPlan``, the LLM architecture configs
 (``ArchConfig`` with its family extras ``MoEConfig``, ``SSMConfig``,
-``XLSTMConfig``, the party split ``VFLConfig``) and ``ShapeConfig``.  The
+``XLSTMConfig``, the party split ``VFLConfig``), ``ShapeConfig`` with
+the dry-run's four shapes (:data:`SHAPES`) and
+:data:`LONG_CONTEXT_WINDOW`.  The
 port keeps its own so that it imports nothing of the JAX package; field
 meanings and defaults are the reference's."""
 from __future__ import annotations
@@ -276,3 +278,15 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str                # train | prefill | decode
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+# the attention window of every family but ssm at the long_500k decode
+# shape (``configs.arch_for_shape``)
+LONG_CONTEXT_WINDOW = 8192

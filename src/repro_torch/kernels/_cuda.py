@@ -13,6 +13,14 @@ concurrent processes never load a half-written file.
 Every wrapper that launches a kernel adds one to its entry in
 :data:`LAUNCHES`; a run reads the counts to show which kernels its path
 went through.
+
+A tensor without data (on the meta device, or a ``FakeTensor``) is
+*abstract* (:func:`is_abstract`): there a wrapper allocates what the
+card's launch allocates (its outputs, the LSE, the split-row workspace)
+and computes nothing, and, while a :class:`Accountant` is installed
+(:func:`accounting`), adds the kernel's operations and bytes, by the
+formulas its bound uses, to it.  That is how ``launch/budget.py`` and
+``launch/dryrun.py`` trace the model as the card runs it.
 """
 from __future__ import annotations
 
@@ -115,6 +123,57 @@ def _check_adagrad_layout(handle) -> None:
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def is_abstract(t) -> bool:
+    """True for a tensor that holds no data: on the meta device, or a
+    ``FakeTensor`` (whatever device it reports)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor) or t.device.type == "meta"
+
+
+class Accountant:
+    """The kernels' costs over a trace: {name: [calls, operations,
+    bytes]}, added by the wrappers on abstract tensors."""
+
+    def __init__(self):
+        self.kernels = {}
+
+    def add(self, name: str, flops: float, nbytes: float) -> None:
+        row = self.kernels.setdefault(name, [0, 0, 0])
+        row[0] += 1
+        row[1] += int(flops)
+        row[2] += int(nbytes)
+
+    def flops(self) -> int:
+        return sum(r[1] for r in self.kernels.values())
+
+    def nbytes(self) -> int:
+        return sum(r[2] for r in self.kernels.values())
+
+
+_ACCOUNTANT = None
+
+
+class accounting:
+    """``with accounting() as acc:`` installs a fresh :class:`Accountant`
+    (restoring the previous one on exit)."""
+
+    def __enter__(self) -> Accountant:
+        global _ACCOUNTANT
+        self._prev, _ACCOUNTANT = _ACCOUNTANT, Accountant()
+        return _ACCOUNTANT
+
+    def __exit__(self, *exc) -> None:
+        global _ACCOUNTANT
+        _ACCOUNTANT = self._prev
+
+
+def account(name: str, flops: float, nbytes: float) -> None:
+    """A wrapper's abstract call: add its costs to the installed
+    accountant, if any."""
+    if _ACCOUNTANT is not None:
+        _ACCOUNTANT.add(name, flops, nbytes)
 
 
 def _nvcc() -> str:

@@ -20,9 +20,10 @@ mask empties entirely are skipped.
 is its plain version (dense attention with fp32 inside, the function of
 ``repro/kernels/ref.py::flash_attention_ref`` with the TPU kernel's
 arithmetic) and :func:`flash_attention_fwd_lse_plain` K9-LSE's, which
-the wrappers run for CPU tensors only.  A tensor on the meta device gets
-a result of the right shape and dtype and nothing is computed (the
-memory budget of ``launch/budget.py`` traces the model that way).
+the wrappers run for CPU tensors only.  An abstract tensor (meta or
+fake, ``_cuda.is_abstract``) gets the launch's outputs, empty, and its
+operations and bytes go to the installed accountant (``_cuda.account``):
+``launch/budget.py`` and ``launch/dryrun.py`` trace the model that way.
 
 Bound: operations.  At the long-prompt shape (1, 4096, 15, 64), causal,
 the two products take 4·hd·H·S(S+1)/2 = 32.2 GFLOP against 31.5 MB read
@@ -159,7 +160,9 @@ def lse_like(q) -> torch.Tensor:
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """K9.  q, k, v: (B, S, H, hd), KV heads repeated to H.  -> (B, S, H,
     hd) in q's dtype."""
-    if q.device.type == "meta":
+    if _cuda.is_abstract(q):
+        B, S, H, hd = q.shape
+        _cuda.account(NAME, flops(B, S, H, hd, causal, window), nbytes(q))
         return torch.empty_like(q)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
@@ -175,7 +178,10 @@ def flash_attention_fwd_lse(q, k, v, *, causal: bool = True,
                             window: int = 0):
     """K9-LSE, the training forward.  q, k, v: (B, S, H, hd).  -> (out
     (B, S, H, hd) in q's dtype, lse (B, H, S) fp32)."""
-    if q.device.type == "meta":
+    if _cuda.is_abstract(q):
+        B, S, H, hd = q.shape
+        _cuda.account(LSE_NAME, flops(B, S, H, hd, causal, window),
+                      nbytes(q, with_lse=True))
         return torch.empty_like(q), lse_like(q)
     if q.device.type == "cpu":
         return flash_attention_fwd_lse_plain(q, k, v, causal=causal,

@@ -42,7 +42,9 @@ operands (19 us at 3.35 TB/s).  Both kernels compute s and do·vᵀ; the
 bf16 ones issue each product on p or ds twice (its high and low half), so
 the dkv kernel issues six products and the dq kernel four; the fp32 ones
 issue six bf16 products for each of their four and three, 24 and 18:
-:func:`flops` counts any of these.
+:func:`flops` counts any of these.  The bounds, and the dry-run's
+accountant (:func:`bwd_costs`), count what each kernel computes: four
+products for the dkv kernel and three for the dq kernel.
 """
 from __future__ import annotations
 
@@ -135,10 +137,29 @@ def check_bwd_operands(name, q, k, v, do, lse, delta, window) -> None:
                              f"{t.device}")
 
 
+def bwd_costs(name: str, q, causal: bool, window: int):
+    """(operations, bytes) of one K10 kernel on q's shape, as its bound
+    counts them: the products it computes (the dkv kernel s, do·vᵀ, dv
+    and dk; the dq kernel s, do·vᵀ and dq), and the tensors it reads and
+    writes once each (q, k, v, do, lse and D read; dk and dv, or dq,
+    written)."""
+    B, S, H, hd = q.shape
+    n = q.numel() * q.element_size()
+    rows = 2 * 4 * B * H * S
+    if name == DKV_NAME:
+        return flops(B, S, H, hd, causal, window, products=4), 6 * n + rows
+    return flops(B, S, H, hd, causal, window, products=3), 5 * n + rows
+
+
+def _account(name: str, q, causal: bool, window: int) -> None:
+    _cuda.account(name, *bwd_costs(name, q, causal, window))
+
+
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
                             window: int = 0):
     """K10's dkv kernel.  -> (dk, dv), (B, S, H, hd) in q's dtype."""
-    if q.device.type == "meta":
+    if _cuda.is_abstract(q):
+        _account(DKV_NAME, q, causal, window)
         return torch.empty_like(q), torch.empty_like(q)
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
@@ -155,7 +176,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
                            window: int = 0):
     """K10's dq kernel.  -> dq, (B, S, H, hd) in q's dtype."""
-    if q.device.type == "meta":
+    if _cuda.is_abstract(q):
+        _account(DQ_NAME, q, causal, window)
         return torch.empty_like(q)
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta,
@@ -196,8 +218,9 @@ class FlashAttentionFn(torch.autograd.Function):
 def flops(B: int, S: int, H: int, hd: int, causal: bool = True,
           window: int = 0, products: int = 5) -> int:
     """``products`` matrix products of 2·hd flops per visible pair: 5 for
-    the backward's work; 6 (bf16) or 24 (fp32, in bf16 products) issued
-    by the dkv kernel, 4 or 18 by the dq kernel."""
+    the backward's work; 4 computed by the dkv kernel and 3 by the dq
+    kernel; 6 (bf16) or 24 (fp32, in bf16 products) issued by the dkv
+    kernel, 4 or 18 by the dq kernel."""
     return 2 * products * hd * H * B * visible_pairs(S, causal, window)
 
 

@@ -52,6 +52,13 @@ and p' (20 B an fp32 element): over WDL-Criteo's Party A (836,608
 elements) 16,732,160 B, 4.99 us at 3.35 TB/s.  The K8 step reads g, q,
 the noise and p and writes q' and p' (18 B an element) plus 8 B of
 scales a row.
+
+On abstract tensors (``_cuda.is_abstract``) the wrappers allocate what a
+launch allocates and add :func:`k7_costs` / :func:`k8_costs` to the
+installed accountant.  DTensor operands (a sharded train step) run the
+wrapper on their local shards, each gradient first placed as its
+accumulator is (an elementwise step needs nothing else; a parameter
+placed otherwise is stepped on a copy placed so and gathered back).
 """
 from __future__ import annotations
 
@@ -309,6 +316,52 @@ def k8_tables(grads, qs, scales, q_outs, s_outs, noises, dsts) -> list:
     return tables
 
 
+def _elems(ts) -> int:
+    return sum(t.numel() for t in ts)
+
+
+def k7_costs(grads, accums, params=None):
+    """(operations, bytes) of a K7 launch set: 8 operations an element;
+    g and a read and a' written, then p read and written (the step) or
+    the fp32 update written, and the step's 4-byte scale."""
+    nbytes = sum(g.numel() * (g.element_size() + 2 * a.element_size())
+                 for g, a in zip(grads, accums))
+    if params is None:
+        nbytes += 4 * _elems(grads)
+    else:
+        nbytes += 4 + sum(2 * p.numel() * p.element_size() for p in params)
+    return 8 * _elems(grads), nbytes
+
+
+def k8_costs(grads, qs, params=None):
+    """(operations, bytes) of a K8 launch set: 12 operations a code; g,
+    q, the noise read, q' written, a scale read and written a row, then
+    p read and written (the step) or the fp32 update written."""
+    nbytes = sum(g.numel() * g.element_size() + 6 * q.numel()
+                 + 8 * q.shape[0] for g, q in zip(grads, qs))
+    if params is None:
+        nbytes += 4 * _elems(grads)
+    else:
+        nbytes += 4 + sum(2 * p.numel() * p.element_size() for p in params)
+    return 12 * _elems(qs), nbytes
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _local_grads(grads, like):
+    """Each DTensor gradient placed as its parameter (or accumulator) in
+    ``like`` is, as its local shard."""
+    return [g.redistribute(p.device_mesh, p.placements).to_local()
+            for g, p in zip(grads, like)]
+
+
+def _locals(ts):
+    return None if ts is None else [t.to_local() for t in ts]
+
+
 def _launch(entry: str, tables, device, scale, lr, eps, apply) -> None:
     for t in tables:
         _cuda.launch_fused_adagrad(entry, t, device=device, scale=scale,
@@ -324,6 +377,25 @@ def fused_adagrad_step_(grads, accums, params, lr, eps, scale=None) -> None:
     tensor).  One launch per :data:`_cuda.ADAGRAD_LEAVES` leaves."""
     if not grads:
         return
+    if _is_dtensor(grads[0]):
+        if _is_dtensor(scale):
+            scale = scale.full_tensor()
+        # each leaf's step on its accumulator's shards: a parameter placed
+        # otherwise (ZeRO-1: the accumulators alone split) is stepped on a
+        # copy placed so and gathered back
+        shards = [p if p.placements == a.placements else
+                  p.redistribute(a.device_mesh, a.placements)
+                  for p, a in zip(params, accums)]
+        fused_adagrad_step_(_local_grads(grads, accums), _locals(accums),
+                            _locals(shards), lr, eps, scale)
+        with torch.no_grad():
+            for p, sh in zip(params, shards):
+                if sh is not p:
+                    p.copy_(sh.redistribute(p.device_mesh, p.placements))
+        return
+    if _cuda.is_abstract(grads[0]):
+        return _cuda.account("fused_adagrad",
+                             *k7_costs(grads, accums, params))
     if grads[0].device.type == "cpu":
         return fused_adagrad_step_plain(grads, accums, params, lr, eps,
                                         scale)
@@ -337,12 +409,15 @@ def fused_adagrad_list(grads, accums, lr, eps):
     accumulators in the accumulators' dtype); the inputs are untouched."""
     if not grads:
         return [], []
-    if grads[0].device.type == "cpu":
+    if grads[0].device.type == "cpu" and not _cuda.is_abstract(grads[0]):
         return fused_adagrad_list_plain(grads, accums, lr, eps)
-    check_step_operands(grads, accums)
     upd = [torch.empty(g.shape, dtype=torch.float32, device=g.device)
            for g in grads]
     acc = [torch.empty_like(a) for a in accums]
+    if _cuda.is_abstract(grads[0]):
+        _cuda.account("fused_adagrad", *k7_costs(grads, accums))
+        return upd, acc
+    check_step_operands(grads, accums)
     _launch("fused_adagrad", k7_tables(grads, accums, acc, upd),
             grads[0].device, None, lr, eps, False)
     return upd, acc
@@ -366,6 +441,9 @@ def fused_adagrad_q8_step_(grads, qs, scales, noises, params, lr, eps,
     :data:`_cuda.ADAGRAD_LEAVES` leaves."""
     if not grads:
         return
+    if _cuda.is_abstract(grads[0]):
+        return _cuda.account("fused_adagrad_q8",
+                             *k8_costs(grads, qs, params))
     if grads[0].device.type == "cpu":
         return fused_adagrad_q8_step_plain(grads, qs, scales, noises,
                                            params, lr, eps, scale)
@@ -380,14 +458,17 @@ def fused_adagrad_q8_list(grads, qs, scales, noises, lr, eps):
     codes, new scales); the inputs are untouched."""
     if not grads:
         return [], [], []
-    if grads[0].device.type == "cpu":
+    if grads[0].device.type == "cpu" and not _cuda.is_abstract(grads[0]):
         return fused_adagrad_q8_list_plain(grads, qs, scales, noises, lr,
                                            eps)
-    check_q8_step_operands(grads, qs, scales, noises)
     upd = [torch.empty(g.shape, dtype=torch.float32, device=g.device)
            for g in grads]
     q_new = [torch.empty_like(q) for q in qs]
     s_new = [torch.empty_like(s) for s in scales]
+    if _cuda.is_abstract(grads[0]):
+        _cuda.account("fused_adagrad_q8", *k8_costs(grads, qs))
+        return upd, q_new, s_new
+    check_q8_step_operands(grads, qs, scales, noises)
     _launch("fused_adagrad_q8",
             k8_tables(grads, qs, scales, q_new, s_new, noises, upd),
             grads[0].device, None, lr, eps, False)

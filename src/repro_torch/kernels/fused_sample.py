@@ -335,12 +335,18 @@ def check_dequant_ring(bits: int, slot, zq, zscale) -> None:
 
 
 def _fused_dequant(bits: int, slot, zq, zscale):
-    if zq.device.type == "cpu":
+    if zq.device.type == "cpu" and not _cuda.is_abstract(zq):
         return fused_dequant_plain(bits, slot, zq, zscale)
-    check_dequant_ring(bits, slot, zq, zscale)
     W, B, P = zq.shape
     out = torch.empty((B, P if bits == 8 else 2 * P), dtype=torch.float32,
                       device=zq.device)
+    if _cuda.is_abstract(zq):
+        # one slot's codes and scales read, the fp32 rows written; one
+        # multiply an element
+        _cuda.account(DEQUANT_NAMES[bits], out.numel(),
+                      B * P + 4 * B + 4 * out.numel())
+        return out
+    check_dequant_ring(bits, slot, zq, zscale)
     _cuda.launch_ring_dequant(DEQUANT_NAMES[bits], bits=bits, slot=slot,
                               zq=zq, zs=zscale, out=out)
     return out

@@ -10,7 +10,10 @@ each with
 
   * its one-job implementation (the kernel module's wrapper: the kernel on
     a CUDA tensor, its plain version on a CPU tensor);
-  * a fake rule: the output shapes, for meta and fake tensors;
+  * a fake rule, for abstract (meta and fake) tensors: the launch's
+    outputs and its split-row workspace, empty, with the kernel's
+    operations and bytes added to the installed accountant
+    (``_cuda.account``);
   * a ``vmap`` rule: ONE job-batched call for the N jobs.  On a CUDA
     tensor that is one launch of the job-batched kernel
     (``csrc/cosine_gate.cu``'s grid takes the jobs on its last axis; K3
@@ -32,6 +35,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+
+from . import _cuda
 
 GATE_OPERANDS = ("slot", "a", "z", "zs", "dz", "dzs", "thr")
 
@@ -71,6 +76,21 @@ def job_operand(x, bdim) -> JobOperand:
     return JobOperand(x, x.stride(0), True)
 
 
+def gate_costs(slot, a, z, zs, dz, dzs):
+    """(operations, bytes) of one gate launch: about 7 operations an
+    element of the (B, F) rows; the ad-hoc rows read, one slot of each
+    ring (every ring when ``slot`` is None: K2's materialised rows) and
+    its scales read, the weights (and the fp32 cotangent) written."""
+    B, F = a.shape
+    slots = 1 if slot is None else z.shape[0]
+
+    def row(t):
+        return 0 if t is None else t.numel() * t.element_size() // slots
+    nbytes = (a.numel() * a.element_size() + row(z) + row(zs) + row(dz)
+              + row(dzs) + 4 * B + (4 * B * F if dz is not None else 0))
+    return 7 * B * F, nbytes
+
+
 def register_gate(name: str, single: Callable, jobs: Callable):
     """Register ``torch.ops.repro_torch.<name>``.  ``single(slot, a, z,
     zs, dz, dzs, thr, thresh)`` is the one-job wrapper, -> (w, cot or
@@ -89,7 +109,10 @@ def register_gate(name: str, single: Callable, jobs: Callable):
                                   mutates_args=())
 
     def fake(slot, a, z, zs, dz, dzs, thr, thresh):
+        from .cosine_weight import gate_workspace
         B, F = a.shape
+        gate_workspace(B, F, a.device)    # the launch's own, freed after it
+        _cuda.account(name, *gate_costs(slot, a, z, zs, dz, dzs))
         return (a.new_empty((B,), dtype=torch.float32),
                 a.new_empty((B, F) if dz is not None else (0,),
                             dtype=torch.float32))
@@ -119,6 +142,10 @@ def register_quantize(rows: Callable):
                                   quantize_sr_2d, mutates_args=())
 
     def fake(x, u, levels):
+        # x and u read, the codes and a scale a row written; about four
+        # operations an element
+        _cuda.account("quantize_sr_2d", 4 * x.numel(),
+                      9 * x.numel() + 4 * x.shape[0])
         return (x.new_empty(x.shape, dtype=torch.int8),
                 x.new_empty(x.shape[:1], dtype=torch.float32))
     cop.register_fake(fake)

@@ -7,6 +7,9 @@ The ``pod`` axis is the slow link between pods: in the CELU party-to-pod
 mapping it carries the two parties (``core/pod_protocol.py``), elsewhere
 it extends data parallelism.
 
+The roofline constants are one NVIDIA H100 SXM's (the dry-run's three
+terms, ``launch/dryrun.py``), one constant a term as in the reference.
+
 Every builder needs an initialised process group whose world size is the
 mesh's size (``launch/dist.py`` starts one on one machine).  The device
 type is the caller's, or follows the group's backend: ``"cuda"`` under
@@ -17,6 +20,18 @@ from __future__ import annotations
 
 import math
 from typing import Optional, Tuple
+
+# NVIDIA H100 SXM constants (per GPU) for the roofline terms, from
+# NVIDIA's H100 data sheet (dense rates, no sparsity) and the DGX H100
+# system's network spec
+PEAK_FLOPS_BF16 = 989e12        # FLOP/s, bf16 tensor cores, dense
+HBM_BW = 3.35e12                # bytes/s, HBM3
+# bytes/s of one GPU's link off its node: a DGX H100 gives each GPU one
+# 400 Gb/s ConnectX-7 port, 400e9 / 8 = 50e9 B/s.  A 16-wide mesh axis
+# spans two 8-GPU NVLink domains, so a ring over it crosses that link,
+# which is its slowest hop; NVLink's 900 GB/s a GPU holds only inside
+# one node of eight.
+LINK_BW = 50e9
 
 SINGLE_POD_SHAPE = (16, 16)
 MULTI_POD_SHAPE = (2, 16, 16)

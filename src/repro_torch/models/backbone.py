@@ -163,8 +163,8 @@ def block_apply_full(params, x, btype: str, ctx: Ctx):
     cfg = ctx.cfg
     eps = cfg.norm_eps
     if btype in _CELLS:
-        h, _ = _CELLS[btype](params["cell"],
-                             L.rmsnorm(params["ln1"], x, eps))
+        h, _ = L.on_shards(_CELLS[btype], params["cell"],
+                           L.rmsnorm(params["ln1"], x, eps))
         return x + h, 0.0
     h = L.rmsnorm(params["ln1"], x, eps)
     a = L.attention_apply(params["attn"], h, positions=ctx.positions,
@@ -172,18 +172,21 @@ def block_apply_full(params, x, btype: str, ctx: Ctx):
                           causal=ctx.causal and btype != "enc",
                           window=ctx.window)
     if btype == "hybrid":
-        m = S.mamba_apply(params["mamba"],
-                          L.rmsnorm(params["lnm"], x, eps), cfg.ssm)
+        m = L.on_shards(lambda p, h: S.mamba_apply(p, h, cfg.ssm),
+                        params["mamba"], L.rmsnorm(params["lnm"], x, eps))
         x = x + (a + m) * 0.5
     else:
         x = x + a
+    # over a mesh, pin the residual stream's batch sharding after each
+    # sublayer (the model-axis partial sums reduced there, as Megatron
+    # does), so that the next products see one layout
+    x = L.shard_batch_dim(x)
     if btype == "cross":
         hx = L.rmsnorm(params["lnx"], x, eps)
-        x = x + L.attention_apply(params["xattn"], hx,
-                                  positions=ctx.positions,
-                                  theta=cfg.rope_theta, memory=ctx.memory,
-                                  memory_positions=ctx.memory_positions,
-                                  use_rope=False)
+        x = L.shard_batch_dim(x + L.attention_apply(
+            params["xattn"], hx, positions=ctx.positions,
+            theta=cfg.rope_theta, memory=ctx.memory,
+            memory_positions=ctx.memory_positions, use_rope=False))
     h2 = L.rmsnorm(params["ln2"], x, eps)
     y, aux = _ffn(params, h2, cfg, btype)
     return x + y, aux
@@ -224,18 +227,18 @@ def block_decode(params, x, btype: str, ctx: Ctx, cache):
     cfg = ctx.cfg
     eps = cfg.norm_eps
     if btype in _DECODE_CELLS:
-        h, st = _DECODE_CELLS[btype](params["cell"],
-                                     L.rmsnorm(params["ln1"], x, eps),
-                                     cache["state"])
+        h, st = L.on_shards(_DECODE_CELLS[btype], params["cell"],
+                            L.rmsnorm(params["ln1"], x, eps),
+                            cache["state"])
         _copy_into(cache["state"], st)
         return x + h, 0.0, cache
     h = L.rmsnorm(params["ln1"], x, eps)
     a, _ = L.attention_decode(params["attn"], h, cache["attn"], ctx.pos,
                               theta=cfg.rope_theta, window=ctx.window)
     if btype == "hybrid":
-        m, _ = S.mamba_decode(params["mamba"],
-                              L.rmsnorm(params["lnm"], x, eps),
-                              cache["ssm"], cfg.ssm)
+        m, _ = L.on_shards(lambda p, h, c: S.mamba_decode(p, h, c, cfg.ssm),
+                           params["mamba"], L.rmsnorm(params["lnm"], x, eps),
+                           cache["ssm"])
         x = x + (a + m) * 0.5
     else:
         x = x + a
@@ -255,27 +258,18 @@ def block_prefill(params, x, btype: str, ctx: Ctx, capacity: int):
     for cross blocks the memory's K / V."""
     cfg = ctx.cfg
     if btype in _CELLS:
-        h, st = _CELLS[btype](params["cell"],
-                              L.rmsnorm(params["ln1"], x, cfg.norm_eps))
+        h, st = L.on_shards(_CELLS[btype], params["cell"],
+                            L.rmsnorm(params["ln1"], x, cfg.norm_eps))
         return x + h, 0.0, {"state": st}
     y, aux = block_apply_full(params, x, btype, ctx)
-    B, Sq = x.shape[0], x.shape[1]
     h = L.rmsnorm(params["ln1"], x, cfg.norm_eps)
     kv = L.project_memory_kv(params["attn"], h)
     k, v = L.rope(kv["k"], ctx.positions, cfg.rope_theta), kv["v"]
-    tail = min(capacity, Sq)
-    tail_pos = ctx.positions[Sq - tail:].to(torch.int32)
-    slots = torch.remainder(tail_pos, capacity).long()
-    cache = L.make_kv_cache(B, capacity, k.shape[2], k.shape[3], x.device,
-                            dtype=k.dtype)
-    cache["k"][:, slots] = k[:, Sq - tail:]
-    cache["v"][:, slots] = v[:, Sq - tail:]
-    cache["slot_pos"][:, slots] = tail_pos
-    out = {"attn": cache}
+    out = {"attn": L.kv_cache_from(k, v, ctx.positions, capacity)}
     if btype == "hybrid":
-        out["ssm"] = S.mamba_last_state(
-            params["mamba"], L.rmsnorm(params["lnm"], x, cfg.norm_eps),
-            cfg.ssm)
+        out["ssm"] = L.on_shards(
+            lambda p, h: S.mamba_last_state(p, h, cfg.ssm), params["mamba"],
+            L.rmsnorm(params["lnm"], x, cfg.norm_eps))
     if btype == "cross":
         out["xmem"] = L.project_memory_kv(params["xattn"], ctx.memory)
     return y, aux, out

@@ -25,6 +25,9 @@ Attention supports:
     one length against keys and values projected from a memory of
     another, always through the dense ``_sdpa`` with an all-true mask,
     as in the reference, whatever the lengths;
+  * over a device mesh (q, k, v DTensors), the flash kernels run on each
+    device's shard (:func:`_flash_local`): batch over the data axes,
+    heads over ``model``, the sequence whole;
   * one-token decode against a ring-buffer KV cache, and against
     memory K / V projected once at prefill (:func:`project_memory_kv`).
 
@@ -94,6 +97,54 @@ def _is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def _mesh_roles(mesh):
+    """(the mesh dims that carry the batch, the ``model`` mesh dim or
+    None) under the installed hints (the data axes by default; in pure
+    data parallelism ``model`` is a batch axis)."""
+    names = tuple(mesh.mesh_dim_names)
+    axes = _BATCH_AXES or tuple(a for a in names if a in ("pod", "data"))
+    bdims = [names.index(a) for a in axes if a in names]
+    md = names.index("model") if "model" in names and "model" not in axes \
+        else None
+    return bdims, md
+
+
+def _as_dtensor(t, mesh):
+    """A plain tensor as a DTensor replicated over ``mesh``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _roles(mesh, batch_splits: bool, batch, model):
+    """Placements over ``mesh``: ``batch`` on its batch dims (Replicate
+    where the batch does not split), ``model`` on its model dim,
+    Replicate elsewhere."""
+    from torch.distributed.tensor import Replicate
+    bdims, md = _mesh_roles(mesh)
+    return [(batch if batch_splits else Replicate()) if i in bdims
+            else model if i == md else Replicate()
+            for i in range(mesh.ndim)]
+
+
+def _batch_splits(mesh, n: int) -> bool:
+    bdims, _ = _mesh_roles(mesh)
+    size = math.prod(mesh.size(i) for i in bdims)
+    return size > 1 and n % size == 0
+
+
+def _heads_placements(mesh, B: int, H: int):
+    """An attention operand (B, S, H, hd): batch over the batch axes and
+    heads over ``model`` where they divide, the rest whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    _, md = _mesh_roles(mesh)
+    heads = md is not None and H % mesh.size(md) == 0
+    return _roles(mesh, _batch_splits(mesh, B), Shard(0),
+                  Shard(2) if heads else Replicate())
+
+
 def shard_logits(x):
     """Pin (batch, ..., vocab) sharding on the logits, so the loss never
     replicates the vocab dim."""
@@ -123,28 +174,182 @@ def shard_batch_dim(x):
     return _pin(x, (ax,) + (None,) * (x.dim() - 1))
 
 
-def replicate_last_dim(x):
-    """A DTensor whose last dim is sharded, with that dim replicated (the
-    other placements kept); other tensors as they are.  For a gather along
-    the last dim: DTensor's gather rule on a sharded dim makes a masked
-    partial whose reduction fails on 2-D indices."""
+def embed(table, tokens):
+    """``table[tokens]`` for int token ids of any shape.  Over a mesh
+    (a DTensor table) the lookup is vocab-parallel, as Megatron's: the
+    table's rows stay split over ``model`` (its other splits are
+    gathered), each device looks up the ids in its rows and zeroes the
+    rest, and the result is a partial sum over ``model``; the ids keep
+    their batch split (``local_map``, so the gradient is each device's
+    own rows', summed over the batch axes)."""
+    if not _is_dtensor(table):
+        return table.index_select(0, tokens.reshape(-1)).reshape(
+            tuple(tokens.shape) + (table.shape[1],))
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    tokens = _as_dtensor(tokens, mesh)
+    _, md = _mesh_roles(mesh)
+    split = md is not None and table.placements[md] == Shard(0)
+    bsplit = _batch_splits(mesh, tokens.shape[0])
+    R = Replicate()
+    tpl = _roles(mesh, bsplit, R, Shard(0) if split else R)
+    ipl = _roles(mesh, bsplit, Shard(0), R)
+    opl = _roles(mesh, bsplit, Shard(0), Partial() if split else R)
+    # a device sees only its part of the batch: the table's gradient is a
+    # partial sum over the batch axes
+    tgrad = _roles(mesh, bsplit, Partial(), Shard(0) if split else R)
+    off = mesh.get_local_rank(md) * (table.shape[0] // mesh.size(md)) \
+        if split else 0
+
+    def local(t, ids):
+        if split:
+            ids = ids - off
+            ok = (ids >= 0) & (ids < t.shape[0])
+            ids = torch.where(ok, ids, torch.zeros_like(ids))
+        rows = t.index_select(0, ids.reshape(-1)).reshape(
+            tuple(ids.shape) + (t.shape[1],))
+        return rows * ok[..., None].to(rows.dtype) if split else rows
+    return local_map(local, out_placements=(opl,), in_placements=(tpl, ipl),
+                     in_grad_placements=(tgrad, ipl), device_mesh=mesh)(
+        table.redistribute(mesh, tpl), tokens.redistribute(mesh, ipl))
+
+
+class _VocabLSE(torch.autograd.Function):
+    """logsumexp over the last (vocab) dim of a DTensor split there: the
+    rows' max and the sum of exp(x - max) are reductions of the shards'
+    partials; the result and its gradient are placed as ``pl`` (the batch
+    split), and the gradient g · exp(x - lse) keeps the logits' layout."""
+
+    @staticmethod
+    def forward(ctx, x, pl):
+        m = x.amax(dim=-1, keepdim=True)
+        lse = torch.log(torch.exp(x - m).sum(dim=-1)) + m[..., 0]
+        lse = lse.redistribute(x.device_mesh, pl)
+        ctx.save_for_backward(x, lse)
+        ctx.pl = pl
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        g = g.redistribute(x.device_mesh, ctx.pl)
+        return g[..., None] * torch.exp(x - lse[..., None]), None
+
+
+def logsumexp(x):
+    """``torch.logsumexp`` over the last dim; over a mesh (a DTensor, the
+    vocab dim split over ``model``) the logits are never gathered
+    (:class:`_VocabLSE`)."""
     if not _is_dtensor(x):
-        return x
+        return torch.logsumexp(x, dim=-1)
     from torch.distributed.tensor import Replicate, Shard
-    last = x.dim() - 1
-    pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == last else p
-               for p in x.placements)
-    return x if pl == tuple(x.placements) else \
-        x.redistribute(x.device_mesh, pl)
+    mesh = x.device_mesh
+    pl = _roles(mesh, _batch_splits(mesh, x.shape[0]), Shard(0),
+                Replicate())
+    return _VocabLSE.apply(x, tuple(pl))
+
+
+def take_label(logits, labels):
+    """``logits[..., labels]`` (logits (..., V), labels (...) int).  Over a
+    mesh with the vocab dim split over ``model`` each device reads the
+    labels in its slice and the result is a partial sum over ``model``
+    (Megatron's vocab-parallel loss), so the logits are never gathered."""
+    if not _is_dtensor(logits):
+        return torch.gather(logits, -1, labels[..., None])[..., 0]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = logits.device_mesh
+    labels = _as_dtensor(labels, mesh)
+    _, md = _mesh_roles(mesh)
+    last = logits.dim() - 1
+    split = md is not None and logits.placements[md] == Shard(last)
+    bsplit = _batch_splits(mesh, logits.shape[0])
+    R = Replicate()
+    lpl = _roles(mesh, bsplit, Shard(0), Shard(last) if split else R)
+    ipl = _roles(mesh, bsplit, Shard(0), R)
+    opl = _roles(mesh, bsplit, Shard(0), Partial() if split else R)
+    off = mesh.get_local_rank(md) * (logits.shape[-1] // mesh.size(md)) \
+        if split else 0
+
+    def local(lg, ids):
+        ids = ids - off
+        ok = (ids >= 0) & (ids < lg.shape[-1])
+        got = torch.gather(lg, -1, torch.where(
+            ok, ids, torch.zeros_like(ids))[..., None])[..., 0]
+        return torch.where(ok, got, torch.zeros_like(got))
+    return shard_batch_dim(local_map(
+        local, out_placements=(opl,), in_placements=(lpl, ipl),
+        device_mesh=mesh)(logits.redistribute(mesh, lpl),
+                          labels.redistribute(mesh, ipl)))
+
+
+def _flash_local(fn, q, k, v):
+    """``fn(q, k, v)`` (a flash kernel route, (B, S, H, hd) -> (B, S, H,
+    hd)) on each device's shard of the DTensors q, k, v: they are placed
+    with the batch dim over the batch axes and the heads over ``model``
+    where those divide (else replicated; the sequence is never split, so
+    the kernels' masks hold per shard), and ``local_map`` runs ``fn`` on
+    the local tensors, so a gradient taken through it runs the kernels'
+    backward on the shards too."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    pl = _heads_placements(mesh, q.shape[0], q.shape[2])
+    q, k, v = (t.redistribute(mesh, pl) for t in (q, k, v))
+    return local_map(lambda a, b, c: fn(a.contiguous(), b.contiguous(),
+                                        c.contiguous()),
+                     out_placements=(pl,), in_placements=(pl, pl, pl),
+                     device_mesh=mesh)(q, k, v)
 
 
 def _mm(x, w):
     """``torch.matmul`` with ``jnp``'s promotion: operands of two float
-    dtypes are both cast to the wider one (PyTorch refuses the mix)."""
+    dtypes are both cast to the wider one (PyTorch refuses the mix).
+    Over a mesh (a DTensor operand, w 2-D) the product runs on each
+    device's shards (:func:`_mm_local`)."""
+    if w.dim() == 2 and (_is_dtensor(x) or _is_dtensor(w)):
+        return _mm_local(x, w)
     if x.dtype != w.dtype:
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
     return torch.matmul(x, w)
+
+
+def _mm_local(x, w):
+    """x (B, ..., k) @ w (k, n) over a mesh, Megatron's layout run on the
+    local shards: the batch dim over the batch axes, ``w`` gathered on
+    every other mesh dim but ``model``, where it stays split by columns
+    (the product's last dim split over ``model``) or by rows (x's last
+    dim split there and the product a partial sum over ``model``), or
+    whole.  Each gradient is declared as what a device computes: x's a
+    partial sum over ``model`` under a column split, w's a partial sum
+    over the batch axes."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = (w if _is_dtensor(w) else x).device_mesh
+    x, w = _as_dtensor(x, mesh), _as_dtensor(w, mesh)
+    _, md = _mesh_roles(mesh)
+    kind = None
+    if md is not None and isinstance(w.placements[md], Shard):
+        kind = {1: "col", 0: "row"}[w.placements[md].dim]
+    last = x.dim() - 1
+    split = _batch_splits(mesh, x.shape[0])
+    R = Replicate()
+
+    def pl(batch, col, row, neither):
+        return _roles(mesh, split, batch, {"col": col, "row": row,
+                                           None: neither}[kind])
+    wpl = pl(R, Shard(1), Shard(0), R)
+    xpl = pl(Shard(0), R, Shard(last), R)
+    opl = pl(Shard(0), Shard(last), Partial(), R)
+    xgrad = pl(Shard(0), Partial(), Shard(last), R)
+    wgrad = _roles(mesh, split, Partial(), wpl[md] if md is not None else R)
+
+    return local_map(_mm, out_placements=(opl,),
+                     in_placements=(xpl, wpl),
+                     in_grad_placements=(xgrad, wgrad),
+                     device_mesh=mesh)(x.redistribute(mesh, xpl),
+                                       w.redistribute(mesh, wpl))
 
 
 def _f32(x: float, device) -> torch.Tensor:
@@ -216,8 +421,7 @@ def attention_init(gen, d_model: int, n_heads: int, n_kv: int,
 def _proj(x, w):
     """einsum("bsd,dhk->bshk", x, w) as one matmul."""
     d, h, k = w.shape
-    return _mm(x, w.reshape(d, h * k)).reshape(
-        x.shape[:-1] + (h, k))
+    return _mm(x, w.reshape(d, h * k)).reshape(x.shape[:-1] + (h, k))
 
 
 def _project_q(params, x):
@@ -260,7 +464,10 @@ def _sdpa(q, k, v, mask):
     """q: (B,Q,H,hd) k,v: (B,K,H,hd); mask broadcastable to (B,H,Q,K).
     The score product comes out in the operands' dtype before the fp32
     softmax, and the weights are cast back to v's dtype, as in the
-    reference."""
+    reference.  Over a mesh it runs on each device's shards
+    (:func:`_sdpa_local`)."""
+    if any(_is_dtensor(t) for t in (q, k, v, mask)):
+        return _sdpa_local(q, k, v, mask)
     hd = q.shape[-1]
     scores = torch.matmul(q.transpose(1, 2), k.permute(0, 2, 3, 1)).float()
     scores = scores / torch.sqrt(_f32(hd, q.device))
@@ -268,6 +475,71 @@ def _sdpa(q, k, v, mask):
     w = torch.softmax(scores, dim=-1)
     out = torch.matmul(w.to(v.dtype), v.transpose(1, 2))   # (B,H,Q,hd)
     return out.transpose(1, 2)
+
+
+def _sdpa_local(q, k, v, mask):
+    """:func:`_sdpa` over a mesh on each device's shards: batch over the
+    batch axes and heads over ``model`` where they divide (the mask
+    likewise where it has those dims), the key dim whole, so each
+    device's softmax is exact and its gradients its own."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = next(t for t in (q, k, v, mask) if _is_dtensor(t)).device_mesh
+    q, k, v, mask = (_as_dtensor(t, mesh) for t in (q, k, v, mask))
+    _, md = _mesh_roles(mesh)
+    B, H = q.shape[0], q.shape[2]
+    qpl = _heads_placements(mesh, B, H)
+    heads = md is not None and qpl[md] != Replicate()
+    mpl = _roles(mesh, _batch_splits(mesh, B) and mask.shape[0] == B,
+                 Shard(0), Shard(1) if heads and mask.shape[1] == H
+                 else Replicate())
+    out = local_map(_sdpa, out_placements=(qpl,),
+                    in_placements=(qpl, qpl, qpl, mpl), device_mesh=mesh)
+    return out(*(t.redistribute(mesh, p) for t, p in
+                 ((q, qpl), (k, qpl), (v, qpl), (mask, mpl))))
+
+
+def on_shards(fn, params, *args):
+    """``fn(params, *args)`` on each device's part of the batch, the
+    parameters gathered whole, over a mesh (any DTensor among the
+    parameters or the args); a plain call otherwise.  For blocks that
+    run a scan or a recurrence over the sequence (Mamba, mLSTM, sLSTM):
+    the tensors of ``args`` (trees allowed) and every tensor ``fn``
+    returns lead with the batch dim, which is split over the batch axes
+    where it divides and is whole elsewhere.  The parameters' gradients
+    are partial sums over the batch axes; an arg updated in place by
+    ``fn`` (a decode cache placed so) is updated where it lies."""
+    import torch.utils._pytree as pytree
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    leaves, spec = pytree.tree_flatten((params, args))
+    dts = [t for t in leaves if isinstance(t, DTensor)]
+    if not dts:
+        return fn(params, *args)
+    mesh = dts[0].device_mesh
+    B = next(t.shape[0] for t in pytree.tree_leaves(args)
+             if isinstance(t, torch.Tensor))
+    split = _batch_splits(mesh, B)
+    whole = [Replicate()] * mesh.ndim
+    ppl = _roles(mesh, split, Partial(), Replicate())
+    apl = _roles(mesh, split, Shard(0), Replicate())
+    n_params = len(pytree.tree_leaves(params))
+    local = []
+    for i, t in enumerate(leaves):
+        if not isinstance(t, torch.Tensor):
+            local.append(t)
+            continue
+        t = _as_dtensor(t, mesh)
+        if i < n_params:
+            local.append(t.redistribute(mesh, whole).to_local(
+                grad_placements=ppl))
+        else:
+            local.append(t.redistribute(mesh, apl).to_local(
+                grad_placements=apl))
+    p_local, a_local = pytree.tree_unflatten(local, spec)
+    out = fn(p_local, *a_local)
+    return pytree.tree_map_only(
+        torch.Tensor, lambda o: DTensor.from_local(
+            o, mesh, apl if o.dim() else whole, run_check=False), out)
 
 
 def _causal_mask(q_pos, k_pos, window: int):
@@ -310,12 +582,12 @@ def attention_apply(params, x, *, positions, theta: float = 10000.0,
                 f"a sequence longer than {BLOCKWISE_THRESHOLD} tokens must "
                 f"be a multiple of {KV_BLOCK} (the reference's blockwise "
                 f"path asserts it), got {S}")
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (q, k, v)):
-            out = flash_attention_trainable(q, k, v, causal=causal,
-                                            window=window)
-        else:
-            out = flash_attention(q, k, v, causal=causal, window=window)
+        route = flash_attention_trainable if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)) else flash_attention
+
+        def fn(a, b, c):
+            return route(a, b, c, causal=causal, window=window)
+        out = _flash_local(fn, q, k, v) if _is_dtensor(q) else fn(q, k, v)
     else:
         p = positions if positions.dim() == 1 else positions[0]
         if causal:
@@ -343,6 +615,78 @@ def make_kv_cache(batch: int, capacity: int, n_kv: int, head_dim: int,
     }
 
 
+def kv_cache_from(k, v, positions, capacity: int):
+    """The ring cache that prefill leaves: the last ``capacity`` positions'
+    k, v (B, S, Kv, hd), position p in slot p % capacity (the positions
+    are ``arange(S)``), empty slots past S.  Built out of place (a
+    concatenation or a rotation), so it is a DTensor where k is."""
+    B, S = k.shape[:2]
+    tail = min(capacity, S)
+    tail_pos = positions[S - tail:].to(torch.int32)
+    kt, vt = k[:, S - tail:], v[:, S - tail:]
+    if tail < capacity:
+        # positions 0..S-1 sit in slots 0..S-1
+        pad = (B, capacity - tail) + tuple(k.shape[2:])
+        kt = torch.cat([kt, kt.new_zeros(pad)], dim=1)
+        vt = torch.cat([vt, vt.new_zeros(pad)], dim=1)
+        tail_pos = torch.cat([tail_pos, torch.full(
+            (capacity - tail,), EMPTY_SLOT, dtype=torch.int32,
+            device=tail_pos.device)])
+    else:
+        # slot (S - tail + j) % capacity holds tail position j
+        shift = (S - tail) % capacity
+        kt, vt = (torch.roll(t, shift, dims=1) for t in (kt, vt))
+        tail_pos = torch.roll(tail_pos, shift, dims=0)
+    return {"k": kt.contiguous(), "v": vt.contiguous(),
+            "slot_pos": tail_pos.expand(B, capacity).contiguous()}
+
+
+def ring_write_(buf, val, slot) -> None:
+    """``buf[b, slot[b]] = val[b]`` for every row b, in place (buf (B,
+    cap, ...), val (B, ...), slot (B,) int).  Over a mesh (a DTensor
+    buf) each device writes its own shard: val and slot are placed as
+    buf's rows are, and a row whose slot lies in another device's part
+    of the capacity dim writes its old value back."""
+    if not _is_dtensor(buf):
+        rows = torch.arange(buf.shape[0], device=buf.device)
+        buf.index_put_((rows, slot.long()), val)
+        return
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = buf.device_mesh
+    vpl, spl, cap_dims = [], [], []
+    for i, p in enumerate(buf.placements):
+        if isinstance(p, Shard) and p.dim == 0:
+            vpl.append(p)
+            spl.append(p)
+        elif isinstance(p, Shard) and p.dim >= 2:
+            vpl.append(Shard(p.dim - 1))
+            spl.append(Replicate())
+        else:
+            if isinstance(p, Shard):
+                cap_dims.append(i)
+            vpl.append(Replicate())
+            spl.append(Replicate())
+
+    def placed(t, pl):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, pl).to_local()
+    b = buf.to_local()
+    v, sl = placed(val, vpl), placed(slot, spl).long()
+    off = 0
+    for i in cap_dims:      # the capacity dim's split, in mesh order
+        off = off * mesh.size(i) + mesh.get_local_rank(i)
+    off *= b.shape[1]
+    local = sl - off
+    ok = (local >= 0) & (local < b.shape[1])
+    local = torch.where(ok, local, torch.zeros_like(local))
+    rows = torch.arange(b.shape[0], device=b.device)
+    old = b[rows, local]
+    ok = ok.reshape((-1,) + (1,) * (old.dim() - 1))
+    b.index_put_((rows, local), torch.where(ok, v.to(b.dtype), old))
+
+
 def batch_positions(pos, batch: int, device) -> torch.Tensor:
     """``pos`` (an int, a 0-d or a (B,) tensor) -> (B,) int32 on
     ``device``."""
@@ -365,11 +709,10 @@ def attention_decode(params, x, cache, pos, *, theta: float = 10000.0,
     q = rope(q, pos[:, None], theta)
     k_new = rope(k_new, pos[:, None], theta)
     cap = cache["k"].shape[1]
-    rows = torch.arange(B, device=x.device)
     slot = torch.remainder(pos, cap).long()
-    cache["k"].index_put_((rows, slot), k_new[:, 0])
-    cache["v"].index_put_((rows, slot), v_new[:, 0])
-    cache["slot_pos"].index_put_((rows, slot), pos)
+    ring_write_(cache["k"], k_new[:, 0], slot)
+    ring_write_(cache["v"], v_new[:, 0], slot)
+    ring_write_(cache["slot_pos"], pos, slot)
 
     k = _repeat_kv(cache["k"], n_heads)
     v = _repeat_kv(cache["v"], n_heads)

@@ -21,6 +21,13 @@ order is not specified, so the routing takes the first k of a stable
 descending sort.  A product of an fp32 activation and a bf16 weight runs
 in fp32 (``layers._mm``): Party B's ad-hoc ∇Z pass feeds its top tower
 fp32 activations, and the dispatch buffer takes their dtype.
+
+Over a mesh (:func:`_moe_on_shards`) the router's logits and the
+load-balance loss are DTensor ops, and each device routes its part of the
+batch itself and runs its experts' share: the hidden dim ``f`` of every
+expert ("tp") or its ``E / m`` experts ("ep"), the output a partial sum
+over ``model``.  The batch is whole across ``model``, so expert
+parallelism needs no all-to-all.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ import torch.nn.functional as F
 
 from ..configs.base import MoEConfig
 from .initializers import dense_init
+from . import layers as L
 from .layers import _mm, mlp_apply, mlp_init
 
 
@@ -112,15 +120,66 @@ def _experts(params, buf):
     return _mm(g * u, params["wd"])
 
 
+def _moe_on_shards(params, x, logits, cfg: MoEConfig, capacity: int):
+    """The routed experts over a mesh -> (y, the assignments' experts):
+    each device routes its batch shard from its logits and runs the
+    experts' share that it holds over ``model`` (see the module's note);
+    the weights are gathered on every other mesh dim."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = params["wg"].device_mesh
+    _, md = L._mesh_roles(mesh)
+    B, S, _ = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    R = Replicate()
+    mode = None
+    if md is not None and isinstance(params["wg"].placements[md], Shard):
+        mode = "ep" if params["wg"].placements[md].dim == 0 else "tp"
+    wm = {"ep": (Shard(0), Shard(0)), "tp": (Shard(2), Shard(1)),
+          None: (R, R)}[mode]
+    split = L._batch_splits(mesh, B)
+    gu_pl = L._roles(mesh, split, R, wm[0])
+    d_pl = L._roles(mesh, split, R, wm[1])
+    bpl = L._roles(mesh, split, Shard(0), R)
+    part = L._roles(mesh, split, Shard(0), Partial() if mode else R)
+    e0 = mesh.get_local_rank(md) * (E // mesh.size(md)) \
+        if mode == "ep" else 0
+
+    def local(xl, lg, wg, wu, wd):
+        fi, fp, fg, kp = _route(lg, cfg, capacity)
+        ei, keep, E_l = fi, kp, E
+        if mode == "ep":
+            E_l = wg.shape[0]
+            own = (fi >= e0) & (fi < e0 + E_l)
+            ei = torch.where(own, fi - e0, torch.zeros_like(fi))
+            keep = kp & own
+        buf = _dispatch(xl, ei, fp, keep, E_l, capacity)
+        out = _experts({"wg": wg, "wu": wu, "wd": wd}, buf)
+        return _combine(out, ei, fp, fg * keep, keep, S, k, capacity), fi
+
+    wgrad = [L._roles(mesh, split, Partial(), p[md] if md is not None else R)
+             for p in (gu_pl, gu_pl, d_pl)]
+    run = local_map(local, out_placements=(part, bpl),
+                    in_placements=(bpl, bpl, gu_pl, gu_pl, d_pl),
+                    in_grad_placements=(part, part, *wgrad),
+                    device_mesh=mesh)
+    return run(x.redistribute(mesh, bpl), logits.redistribute(mesh, bpl),
+               *(params[n].redistribute(mesh, p) for n, p in
+                 (("wg", gu_pl), ("wu", gu_pl), ("wd", d_pl))))
+
+
 def moe_apply(params, x, cfg: MoEConfig):
     """x: (B, S, d) -> (y, aux_loss)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     capacity = _capacity(S, cfg)
-    logits = torch.matmul(x.float(), params["router"])     # (B, S, E)
-    fi, fp, fg, kp = _route(logits, cfg, capacity)
-    buf = _dispatch(x, fi, fp, kp, E, capacity)
-    y = _combine(_experts(params, buf), fi, fp, fg, kp, S, k, capacity)
+    logits = _mm(x.float(), params["router"])     # (B, S, E)
+    if L._is_dtensor(logits):
+        y, fi = _moe_on_shards(params, x, logits, cfg, capacity)
+    else:
+        fi, fp, fg, kp = _route(logits, cfg, capacity)
+        buf = _dispatch(x, fi, fp, kp, E, capacity)
+        y = _combine(_experts(params, buf), fi, fp, fg, kp, S, k, capacity)
 
     # load-balance auxiliary loss (Switch-style)
     probs = torch.softmax(logits, dim=-1)

@@ -93,9 +93,9 @@ def stages_top(cfg: ArchConfig):
 
 
 def _embed(table, tokens):
-    """table[tokens] for int token ids of any shape."""
-    return table.index_select(0, tokens.reshape(-1)).reshape(
-        tuple(tokens.shape) + (table.shape[1],))
+    """table[tokens] for int token ids of any shape (vocab-parallel over
+    a mesh: ``layers.embed``)."""
+    return L.embed(table, tokens)
 
 
 def _arange(S: int, device):
@@ -215,10 +215,9 @@ def per_instance_loss(params_b, cfg: ArchConfig, z_a, batch,
     it), averaged over the sequence."""
     logits, aux = forward_b(params_b, cfg, z_a, batch, train=train,
                             remat=remat)
-    lse = torch.logsumexp(logits, dim=-1)
+    lse = L.logsumexp(logits)
     labels = batch["labels"].long()
-    label_logit = torch.gather(L.replicate_last_dim(logits), -1,
-                               labels[..., None])[..., 0]
+    label_logit = L.take_label(logits, labels)
     return (lse - label_logit).mean(dim=-1), aux
 
 

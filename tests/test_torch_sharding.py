@@ -214,7 +214,9 @@ def test_placements_follow_the_mesh_order():
 
 def test_activation_hints_are_no_ops_outside_a_mesh():
     """``shard_batch_dim`` / ``shard_logits`` leave a tensor as it is when
-    no mesh is installed, or when it is not a DTensor."""
+    no mesh is installed, or when it is not a DTensor; the mesh-aware
+    embedding, label read and logsumexp are the plain ops on a plain
+    tensor."""
     from repro_torch.models import layers as L
     x = torch.randn(4, 8, 16)
     assert L.shard_batch_dim(x) is x and L.shard_logits(x) is x
@@ -224,4 +226,10 @@ def test_activation_hints_are_no_ops_outside_a_mesh():
         assert L.shard_batch_dim(x) is x and L.shard_logits(x) is x
     finally:
         L.set_batch_axes(None)
-    assert L._BATCH_AXES is None and L.replicate_last_dim(x) is x
+    assert L._BATCH_AXES is None
+    labels = torch.randint(0, 16, (4, 8))
+    assert torch.equal(L.take_label(x, labels),
+                       torch.gather(x, -1, labels[..., None])[..., 0])
+    assert torch.equal(L.logsumexp(x), torch.logsumexp(x, dim=-1))
+    table = torch.randn(16, 5)
+    assert torch.equal(L.embed(table, labels), table[labels])
