@@ -201,7 +201,19 @@ Phases, each on its own printed lines (any failure exits non-zero):
      unsharded step (the loss to GRAD_LOSS_ATOL, each leaf's gradient
      magnitude to GRAD_REL_L2, each leaf's update (updated less
      initial) to DRYRUN_UPDATE_RTOL by relative L2);
- 17. a JSON line of per-kernel results, then the last line
+ 17. the boundary auditor (``repro_torch.analysis``) on the card: the
+     library's kernels linted from ``cuobjdump -res-usage`` (one line a
+     kernel: REG, SHARED, LOCAL, threads; REG <= 255 and REG x threads
+     <= 65,536, no local memory in the tensor-core attention kernels,
+     shared memory within the H100's 232,448 B a block), the nine
+     kernel contracts (K2b, K2a, K1, K4, K5, K3, K9, K7, K8) launched at
+     their audited geometries (round-default, round-wide, flash-long:
+     K9 fp32 at (2, 2048, 4, 128) causal) against their plain versions,
+     ``audit.route_check`` over the quick matrix (one real round of each
+     case on the card: the gate of its ring, K3 where it quantises, K7),
+     and the seeded-mutation self-test with the gate bypass caught on
+     the card too;
+ 18. a JSON line of per-kernel results, then the last line
      ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
@@ -424,10 +436,11 @@ DEPTH4_ROUNDS = 20
 # For the time limit (with the dry-run phase the smoke took 1,336 s on a
 # slow host, PERF.md) the long WDL-Criteo runs of the main path and the
 # pipeline phase take WDL_ROUNDS (50 before), their timing-only runs in
-# turns TIMED_ROUNDS (20 before) and their profiled runs PROFILED_ROUNDS
-# (20 before); every check and its derived count is unchanged
+# turns TIMED_ROUNDS (20, then 6 before the audit phase came) and their
+# profiled runs PROFILED_ROUNDS (20 before); every check and its derived
+# count is unchanged
 WDL_ROUNDS = 20
-TIMED_ROUNDS = 6
+TIMED_ROUNDS = 4
 PROFILED_ROUNDS = 4
 # The full-width train step through K9-LSE / K10 against the same step
 # through the plain attention on the card (B = 1, S = 4,096): both round
@@ -1880,6 +1893,9 @@ def _llm_at_depth1(torch, card):
 # 20 ms legs (the link only prices the wire)
 CHAOS_ROUNDS = 50
 CHAOS_SPAN = (25, 5)
+# the fault matrix's timing-only runs (``_chaos_times``) stop a few rounds
+# after the dropout span, for the smoke's time limit
+CHAOS_TIMED_ROUNDS = CHAOS_SPAN[0] + CHAOS_SPAN[1] + 2
 CHAOS_MATRIX = {"fault_seed": 7, "fault_drop_prob": 0.05,
                 "fault_max_retries": 2, "fault_straggler_prob": 0.1,
                 "fault_straggler_rounds": 2,
@@ -2148,8 +2164,8 @@ def _chaos_times(torch, card):
     """Host ms and busy ms per scheduler round of the fault matrix
     against ``plan=None`` at depth 1: each profiled once over rounds
     2-PROFILED_ROUNDS (busy; before the dropout span), then timed over
-    rounds 2-CHAOS_ROUNDS in turns (host clock; the whole matrix, the
-    dropout span included)."""
+    rounds 2-CHAOS_TIMED_ROUNDS in turns (host clock; the dropout span
+    included)."""
     from torch.profiler import ProfilerActivity, profile
     host = {True: [], False: []}
     busy = {}
@@ -2171,17 +2187,18 @@ def _chaos_times(torch, card):
                            len(kern) / (PROFILED_ROUNDS - 1))
         else:
             t0 = time.perf_counter()
-            rs, _ = _drive(pe, rs, it, CHAOS_ROUNDS - 1)
+            rs, _ = _drive(pe, rs, it, CHAOS_TIMED_ROUNDS - 1)
             torch.cuda.synchronize()
             host[chaos].append(1e3 * (time.perf_counter() - t0)
-                               / (CHAOS_ROUNDS - 1))
+                               / (CHAOS_TIMED_ROUNDS - 1))
         pe.flush(rs)
     for chaos in (True, False):
         label = "fault matrix" if chaos else "plan=None"
         print(f"[time] chaos {label} at depth 1: "
               f"{' and '.join(f'{x:.3f}' for x in host[chaos])} ms per "
-              f"scheduler round (host clock, rounds 2-{CHAOS_ROUNDS} of two "
-              f"runs in turns); device busy {busy[chaos][0]:.3f} ms per "
+              f"scheduler round (host clock, rounds "
+              f"2-{CHAOS_TIMED_ROUNDS} of two runs in turns); device busy "
+              f"{busy[chaos][0]:.3f} ms per "
               f"round over rounds 2-{PROFILED_ROUNDS}, before the dropout "
               f"span at {CHAOS_SPAN[0]} ({busy[chaos][1]:.0f} "
               f"kernels per "
@@ -2419,8 +2436,9 @@ def phase_chaos(torch, card):
 # --------------------------------------------------------------------------
 FLEET_ROUNDS = 8                  # benchmarks/fleet.py: ROUNDS
 # N = 128 runs FLEET_BIG_ROUNDS, and every profiled run as many (the
-# smoke's time limit: the profiler's collection is its cost)
-FLEET_BIG_ROUNDS = 3
+# smoke's time limit: the profiler's collection is its cost; 3 before the
+# audit phase came)
+FLEET_BIG_ROUNDS = 2
 FLEET_SIZES = (1, 16, 128)        # the reference's, less 512 (time)
 FLEET_LRS = (0.05, 0.03, 0.08, 0.02)   # benchmarks/fleet.py: job_specs
 FLEET_XI = (60.0, 45.0)           # two thresholds: each job its own
@@ -3043,7 +3061,7 @@ POD_RUN = dict(n_fields=26, fields_b=13, vocab=1024, embed_dim=16,
                hidden=512, z_dim=256, R=5, W=5, xi_degrees=60.0, lr=0.01,
                teacher=True)
 POD_PARITY_B, POD_PARITY_ROUNDS = 256, 10
-POD_TIMED_B, POD_WARM, POD_TIMED = 4096, 2, 10
+POD_TIMED_B, POD_WARM, POD_TIMED = 4096, 2, 6
 # each shadowed round (card against CPU from the same state): both pods'
 # losses within POD_LOSS_ATOL; each leaf's update, each leaf's
 # accumulator increment and each ring within POD_*_RTOL of its own norm
@@ -3095,8 +3113,9 @@ def phase_pods(torch, card=None):
     (``pod_worker``'s ``shadow``: the two ranks' CPU round over a CPU
     transport), both pods' losses within POD_LOSS_ATOL and each leaf's
     update and accumulator increment and each ring within POD_*_RTOL of
-    its norm; 2 + 20 rounds at B = 4,096 at each depth, the 2 shadowed
-    likewise, the 20 timed in ms a round on the host clock (ending in
+    its norm; 2 + POD_TIMED rounds at B = 4,096 at each depth, the 2
+    shadowed likewise, the POD_TIMED timed in ms a round on the host clock
+    (ending in
     ``torch.cuda.synchronize()``); every run's link and staging bytes
     exact, its rings equal across the link, pod 0's dead top unchanged,
     its K2a / K2b / K7 launches those of ``pod_protocol.pod_launches``.
@@ -5434,6 +5453,45 @@ def phase_dryrun(torch, card):
     return counts
 
 
+def phase_audit(torch):
+    """The boundary auditor's card checks (phase 17): the resource lint
+    and the contracts' launches, the quick matrix's route checks and the
+    self-test.  Any error fails the run."""
+    from repro_torch.analysis import audit
+    from repro_torch.analysis.kernel_lint import (CONTRACTS,
+                                                  DEFAULT_GEOMETRIES,
+                                                  lint_card)
+    from repro_torch.analysis.selftest import render, run_selftest
+
+    findings, stats = lint_card(DEFAULT_GEOMETRIES)
+    for label, u in sorted(stats["res_usage"].items()):
+        print(f"[audit] {label}: REG {u['REG']}, SHARED {u['SHARED']} B, "
+              f"LOCAL {u['LOCAL']} B, threads {u['threads']}", flush=True)
+    for r in stats["launched"]:
+        print(f"[audit] contract {r['kernel']} @ {r['geometry']}: "
+              f"{r['launches']} launch(es), max|err| {r['max_abs_err']:.3g} "
+              f"against its plain version, ok {r['ok']}", flush=True)
+    errors = [f for f in findings if f.severity == "error"]
+    check(not errors, "audit kernel lint: " + "; ".join(
+        f"{f.code} @ {f.where}: {f.detail}" for f in errors))
+    want = sum(1 for c in CONTRACTS for g in DEFAULT_GEOMETRIES
+               if c.flash == g.name.startswith("flash"))
+    check(len(stats["launched"]) == want == 17,
+          f"audit: {len(stats['launched'])} contract launches, want {want}")
+    for case in audit.default_cases(quick=True):
+        r = audit.route_check(case)
+        print(f"[audit] route {case.name}: launches {r.stats['launches']}",
+              flush=True)
+        check(not r.errors, f"audit route {case.name}: " + "; ".join(
+            f"{f.code} @ {f.where}: {f.detail}" for f in r.errors))
+    ok, results = run_selftest("cuda")
+    print("\n".join("[audit] " + line
+                    for line in render(results).splitlines()), flush=True)
+    check(ok and len(results) == 6
+          and results[-1].name == "gate-bypass (card)",
+          f"audit self-test: {[(m.name, m.caught) for m in results]}")
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"run from a checkout of the repository: {SRC}/repro_torch "
@@ -5543,7 +5601,12 @@ def main() -> None:
         pipeline_counts[k] = pipeline_counts.get(k, 0) + v
     print(f"[phase] dryrun {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 17. results: each kernel's launches over every path that ran it
+    # 17. the boundary auditor
+    t0 = time.perf_counter()
+    phase_audit(torch)
+    print(f"[phase] audit {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 18. results: each kernel's launches over every path that ran it
     for k, v in pipeline_counts.items():
         counts[k] = counts.get(k, 0) + v
     rows = []

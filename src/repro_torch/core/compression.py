@@ -253,8 +253,11 @@ class TopKCodec:
         k = self.k_of(n)
         vals = self.value_codec.decode(payload["val"],
                                        Like((k,), torch.float32))
-        flat = torch.zeros(n, dtype=torch.float32, device=vals.device)
-        flat[payload["idx"].long()] = vals
+        # out of place: under the fleet's vmap ``vals`` is batched and
+        # the zeros are not, which an in-place index write refuses
+        flat = torch.zeros(n, dtype=torch.float32,
+                           device=vals.device).index_put(
+            (payload["idx"].long(),), vals)
         return flat.reshape(like.shape).to(like.dtype)
 
     def wire_bytes(self, shape, dtype) -> int:

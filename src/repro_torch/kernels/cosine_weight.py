@@ -186,13 +186,10 @@ def gate_job_outputs(n: int, a_job, with_cot: bool):
 
 
 def _k2_jobs(n, ops, thresh):
-    """K2 over ``n`` jobs: one launch (the plain version on the CPU)."""
+    """K2 over ``n`` jobs on the card: one launch."""
     dz = ops["dz"]
     name = "cosine_weights_2d" if dz.t is None else "cosine_weight_2d"
     a, z, thr = ops["a"], ops["z"], ops["thr"]
-    if a.t.device.type == "cpu":
-        return gate_plain(a.per_job(n), z.per_job(n), dz.per_job(n),
-                          thr.per_job(n), thresh)
     check_jobs(name, n, ops)
     check_rows(name, a.job(0), z.job(0), dz.job(0))
     w, cot, part = gate_job_outputs(n, a.job(0), dz.t is not None)

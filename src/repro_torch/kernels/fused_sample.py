@@ -37,7 +37,9 @@ launch is the cost.
 
 K1, K4 and K5 are ``torch.library`` ops (``kernels/jobs.py``): under the
 fleet's ``vmap`` one launch runs every job's gate, each job with its own
-ring, slot and threshold (``cos_xi`` a tensor).
+ring, slot and threshold (``cos_xi`` a tensor).  K6 and K11 are
+``torch.library`` ops too, so a traced serving step shows the ring read as
+one node with its operands.
 """
 from __future__ import annotations
 
@@ -46,7 +48,7 @@ import torch
 from . import _cuda
 from .cosine_weight import (check_jobs, check_operands, gate_job_outputs,
                             gate_plain, gate_workspace, threshold_operands)
-from .jobs import register_gate
+from .jobs import register_dequant, register_gate
 
 QUANT_NAMES = {8: "fused_sample_q8_2d", 4: "fused_sample_q4_2d"}
 DEQUANT_NAMES = {8: "fused_dequant_q8_2d", 4: "fused_dequant_q4_2d"}
@@ -79,14 +81,6 @@ def check_ring(slot, ad_hoc, z_ring, dz_ring) -> None:
                          f"{tuple(slot.shape)} on {slot.device}")
 
 
-def take_job_slots(ring, slot):
-    """(n, W, ...) rings and (n, 1) or (n,) slots -> each job's slot,
-    (n, ...)."""
-    n = ring.shape[0]
-    return ring[torch.arange(n, device=ring.device),
-                slot.reshape(n).long()]
-
-
 def _k1_single(slot, a, z, zs, dz, dzs, thr, thresh):
     if a.device.type == "cpu":
         return _k1_plain(slot, a, z, dz, thr, thresh)
@@ -104,14 +98,8 @@ def _k1_single(slot, a, z, zs, dz, dzs, thr, thresh):
 
 
 def _k1_jobs(n, ops, thresh):
-    """K1 over ``n`` jobs: one launch (the plain version on the CPU)."""
+    """K1 over ``n`` jobs on the card: one launch."""
     slot, a, z, dz, thr = (ops[k] for k in ("slot", "a", "z", "dz", "thr"))
-    if a.t.device.type == "cpu":
-        s = slot.per_job(n)
-        return gate_plain(a.per_job(n), take_job_slots(z.per_job(n), s),
-                          None if dz.t is None
-                          else take_job_slots(dz.per_job(n), s),
-                          thr.per_job(n), thresh)
     check_jobs("fused_sample_2d", n, ops)
     check_ring(slot.job(0), a.job(0), z.job(0), dz.job(0))
     B, F = a.job(0).shape
@@ -242,19 +230,9 @@ def _quant_single(bits):
 
 def _quant_jobs(bits):
     def jobs(n, ops, thresh):
-        """K4 / K5 over ``n`` jobs: one launch (the plain version on the
-        CPU)."""
+        """K4 / K5 over ``n`` jobs on the card: one launch."""
         slot, a, zq, zs, dzq, dzs, thr = (ops[k] for k in (
             "slot", "a", "z", "zs", "dz", "dzs", "thr"))
-        if a.t.device.type == "cpu":
-            s = slot.per_job(n)
-
-            def take(q, sc):
-                return dequant_rows(take_job_slots(q.per_job(n), s),
-                                    take_job_slots(sc.per_job(n), s), bits)
-            return gate_plain(a.per_job(n), take(zq, zs),
-                              None if dzq.t is None else take(dzq, dzs),
-                              thr.per_job(n), thresh)
         name = QUANT_NAMES[bits]
         check_jobs(name, n, ops)
         check_quant_ring(bits, slot.job(0), a.job(0), zq.job(0), zs.job(0),
@@ -334,33 +312,36 @@ def check_dequant_ring(bits: int, slot, zq, zscale) -> None:
                          f"{slot.dtype} {tuple(slot.shape)}")
 
 
-def _fused_dequant(bits: int, slot, zq, zscale):
-    if zq.device.type == "cpu" and not _cuda.is_abstract(zq):
-        return fused_dequant_plain(bits, slot, zq, zscale)
-    W, B, P = zq.shape
-    out = torch.empty((B, P if bits == 8 else 2 * P), dtype=torch.float32,
-                      device=zq.device)
-    if _cuda.is_abstract(zq):
-        # one slot's codes and scales read, the fp32 rows written; one
-        # multiply an element
-        _cuda.account(DEQUANT_NAMES[bits], out.numel(),
-                      B * P + 4 * B + 4 * out.numel())
+def _dequant_single(bits: int):
+    def single(slot, zq, zscale):
+        if zq.device.type == "cpu":
+            return fused_dequant_plain(bits, slot, zq, zscale)
+        check_dequant_ring(bits, slot, zq, zscale)
+        _, B, P = zq.shape
+        out = torch.empty((B, P if bits == 8 else 2 * P),
+                          dtype=torch.float32, device=zq.device)
+        _cuda.launch_ring_dequant(DEQUANT_NAMES[bits], bits=bits, slot=slot,
+                                  zq=zq, zs=zscale, out=out)
         return out
-    check_dequant_ring(bits, slot, zq, zscale)
-    _cuda.launch_ring_dequant(DEQUANT_NAMES[bits], bits=bits, slot=slot,
-                              zq=zq, zs=zscale, out=out)
-    return out
+    return single
+
+
+DEQUANT_OPS = {bits: register_dequant(DEQUANT_NAMES[bits],
+                                      _dequant_single(bits),
+                                      (lambda P: P) if bits == 8
+                                      else (lambda P: 2 * P))
+               for bits in (8, 4)}
 
 
 def fused_dequant_q8_2d(slot, zq, zscale):
     """K6.  slot: (1,) int32 on the ring's device; zq: (W, B, F) int8
     codes; zscale: (W, B) fp32 row scales.  -> (B, F) fp32, the entry at
     ``slot``."""
-    return _fused_dequant(8, slot, zq, zscale)
+    return DEQUANT_OPS[8](slot, zq, zscale)
 
 
 def fused_dequant_q4_2d(slot, zq, zscale):
     """K11.  As :func:`fused_dequant_q8_2d` over packed int4 codes
     (W, B, P) uint8.  -> (B, 2 P) fp32 (the caller slices a pad
     column)."""
-    return _fused_dequant(4, slot, zq, zscale)
+    return DEQUANT_OPS[4](slot, zq, zscale)

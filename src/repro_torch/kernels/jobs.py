@@ -18,8 +18,10 @@ each with
     tensor that is one launch of the job-batched kernel
     (``csrc/cosine_gate.cu``'s grid takes the jobs on its last axis; K3
     folds the jobs into its rows, since its scales are per row), counted
-    once in ``_cuda.LAUNCHES``; on a CPU tensor the plain version runs over
-    the job axis.  It never loops scalar launches.
+    once in ``_cuda.LAUNCHES``.  It never loops scalar launches.  On a CPU
+    tensor each job's operands go through the op itself, one call a job
+    (its plain version; K3's folded rows in one call), so a traced
+    ``vmap`` shows the op as a node.
 
 Every gate op takes ``(slot, a, z, zs, dz, dzs, thr, thresh)``: the ring
 slot (None for K2's materialised rows), the ad-hoc rows, the stale z and
@@ -94,9 +96,9 @@ def gate_costs(slot, a, z, zs, dz, dzs):
 def register_gate(name: str, single: Callable, jobs: Callable):
     """Register ``torch.ops.repro_torch.<name>``.  ``single(slot, a, z,
     zs, dz, dzs, thr, thresh)`` is the one-job wrapper, -> (w, cot or
-    None); ``jobs(n, ops, thresh)`` the job-batched one, ``ops`` mapping
-    :data:`GATE_OPERANDS` to :class:`JobOperand` s, -> (w (n, B), cot
-    (n, B, F) or None)."""
+    None); ``jobs(n, ops, thresh)`` the job-batched launch on the card,
+    ``ops`` mapping :data:`GATE_OPERANDS` to :class:`JobOperand` s, ->
+    (w (n, B), cot (n, B, F) or None)."""
     def op(slot: Optional[torch.Tensor], a: torch.Tensor, z: torch.Tensor,
            zs: Optional[torch.Tensor], dz: Optional[torch.Tensor],
            dzs: Optional[torch.Tensor], thr: Optional[torch.Tensor],
@@ -121,7 +123,16 @@ def register_gate(name: str, single: Callable, jobs: Callable):
     def rule(info, in_dims, slot, a, z, zs, dz, dzs, thr, thresh):
         ops = {k: job_operand(x, d) for k, x, d in zip(
             GATE_OPERANDS, (slot, a, z, zs, dz, dzs, thr), in_dims)}
-        w, cot = jobs(info.batch_size, ops, thresh)
+        n = info.batch_size
+        if a.device.type == "cpu":
+            # the plain version, one call of the op a job (so a traced
+            # fleet step shows the op as a node for each job)
+            outs = [cop(*(ops[k].job(j) for k in GATE_OPERANDS), thresh)
+                    for j in range(n)]
+            w = torch.stack([o[0] for o in outs])
+            cot = None if dz is None else torch.stack([o[1] for o in outs])
+        else:
+            w, cot = jobs(n, ops, thresh)
         if cot is None:
             return (w, a.new_empty(0)), (0, None)
         return (w, cot), (0, 0)
@@ -133,7 +144,7 @@ def register_quantize(rows: Callable):
     """Register ``torch.ops.repro_torch.quantize_sr_2d(x, u, levels)``.
     ``rows(x, u, levels)`` is K3 on (T, L) rows; the vmap rule folds the
     jobs into the rows (one scale a row, so the jobs' rows are K3's rows)
-    and calls it once."""
+    and calls the op once on them."""
     def quantize_sr_2d(x: torch.Tensor, u: torch.Tensor,
                        levels: float) -> Tuple[torch.Tensor, torch.Tensor]:
         return rows(x, u, levels)
@@ -155,8 +166,42 @@ def register_quantize(rows: Callable):
         x, u = (job_operand(t, d).per_job(n)
                 for t, d in ((x, in_dims[0]), (u, in_dims[1])))
         T, L = x.shape[1:]
-        q, scale = rows(x.reshape(n * T, L).contiguous(),
-                        u.reshape(n * T, L).contiguous(), levels)
+        q, scale = cop(x.reshape(n * T, L).contiguous(),
+                       u.reshape(n * T, L).contiguous(), levels)
         return (q.reshape(n, T, L), scale.reshape(n, T)), (0, 0)
+    cop.register_vmap(rule)
+    return cop
+
+
+def register_dequant(name: str, single: Callable, width: Callable):
+    """Register ``torch.ops.repro_torch.<name>(slot, zq, zscale)``, the
+    ring dequantiser K6 / K11: ``single(slot, zq, zscale)`` is the wrapper
+    (the kernel on a CUDA tensor, the plain version on a CPU tensor), ->
+    (B, F) fp32; ``width(P)`` is F for codes (W, B, P).  The fake rule
+    allocates the output and adds the launch's costs to the installed
+    accountant: one slot's codes and scales read, the fp32 rows written,
+    one multiply an element.  The ``vmap`` rule calls the op once a job
+    (there is no job-batched ring-dequant kernel: the serving engine
+    reads one ring)."""
+    def op(slot: torch.Tensor, zq: torch.Tensor,
+           zscale: torch.Tensor) -> torch.Tensor:
+        return single(slot, zq, zscale)
+
+    op.__name__ = name
+    cop = torch.library.custom_op(f"repro_torch::{name}", op,
+                                  mutates_args=())
+
+    def fake(slot, zq, zscale):
+        _, B, P = zq.shape
+        out = zq.new_empty((B, width(P)), dtype=torch.float32)
+        _cuda.account(name, out.numel(), B * P + 4 * B + 4 * out.numel())
+        return out
+    cop.register_fake(fake)
+
+    def rule(info, in_dims, slot, zq, zscale):
+        ops = [job_operand(x, d) for x, d in zip((slot, zq, zscale),
+                                                   in_dims)]
+        return torch.stack([cop(*(o.job(j) for o in ops))
+                            for j in range(info.batch_size)]), 0
     cop.register_vmap(rule)
     return cop

@@ -848,3 +848,75 @@ def test_library_path_changes_with_each_header(tmp_path, monkeypatch):
         assert _cuda.library_path() != base, path.name
         path.write_bytes(text)
         assert _cuda.library_path() == base
+
+
+# --------------------------------------------------------------------------
+# K6 / K11: the ring dequantisers as torch.library ops
+# --------------------------------------------------------------------------
+def _quant_ring(bits, W=4, B=8, F=960, seed=11):
+    from repro_torch.kernels import fused_sample as fs
+    from repro_torch.kernels import quantize as qz
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((W * B, F), generator=gen)
+    q, s = qz.quantize_sr_plain(x, torch.rand(x.shape, generator=gen),
+                                127 if bits == 8 else 7)
+    if bits == 4:
+        q = fs.pack_nibbles(q)
+    return q.reshape(W, B, -1).contiguous(), s.reshape(W, B).contiguous()
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_ring_dequant_ops_equal_their_plain_version_on_cpu(bits):
+    from repro_torch.kernels import fused_sample as fs
+    name = fs.DEQUANT_NAMES[bits]
+    q, s = _quant_ring(bits)
+    before = dict(_cuda.LAUNCHES)
+    for slot in range(q.shape[0]):
+        sl = torch.tensor([slot], dtype=torch.int32)
+        want = fs.fused_dequant_plain(bits, sl, q, s)
+        assert torch.equal(getattr(torch.ops.repro_torch, name)(sl, q, s),
+                           want)
+        wrapper = fs.fused_dequant_q8_2d if bits == 8 \
+            else fs.fused_dequant_q4_2d
+        assert torch.equal(wrapper(sl, q, s), want)
+    assert _cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_ring_dequant_fake_rule_shapes_and_costs(bits):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import fused_sample as fs
+    W, B, P = 4, 8, 960 if bits == 8 else 480
+    F = P if bits == 8 else 2 * P
+    code = torch.int8 if bits == 8 else torch.uint8
+    meta = (torch.empty((1,), dtype=torch.int32, device="meta"),
+            torch.empty((W, B, P), dtype=code, device="meta"),
+            torch.empty((W, B), device="meta"))
+    wrapper = fs.fused_dequant_q8_2d if bits == 8 else fs.fused_dequant_q4_2d
+    with _cuda.accounting() as acc:
+        out = wrapper(*meta)
+        with FakeTensorMode() as mode:
+            fake = wrapper(*(mode.from_tensor(torch.zeros(t.shape,
+                                                          dtype=t.dtype))
+                             for t in meta))
+    assert out.shape == fake.shape == (B, F)
+    assert out.dtype == fake.dtype == torch.float32
+    # one slot's codes and scales read, the fp32 rows written, one
+    # multiply an element: the figures the wrapper added before the op
+    assert acc.kernels == {fs.DEQUANT_NAMES[bits]: [
+        2, 2 * B * F, 2 * (B * P + 4 * B + 4 * B * F)]}
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_ring_dequant_vmap_rule_is_a_loop_of_its_plain_version(bits):
+    from repro_torch.kernels import fused_sample as fs
+    rings = [_quant_ring(bits, seed=20 + j) for j in range(3)]
+    q = torch.stack([r[0] for r in rings])
+    s = torch.stack([r[1] for r in rings])
+    slots = torch.tensor([[0], [3], [1]], dtype=torch.int32)
+    wrapper = fs.fused_dequant_q8_2d if bits == 8 else fs.fused_dequant_q4_2d
+    got = torch.func.vmap(wrapper)(slots, q, s)
+    for j in range(3):
+        assert torch.equal(got[j], fs.fused_dequant_plain(
+            bits, slots[j], q[j], s[j]))
