@@ -7,10 +7,8 @@ GPU: the quickest proof that the port still builds, is right and starts.
 Phases, each on its own printed lines (any failure exits non-zero):
 
   1. the card: name and power limit; TF32 off for matmuls and cuDNN;
-  2. the build of the CUDA kernels from ``src/repro_torch/csrc``, with
-     each kernel's registers and spills (``-Xptxas -v``): the
-     tensor-core attention kernels (K9's bf16 and fp32, K10's bf16 and
-     fp32) may not spill;
+  2. the build of the CUDA kernels from ``src/repro_torch/csrc`` (each
+     kernel's registers, shared and local memory are phase 17's lint);
   3. each kernel against its plain PyTorch version on the card (K1 full
      and weights-only, K2a, K2b; K3 at int8 and int4 levels; K4 and K5
      full and weights-only) at the main path's shapes, at an odd batch
@@ -204,8 +202,10 @@ Phases, each on its own printed lines (any failure exits non-zero):
  17. the boundary auditor (``repro_torch.analysis``) on the card: the
      library's kernels linted from ``cuobjdump -res-usage`` (one line a
      kernel: REG, SHARED, LOCAL, threads; REG <= 255 and REG x threads
-     <= 65,536, no local memory in the tensor-core attention kernels,
-     shared memory within the H100's 232,448 B a block), the nine
+     <= 65,536, the tensor-core attention kernels (K9's bf16 and fp32,
+     K10's bf16 and fp32) present at hd 32, 64 and 128 with no local
+     memory, so no spills; shared memory within the H100's 232,448 B a
+     block), the nine
      kernel contracts (K2b, K2a, K1, K4, K5, K3, K9, K7, K8) launched at
      their audited geometries (round-default, round-wide, flash-long:
      K9 fp32 at (2, 2048, 4, 128) causal) against their plain versions,
@@ -592,54 +592,10 @@ def device_ms(torch, fn, iters: int = 50) -> float:
     return _events_ms(torch, graph.replay, 5) / iters
 
 
-def kernel_label(mangled: str) -> str:
-    """A kernel's mangled name -> its name and integer template
-    arguments, e.g. ``flash_bwd_dkv_mma<64>`` or ``flash_fwd_kernel<bf16,64>``
-    (the mangled name when it is not a name in a namespace)."""
-    m = re.match(r"_ZN(\d+)", mangled)
-    if not m:
-        return mangled
-    i = m.end() + int(m.group(1))
-    m = re.match(r"(\d+)", mangled[i:])
-    if not m:
-        return mangled
-    j = i + m.end()
-    name, rest = mangled[j:j + int(m.group(1))], mangled[j + int(m.group(1)):]
-    if not rest.startswith("I"):
-        return name
-    head = rest[:rest.find("EE") + 2]
-    args = re.findall(r"Li(\d+)E", head)
-    kind = head.split("Li")[0]
-    if kind.startswith("If"):
-        args.insert(0, "float")
-    elif "bfloat16" in kind:
-        args.insert(0, "bf16")
-    return f"{name}<{','.join(args)}>"
-
-
-def ptxas_usage(log: str) -> dict:
-    """``nvcc -Xptxas -v`` output -> {kernel label: (registers, spill
-    store bytes, spill load bytes)}."""
-    usage, cur, spill = {}, None, (0, 0)
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            cur, spill = kernel_label(m.group(1)), (0, 0)
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            spill = (int(m.group(1)), int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and cur:
-            usage[cur] = (int(m.group(1)),) + spill
-            cur = None
-    return usage
-
-
 def sass_mma_counts(path: str) -> dict:
     """{kernel label: tensor-core instructions (HMMA, HGMMA)} in the
     SASS of the library at ``path`` (``cuobjdump -sass``)."""
+    from repro_torch.analysis.kernel_lint import demangle
     from repro_torch.kernels import _cuda
     tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
     text = subprocess.run([tool, "-sass", path], capture_output=True,
@@ -647,7 +603,7 @@ def sass_mma_counts(path: str) -> dict:
     counts = {}
     for part in text.split("Function : ")[1:]:
         name, body = part.split("\n", 1)
-        counts[kernel_label(name.strip())] = len(
+        counts[demangle(name.strip())] = len(
             re.findall(r"\bH(?:G)?MMA\b", body))
     return counts
 
@@ -5460,7 +5416,7 @@ def phase_audit(torch):
     from repro_torch.analysis import audit
     from repro_torch.analysis.kernel_lint import (CONTRACTS,
                                                   DEFAULT_GEOMETRIES,
-                                                  lint_card)
+                                                  SPILL_FREE, lint_card)
     from repro_torch.analysis.selftest import render, run_selftest
 
     findings, stats = lint_card(DEFAULT_GEOMETRIES)
@@ -5471,6 +5427,11 @@ def phase_audit(torch):
         print(f"[audit] contract {r['kernel']} @ {r['geometry']}: "
               f"{r['launches']} launch(es), max|err| {r['max_abs_err']:.3g} "
               f"against its plain version, ok {r['ok']}", flush=True)
+    missing = [f"{k}<{hd}>" for k in SPILL_FREE for hd in (32, 64, 128)
+               if f"{k}<{hd}>" not in stats["res_usage"]]
+    check(not missing, f"audit kernel lint: the tensor-core attention "
+          f"kernels {missing} are not in the library, so their local "
+          f"memory went unchecked")
     errors = [f for f in findings if f.severity == "error"]
     check(not errors, "audit kernel lint: " + "; ".join(
         f"{f.code} @ {f.where}: {f.detail}" for f in errors))
@@ -5487,7 +5448,7 @@ def phase_audit(torch):
     ok, results = run_selftest("cuda")
     print("\n".join("[audit] " + line
                     for line in render(results).splitlines()), flush=True)
-    check(ok and len(results) == 6
+    check(ok and len(results) == 7
           and results[-1].name == "gate-bypass (card)",
           f"audit self-test: {[(m.name, m.caught) for m in results]}")
 
@@ -5514,22 +5475,6 @@ def main() -> None:
     info = _cuda.build()
     _cuda.lib()
     print(f"[build] {info['path']} in {info['seconds']:.2f} s", flush=True)
-    usage = ptxas_usage(info["log"])
-    for label, (regs, st, ld) in sorted(usage.items()):
-        print(f"[build] {label}: {regs} registers, spill stores {st} B, "
-              f"spill loads {ld} B")
-    if info["log"]:
-        names = [K9_MMA[0], K9_F32_MMA[0]] + [
-            n for n, _ in K10_MMA.values()] + [
-            n for n, _ in K10_F32_MMA.values()]
-        mma = {k: u for k, u in usage.items() if k.split("<")[0] in names}
-        check(len(mma) == 3 * len(names)
-              and all(u[1:] == (0, 0) for u in mma.values()),
-              f"the tensor-core attention kernels of K9 and K10 at hd 32 / "
-              f"64 / 128: ptxas reports {mma} (registers, spill bytes), "
-              f"want {3 * len(names)} and no spills")
-    else:
-        print("[build] the library was already built: no ptxas report")
 
     # 3.-5.
     t0 = time.perf_counter()

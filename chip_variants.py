@@ -10,7 +10,8 @@ Each variant is a copy of ``src/`` and ``chip_smoke.py`` with some lines
 of a kernel's source replaced (``chip_mutants.mutated_copy``), built in
 a process of its own.  That process times the kernel (device µs per
 call, CUDA graph and events, as ``chip_smoke.py`` times it) and prints
-one line a shape with ptxas's registers and spills of the kernel:
+one line a shape with the kernel's registers and local memory
+(``cuobjdump -res-usage``, ``analysis.kernel_lint.res_usage``):
 
   * K9 at the shapes of ``chip_smoke.K9_CASES``, every element of each
     output held to the smoke's limit (a variant past it fails);
@@ -233,9 +234,9 @@ import sys, torch
 sys.path.insert(0, 'src')
 torch.backends.cuda.matmul.allow_tf32 = False
 import chip_smoke
-from repro_torch.kernels import _cuda
 from repro_torch.kernels import flash_attention as fa
-usage = chip_smoke.ptxas_usage(_cuda.build()['log'])
+from repro_torch.analysis.kernel_lint import res_usage
+usage = {k: (u['REG'], u['LOCAL']) for k, u in res_usage().items()}
 gen = torch.Generator(device='cuda').manual_seed(5)
 limits = ((chip_smoke.K10_REL['float32'], chip_smoke.K10_ATOL['float32']),
           (chip_smoke.LSE_REL, chip_smoke.LSE_ATOL))
@@ -255,7 +256,7 @@ for shape, dt, window in chip_smoke.K10_CASES:
         torch, lambda: fa.flash_attention_fwd_lse(q, k, v, **kw), 10)
     hd = shape[3]
     print(f'{shape}: {ms * 1e3:.2f} us; worst err / limit against fp64 '
-          f'(out, lse) {worst[0]:.3g}, {worst[1]:.3g}; (registers, spill '
+          f'(out, lse) {worst[0]:.3g}, {worst[1]:.3g}; (registers, local '
           f'bytes) {usage.get(f"flash_fwd_f32mma<{hd}>")}', flush=True)
 """
 GATE_RUN = """
@@ -289,9 +290,9 @@ import sys, torch
 sys.path.insert(0, 'src')
 torch.backends.cuda.matmul.allow_tf32 = False
 import chip_smoke
-from repro_torch.kernels import _cuda
 from repro_torch.kernels import flash_attention as fa
-usage = chip_smoke.ptxas_usage(_cuda.build()['log'])
+from repro_torch.analysis.kernel_lint import res_usage
+usage = {k: (u['REG'], u['LOCAL']) for k, u in res_usage().items()}
 gen = torch.Generator(device='cuda').manual_seed(3)
 for shape, causal, window in chip_smoke.K9_CASES:
     q, k, v = (torch.randn(shape, generator=gen, device='cuda')
@@ -306,7 +307,7 @@ for shape, causal, window in chip_smoke.K9_CASES:
                                                                 **kw), 10)
     print(f'{shape} window={window}: {ms * 1e3:.2f} us, worst err / '
           f'limit {worst:.3g}; flash_fwd_mma<{shape[3]}> (registers, '
-          f'spill bytes) {usage.get(f"flash_fwd_mma<{shape[3]}>")}',
+          f'local bytes) {usage.get(f"flash_fwd_mma<{shape[3]}>")}',
           flush=True)
 """
 K10_F32_RUN = """
@@ -314,9 +315,9 @@ import sys, torch
 sys.path.insert(0, 'src')
 torch.backends.cuda.matmul.allow_tf32 = False
 import chip_smoke
-from repro_torch.kernels import _cuda
 from repro_torch.kernels import flash_attention_bwd as fab
-usage = chip_smoke.ptxas_usage(_cuda.build()['log'])
+from repro_torch.analysis.kernel_lint import res_usage
+usage = {k: (u['REG'], u['LOCAL']) for k, u in res_usage().items()}
 gen = torch.Generator(device='cuda').manual_seed(5)
 rel, atol = chip_smoke.K10_REL['float32'], chip_smoke.K10_ATOL['float32']
 for shape, dt, window in chip_smoke.K10_CASES:
@@ -334,7 +335,7 @@ for shape, dt, window in chip_smoke.K10_CASES:
     hd = shape[3]
     print(f'{shape}: dkv {ms[0] * 1e3:.2f} us, dq {ms[1] * 1e3:.2f} us; '
           f'worst err / limit against fp64 (dk, dv, dq) '
-          f'{", ".join(f"{w:.3g}" for w in worst)}; (registers, spill '
+          f'{", ".join(f"{w:.3g}" for w in worst)}; (registers, local '
           f'bytes) dkv {usage.get(f"flash_bwd_dkv_f32mma<{hd}>")}, dq '
           f'{usage.get(f"flash_bwd_dq_f32mma<{hd}>")}', flush=True)
 """

@@ -662,17 +662,72 @@ def trace_fleet_case(case: Optional[AuditCase] = None,
 # Pod (party-to-pod, two ranks) case
 # --------------------------------------------------------------------------
 POD_NAME = "pod-p2p-d1"
-_DATA_CALLS = ("batch_isend_irecv", "send", "recv", "all_reduce",
-               "broadcast", "all_gather", "all_gather_into_tensor",
-               "reduce_scatter", "reduce_scatter_tensor", "all_to_all",
-               "all_to_all_single", "gather", "scatter", "reduce")
+# every torch.distributed call that moves tensors or objects between ranks
+_DATA_CALLS = ("batch_isend_irecv", "isend", "irecv", "send", "recv",
+               "all_reduce", "broadcast", "all_gather",
+               "all_gather_into_tensor", "reduce_scatter",
+               "reduce_scatter_tensor", "all_to_all", "all_to_all_single",
+               "gather", "scatter", "reduce", "send_object_list",
+               "recv_object_list", "broadcast_object_list",
+               "all_gather_object", "gather_object", "scatter_object_list")
+# ``P2POp`` admits only ``distributed_c10d``'s own ``isend`` / ``irecv``
+# and ``batch_isend_irecv`` calls them back: these two are recorded in
+# both modules, and not where ``batch_isend_irecv`` makes them
+_P2P_CALLS = ("isend", "irecv")
 
 
-def pod_rank(rank: int, world_size: int) -> Dict[str, Any]:
+@contextlib.contextmanager
+def recording_data_calls(calls: List[Dict[str, Any]]):
+    """Record every :data:`_DATA_CALLS` call made through
+    ``torch.distributed`` into ``calls`` (a ``batch_isend_irecv`` with
+    its ops: kind, peer, bytes)."""
+    import functools
+
+    import torch.distributed as dist
+    import torch.distributed.distributed_c10d as c10d
+
+    inside = [0]
+
+    def recorder(name, orig):
+        @functools.wraps(orig)
+        def wrapped(*args, **kwargs):
+            if name in _P2P_CALLS and inside[0]:
+                return orig(*args, **kwargs)
+            rec = {"call": name, "ops": []}
+            if name == "batch_isend_irecv":
+                for op in args[0]:
+                    rec["ops"].append((op.op.__name__, int(op.peer),
+                                       op.tensor.numel()
+                                       * op.tensor.element_size()))
+            calls.append(rec)
+            inside[0] += name == "batch_isend_irecv"
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                inside[0] -= name == "batch_isend_irecv"
+        return wrapped
+
+    saved = [(mod, n, getattr(mod, n)) for n in _DATA_CALLS
+             for mod in ((dist, c10d) if n in _P2P_CALLS else (dist,))
+             if hasattr(mod, n)]
+    wrapped = {n: recorder(n, f) for mod, n, f in saved if mod is dist}
+    for mod, n, _ in saved:
+        setattr(mod, n, wrapped[n])
+    try:
+        yield calls
+    finally:
+        for mod, n, f in saved:
+            setattr(mod, n, f)
+
+
+def pod_rank(rank: int, world_size: int, leak: bool = False
+             ) -> Dict[str, Any]:
     """One pod's part of :func:`trace_pod_case` (a ``run_ranks`` entry):
     one depth-1 pod round over the WDL demo model through an
     :class:`AuditedPodTransport`, with every ``torch.distributed`` data
-    call of the round recorded.  -> {"calls", "boundaries"}."""
+    call of the round recorded.  ``leak`` plants the self-test's bug: each
+    pod also sends its raw features to the other with ``dist.isend``,
+    around the transport.  -> {"calls", "boundaries"}."""
     import torch.distributed as dist
 
     from ..core import pod_protocol as pp
@@ -691,35 +746,19 @@ def pod_rank(rank: int, world_size: int) -> Dict[str, Any]:
     rnd = pp.make_pod_round(None, opt, R=run["R"], cos_xi=0.5,
                             transport=tp, pipeline_depth=1)
     (x, y), = pp.pod_batches(run)
+    x, y = torch.as_tensor(x[rank]), torch.as_tensor(y[rank])
     calls: List[Dict[str, Any]] = []
-
-    def recorder(name, orig):
-        def wrapped(*args, **kwargs):
-            rec = {"call": name, "ops": []}
-            if name == "batch_isend_irecv":
-                for op in args[0]:
-                    kind = "isend" if op.op is dist.isend else "irecv"
-                    rec["ops"].append((kind, int(op.peer),
-                                       op.tensor.numel()
-                                       * op.tensor.element_size()))
-            calls.append(rec)
-            return orig(*args, **kwargs)
-        return wrapped
-
-    saved = {n: getattr(dist, n) for n in _DATA_CALLS if hasattr(dist, n)}
-    for n, f in saved.items():
-        setattr(dist, n, recorder(n, f))
-    try:
-        with instrumented():
-            rnd(party, opt_state, ws, torch.as_tensor(x[rank]),
-                torch.as_tensor(y[rank]))
-    finally:
-        for n, f in saved.items():
-            setattr(dist, n, f)
+    with recording_data_calls(calls), instrumented():
+        if leak:
+            got = torch.empty_like(x)
+            for work in (dist.isend(x.contiguous(), 1 - rank),
+                         dist.irecv(got, 1 - rank)):
+                work.wait()
+        rnd(party, opt_state, ws, x, y)
     return {"calls": calls, "boundaries": list(tp.records)}
 
 
-def trace_pod_case() -> CaseResult:
+def trace_pod_case(leak: bool = False) -> CaseResult:
     """Audit the party-to-pod round (``engine.make_pod_round`` at depth
     1, two gloo ranks on the CPU): every ``torch.distributed`` data call
     a rank makes in one round must be one of the transport's marked
@@ -727,11 +766,13 @@ def trace_pod_case() -> CaseResult:
     crossing's bytes each way), and nothing else may cross.  Each pod
     holds one party's state whole, so the per-party host rule does not
     apply here: the record of calls is the boundary theorem on this
-    path."""
+    path.  ``leak`` plants the self-test's raw ``dist.isend``
+    (:func:`pod_rank`)."""
     from ..launch.dist import run_ranks
 
     name = POD_NAME
-    results = run_ranks(pod_rank, 2, backend="gloo", timeout_s=120.0)
+    results = run_ranks(pod_rank, 2, backend="gloo", args=(leak,),
+                        timeout_s=120.0)
     findings: List[Finding] = []
     for rank, r in enumerate(results):
         p2p = [c for c in r["calls"] if c["call"] == "batch_isend_irecv"]
@@ -799,6 +840,25 @@ _SERVE_RULES: Tuple[Tuple[str, Callable, Callable], ...] = (
 )
 
 
+# Declared exceptions of the serving step's cast lint, each on the outputs
+# it reaches, each exact or by design:
+#  * the towers compute in their parameter dtype (bf16, PARAM_DTYPE):
+#    their float32 -> bfloat16 conversions (norms and softmax in fp32, the
+#    rest in bf16) are the model's declared precision on what the towers
+#    write, the KV caches and Party B's token;
+#  * the downlink carries a token ID as float32 (the wire dtype) and
+#    Party A converts it back with float32 -> int32: token ids < 2^24 are
+#    exactly representable in float32, and the cast sits AFTER the wire
+#    mark, so no declared stage can clear it.
+# Any other cast on any output, the ring and the uplink's products
+# included, still fails the case.
+_SERVE_DECLARED_CASTS = (
+    (r"^state\.cache_[ab]\b|^state\.token$|^tokens$",
+     ("float32", "bfloat16")),
+    (r"^state\.token_a$", ("float32", "int32")),
+)
+
+
 def trace_serve_case(transport=None) -> CaseResult:
     """Audit ONE exchange decode step of the serving engine
     (``serve.engine.make_step_fn`` with ``exchange=True``) at reduced
@@ -841,23 +901,12 @@ def trace_serve_case(transport=None) -> CaseResult:
     in_paths = [p.lstrip(".") for p in in_paths]
     trace = _finish(name, gm, in_paths, out_paths, _SERVE_RULES)
 
-    # Declared exceptions of the cast lint, both exact or by design:
-    #  * the model computes in its parameter dtype (bf16, the towers'
-    #    PARAM_DTYPE): its float32 -> bfloat16 conversions (norms and
-    #    softmax in fp32, the rest in bf16) are the model's declared
-    #    precision, on every output the towers reach;
-    #  * the downlink carries a token ID as float32 (the wire dtype) and
-    #    Party A converts it back with float32 -> int32: token ids < 2^24
-    #    are exactly representable in float32, and the cast sits AFTER
-    #    the wire mark, so no declared stage can clear it.
-    # Any OTHER cast on any output still fails the case.
     def _declared(f):
         if f.code != "kernel.unmediated-cast":
             return False
         sites = set(re.findall(r"convert (\S+)->(\S+) ", f.detail))
-        allowed = {("float32", "bfloat16")}
-        if f.where == "state.token_a":
-            allowed.add(("float32", "int32"))
+        allowed = {cast for pattern, cast in _SERVE_DECLARED_CASTS
+                   if re.search(pattern, f.where)}
         return bool(sites) and sites <= allowed
     declared = [f for f in trace.findings if _declared(f)]
     findings = [f for f in trace.findings if not _declared(f)]
@@ -1002,18 +1051,15 @@ def route_check(case: AuditCase) -> CaseResult:
 # --------------------------------------------------------------------------
 # Entry point
 # --------------------------------------------------------------------------
-def run_audit(cases: Optional[Sequence[AuditCase]] = None, *,
-              include_pod: bool = True,
-              include_fleet: bool = True,
-              include_serve: bool = True,
-              include_kernel_lint: bool = True,
+def run_audit(cases: Sequence[AuditCase], *, include_pod: bool = True,
               device: str = "cpu") -> AuditReport:
-    """The audit over ``cases`` (default: the full matrix).  The traces
-    run on CPU tensors whatever ``device``; ``device="cuda"`` adds the
-    card-only checks: the kernels' resource lint and launches at the
-    contracts' geometries, and :func:`route_check` over ``cases``.  On
-    ``"cpu"`` those two are ``info`` findings saying they need the
-    card."""
+    """The audit over ``cases`` (:func:`default_cases`), the kernel
+    contracts, the fleet and serving cases and (``include_pod``) the pod
+    case.  The traces run on CPU tensors whatever ``device``;
+    ``device="cuda"`` adds the card-only checks: the kernels' resource
+    lint and launches at the contracts' geometries, and
+    :func:`route_check` over ``cases``.  On ``"cpu"`` those two are
+    ``info`` findings saying they need the card."""
     from .kernel_lint import CONTRACTS, DEFAULT_GEOMETRIES, lint_card, \
         lint_kernels
 
@@ -1021,35 +1067,29 @@ def run_audit(cases: Optional[Sequence[AuditCase]] = None, *,
         raise ValueError(f"device must be 'cpu' or 'cuda', got {device!r}")
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available")
-    if cases is None:
-        cases = default_cases()
-    results: List[CaseResult] = []
-    if include_kernel_lint:
-        kf = lint_kernels(DEFAULT_GEOMETRIES)
-        stats = {"contracts": len(CONTRACTS),
-                 "geometries": len(DEFAULT_GEOMETRIES)}
-        if device == "cuda":
-            card_findings, card_stats = lint_card(DEFAULT_GEOMETRIES)
-            kf += card_findings
-            stats.update(card_stats)
-        else:
-            kf.append(Finding(
-                code="kernel.card-only", severity="info",
-                where="kernel_lint.lint_card",
-                detail="the resource lint (cuobjdump -res-usage) and the "
-                       "contracts' launches against their plain versions "
-                       "need the card: run with --device cuda",
-                case="kernel-contracts"))
-        results.append(CaseResult(
-            name="kernel-contracts",
-            config={"geometries": [g.name for g in DEFAULT_GEOMETRIES]},
-            findings=kf, stats=stats))
+    kf = lint_kernels(DEFAULT_GEOMETRIES)
+    stats = {"contracts": len(CONTRACTS),
+             "geometries": len(DEFAULT_GEOMETRIES)}
+    if device == "cuda":
+        card_findings, card_stats = lint_card(DEFAULT_GEOMETRIES)
+        kf += card_findings
+        stats.update(card_stats)
+    else:
+        kf.append(Finding(
+            code="kernel.card-only", severity="info",
+            where="kernel_lint.lint_card",
+            detail="the resource lint (cuobjdump -res-usage) and the "
+                   "contracts' launches against their plain versions "
+                   "need the card: run with --device cuda",
+            case="kernel-contracts"))
+    results: List[CaseResult] = [CaseResult(
+        name="kernel-contracts",
+        config={"geometries": [g.name for g in DEFAULT_GEOMETRIES]},
+        findings=kf, stats=stats)]
     for case in cases:
         results.append(trace_case(case))
-    if include_fleet:
-        results.append(trace_fleet_case())
-    if include_serve:
-        results.append(trace_serve_case())
+    results.append(trace_fleet_case())
+    results.append(trace_serve_case())
     if include_pod:
         results.append(trace_pod_case())
     if device == "cuda":

@@ -59,7 +59,7 @@ KERNEL_THREADS = {
     "flash_bwd_dq_mma": 128, "flash_bwd_dkv_f32mma": 128,
     "flash_bwd_dq_f32mma": 128,
 }
-# the kernels ``chip_smoke.py`` holds spill-free (no local memory)
+# the tensor-core attention kernels: no local memory (so no spills)
 SPILL_FREE = ("flash_fwd_mma", "flash_fwd_f32mma", "flash_bwd_dkv_mma",
               "flash_bwd_dq_mma", "flash_bwd_dkv_f32mma",
               "flash_bwd_dq_f32mma")

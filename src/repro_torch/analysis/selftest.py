@@ -1,8 +1,9 @@
 """Seeded-mutation self-tests: the auditor must CATCH each planted bug,
 naming the offender — an analyzer that cannot fail is not a gate.
 
-Port of ``repro/analysis/selftest.py``.  Five mutations, one per
-invariant family plus the DP-ordering rule and the batched fleet path:
+Port of ``repro/analysis/selftest.py``.  Six mutations, one per
+invariant family plus the DP-ordering rule, the batched fleet path and
+the pod round:
 
   * **raw-send** — a transport whose ``send`` returns the raw tensor
     unencoded: the taint pass must flag the boundary crossing.
@@ -24,6 +25,10 @@ invariant family plus the DP-ordering rule and the batched fleet path:
     the same crossing with the leading job axis on the boundary — a
     batched trace that hides planted bugs would make the fleet audit case
     vacuous.
+  * **pod-raw-isend** — each pod of the two-rank pod round also sends its
+    raw features to the other with ``dist.isend``, around the transport:
+    the record of ``torch.distributed`` calls (``trace_pod_case``) must
+    flag the unmarked call.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ from dataclasses import dataclass, field
 from typing import List
 
 from .audit import AuditCase, make_celu, route_check, trace_case, \
-    trace_fleet_case
+    trace_fleet_case, trace_pod_case
 
 
 @dataclass
@@ -200,6 +205,11 @@ def _mut_fleet_raw_send() -> MutationResult:
                   "RawLeakTransport", r)
 
 
+def _mut_pod_raw_isend() -> MutationResult:
+    return _grade("pod-raw-isend", "taint.unmarked-collective", "isend",
+                  trace_pod_case(leak=True))
+
+
 def _grade(name: str, expected_code: str, offender: str,
            result) -> MutationResult:
     hits = [f for f in result.findings
@@ -213,7 +223,8 @@ def run_selftest(device: str = "cpu"):
     """-> (all caught?, per-mutation results).  ``device="cuda"`` adds the
     gate bypass caught by :func:`audit.route_check` on the card."""
     results = [_mut_raw_send(), _mut_under_count(), _mut_gate_bypass(),
-               _mut_noise_before_encode(), _mut_fleet_raw_send()]
+               _mut_noise_before_encode(), _mut_fleet_raw_send(),
+               _mut_pod_raw_isend()]
     if device == "cuda":
         results.append(_mut_gate_bypass_card())
     return all(m.caught for m in results), results

@@ -39,8 +39,7 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def quick_report():
-    return A.run_audit(A.default_cases(quick=True), include_pod=False,
-                       include_kernel_lint=True)
+    return A.run_audit(A.default_cases(quick=True), include_pod=False)
 
 
 @pytest.fixture(scope="module")
@@ -294,6 +293,26 @@ def test_pod_case_two_ranks_only_marked_permutes():
     assert r.stats["data_calls"] == [2, 2]
 
 
+def test_pod_recorder_covers_p2p_and_object_calls():
+    import torch.distributed as dist
+    import torch.distributed.distributed_c10d as c10d
+    for name in ("isend", "irecv", "send_object_list", "recv_object_list",
+                 "broadcast_object_list", "all_gather_object",
+                 "gather_object", "scatter_object_list"):
+        assert name in A._DATA_CALLS, name
+    calls = []
+    with A.recording_data_calls(calls):
+        # P2POp takes only c10d's own isend / irecv: both names are the
+        # recorder's, so a transport's P2POp still builds
+        assert dist.isend is c10d.isend and dist.irecv is c10d.irecv
+        with pytest.raises((RuntimeError, ValueError)):
+            dist.isend(torch.zeros(2), 1)       # no process group here
+        with pytest.raises((RuntimeError, ValueError)):
+            dist.send_object_list([torch.zeros(2)], dst=1)
+    assert [c["call"] for c in calls] == ["isend", "send_object_list"]
+    assert dist.isend is not c10d.send and dist.isend.__name__ == "isend"
+
+
 def test_serve_case_holds_k3_and_k6_nodes(quick_report):
     (r,) = [c for c in quick_report.cases if c.name == A.SERVE_NAME]
     assert not r.errors
@@ -301,6 +320,24 @@ def test_serve_case_holds_k3_and_k6_nodes(quick_report):
     assert {"repro_torch::quantize_sr_2d",
             "repro_torch::fused_dequant_q8_2d"} <= \
         set(r.stats["kernel_op_names"])
+
+
+def test_serve_case_flags_a_bf16_cast_on_the_ring(monkeypatch):
+    # the towers' fp32 -> bf16 casts are declared on what the towers
+    # write; a bf16 narrowing of the ring's stored scales is not
+    from repro_torch.core import workset as WS
+    real = WS.workset_insert
+
+    def planted(ws, entry, batch_idx, *, key=None):
+        real(ws, entry, batch_idx, key=key)
+        scale = ws["buf"]["z"].scale
+        scale.copy_(scale.to(torch.bfloat16).float())
+        return ws
+    monkeypatch.setattr(WS, "workset_insert", planted)
+    r = A.trace_serve_case()
+    casts = [f for f in r.errors if f.code == "kernel.unmediated-cast"]
+    assert casts and all(f.where.startswith("state.ws") for f in casts), \
+        [(f.code, f.where) for f in r.errors]
 
 
 def test_kernel_contracts_clean_at_default_geometries():
@@ -324,24 +361,25 @@ def test_cli_refuses_cuda_without_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--device", "cuda", "--quick"])
     with pytest.raises(RuntimeError, match="CUDA"):
-        A.run_audit([], include_pod=False, include_fleet=False,
-                    include_serve=False, device="cuda")
+        A.run_audit([], include_pod=False, device="cuda")
 
 
 def test_cli_writes_the_report(tmp_path, monkeypatch):
     from repro_torch.analysis import __main__ as cli
-    real = A.run_audit
     monkeypatch.setattr(A, "default_cases",
                         lambda quick=False: [A.AuditCase(name="K1-d0")])
-    monkeypatch.setattr(A, "run_audit", lambda cases, **kw: real(
-        cases, include_fleet=False, include_serve=False, **kw))
+    # the fleet and serve cases have tests of their own: stand-ins here
+    for fn, name in (("trace_fleet_case", "fleet"),
+                     ("trace_serve_case", A.SERVE_NAME)):
+        monkeypatch.setattr(A, fn, lambda name=name: CaseResult(
+            name=name, config={}, findings=[]))
     out = tmp_path / "AUDIT_torch.json"
     assert cli.main(["--device", "cpu", "--no-pod", "--out",
                      str(out)]) == 0
     d = json.loads(out.read_text())
     assert d["passed"] is True
-    assert [c["name"] for c in d["cases"]] == ["kernel-contracts", "K1-d0",
-                                              "route-check"]
+    assert [c["name"] for c in d["cases"]] == [
+        "kernel-contracts", "K1-d0", "fleet", A.SERVE_NAME, "route-check"]
 
 
 # --------------------------------------------------------------------------
@@ -356,7 +394,8 @@ def test_seeded_mutations_all_caught(selftest_results):
         ("under-count", "wire.bytes-mismatch"),
         ("gate-bypass", "kernel.fused-path-disabled"),
         ("noise-before-encode", "taint.sanitizer-order"),
-        ("fleet-raw-send", "taint.raw-boundary")]
+        ("fleet-raw-send", "taint.raw-boundary"),
+        ("pod-raw-isend", "taint.unmarked-collective")]
 
 
 def test_raw_send_mutation_names_party_and_direction(selftest_results):
