@@ -25,6 +25,8 @@ Phases, each on its own printed lines (any failure exits non-zero):
      graph and replayed against eager steps; no allocation in an eager
      step; times from CUDA events beside the least time the card could
      take (the steps warm and cold, beside ``torch._fused_adagrad_``);
+     the launch floor: the gate's smallest launch (K2b at one row of 8
+     values) timed as the kernels are;
   4. the golden traces (``tests/golden``) replayed on the card from the
      reference's initial parameters, held to the tests' tolerance, with
      plain AdaGrad and once more through K7;
@@ -213,7 +215,20 @@ Phases, each on its own printed lines (any failure exits non-zero):
      case on the card: the gate of its ring, K3 where it quantises, K7),
      and the seeded-mutation self-test with the gate bypass caught on
      the card too;
- 18. a JSON line of per-kernel results, then the last line
+ 18. the examples (``examples/torch``, the twins of the reference's
+     scripts): the LLM twin at its defaults (smollm-360m at full width,
+     B = 2, S = 64, R = W = 3, 3 rounds, int4 ring, int8 AdaGrad state:
+     K5, K3 and K8 launches derived by ``_llm_example_launches``, its
+     losses, ms per round and peak memory beside its own budget line),
+     the quickstart twin's seven presets cut to QUICKSTART_ROUNDS rounds
+     (each preset's K1 / K4 / K3 / K7 launches by
+     ``_quickstart_launches``, its AUC curve), the multiparty twin whole
+     (120 rounds, K1 and K7) and the serving twin whole (K6 and K3); K5
+     and K4 at the LLM twin's ring (3, 2, 61,440), full and weights-only,
+     against their plain versions, timed beside the bound, and K8's step
+     over smollm-360m's two party tables (cold) beside the bound;
+ 19. the launch-bound kernels' times beside the launch floor, a JSON line
+     of per-kernel results, then the last line
      ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
@@ -535,6 +550,12 @@ K9_MMA = ("flash_fwd_mma", 3)
 # its fp32 kernel: the same, in bf16 products (six per fp32 product)
 K9_F32_MMA = ("flash_fwd_f32mma", 12)
 DENSE_GATES = ("fused_sample_2d", "cosine_weight_2d", "cosine_weights_2d")
+# the launch floor: K2b at one row of 8 values, and the kernels that sit
+# near it at their main paths' shapes (PERF.md §6)
+FLOOR_SHAPE = (1, 8)
+FLOOR_KERNELS = ("cosine_weight_2d", "cosine_weights_2d", "quantize_sr_2d",
+                 "fused_sample_q8_2d", "fused_sample_q4_2d",
+                 "fused_dequant_q8_2d", "fused_dequant_q4_2d")
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
 
 
@@ -689,6 +710,37 @@ def phase_kernels(torch):
     return results
 
 
+def launch_floor(torch) -> float:
+    """ms of the gate's smallest launch on the card (K2b at
+    ``FLOOR_SHAPE``: one row of a few values), timed as every kernel is
+    (a CUDA graph of launches, CUDA events): the floor that a kernel
+    doing almost no work sits at."""
+    from repro_torch.core.weighting import xi_to_cos
+    from repro_torch.kernels import cosine_weight as cw
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    a, z = (torch.randn(FLOOR_SHAPE, generator=gen, device="cuda")
+            for _ in range(2))
+    cos_xi = xi_to_cos(60.0)
+    ms = device_ms(torch, lambda: cw.cosine_weights_2d(a, z, cos_xi))
+    B, F = FLOOR_SHAPE
+    bound_ms, bound_by = bound(8 * B * F + 4 * B, 6 * B * F)
+    print(f"[floor] {'cosine_weights_2d':30s} B,F={B},{F}: {ms * 1e3:.2f} us "
+          f"a launch on the card (bound {bound_ms * 1e3:.4f} us, "
+          f"{bound_by}): the launch floor", flush=True)
+    return ms
+
+
+def floor_lines(kernels, floor_ms) -> None:
+    """Print each launch-bound kernel's time at its main path's shape
+    beside the launch floor."""
+    for name in FLOOR_KERNELS:
+        r = kernels[name]
+        print(f"[floor] {name:22s} {r['ms'] * 1e3:7.2f} us (bound "
+              f"{r['bound_ms'] * 1e3:.3f} us) = the floor "
+              f"{floor_ms * 1e3:.2f} us + {(r['ms'] - floor_ms) * 1e3:.2f} "
+              f"us", flush=True)
+
+
 def _timed(torch, label, kern, plain, err, nbytes, flops, library="none",
            peak=PEAK_FP32_FLOPS, iters=50):
     """Time ``kern`` and ``plain`` on the card at this shape; print one
@@ -710,11 +762,6 @@ def phase_quant_kernels(torch):
     """K3 against its plain version (codes equal, scales bitwise, on the
     card and against the CPU) and K4 / K5 against theirs (within
     KERNEL_TOL, rows near cos ξ excluded)."""
-    from repro_torch.core.weighting import xi_to_cos
-    from repro_torch.core.workset import pack_nibbles, sample_hbm_bytes
-    from repro_torch.kernels import cosine_weight as cw
-    from repro_torch.kernels import fused_sample as fs
-    from repro_torch.kernels import ops
     from repro_torch.kernels import quantize as qz
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -752,81 +799,106 @@ def phase_quant_kernels(torch):
                       f"(card and CPU)", flush=True)
 
     # K4 / K5 over rings quantised as an insert quantises them
+    for bits, name in ((8, "fused_sample_q8_2d"), (4, "fused_sample_q4_2d")):
+        for shape in SHAPES:
+            err, times = _quant_gate(torch, gen, bits, shape,
+                                     ("a", "b") if shape == MAIN_SHAPE
+                                     else ())
+            results[name]["max_abs_err"] = max(
+                results[name]["max_abs_err"], err)
+            if shape == MAIN_SHAPE:
+                results[name].update(times["a"])
+    return results
+
+
+def _quant_gate(torch, gen, bits, shape, timed=()):
+    """K4 (``bits`` 8) / K5 (4) at ``shape`` (W, B, F) over rings
+    quantised as an insert quantises them, full (Party A's) and
+    weights-only (Party B's: the ∇Z ring alone), each within KERNEL_TOL of
+    its plain version (rows near cos ξ excluded); the cases ``timed``
+    names ("a", "b") timed beside their bound.  -> (the largest error,
+    {case: the timing's JSON numbers})."""
+    from repro_torch.core.weighting import xi_to_cos
+    from repro_torch.core.workset import pack_nibbles, sample_hbm_bytes
+    from repro_torch.kernels import cosine_weight as cw
+    from repro_torch.kernels import fused_sample as fs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quantize as qz
+
+    name = "fused_sample_q8_2d" if bits == 8 else "fused_sample_q4_2d"
     cos_xi = xi_to_cos(60.0)
     thresh = cw.f32_threshold(cos_xi)
     slot = torch.tensor([1], dtype=torch.int32, device="cuda")
-    for bits, name in ((8, "fused_sample_q8_2d"), (4, "fused_sample_q4_2d")):
-        full = ops.fused_gather_weight_q8 if bits == 8 \
-            else ops.fused_gather_weight_q4
-        w_only = ops.fused_gather_weights_q8 if bits == 8 \
-            else ops.fused_gather_weights_q4
-        for (W, B, F) in SHAPES:
-            def randn(*shape):
-                return torch.randn(shape, generator=gen, device="cuda")
-            a = randn(B, F)
-            z = randn(W, B, F)
-            z[1] = a * (torch.rand((B, 1), generator=gen, device="cuda")
-                        * 4 - 1) + z[1]
-            dz = randn(W, B, F)
+    full = ops.fused_gather_weight_q8 if bits == 8 \
+        else ops.fused_gather_weight_q4
+    w_only = ops.fused_gather_weights_q8 if bits == 8 \
+        else ops.fused_gather_weights_q4
+    W, B, F = shape
 
-            def enc(r):
-                x = r.reshape(W * B, F)
-                q, sc = qz.quantize_sr_plain(
-                    x, torch.rand(x.shape, generator=gen, device="cuda"),
-                    127 if bits == 8 else 7)
-                if bits == 4:
-                    if F & 1:
-                        q = torch.cat([q, q.new_zeros((W * B, 1))], dim=1)
-                    q = pack_nibbles(q)
-                return (q.reshape(W, B, -1).contiguous(),
-                        sc.reshape(W, B).contiguous())
-            zq, zs = enc(z)
-            dzq, dzs = enc(dz)
-            a_pad = torch.nn.functional.pad(
-                a, (0, (2 * zq.shape[2] - F) if bits == 4 else 0))
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    a = randn(B, F)
+    z = randn(W, B, F)
+    z[1] = a * (torch.rand((B, 1), generator=gen, device="cuda")
+                * 4 - 1) + z[1]
+    dz = randn(W, B, F)
 
-            def plain(q, sc, dq, ds):
-                w, cot = fs.fused_sample_quant_plain(
-                    bits, slot, a_pad, q, sc, dq, ds, cos_xi)
-                return w, None if cot is None else cot[:, :F]
+    def enc(r):
+        x = r.reshape(W * B, F)
+        q, sc = qz.quantize_sr_plain(
+            x, torch.rand(x.shape, generator=gen, device="cuda"),
+            127 if bits == 8 else 7)
+        if bits == 4:
+            if F & 1:
+                q = torch.cat([q, q.new_zeros((W * B, 1))], dim=1)
+            q = pack_nibbles(q)
+        return (q.reshape(W, B, -1).contiguous(),
+                sc.reshape(W, B).contiguous())
+    zq, zs = enc(z)
+    dzq, dzs = enc(dz)
+    a_pad = torch.nn.functional.pad(
+        a, (0, (2 * zq.shape[2] - F) if bits == 4 else 0))
 
-            def keep(q, sc):
-                deq = fs.dequant_rows(q[1], sc[1], bits)
-                return (cw.gate_weights_plain(a_pad, deq, -2.0)
-                        - thresh).abs() > NEAR
-            cases = [
-                ("", lambda: full(slot, a, zq, zs, dzq, dzs, cos_xi),
-                 lambda: plain(zq, zs, dzq, dzs), keep(zq, zs), "a"),
-                (" weights-only",      # Party B's: the ∇Z ring alone
-                 lambda: (w_only(slot, a, dzq, dzs, cos_xi), None),
-                 lambda: plain(dzq, dzs, None, None), keep(dzq, dzs), "b"),
-            ]
-            for tag, kern, plain_fn, rows, party in cases:
-                (w, cot), (w0, cot0) = kern(), plain_fn()
-                torch.cuda.synchronize()
-                err = (w - w0).abs()[rows].max().item()
-                if cot is not None:
-                    err = max(err, (cot - cot0).abs()[rows].max().item())
-                check(math.isfinite(err) and err <= KERNEL_TOL,
-                      f"{name}{tag} at {(W, B, F)}: max |err| {err}")
-                results[name]["max_abs_err"] = max(
-                    results[name]["max_abs_err"], err)
-                label = f"{name + tag:30s} W,B,F={W},{B},{F}"
-                if (W, B, F) != MAIN_SHAPE:
-                    print(f"[kernel] {label} max|err| {err:.3g}", flush=True)
-                    continue
-                dtype = "int8" if bits == 8 else "int4"
-                ex = {"z": a, "dz": a}
-                if party == "a":
-                    nbytes = sample_hbm_bytes(ex, dtype, True, "a") + 4
-                else:      # the stored dz, the ad-hoc rows, w, the slot
-                    nbytes = sample_hbm_bytes({"dz": a}, dtype) \
-                        + 4 * B * F + 4 * B + 4
-                t = _timed(torch, label, kern, plain_fn, err, nbytes,
-                           (8 if party == "a" else 7) * B * F)
-                if party == "a":
-                    results[name].update(t)
-    return results
+    def plain(q, sc, dq, ds):
+        w, cot = fs.fused_sample_quant_plain(
+            bits, slot, a_pad, q, sc, dq, ds, cos_xi)
+        return w, None if cot is None else cot[:, :F]
+
+    def keep(q, sc):
+        deq = fs.dequant_rows(q[1], sc[1], bits)
+        return (cw.gate_weights_plain(a_pad, deq, -2.0)
+                - thresh).abs() > NEAR
+    cases = [
+        ("", lambda: full(slot, a, zq, zs, dzq, dzs, cos_xi),
+         lambda: plain(zq, zs, dzq, dzs), keep(zq, zs), "a"),
+        (" weights-only",      # Party B's: the ∇Z ring alone
+         lambda: (w_only(slot, a, dzq, dzs, cos_xi), None),
+         lambda: plain(dzq, dzs, None, None), keep(dzq, dzs), "b"),
+    ]
+    worst, times = 0.0, {}
+    for tag, kern, plain_fn, rows, party in cases:
+        (w, cot), (w0, cot0) = kern(), plain_fn()
+        torch.cuda.synchronize()
+        err = (w - w0).abs()[rows].max().item()
+        if cot is not None:
+            err = max(err, (cot - cot0).abs()[rows].max().item())
+        check(math.isfinite(err) and err <= KERNEL_TOL,
+              f"{name}{tag} at {shape}: max |err| {err}")
+        worst = max(worst, err)
+        label = f"{name + tag:30s} W,B,F={W},{B},{F}"
+        if party not in timed:
+            print(f"[kernel] {label} max|err| {err:.3g}", flush=True)
+            continue
+        dtype = "int8" if bits == 8 else "int4"
+        ex = {"z": a, "dz": a}
+        if party == "a":
+            nbytes = sample_hbm_bytes(ex, dtype, True, "a") + 4
+        else:      # the stored dz, the ad-hoc rows, w, the slot
+            nbytes = sample_hbm_bytes({"dz": a}, dtype) \
+                + 4 * B * F + 4 * B + 4
+        times[party] = _timed(torch, label, kern, plain_fn, err, nbytes,
+                              (8 if party == "a" else 7) * B * F)
+    return worst, times
 
 
 def library_adagrad_ms(torch, sets, lr, eps):
@@ -920,23 +992,29 @@ def _adagrad_lists(torch) -> dict:
     return lists
 
 
+def _llm_party_leaves(arch: str) -> dict:
+    """{party: [(shape, dtype)]} of ``arch``'s two parties in the
+    reference's leaf order, built on the meta device."""
+    from repro_torch.bridge import reference_parameters
+    from repro_torch.configs import get_config
+    from repro_torch.launch.budget import _param_shapes
+    from repro_torch.models import vfl
+    tree = _param_shapes(get_config(arch))
+    return {p: [(tuple(t.shape), t.dtype) for t in reference_parameters(
+        vfl.PartyParams(tree[p]))] for p in ("a", "b")}
+
+
 def _family_adagrad_lists(torch) -> dict:
     """{name: [(shape, dtype)]}: granite-moe-3b-a800m's Party A and B and
     xlstm-125m's Party B (55 leaves: two K7 tables) at full width, each
     leaf with the dtype its training gives it (bf16, the router's and
     the recurrent cells' fp32 leaves fp32), in the reference's leaf
     order; built on the meta device."""
-    from repro_torch.bridge import reference_parameters
-    from repro_torch.configs import get_config
-    from repro_torch.launch.budget import _param_shapes
-    from repro_torch.models import vfl
     lists = {}
     for arch, parties in ((GRANITE, "ab"), ("xlstm-125m", "b")):
-        tree = _param_shapes(get_config(arch))
+        leaves = _llm_party_leaves(arch)
         for p in parties:
-            lists[f"{arch} {p}"] = [
-                (tuple(t.shape), t.dtype) for t in reference_parameters(
-                    vfl.PartyParams(tree[p]))]
+            lists[f"{arch} {p}"] = leaves[p]
     return lists
 
 
@@ -5453,6 +5531,271 @@ def phase_audit(torch):
           f"audit self-test: {[(m.name, m.caught) for m in results]}")
 
 
+# --------------------------------------------------------------------------
+# The examples (examples/torch): the twins of the reference's scripts
+# --------------------------------------------------------------------------
+EXAMPLES = os.path.join(ROOT, "examples", "torch")
+# the quickstart twin's presets, cut from 400 rounds a preset for the time
+# limit; its multiparty and serving twins run whole
+QUICKSTART_ROUNDS = 30
+# the LLM twin's cut tensor on its ring: (W, B, S · d) at smollm-360m's
+# width, B = 2, S = 64, W = 3 (the split-row path: 15 chunks a row)
+EXAMPLE_RING = (3, 2, 64 * 960)
+
+
+def load_example(name: str):
+    """The twin ``examples/torch/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(EXAMPLES, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _quickstart_launches(protocol: str, kw: dict, rounds: int,
+                         n_adagrad: int) -> dict:
+    """The kernels' launches of ``rounds`` rounds of one quickstart preset
+    (the twin's ``run_protocol``), from the engine's code: vanilla has no
+    local updates, fedbcd no gate (its weighting is off); celu gates each
+    local update of both parties (K1, or K4 over the int8 cache), the
+    local scans and merges following :func:`_pipeline_schedule`; each
+    update of a party is ``n_adagrad`` K7 launches over both parties
+    (:func:`_adagrad_launches`); an int8 cache quantises the 4 inserts of
+    each merge (K3), the int8_topk wire the up and down message of each
+    exchange (K3)."""
+    R = kw.get("R", 5)
+    n_local = 0 if protocol == "vanilla" else R
+    scans, merges = _pipeline_schedule(kw.get("pipeline_depth", 0), rounds)
+    gate = ("fused_sample_q8_2d" if kw.get("cache_dtype") == "int8"
+            else "fused_sample_2d")
+    want = {"fused_adagrad": (n_local * scans + merges) * n_adagrad}
+    if protocol == "celu":
+        want[gate] = 2 * n_local * scans
+    k3 = (4 * merges if kw.get("cache_dtype") == "int8" else 0) \
+        + (2 * rounds if kw.get("compression") else 0)
+    if k3:
+        want["quantize_sr_2d"] = k3
+    return want
+
+
+def _multiparty_launches(rounds: int, R: int, K: int, n_adagrad: int):
+    """The multiparty twin's launches: each local update gates each
+    feature party's ring (K1) and Party B's ∇Z ring once per feature party
+    (K1 weights-only, the minimum cosine), and every party takes 1 + R
+    updates a round, ``n_adagrad`` K7 launches over all parties."""
+    return {"fused_sample_2d": 2 * K * R * rounds,
+            "fused_adagrad": (1 + R) * rounds * n_adagrad}
+
+
+def _llm_example_launches(R: int, rounds: int, n_adagrad: int) -> dict:
+    """The LLM twin's launches (int4 ring, int8 AdaGrad state, S = 64, so
+    the attention takes its plain path and no K9 / K9-LSE / K10
+    launches): each local update gates once a party on the int4 ring (K5,
+    Party B's weights-only), each round's inserts quantise z and ∇Z of
+    both parties (K3), and every update of a party is K8 over its tables
+    (``n_adagrad`` over both parties)."""
+    return {"fused_sample_q4_2d": 2 * R * rounds,
+            "quantize_sr_2d": 4 * rounds,
+            "fused_adagrad_q8": (1 + R) * rounds * n_adagrad}
+
+
+def _example_kernels(torch):
+    """K5 and K4 at the LLM twin's ring (``EXAMPLE_RING``: full and
+    weights-only, against their plain versions, timed beside the bound);
+    K8's step over smollm-360m's two party tables as its training runs
+    them (bf16 gradients and parameters), operands far past the L2 cache
+    (cold), beside the bound, and the per-leaf uniforms the int8 state
+    draws a step."""
+    from repro_torch.kernels import fused_adagrad as fag
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    for bits in (4, 8):
+        _quant_gate(torch, gen, bits, EXAMPLE_RING, ("a", "b"))
+    mask = torch.full((), 0.7, device="cuda")
+    lr, eps = ADAGRAD_LR, ADAGRAD_EPS
+    for p, leaves in _llm_party_leaves("smollm-360m").items():
+        shapes = [s for s, _ in leaves]
+        g, q, sc, u, prm = _k8_operands(torch, gen, shapes, torch.bfloat16,
+                                        torch.bfloat16)
+        n = sum(x.numel() for x in q)
+        _timed(torch, f"{'fused_adagrad_q8':30s} smollm-360m {p} step, "
+               f"{len(q)} leaves, {n:,} codes (cold)",
+               lambda: fag.fused_adagrad_q8_step_(g, q, sc, u, prm, lr, eps,
+                                                  mask),
+               lambda: fag.fused_adagrad_q8_step_plain(g, q, sc, u, prm, lr,
+                                                       eps, mask),
+               0.0, _q8_step_bytes(g, q, prm), 12 * n, iters=3)
+        draw_ms = call_ms(torch, lambda: [
+            torch.rand(x.shape, generator=gen, device="cuda") for x in u],
+            iters=10)
+        print(f"[examples] the int8 state's uniforms of smollm-360m {p}'s "
+              f"step: {n * 4 / 1e9:.3f} GB of fp32 in {len(u)} draws, "
+              f"{draw_ms * 1e3:.2f} us a step (CUDA events)", flush=True)
+        del g, q, sc, u, prm
+        torch.cuda.empty_cache()
+
+
+def _llm_example(torch, card) -> dict:
+    """The LLM twin at its defaults: smollm-360m at full width, int4 ring,
+    int8 AdaGrad state, 3 rounds; -> its launches."""
+    from repro_torch.kernels import _cuda
+    llm = load_example("llm_vfl_training")
+    n_adagrad = _adagrad_launches(
+        [len(v) for v in _llm_party_leaves("smollm-360m").values()])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    out = llm.main([])
+    torch.cuda.synchronize()
+    counts = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    args = llm.build_parser().parse_args([])
+    _, _, rounds = llm.shape(args)
+    tr = out["train"]
+    want = _llm_example_launches(3, rounds, n_adagrad)
+    print(f"[examples] llm_vfl_training (defaults: {' '.join(out['argv'])})"
+          f": launches {counts} (derived {want})", flush=True)
+    _want("the LLM example", counts, **want)
+    losses = tr["losses"]
+    check(len(losses) == rounds and all(math.isfinite(x) for x in losses),
+          f"the LLM example's losses {losses}")
+    ms = [1e3 * t for t in tr["round_s"]]
+    budget = out["budget"]
+    total = budget["hbm_total_bytes_a"] + budget["hbm_total_bytes_b"]
+    print(f"[examples] llm_vfl_training losses {losses}; ms per round "
+          f"{[round(x, 3) for x in ms]} (rounds 2-{rounds}: "
+          f"{sum(ms[1:]) / len(ms[1:]):.3f} ms); peak device memory "
+          f"{peak:,} B (torch.cuda.max_memory_allocated) against the "
+          f"twin's budget line for the demo shape, {total:,} B of "
+          f"parameters + optimizer state + rings over both parties "
+          f"({peak / total:.2f}x); card {card}", flush=True)
+
+    # where a round's time goes: rounds 2-3 of a second run, profiled
+    with _profiled_steps(torch) as prof:
+        llm.main([])
+    kernels = _kernels(torch, prof)
+    n = rounds - 1
+    busy = sum(e.device_time_total for e in kernels) / 1e3 / n
+    print(f"[examples] llm_vfl_training rounds 2-{rounds} profiled: device "
+          f"busy {busy:.3f} ms per round in {len(kernels) / n:.0f} kernels",
+          flush=True)
+    avg = prof.key_averages()
+    for key, what in (("self_device_time_total", "device"),
+                      ("self_cpu_time_total", "host")):
+        for e in sorted(avg, key=lambda e: -getattr(e, key))[:6]:
+            print(f"[examples]   {what} {getattr(e, key) / 1e3 / n:9.3f} "
+                  f"ms per round  {e.count / n:8.1f} calls  {e.key[:60]}",
+                  flush=True)
+    del prof
+
+    # the reference script's other run: the fp32 ring and AdaGrad state
+    # (K1 and K7 in place of K5, K3 and K8), its losses beside
+    _cuda.reset_launches()
+    f32 = llm.main(["--cache-dtype", "float32", "--opt-state-dtype",
+                    "float32"])["train"]
+    c32 = dict(_cuda.LAUNCHES)
+    _want("the LLM example at fp32", c32, fused_sample_2d=2 * 3 * rounds,
+          fused_adagrad=(1 + 3) * rounds * n_adagrad)
+    check(all(math.isfinite(x) for x in f32["losses"]),
+          f"the LLM example's fp32 losses {f32['losses']}")
+    print(f"[examples] llm_vfl_training --cache-dtype float32 "
+          f"--opt-state-dtype float32: losses {f32['losses']}; ms per round "
+          f"{[round(1e3 * t, 3) for t in f32['round_s']]}; launches {c32}",
+          flush=True)
+    return {k: counts[k] + c32[k] for k in counts}
+
+
+def _quickstart_example(torch, card) -> dict:
+    """The quickstart twin cut to QUICKSTART_ROUNDS rounds a preset; each
+    preset's launches against the derived counts.  -> the launches."""
+    from unittest import mock
+
+    from repro_torch.kernels import _cuda
+    qs = load_example("quickstart")
+    run_protocol, per_preset = qs.run_protocol, []
+
+    def counted(*a, **kw):
+        _cuda.reset_launches()
+        r = run_protocol(*a, **kw)
+        per_preset.append(dict(_cuda.LAUNCHES))
+        return r
+    with mock.patch.object(qs, "run_protocol", counted):
+        out = qs.main(["--rounds", str(QUICKSTART_ROUNDS)])
+    total = {}
+    for (name, proto, kw), c in zip(qs.PRESETS, per_preset, strict=True):
+        r = out["results"][name]
+        want = _quickstart_launches(proto, kw, QUICKSTART_ROUNDS, 2)
+        print(f"[examples] quickstart {name}: AUC {r['curve']}, "
+              f"{1e3 * r['wall_s'] / QUICKSTART_ROUNDS:.3f} ms a round "
+              f"(host clock, evaluation included); launches {c}",
+              flush=True)
+        _want(f"quickstart {name}", c, **want)
+        check(all(math.isfinite(a) for _, a in r["curve"]),
+              f"quickstart {name}: AUC {r['curve']}")
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    print(f"[examples] quickstart: card {card}", flush=True)
+    return total
+
+
+def _multiparty_example(torch, card) -> dict:
+    """The multiparty twin whole (120 rounds); -> its launches."""
+    from repro_torch.kernels import _cuda
+    mp = load_example("multiparty_vfl")
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    out = mp.main([])
+    wall = time.perf_counter() - t0
+    counts = dict(_cuda.LAUNCHES)
+    want = _multiparty_launches(mp.ROUNDS, 3, mp.K, 1 + mp.K)
+    print(f"[examples] multiparty_vfl: {out['comm_rounds']} rounds in "
+          f"{wall:.2f} s (host clock, evaluation included); launches "
+          f"{counts}; card {card}", flush=True)
+    _want("the multiparty example", counts, **want)
+    check(out["comm_rounds"] == mp.ROUNDS and all(
+        math.isfinite(x) for _, loss, a in out["history"] for x in (loss, a)),
+        f"the multiparty example: {out['history']}")
+    return counts
+
+
+def _serve_example(torch, card) -> dict:
+    """The serving twin whole: the engine run (int8 wire and ring) and
+    the vision config's ``serve_naive`` run; -> the launches."""
+    from repro_torch.kernels import _cuda
+    sv = load_example("serve_split_model")
+    _cuda.reset_launches()
+    out = sv.main([])
+    counts = dict(_cuda.LAUNCHES)
+    comps, stats = out["engine"]
+    toks, nstats = out["naive"]
+    # prompts of 16 tokens: the attention's plain path, no K9
+    want = _serve_launches(len(comps), stats["decode_steps"])
+    print(f"[examples] serve_split_model: engine {stats['n_requests']} "
+          f"requests over {stats['decode_steps']} decode steps, "
+          f"{stats['tok_per_s']:.1f} tok/s; vision {nstats['ms_per_token']:.3f} "
+          f"ms a token; launches {counts}; card {card}", flush=True)
+    _want("the serving example", counts, **want)
+    check(stats["n_requests"] == 12 and tuple(toks.shape) == (1, 8),
+          f"the serving example: {stats['n_requests']} requests, tokens "
+          f"{tuple(toks.shape)}")
+    return counts
+
+
+def phase_examples(torch, card) -> dict:
+    """The twins of the reference's example scripts (``examples/torch``):
+    the LLM twin at its defaults, the quickstart twin cut, the
+    multiparty and serving twins whole, each with its launches against
+    the derived counts (the counts set to 0 before each run); K5 / K4 /
+    K8 at the LLM twin's shapes.  -> the runs' launches."""
+    counts = {}
+    for run in (_llm_example, _quickstart_example, _multiparty_example,
+                _serve_example):
+        for k, v in run(torch, card).items():
+            counts[k] = counts.get(k, 0) + v
+    _example_kernels(torch)
+    return counts
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"run from a checkout of the repository: {SRC}/repro_torch "
@@ -5479,6 +5822,7 @@ def main() -> None:
     # 3.-5.
     t0 = time.perf_counter()
     kernels = phase_kernels(torch)
+    floor_ms = launch_floor(torch)
     kernels.update(phase_quant_kernels(torch))
     kernels.update(phase_adagrad_kernels(torch))
     print(f"[phase] kernels {time.perf_counter() - t0:.1f} s", flush=True)
@@ -5551,7 +5895,15 @@ def main() -> None:
     phase_audit(torch)
     print(f"[phase] audit {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 18. results: each kernel's launches over every path that ran it
+    # 18. the examples
+    t0 = time.perf_counter()
+    for k, v in phase_examples(torch, card).items():
+        pipeline_counts[k] = pipeline_counts.get(k, 0) + v
+    print(f"[phase] examples {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 19. results: each kernel's launches over every path that ran it, and
+    # the launch-bound kernels beside the launch floor
+    floor_lines(kernels, floor_ms)
     for k, v in pipeline_counts.items():
         counts[k] = counts.get(k, 0) + v
     rows = []

@@ -183,7 +183,7 @@ POD_DEFAULTS = dict(n_fields=4, vocab=32, batch=16, W=2, embed_dim=16,
                     z_dim=8, hidden=16, R=2, xi_degrees=60.0, lr=0.05,
                     depth=0, cache_dtype="float32", rounds=3, timed=0,
                     data_seed=0, init_seed=0, fields_b=None, teacher=False,
-                    shadow=False, params=None,
+                    shadow=False, params=None, batches=None,
                     device=None, staged=False)
 
 
@@ -262,7 +262,9 @@ def pod_worker(rank: int, world_size: int, runs) -> list:
     """Run each of ``runs`` (dicts over :data:`POD_DEFAULTS`) as this pod:
     ``rounds`` pod rounds from ``params`` (a party-stacked tree of numpy
     arrays or tensors, else drawn from ``init_seed``), then ``timed``
-    rounds on the host clock (``device`` None: the card).  With
+    rounds on the host clock (``device`` None: the card), on ``batches``
+    (a list of (x (2, B, F), y (2, B)) numpy pairs, one a round) or else
+    :func:`pod_batches`'.  With
     ``shadow`` each of the ``rounds`` rounds is run once more on a CPU
     copy of the state taken at its start, over a CPU transport of its
     own: the round on the device against the same round on the CPU, from
@@ -304,9 +306,11 @@ def pod_worker(rank: int, world_size: int, runs) -> list:
         rnd = make_pod_round(None, opt, R=run["R"],
                              cos_xi=xi_to_cos(run["xi_degrees"]),
                              transport=tp, pipeline_depth=run["depth"])
+        batches = run["batches"]
         data = [(torch.from_numpy(x[rank]).to(dev),
                  torch.from_numpy(y[rank]).to(dev))
-                for x, y in pod_batches(run)]
+                for x, y in (pod_batches(run) if batches is None
+                             else batches)]
         if run["shadow"]:
             cpu = init_pod_state(
                 gen, None, opt, n_fields=run["n_fields"], vocab=run["vocab"],
