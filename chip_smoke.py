@@ -5644,6 +5644,7 @@ def _llm_example(torch, card) -> dict:
         [len(v) for v in _llm_party_leaves("smollm-360m").values()])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()      # held by earlier phases
     _cuda.reset_launches()
     out = llm.main([])
     torch.cuda.synchronize()
@@ -5665,44 +5666,12 @@ def _llm_example(torch, card) -> dict:
     print(f"[examples] llm_vfl_training losses {losses}; ms per round "
           f"{[round(x, 3) for x in ms]} (rounds 2-{rounds}: "
           f"{sum(ms[1:]) / len(ms[1:]):.3f} ms); peak device memory "
-          f"{peak:,} B (torch.cuda.max_memory_allocated) against the "
-          f"twin's budget line for the demo shape, {total:,} B of "
-          f"parameters + optimizer state + rings over both parties "
-          f"({peak / total:.2f}x); card {card}", flush=True)
-
-    # where a round's time goes: rounds 2-3 of a second run, profiled
-    with _profiled_steps(torch) as prof:
-        llm.main([])
-    kernels = _kernels(torch, prof)
-    n = rounds - 1
-    busy = sum(e.device_time_total for e in kernels) / 1e3 / n
-    print(f"[examples] llm_vfl_training rounds 2-{rounds} profiled: device "
-          f"busy {busy:.3f} ms per round in {len(kernels) / n:.0f} kernels",
-          flush=True)
-    avg = prof.key_averages()
-    for key, what in (("self_device_time_total", "device"),
-                      ("self_cpu_time_total", "host")):
-        for e in sorted(avg, key=lambda e: -getattr(e, key))[:6]:
-            print(f"[examples]   {what} {getattr(e, key) / 1e3 / n:9.3f} "
-                  f"ms per round  {e.count / n:8.1f} calls  {e.key[:60]}",
-                  flush=True)
-    del prof
-
-    # the reference script's other run: the fp32 ring and AdaGrad state
-    # (K1 and K7 in place of K5, K3 and K8), its losses beside
-    _cuda.reset_launches()
-    f32 = llm.main(["--cache-dtype", "float32", "--opt-state-dtype",
-                    "float32"])["train"]
-    c32 = dict(_cuda.LAUNCHES)
-    _want("the LLM example at fp32", c32, fused_sample_2d=2 * 3 * rounds,
-          fused_adagrad=(1 + 3) * rounds * n_adagrad)
-    check(all(math.isfinite(x) for x in f32["losses"]),
-          f"the LLM example's fp32 losses {f32['losses']}")
-    print(f"[examples] llm_vfl_training --cache-dtype float32 "
-          f"--opt-state-dtype float32: losses {f32['losses']}; ms per round "
-          f"{[round(1e3 * t, 3) for t in f32['round_s']]}; launches {c32}",
-          flush=True)
-    return {k: counts[k] + c32[k] for k in counts}
+          f"{peak - base:,} B over the {base:,} B held before the run "
+          f"(torch.cuda.max_memory_allocated) against the twin's budget "
+          f"line for the demo shape, {total:,} B of parameters + "
+          f"optimizer state + rings over both parties "
+          f"({(peak - base) / total:.2f}x); card {card}", flush=True)
+    return counts
 
 
 def _quickstart_example(torch, card) -> dict:
