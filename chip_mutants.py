@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Mutation check of ``chip_smoke.py``'s per-element limits for K9 and
-K10, of its check of K1 at the LLM width, of its bitwise checks of the
-AdaGrad table kernels (K7) and of the job-batched gate, and of its chaos
-and pod phases, on one NVIDIA GPU.
+K10, of its check of K1 at the LLM width, of its bitwise checks of K3's
+split-row path, of the AdaGrad table kernels (K7) and of the job-batched
+gate, and of its chaos and pod phases, on one NVIDIA GPU.
 
 Builds the flash-attention forward (``src/repro_torch/csrc/
 flash_attention.cu``) or backward (``flash_attention_bwd.cu``), or the
@@ -64,6 +64,13 @@ K1's split-row path (``csrc/cosine_gate.cu``), in the smoke's check at
 the LLM cut tensor (``_gate_at_llm_width``):
 
   * ``gate_chunk_dropped``: pass 1 skips the first chunk of each row.
+
+K3's split-row path (``csrc/quantize.cu``), in the smoke's quantiser
+checks (``phase_quant_kernels``: codes and scales bitwise; the wide rows
+hold one value 30x the rest in their first or last chunk):
+
+  * ``k3_chunk_dropped``: pass 2 leaves each row's last chunk maximum out
+    of the scale.
 
 The job axis of the gate (``csrc/cosine_gate.cu``'s ``for_job``), in the
 smoke's check of the job-batched gate (``_fleet_gate_kernels``: each job
@@ -189,6 +196,9 @@ MUTANTS = {
         "  block_sums(num, aa, zz);",
         "    if (c != 0) gate_sums<C, kVec>(ar, zr, zscale, j, num, aa, zz);\n"
         "  block_sums(num, aa, zz);"),
+    "k3_chunk_dropped": (
+        "for (int i = threadIdx.x; i < chunks; i += kSplitThreads)",
+        "for (int i = threadIdx.x; i < chunks - 1; i += kSplitThreads)"),
     "gate_job_ring_stride_ignored": (
         "g.z += job * g.js_z;", "g.z += 0 * job * g.js_z;"),
     "gate_job_threshold_ignored": (
@@ -238,6 +248,8 @@ TARGETS = {
                              "flash_attention_fwd_lse"),
     "gate_chunk_dropped": ("cosine_gate.cu", "_gate_at_llm_width",
                            "fused_sample_2d"),
+    "k3_chunk_dropped": ("quantize.cu", "phase_quant_kernels",
+                         "quantize_sr_2d"),
     "gate_job_ring_stride_ignored": ("cosine_gate.cu", "_fleet_gate_kernels",
                                      "fleet"),
     "gate_job_threshold_ignored": ("cosine_gate.cu", "_fleet_gate_kernels",
@@ -341,7 +353,8 @@ def main() -> None:
     shutil.rmtree(top, ignore_errors=True)
     if survived:
         sys.exit(f"chip_mutants: FAILED: {survived} passed the smoke's "
-                 f"K9 / K10 / K1 / K7 / fleet / chaos / pods checks")
+                 f"K9 / K10 / K1 / K3 / K7 / fleet / chaos / pods "
+                 f"checks")
     print("chip_mutants: every mutant caught")
 
 

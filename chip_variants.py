@@ -2,9 +2,10 @@
 """Times source variants of kernels on one NVIDIA GPU: K9's bf16 and fp32
 kernels (``flash_fwd_mma``, ``flash_fwd_f32mma`` in ``src/repro_torch/
 csrc/flash_attention.cu``), K10's fp32 kernels (``flash_bwd_dkv_f32mma``,
-``flash_bwd_dq_f32mma`` in ``flash_attention_bwd.cu``) and K1's
-split-row path (``csrc/cosine_gate.cu`` and its rule in
-``kernels/cosine_weight.py``).
+``flash_bwd_dq_f32mma`` in ``flash_attention_bwd.cu``), K1's split-row
+path (``csrc/cosine_gate.cu`` and its rule in
+``kernels/cosine_weight.py``) and K3's paths (``csrc/quantize.cu`` and
+its rule in ``kernels/quantize.py``).
 
 Each variant is a copy of ``src/`` and ``chip_smoke.py`` with some lines
 of a kernel's source replaced (``chip_mutants.mutated_copy``), built in
@@ -23,7 +24,13 @@ one line a shape with the kernel's registers and local memory
     of out and lse against the fp64 plain version (printed, not held);
   * K1 at the LLM cut tensor, at (2, 64, 61,440) in fp32 and bf16 and at
     the paper's (5, 256, 256), full and weights-only, with its max |err|
-    against the plain version.
+    against the plain version;
+  * K3 (``csrc/quantize.cu`` and its rule in ``kernels/quantize.py``) on
+    fp32 and bf16 rows at the inserts' (256, 256), the wire's (512, 128),
+    either side of the split's threshold (2, 8,192) and (2, 16,384), and
+    the wide rows (64, 61,440), (2, 61,440) and (2, 3,932,160), codes and
+    scales held bitwise to the plain version (a variant that misses
+    fails), with the K3 kernels' registers and local memory.
 
 The tree as it stands runs first and last in each group, so that the
 spread between two runs of the same code shows beside the variants.
@@ -229,6 +236,28 @@ GATE_VARIANTS = {
                               f"constexpr int kSplitThreads = {n};")]
        for n in (128, 512)},
 }
+# name -> [(line, new line[, file])]: each undoes one choice of K3's
+# design (csrc/quantize.cu) or of its rule (kernels/quantize.py::
+# quant_chunks)
+QUANT_PY = os.path.join("src", "repro_torch", "kernels", "quantize.py")
+K3_VARIANTS = {
+    # the narrow path (one warp a row) at every shape, as before the split
+    "k3_narrow": [("    if -(-T // 4) >= QUANT_SMS or L < 2 * QUANT_CHUNK:",
+                   "    if True:", QUANT_PY)],
+    # the split from four chunks a row on (the rule: two)
+    "k3_split_from_4_chunks": [("L < 2 * QUANT_CHUNK:", "L < 4 * QUANT_CHUNK:",
+                                QUANT_PY)],
+    # other chunk sizes (the rule: 4,096 elements)
+    **{f"k3_chunk_{n}": [("QUANT_CHUNK = 4096", f"QUANT_CHUNK = {n}",
+                          QUANT_PY)] for n in (2048, 8192, 16384)},
+    # narrow rows swept twice, none held in registers (the kernel: rows of
+    # at most 512 elements loaded once)
+    "k3_no_registers": [("    if (L <= kRegCols)",
+                         "    if (false && L <= kRegCols)")],
+    # one vector in flight a thread on the split path (the kernel: four)
+    "k3_unroll_1": [("constexpr int kUnroll = 4;",
+                     "constexpr int kUnroll = 1;")],
+}
 K9_F32_RUN = """
 import sys, torch
 sys.path.insert(0, 'src')
@@ -284,6 +313,32 @@ for (W, B, F), dt in ((chip_smoke.LLM_GATE_SHAPE, torch.bfloat16),
         slot, a, z, d, cos_xi)) for d in (dz, None)]
     print(f'{(W, B, F)} {str(dt)[6:]}: {ms[0] * 1e3:.2f} us, weights-only '
           f'{ms[1] * 1e3:.2f} us; max |err| {err:.3g}', flush=True)
+"""
+K3_RUN = """
+import sys, torch
+sys.path.insert(0, 'src')
+import chip_smoke
+from repro_torch.kernels import quantize as qz
+from repro_torch.analysis.kernel_lint import K3_KERNELS, res_usage
+usage = {k: (u['REG'], u['LOCAL']) for k, u in res_usage().items()
+         if k.startswith(K3_KERNELS)}
+print(f'(registers, local bytes) {usage}', flush=True)
+gen = torch.Generator(device='cuda').manual_seed(13)
+for T, L in ((256, 256), (512, 128), (2, 8192), (2, 16384), (64, 61440),
+             (2, 61440), (2, 3932160)):
+    x = torch.randn((T, L), generator=gen, device='cuda')
+    u = torch.rand((T, L), generator=gen, device='cuda')
+    ms = []
+    for xd in (x, x.to(torch.bfloat16)):
+        q, s = qz.quantize_sr_2d(xd, u, 127)
+        q0, s0 = qz.quantize_sr_plain(xd, u, 127)
+        torch.cuda.synchronize()
+        assert torch.equal(q, q0) and torch.equal(s, s0), (T, L, xd.dtype)
+        ms.append(chip_smoke.device_ms(
+            torch, lambda: qz.quantize_sr_2d(xd, u, 127)))
+    print(f'{(T, L)}: fp32 {ms[0] * 1e3:.2f} us, bf16 {ms[1] * 1e3:.2f} us '
+          f'({qz.quant_chunks(T, L)} chunks a row); codes and scales '
+          f'bitwise', flush=True)
 """
 K9_RUN = """
 import sys, torch
@@ -344,7 +399,8 @@ GROUPS = {"k9": ("flash_attention.cu", K9_VARIANTS, K9_RUN),
           "k10_f32": ("flash_attention_bwd.cu", K10_F32_VARIANTS,
                       K10_F32_RUN),
           "k9_f32": ("flash_attention.cu", K9_F32_VARIANTS, K9_F32_RUN),
-          "gate": ("cosine_gate.cu", GATE_VARIANTS, GATE_RUN)}
+          "gate": ("cosine_gate.cu", GATE_VARIANTS, GATE_RUN),
+          "k3": ("quantize.cu", K3_VARIANTS, K3_RUN)}
 
 
 def main() -> None:

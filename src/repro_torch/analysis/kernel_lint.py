@@ -20,8 +20,9 @@ Port of ``repro/analysis/kernel_lint.py``.  Each kernel of
 On the card (:func:`lint_card`) the built library's resources are read
 with ``cuobjdump -res-usage`` (REG, SHARED, LOCAL of every
 ``__global__``): REG <= 255, REG x the launch's threads <= 65,536, and
-no local memory in the tensor-core attention kernels; and each contract's
-kernel is launched at each geometry against its plain version.
+no local memory in the tensor-core attention kernels and K3's; and each
+contract's kernel is launched at each geometry against its plain
+version.
 
 :func:`lint_kernel_route` restates the reference's
 ``lint_engine_fusability``: the port's gate has no tiling fallback, so the
@@ -53,7 +54,8 @@ REGS_PER_BLOCK = 65536
 KERNEL_THREADS = {
     "cosine_gate_kernel": 128, "gate_partials_kernel": 256,
     "gate_apply_kernel": 256, "ring_dequant_kernel": 256,
-    "quantize_sr_kernel": 128, "fused_adagrad_kernel": 256,
+    "quantize_sr_kernel": 128, "quantize_partials_kernel": 256,
+    "quantize_apply_kernel": 256, "fused_adagrad_kernel": 256,
     "fused_adagrad_q8_kernel": 256, "flash_fwd_mma": 128,
     "flash_fwd_f32mma": 128, "flash_bwd_dkv_mma": 128,
     "flash_bwd_dq_mma": 128, "flash_bwd_dkv_f32mma": 128,
@@ -63,6 +65,10 @@ KERNEL_THREADS = {
 SPILL_FREE = ("flash_fwd_mma", "flash_fwd_f32mma", "flash_bwd_dkv_mma",
               "flash_bwd_dq_mma", "flash_bwd_dkv_f32mma",
               "flash_bwd_dq_f32mma")
+# K3's kernels (csrc/quantize.cu): the narrow path's row held in
+# registers, the split-row passes' loads in flight; no local memory either
+K3_KERNELS = ("quantize_sr_kernel", "quantize_partials_kernel",
+              "quantize_apply_kernel")
 
 # the card's tolerances (``chip_smoke.py``'s): the gates' fp32 sums
 # reordered, rows within NEAR of cos ξ excluded; K9's fp32 kernel per
@@ -209,6 +215,18 @@ def _gate_smem(g: Geometry):
     return {"gate_partials_kernel": (red, 0), "gate_apply_kernel": (0, 0)}
 
 
+def _k3_smem(g: Geometry):
+    """Narrow path: one warp a row, no shared memory; split-row path: the
+    block max's static ``red[kSplitThreads / 32]`` floats in both passes
+    (``csrc/quantize.cu``)."""
+    from ..kernels.quantize import quant_chunks
+    if quant_chunks(g.tiles(), 128) == 1:
+        return {"quantize_sr_kernel": (0, 0)}
+    red = (256 // 32) * 4
+    return {"quantize_partials_kernel": (red, 0),
+            "quantize_apply_kernel": (red, 0)}
+
+
 def _bitwise(got, want, ops):
     import torch
     got = got if isinstance(got, (tuple, list)) else (got,)
@@ -343,8 +361,7 @@ def _contracts() -> Tuple[KernelContract, ...]:
             lambda o: qz.check_operands(o["x"], o["u"]),
             lambda o: qz.quantize_sr_2d(o["x"], o["u"], 127),
             lambda o: qz.quantize_sr_plain(o["x"], o["u"], 127),
-            lambda g: {"quantize_sr_kernel": (0, 0)}, _bitwise,
-            "quantize.cu"),
+            _k3_smem, _bitwise, "quantize.cu"),
         KernelContract(
             "flash_attention", "flash_attention", "flash_attention_plain",
             flash_ops,
@@ -627,7 +644,8 @@ def res_usage() -> Dict[str, Dict[str, int]]:
 
 def lint_usage(usage: Dict[str, Dict[str, int]]) -> List[Finding]:
     """REG <= 255 and REG x threads <= 65,536 for every kernel; no local
-    memory in :data:`SPILL_FREE`; static shared memory <= 48 KB."""
+    memory in :data:`SPILL_FREE` and :data:`K3_KERNELS`; static shared
+    memory <= 48 KB."""
     findings = []
     for label, u in sorted(usage.items()):
         base = label.split("<")[0].split("#")[0]
@@ -648,11 +666,12 @@ def lint_usage(usage: Dict[str, Dict[str, int]]) -> List[Finding]:
                 detail=f"{reg} registers a thread x {threads} threads = "
                        f"{reg * threads} (limits {REG_MAX} a thread, "
                        f"{REGS_PER_BLOCK} a block)"))
-        if base in SPILL_FREE and u.get("LOCAL", 0):
+        if base in SPILL_FREE + K3_KERNELS and u.get("LOCAL", 0):
             findings.append(Finding(
                 code="kernel.local-memory", severity="error", where=where,
                 detail=f"{u['LOCAL']} B of local memory a thread in a "
-                       f"tensor-core attention kernel (spills)"))
+                       f"kernel that keeps its values in registers "
+                       f"(spills)"))
         if u.get("SHARED", 0) > SMEM_DEFAULT_MAX:
             findings.append(Finding(
                 code="kernel.vmem-budget", severity="error", where=where,

@@ -168,8 +168,9 @@ def is_store(x) -> bool:
 
 
 def _quantize_rows(key, x2d, levels: int = 127):
-    """(B, F) fp32 -> (codes int8 (B, F), fp32 row scales (B,)) through K3,
-    with uniforms drawn from ``key``."""
+    """(B, F) rows (fp32, or bf16 that K3 widens itself) -> (codes int8
+    (B, F), fp32 row scales (B,)) through K3, with uniforms drawn from
+    ``key``."""
     u = key.uniform(x2d.shape).to(x2d.device)
     return kops.quantize_stochastic(x2d, u, levels)
 
@@ -199,7 +200,7 @@ def _encode_leaf(store, x, key):
     level).  ``key`` draws the rounding uniforms of a quantised store."""
     if isinstance(store, QuantLeaf):
         B, F = _row_shape(x.shape)
-        q, scale = _quantize_rows(key, x.reshape(B, F).float().contiguous(),
+        q, scale = _quantize_rows(key, x.reshape(B, F).contiguous(),
                                   127 if store.bits == 8 else 7)
         if store.bits == 4:
             if F & 1:                   # pad one zero code before packing

@@ -79,11 +79,15 @@
 // read of the decode activation ring.  Each element is the codec's
 // code * row scale, one multiply, so the kernel is bitwise its plain
 // version.  Bound: bytes (the slot's codes and scales read, F fp32 per
-// row written, no arithmetic to speak of); each thread decodes one
-// codec vector (16 int8 or 32 int4 codes) and writes it with 16-byte
-// stores, so every element gets a thread however few the rows.  At the
-// serving shape (W = 4, C = 8, F = 960) the slot is 38 KB: 11 ns of
-// bytes, so the launch itself is the cost.
+// row written, no arithmetic to speak of), and the output is 4x to 8x
+// the codes, so the stores are what to get right: each thread decodes
+// four elements (4 int8 codes, 4 bytes, or 4 int4 codes, 2 bytes, in)
+// and writes them as one float4, neighbouring lanes on neighbouring 16
+// bytes, so a warp's store covers 512 contiguous bytes (a thread that
+// wrote a whole codec vector, 64 or 128 bytes, made each warp store
+// touch 32 lines).  At the serving shape (W = 4, C = 8, F = 960) that is
+// 1,920 threads in 8 blocks; the slot is 38 KB, 11 ns of bytes, so the
+// launch itself is the cost.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -175,6 +179,12 @@ struct Q8 {
       const int8_t* c = reinterpret_cast<const int8_t*>(&v);
 #pragma unroll
       for (int k = 0; k < 16; ++k) out[k] = static_cast<float>(c[k]) * s;
+    } else if constexpr (V == 4) {
+      const char4 c = *reinterpret_cast<const char4*>(row + j);
+      out[0] = static_cast<float>(c.x) * s;
+      out[1] = static_cast<float>(c.y) * s;
+      out[2] = static_cast<float>(c.z) * s;
+      out[3] = static_cast<float>(c.w) * s;
     } else {
 #pragma unroll
       for (int k = 0; k < V; ++k) out[k] = static_cast<float>(row[j + k]) * s;
@@ -200,6 +210,12 @@ struct Q4 {
         out[2 * k] = code(b[k], 0) * s;
         out[2 * k + 1] = code(b[k], 1) * s;
       }
+    } else if constexpr (V == 4) {
+      const uchar2 b = *reinterpret_cast<const uchar2*>(row + j / 2);
+      out[0] = code(b.x, 0) * s;
+      out[1] = code(b.x, 1) * s;
+      out[2] = code(b.y, 0) * s;
+      out[3] = code(b.y, 1) * s;
     } else {
 #pragma unroll
       for (int k = 0; k < V; ++k) {
@@ -587,7 +603,8 @@ extern "C" int cosine_gate_quant(const int* slot, int n_slots,
 namespace {
 
 // K6 / K11: out[r, :] = decode(ring[*slot, r, :]) for the B rows, kVec
-// elements a thread.
+// elements a thread (thread e of the grid takes elements [kVec e,
+// kVec (e + 1)) of the (B, F) output in row-major order).
 template <class C, int kVec>
 __global__ void __launch_bounds__(256)
 ring_dequant_kernel(const int* __restrict__ slot, int n_slots,
@@ -622,13 +639,17 @@ int launch_dequant(const int* slot, int n_slots, const void* zq,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Four outputs a thread need F % 4 == 0 (every row, and every slot,
+// then starts on a whole vector), the codes aligned to their 4 or 2 bytes
+// and the output to 16.
 template <class C>
 int dispatch_dequant(const int* slot, int n_slots, const void* zq,
                      const float* zs, float* out, int B, int F,
                      cudaStream_t stream) {
-  if (F % C::kVec == 0 && aligned16(zq) && aligned16(out))
-    return launch_dequant<C, C::kVec>(slot, n_slots, zq, zs, out, B, F,
-                                      stream);
+  if (F % 4 == 0 &&
+      (reinterpret_cast<uintptr_t>(zq) & (C::units(4) - 1)) == 0 &&
+      aligned16(out))
+    return launch_dequant<C, 4>(slot, n_slots, zq, zs, out, B, F, stream);
   return launch_dequant<C, 1>(slot, n_slots, zq, zs, out, B, F, stream);
 }
 

@@ -68,7 +68,7 @@ _SIGNATURES = {
                     _LL, _I, _P, _P, _P],
     "cosine_gate_quant": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
                           _I, _P, _LL, _I, _P, _P, _P],
-    "quantize_sr": [_P, _P, _P, _P, _I, _I, _F, _P],
+    "quantize_sr": [_P, _P, _P, _P, _I, _I, _F, _I, _P, _LL, _P],
     "fused_adagrad": [_P, _P, _F, _F, _I, _P],
     "fused_adagrad_q8": [_P, _P, _F, _F, _I, _P],
     "fused_adagrad_layout": [_P],
@@ -339,11 +339,15 @@ def launch_cosine_gate_quant(name: str, *, bits: int, slot, n_slots: int,
             _ptr(thr), ctypes.addressof(js))
 
 
-def launch_quantize_sr(name: str, *, x, u, q, scale, levels: float) -> None:
-    """Launch ``csrc/quantize.cu`` (K3) on checked (T, L) operands."""
+def launch_quantize_sr(name: str, *, x, u, q, scale, part,
+                       levels: float) -> None:
+    """Launch ``csrc/quantize.cu`` (K3) on checked (T, L) operands (x fp32
+    or bf16); ``part`` is the split-row path's (T, chunks) fp32
+    workspace, or None for the narrow path."""
     T, L = x.shape
     _launch(name, "quantize_sr", x.device, _ptr(x), _ptr(u), _ptr(q),
-            _ptr(scale), T, L, levels)
+            _ptr(scale), T, L, levels, DTYPE_CODES[x.dtype], _ptr(part),
+            _numel(part))
 
 
 def launch_fused_adagrad(name: str, table, *, device, scale, lr: float,

@@ -153,10 +153,10 @@ def register_quantize(rows: Callable):
                                   quantize_sr_2d, mutates_args=())
 
     def fake(x, u, levels):
-        # x and u read, the codes and a scale a row written; about four
-        # operations an element
+        # x (fp32 or bf16) and u read, the codes and a scale a row
+        # written; about four operations an element
         _cuda.account("quantize_sr_2d", 4 * x.numel(),
-                      9 * x.numel() + 4 * x.shape[0])
+                      (x.element_size() + 5) * x.numel() + 4 * x.shape[0])
         return (x.new_empty(x.shape, dtype=torch.int8),
                 x.new_empty(x.shape[:1], dtype=torch.float32))
     cop.register_fake(fake)

@@ -14,6 +14,7 @@ it here (exactly: bf16 is a subset of fp32).  The model calls K9
 """
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 
 from . import cosine_weight as _cw
@@ -136,8 +137,11 @@ def fused_gather_dequant_q4(slot, zq, zscale, width: int):
 def quantize_stochastic(x, u, levels):
     """Per-tile absmax-scale stochastic-rounding quantiser (K3).
     x, u: (T, L); levels: max code magnitude (127 = int8, 7 = int4).
-    -> (codes int8 (T, L), fp32 scales (T,))."""
-    return _qz.quantize_sr_2d(x.float().contiguous(), u.float().contiguous(),
+    -> (codes int8 (T, L), fp32 scales (T,)).  bf16 x goes to K3 as it
+    is (the kernel widens it); any other x as fp32."""
+    if x.dtype != torch.bfloat16:
+        x = x.float()
+    return _qz.quantize_sr_2d(x.contiguous(), u.float().contiguous(),
                               levels)
 
 

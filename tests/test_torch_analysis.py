@@ -463,6 +463,32 @@ def test_res_usage_parser_and_lint():
                                                "kernel.register-budget"}
 
 
+K3_RES_USAGE = """
+ Function _ZN44_GLOBAL__N__eac064ef_11_quantize_cu_9f8d533018quantize_sr_kernelI13__nv_bfloat16Li4ELb1EEEvPKT_PKfPaPfiif:
+  REG:50 STACK:0 SHARED:0 LOCAL:0 CONSTANT[0]:400 TEXTURE:0 SURFACE:0 SAMPLER:0
+ Function _ZN44_GLOBAL__N__eac064ef_11_quantize_cu_9f8d533024quantize_partials_kernelI13__nv_bfloat16Li1EEEvPKT_Pfii:
+  REG:23 STACK:0 SHARED:1056 LOCAL:0 CONSTANT[0]:400 TEXTURE:0 SURFACE:0 SAMPLER:0
+ Function _ZN44_GLOBAL__N__eac064ef_11_quantize_cu_9f8d533021quantize_apply_kernelIfLi4EEEvPKT_PKfPaPfS5_iif:
+  REG:58 STACK:0 SHARED:1056 LOCAL:0 CONSTANT[0]:400 TEXTURE:0 SURFACE:0 SAMPLER:0
+"""
+
+
+def test_k3_kernels_are_linted_with_no_local_memory():
+    """K3's narrow, pass-1 and pass-2 kernels (``csrc/quantize.cu``) have
+    block sizes in the lint and must keep their values in registers."""
+    u = parse_res_usage(K3_RES_USAGE)
+    assert sorted(u) == ["quantize_apply_kernel<float,4>",
+                         "quantize_partials_kernel<__nv_bfloat16,1>",
+                         "quantize_sr_kernel<__nv_bfloat16,4,1>"]
+    assert lint_usage(u) == []
+    u["quantize_apply_kernel<float,4>"]["LOCAL"] = 16
+    u["quantize_sr_kernel<__nv_bfloat16,4,1>"]["REG"] = 256
+    assert sorted((f.code, f.where) for f in lint_usage(u)) == [
+        ("kernel.local-memory", "csrc kernel quantize_apply_kernel<float,4>"),
+        ("kernel.register-budget",
+         "csrc kernel quantize_sr_kernel<__nv_bfloat16,4,1>")]
+
+
 # --------------------------------------------------------------------------
 # parity with the reference auditor
 # --------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""The port's quantisation kernels (K3, K4, K5) and quantised workset
-against the reference.
+"""The port's quantisation kernels (K3, K4, K5, and K6 / K11's thread map)
+and quantised workset against the reference.
 
 On the CPU each wrapper runs its plain PyTorch version; the reference runs
 its Pallas kernels through ``repro.kernels.ops`` in interpret mode (and
@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from repro.core import workset as jws
+from repro.kernels import fused_sample as jfs
 from repro.kernels import ops as jops
 from repro.kernels.ref import quantize_sr_ref
 from repro_torch.core import workset as tws
@@ -80,12 +81,211 @@ def test_k3_odd_tile_count_matches_reference_oracle(levels):
 def test_k3_operand_checks():
     x = torch.zeros(4, 8)
     tqz.check_operands(x, torch.zeros(4, 8))
+    tqz.check_operands(x.bfloat16(), torch.zeros(4, 8))  # widened in K3
     with pytest.raises(ValueError, match="u must be"):
         tqz.check_operands(x, torch.zeros(4, 7))
+    with pytest.raises(ValueError, match="u must be"):
+        tqz.check_operands(x, torch.zeros(4, 8).bfloat16())
     with pytest.raises(ValueError, match="x must be"):
         tqz.check_operands(x.double(), torch.zeros(4, 8))
     with pytest.raises(ValueError, match="contiguous"):
         tqz.check_operands(torch.zeros(8, 4).t(), torch.zeros(4, 8))
+
+
+EPS32 = np.float32(1e-12)
+
+
+def _k3_two_passes(x, u, levels, chunks, drop=None):
+    """A numpy model of K3's split-row path (``csrc/quantize.cu``): pass 1
+    takes each (row, chunk)'s |x| max (chunk c holds vectors
+    [c * per, min(n, (c + 1) * per)) of a row of n vectors of 4, or of 1
+    where L % 4 != 0); pass 2 takes each row's max over its chunks (a max:
+    any order), the scale and the codes, in float32.  ``drop`` leaves that
+    chunk out of every row's max.  -> (codes, scales, the chunks' element
+    bounds)."""
+    T, L = x.shape
+    kv = 4 if L % 4 == 0 else 1
+    n = L // kv
+    per = -(-n // chunks)
+    bounds = [(min(n, c * per) * kv, min(n, (c + 1) * per) * kv)
+              for c in range(chunks)]
+    part = np.array([[np.abs(x[r, j0:j1]).max(initial=np.float32(0))
+                      for j0, j1 in bounds] for r in range(T)], np.float32)
+    if drop is not None:
+        part[:, drop] = 0
+    amax = part.max(axis=1)
+    scale = np.maximum(amax, EPS32) / np.float32(levels)
+    q = np.clip(np.floor(x / scale[:, None] + u), -levels, levels)
+    return q.astype(np.int8), scale.astype(np.float32), bounds
+
+
+@pytest.mark.parametrize("levels", [127, 7])
+@pytest.mark.parametrize("T,L", [(2, 61_440), (3, 100_003)])
+def test_k3_split_row_design(T, L, levels):
+    """The split-row rule, and the two passes (chunk maxima, then codes)
+    bitwise the plain version and the reference's oracle, with one value
+    30x the rest in one chunk of each row: whatever the chunking, and
+    a chunk left out moves that row's scale."""
+    for shape in ((256, 256), (512, 128), (4 * tqz.QUANT_SMS, 61_440)):
+        assert tqz.quant_chunks(*shape) == 1                # narrow
+    assert tqz.quant_chunks(4 * tqz.QUANT_SMS - 4, 61_440) == 15
+    for width, chunks in ((8_191, 1), (8_192, 2), (61_440, 15),
+                          (3_932_160, 960)):
+        assert tqz.quant_chunks(2, width) == chunks
+    assert tqz.quant_chunks(T, L) >= 2
+
+    rng = np.random.default_rng(T * L + levels)
+    x = (rng.standard_normal((T, L)) * rng.uniform(0.5, 4.0, (T, 1))
+         ).astype(np.float32)
+    u = rng.uniform(0.0, 1.0, (T, L)).astype(np.float32)
+    chunks = tqz.quant_chunks(T, L)
+    bounds = _k3_two_passes(x, u, levels, chunks)[2]
+    hot = rng.integers(0, chunks, T)
+    spike = np.float32(30.0) * np.abs(x).max()
+    for r, c in enumerate(hot):
+        x[r, rng.integers(*bounds[c])] = spike if r % 2 else -spike
+    want_q, want_s = tqz.quantize_sr_plain(torch.from_numpy(x),
+                                           torch.from_numpy(u), levels)
+    ref_q, ref_s = quantize_sr_ref(jnp.asarray(x), jnp.asarray(u), levels)
+    for n in (chunks, 2, 7):        # the codes do not depend on the cut
+        q, s, _ = _k3_two_passes(x, u, levels, n)
+        np.testing.assert_array_equal(q, want_q.numpy())
+        np.testing.assert_array_equal(q, np.asarray(ref_q))
+        np.testing.assert_array_equal(s.view(np.uint32),
+                                      want_s.numpy().view(np.uint32))
+        np.testing.assert_array_equal(s.view(np.uint32),
+                                      np.asarray(ref_s).view(np.uint32))
+    for r, c in enumerate(hot):
+        dropped = _k3_two_passes(x, u, levels, chunks, drop=c)[1]
+        assert dropped[r] < want_s.numpy()[r]
+
+
+def _bf16(a):
+    """numpy fp32 -> the same values rounded to bf16, as a torch bf16
+    tensor and as exact fp32 numpy."""
+    t = torch.from_numpy(a).to(torch.bfloat16)
+    return t, t.float().numpy()
+
+
+@pytest.mark.parametrize("levels,cache_dtype", [(127, "int8"), (7, "int4")])
+def test_k3_bf16_rows_match_reference(levels, cache_dtype):
+    """bf16 rows go to K3 as they are (the kernel widens them, as the TPU
+    kernel does): codes and scales bitwise the reference's Pallas kernel
+    (interpret) on the same bf16 values; and a quantised workset insert of
+    a bf16 leaf (no fp32 copy made first) stores the reference's codes
+    and scales and decodes to its entry."""
+    for T, L in ((256, 256), (4, 128)):
+        x, u = _xu(T, L, seed=T + levels)
+        xt, _ = _bf16(x)
+        jq, js = jops.quantize_stochastic(
+            jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(u), levels)
+        tq, ts = tops.quantize_stochastic(xt, torch.from_numpy(u), levels)
+        np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+        np.testing.assert_array_equal(ts.numpy().view(np.uint32),
+                                      np.asarray(js).view(np.uint32))
+
+    W, B, shape = 2, 16, (3, 5)
+    rng = np.random.default_rng(levels)
+    leaves = [_bf16((rng.standard_normal((B,) + shape) * 3)
+                    .astype(np.float32)) for _ in range(2 * (W + 1))]
+    x = rng.integers(0, 9, size=(B, 2)).astype(np.int32)
+
+    def entry(i, jax_side):
+        z, dz = leaves[2 * i], leaves[2 * i + 1]
+        if jax_side:
+            return {"z": jnp.asarray(z[1]).astype(jnp.bfloat16),
+                    "dz": jnp.asarray(dz[1]).astype(jnp.bfloat16),
+                    "batch": {"x": jnp.asarray(x)}}
+        return {"z": z[0], "dz": dz[0],
+                "batch": {"x": torch.from_numpy(x).long()}}
+    jw = jws.workset_init(W, entry(0, True), cache_dtype=cache_dtype)
+    tw = tws.workset_init(W, entry(0, False), cache_dtype=cache_dtype)
+    for t in range(W + 1):
+        jw = jws.workset_insert(jw, entry(t, True), t,
+                                rng=jax_key(("insert", t, 0)))
+        tw = tws.workset_insert(tw, entry(t, False), t,
+                                key=insert_key(jax_uniforms, t, 0))
+        for k in ("z", "dz"):
+            tl = tws.tree_leaves(tw["buf"][k])[0].tensors()
+            jl = jax.tree_util.tree_leaves(jw["buf"][k])
+            for a, b in zip(tl, jl, strict=True):
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        slot = t % W
+        tentry = tws.workset_entry(tw, torch.tensor(slot, dtype=torch.int32))
+        jentry = jws.workset_entry(jw, jnp.int32(slot))
+        for k in ("z", "dz"):
+            assert tentry[k].dtype == torch.bfloat16
+            np.testing.assert_array_equal(
+                tentry[k].float().numpy(),
+                np.asarray(jentry[k].astype(jnp.float32)))
+
+
+def _ring_dequant_model(bits, slot, zq, zs):
+    """The thread map of ``csrc/cosine_gate.cu``'s ``ring_dequant_kernel``
+    (K6 / K11): thread e of 256-thread blocks decodes elements
+    [kv e, kv (e + 1)) of the row-major (B, F) output (kv = 4 where
+    F % 4 == 0, else 1), each its code times its row scale.  -> (the
+    output, the writes of each element, each thread's first flat
+    offset, the blocks)."""
+    _, B, P = zq.shape
+    F = P if bits == 8 else 2 * P
+    kv = 4 if F % 4 == 0 else 1
+    n = B * F // kv
+    blocks = -(-n // 256)
+    out = np.zeros((B, F), np.float32)
+    writes = np.zeros((B, F), np.int64)
+    first = []
+    for e in range(blocks * 256):
+        if e >= n:
+            continue
+        row, j = divmod(e, F // kv)
+        j *= kv
+        first.append(row * F + j)
+        for col in range(j, j + kv):
+            if bits == 8:
+                c = int(zq[slot, row, col])
+            else:
+                b = int(zq[slot, row, col >> 1])
+                c = ((b >> 4) if col & 1 else (b & 0xF)) - 8
+            out[row, col] = np.float32(c) * zs[slot, row]
+            writes[row, col] += 1
+    return out, writes, np.array(first), blocks
+
+
+@pytest.mark.parametrize("bits,F", [(8, 960), (4, 960), (8, 961), (4, 962)])
+def test_ring_dequant_thread_map_writes_each_output_once(bits, F):
+    """K6 / K11's four-outputs-a-thread map at the serving ring (W, C, F)
+    = (4, 8, 960) and at widths that take the one-element variant: every
+    output written once, a warp's 32 float4 stores on 512 contiguous
+    bytes, and the values bitwise the port's plain version and the
+    reference's Pallas kernel (interpret)."""
+    W, C, slot = 4, 8, 2
+    rng = np.random.default_rng(bits + F)
+    P = F if bits == 8 else F // 2
+    if bits == 8:
+        zq = rng.integers(-127, 128, (W, C, P)).astype(np.int8)
+    else:
+        zq = rng.integers(0, 256, (W, C, P)).astype(np.uint8)
+    zs = np.abs(rng.standard_normal((W, C))).astype(np.float32) + 0.01
+    out, writes, first, blocks = _ring_dequant_model(bits, slot, zq, zs)
+    assert (writes == 1).all()
+    if F % 4 == 0:
+        assert blocks == -(-C * F // 1024)
+        np.testing.assert_array_equal(first, 4 * np.arange(C * F // 4))
+        if F == 960:
+            assert (C * F // 4, blocks) == (1920, 8)
+    else:
+        np.testing.assert_array_equal(first, np.arange(C * F))
+    ts = torch.tensor([slot], dtype=torch.int32)
+    want = tfs.fused_dequant_plain(bits, ts, torch.from_numpy(zq),
+                                   torch.from_numpy(zs))
+    jfn = jfs.fused_dequant_q8_2d if bits == 8 else jfs.fused_dequant_q4_2d
+    ref = jfn(jnp.asarray([slot], jnp.int32), jnp.asarray(zq),
+              jnp.asarray(zs))
+    np.testing.assert_array_equal(out.view(np.uint32),
+                                  want.numpy().view(np.uint32))
+    np.testing.assert_array_equal(out.view(np.uint32),
+                                  np.asarray(ref).view(np.uint32))
 
 
 # --------------------------------------------------------------------------
