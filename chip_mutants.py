@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Mutation check of ``chip_smoke.py``'s per-element limits for K9 and
 K10, of its check of K1 at the LLM width, of its bitwise checks of K3's
-split-row path, of the AdaGrad table kernels (K7) and of the job-batched
-gate, and of its chaos and pod phases, on one NVIDIA GPU.
+split-row and two-sweep paths, of the AdaGrad table kernels (K7) and of
+the job-batched gate, and of its chaos and pod phases, on one NVIDIA
+GPU.
 
 Builds the flash-attention forward (``src/repro_torch/csrc/
 flash_attention.cu``) or backward (``flash_attention_bwd.cu``), or the
@@ -71,6 +72,12 @@ hold one value 30x the rest in their first or last chunk):
 
   * ``k3_chunk_dropped``: pass 2 leaves each row's last chunk maximum out
     of the scale.
+
+K3's narrow path over rows wider than it holds in registers (its two
+sweeps: the serving inserts' (C, d) rows), in the same checks:
+
+  * ``k3_sweep_clip_short``: the second sweep clips the codes at
+    levels - 1, so each row's largest |x| loses its top code.
 
 The job axis of the gate (``csrc/cosine_gate.cu``'s ``for_job``), in the
 smoke's check of the job-batched gate (``_fleet_gate_kernels``: each job
@@ -199,6 +206,9 @@ MUTANTS = {
     "k3_chunk_dropped": (
         "for (int i = threadIdx.x; i < chunks; i += kSplitThreads)",
         "for (int i = threadIdx.x; i < chunks - 1; i += kSplitThreads)"),
+    "k3_sweep_clip_short": (
+        "store_codes<kVec>(qr + j, v, r, s, levels);",
+        "store_codes<kVec>(qr + j, v, r, s, levels - 1.f);"),
     "gate_job_ring_stride_ignored": (
         "g.z += job * g.js_z;", "g.z += 0 * job * g.js_z;"),
     "gate_job_threshold_ignored": (
@@ -250,6 +260,8 @@ TARGETS = {
                            "fused_sample_2d"),
     "k3_chunk_dropped": ("quantize.cu", "phase_quant_kernels",
                          "quantize_sr_2d"),
+    "k3_sweep_clip_short": ("quantize.cu", "phase_quant_kernels",
+                            "quantize_sr_2d"),
     "gate_job_ring_stride_ignored": ("cosine_gate.cu", "_fleet_gate_kernels",
                                      "fleet"),
     "gate_job_threshold_ignored": ("cosine_gate.cu", "_fleet_gate_kernels",

@@ -11,13 +11,14 @@ own, in the order given: to compare two commits give them as parent,
 change, change, parent.  A run times, at levels 127 and with the same
 seeded inputs in every tree:
 
-  * K3 at the WDL insert's (256, 256), the wire's (512, 128), the LLM
-    twin's cut tensor (2, 61,440) and the 4,096-token one
-    (2, 3,932,160): on fp32 rows ("fp32"); on bf16 rows as the quantised
-    workset's insert hands them over (``kernels/ops.quantize_stochastic``:
-    a checkout whose K3 takes fp32 rows only widens them there first,
-    and that cast is timed with it; "bf16"); and on the bf16 rows' fp32
-    copy made beforehand ("bf16, cast excluded");
+  * K3 at the WDL insert's (256, 256), the wire's (512, 128), the
+    serving insert's (8, 960), the LLM twin's cut tensor (2, 61,440) and
+    the 4,096-token one (2, 3,932,160): on fp32 rows ("fp32"); on bf16
+    rows as the quantised workset's insert hands them over
+    (``kernels/ops.quantize_stochastic``: a checkout whose K3 takes fp32
+    rows only widens them there first, and that cast is timed with it;
+    "bf16"); and on the bf16 rows' fp32 copy made beforehand ("bf16,
+    cast excluded");
   * K6 and K11 at the serving ring (W, C, F) = (4, 8, 960);
   * the launch floor, K2b at one row of 8 values.
 
@@ -25,17 +26,14 @@ Each time is device µs a call (a CUDA graph of calls, CUDA events:
 ``chip_smoke.device_ms``) beside the host µs a call from Python
 (``chip_smoke.call_ms``) and the bound (bytes read once and written once
 over 3.35 TB/s).  Prints the card's name and power limit, one JSON line
-per tree and case, then a table.
+per tree and case, then a table (``chip_rounds.in_turns``).
 """
 from __future__ import annotations
 
-import json
-import os
-import subprocess
-import sys
+from chip_rounds import in_turns
 
-ROOT = os.path.dirname(os.path.abspath(__file__))
-K3_SHAPES = ((256, 256), (512, 128), (2, 61_440), (2, 3_932_160))
+K3_SHAPES = ((256, 256), (512, 128), (8, 960), (2, 61_440),
+             (2, 3_932_160))
 RING = (4, 8, 960)
 RUN = r"""
 import json, sys, torch
@@ -87,33 +85,13 @@ for bits, name, kern in ((8, "K6", fs.fused_dequant_q8_2d),
 
 
 def main() -> None:
-    trees = [os.path.abspath(t) for t in sys.argv[1:]] or [ROOT]
-    for t in trees:
-        if not os.path.isfile(os.path.join(t, "chip_smoke.py")):
-            sys.exit(f"chip_quant: {t} holds no chip_smoke.py")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
-    print(f"[card] {card}", flush=True)
-    code = RUN.replace("@SHAPES@", repr(K3_SHAPES)).replace("@RING@",
-                                                        repr(RING))
-    rows = []
-    for t in trees:
-        r = subprocess.run([sys.executable, "-c", code], cwd=t,
-                           capture_output=True, text=True, timeout=600)
-        if r.returncode != 0:
-            sys.exit(f"chip_quant: FAILED in {t}:\n{r.stderr[-3000:]}")
-        for line in r.stdout.splitlines():
-            if line.startswith("ROW "):
-                row = {"tree": os.path.relpath(t, ROOT), **json.loads(
-                    line[4:])}
-                rows.append(row)
-                print(json.dumps(row), flush=True)
-    for row in rows:
-        print(f"[quant] {row['tree']:>16s} {row['case']:24s} "
-              f"{str(tuple(row['shape'])):18s} {row['us']:9.2f} us "
-              f"(bound {row['bound_us']:.3f} us); host {row['host_us']:.2f} "
-              f"us a call; {card}", flush=True)
+    in_turns("chip_quant", RUN.replace("@SHAPES@", repr(K3_SHAPES))
+             .replace("@RING@", repr(RING)), "chip_smoke.py",
+             lambda row, card: (
+                 f"[quant] {row['tree']:>16s} {row['case']:24s} "
+                 f"{str(tuple(row['shape'])):18s} {row['us']:9.2f} us "
+                 f"(bound {row['bound_us']:.3f} us); host "
+                 f"{row['host_us']:.2f} us a call; {card}"), 600)
 
 
 if __name__ == "__main__":

@@ -58,34 +58,45 @@ for state in {states}:
 """
 
 
-def main() -> None:
+def in_turns(tool: str, code: str, need: str, line, timeout: int) -> None:
+    """Run the Python snippet ``code`` once for each TREE named on the
+    command line (default: this checkout), in turns, each in a process of
+    its own from the tree's root; ``need`` is a path every tree must hold.
+    Prints the card's name and power limit, each ``ROW`` JSON object the
+    snippet prints (with its tree), then ``line(row, card)`` for each."""
     trees = [os.path.abspath(t) for t in sys.argv[1:]] or [ROOT]
     for t in trees:
-        if not os.path.isdir(os.path.join(t, "src", "repro_torch")):
-            sys.exit(f"chip_rounds: {t} holds no src/repro_torch")
+        if not os.path.exists(os.path.join(t, need)):
+            sys.exit(f"{tool}: {t} holds no {need}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(f"[card] {card}", flush=True)
-    code = RUN.format(rounds=ROUNDS, states=STATES)
     rows = []
     for t in trees:
         r = subprocess.run([sys.executable, "-c", code], cwd=t,
-                           capture_output=True, text=True, timeout=1200)
+                           capture_output=True, text=True, timeout=timeout)
         if r.returncode != 0:
-            sys.exit(f"chip_rounds: FAILED in {t}:\n{r.stderr[-3000:]}")
-        for line in r.stdout.splitlines():
-            if line.startswith("ROW "):
+            sys.exit(f"{tool}: FAILED in {t}:\n{r.stderr[-3000:]}")
+        for ln in r.stdout.splitlines():
+            if ln.startswith("ROW "):
                 row = {"tree": os.path.relpath(t, ROOT), **json.loads(
-                    line[4:])}
+                    ln[4:])}
                 rows.append(row)
                 print(json.dumps(row), flush=True)
     for row in rows:
-        print(f"[rounds] {row['tree']:>18s} {row['state']:8s}: "
-              f"{row['kernels']:.0f} kernels, busy {row['busy_ms']:.3f} ms "
-              f"a round (AdaGrad {row['adagrad_kernels']:.0f} launches, "
-              f"{row['adagrad_ms']:.3f} ms); host {row['host_ms']:.3f} ms "
-              f"a round; {card}", flush=True)
+        print(line(row, card), flush=True)
+
+
+def main() -> None:
+    in_turns("chip_rounds", RUN.format(rounds=ROUNDS, states=STATES),
+             os.path.join("src", "repro_torch"),
+             lambda row, card: (
+                 f"[rounds] {row['tree']:>18s} {row['state']:8s}: "
+                 f"{row['kernels']:.0f} kernels, busy {row['busy_ms']:.3f} "
+                 f"ms a round (AdaGrad {row['adagrad_kernels']:.0f} "
+                 f"launches, {row['adagrad_ms']:.3f} ms); host "
+                 f"{row['host_ms']:.3f} ms a round; {card}"), 1200)
 
 
 if __name__ == "__main__":

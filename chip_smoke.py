@@ -335,6 +335,19 @@ SERVE_ARGS = {"--requests": 32, "--capacity": 8, "--prompt-len": 16,
               "--gen": 16, "--rate": 0}
 SERVE_RING = (4, 8, 960)
 WIDE_RING = (4, 64, 64 * 960)
+# K3 at the serving inserts' rows, one (C, d) row a lane into the quantised
+# ring (smollm-360m's d = 960, granite-moe-3b-a800m's 1,536): the narrow
+# path's two sweeps, past the 512 a row it holds in registers.  A ragged
+# narrow row and a ragged wide one take each path's one-element variant.
+K3_SERVE = ((SERVE_RING[1], SERVE_RING[2]), (4, 1_536))
+K3_RAGGED = (5, 1_001)
+K3_RAGGED_WIDE = (2, 100_003)
+# every (T, L) at which phase_quant_kernels holds K3 bitwise: the insert
+# shape (B, F), the wire's, ragged narrow rows, the 64 rows of the LLM
+# ring's check, and the rows above
+K3_CHECKED = (MAIN_SHAPE[1:], WIRE_SHAPE, (37, 13), (37, 8),
+              SHAPES[-1][1:], *K3_WIDE, *K3_SERVE, K3_RAGGED,
+              K3_RAGGED_WIDE)
 # K9: the long-prompt shape (B, S, H, hd) of smollm-360m, with a window,
 # at head dim 128 and at the reduced model's shape.  The plain version
 # takes both products in fp32; the bf16 kernel takes q kᵀ exactly and p
@@ -778,14 +791,11 @@ def phase_quant_kernels(torch):
     results = {k: {"max_abs_err": 0.0} for k in
                ("quantize_sr_2d", "fused_sample_q8_2d", "fused_sample_q4_2d")}
 
-    # K3 at the insert shape (B, F), the wire shape, ragged rows, and wide
-    # rows (the split-row path)
-    timed = (MAIN_SHAPE[1:], WIRE_SHAPE) + K3_WIDE
-    for (T, L) in [MAIN_SHAPE[1:], WIRE_SHAPE, (37, 13), (37, 8),
-                   SHAPES[-1][1:], *K3_WIDE]:
+    timed = (MAIN_SHAPE[1:], WIRE_SHAPE, K3_SERVE[0]) + K3_WIDE
+    for (T, L) in K3_CHECKED:
         x32 = torch.randn((T, L), generator=gen, device="cuda") \
             * torch.rand((T, 1), generator=gen, device="cuda") * 10
-        if (T, L) in K3_WIDE:
+        if (T, L) in K3_WIDE + (K3_RAGGED_WIDE,):
             spike = K3_SPIKE * x32.abs().max()
             x32[0, 0], x32[-1, -1] = spike, -spike
         else:

@@ -215,18 +215,6 @@ def _gate_smem(g: Geometry):
     return {"gate_partials_kernel": (red, 0), "gate_apply_kernel": (0, 0)}
 
 
-def _k3_smem(g: Geometry):
-    """Narrow path: one warp a row, no shared memory; split-row path: the
-    block max's static ``red[kSplitThreads / 32]`` floats in both passes
-    (``csrc/quantize.cu``)."""
-    from ..kernels.quantize import quant_chunks
-    if quant_chunks(g.tiles(), 128) == 1:
-        return {"quantize_sr_kernel": (0, 0)}
-    red = (256 // 32) * 4
-    return {"quantize_partials_kernel": (red, 0),
-            "quantize_apply_kernel": (red, 0)}
-
-
 def _bitwise(got, want, ops):
     import torch
     got = got if isinstance(got, (tuple, list)) else (got,)
@@ -361,7 +349,10 @@ def _contracts() -> Tuple[KernelContract, ...]:
             lambda o: qz.check_operands(o["x"], o["u"]),
             lambda o: qz.quantize_sr_2d(o["x"], o["u"], 127),
             lambda o: qz.quantize_sr_plain(o["x"], o["u"], 127),
-            _k3_smem, _bitwise, "quantize.cu"),
+            # (T, 128) tiles always take the narrow path: one warp a row,
+            # no shared memory
+            lambda g: {"quantize_sr_kernel": (0, 0)}, _bitwise,
+            "quantize.cu"),
         KernelContract(
             "flash_attention", "flash_attention", "flash_attention_plain",
             flash_ops,

@@ -160,6 +160,47 @@ def test_k3_split_row_design(T, L, levels):
         assert dropped[r] < want_s.numpy()[r]
 
 
+def _k3_kernel(T, L):
+    """The kernel ``csrc/quantize.cu`` launches for (T, L) operands that
+    start on 16-byte boundaries (as fresh allocations do): (path, elements
+    a thread's vector)."""
+    if tqz.quant_chunks(T, L) > 1:
+        path = "split"
+    else:
+        path = "registers" if L <= 512 else "two sweeps"
+    return path, 4 if L % 4 == 0 else 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k3_smoke_shapes_reach_every_kernel(dtype):
+    """The card's bitwise K3 checks (``chip_smoke.K3_CHECKED``) launch
+    every kernel of ``csrc/quantize.cu`` (each path, with vector and with
+    one-element loads), the serving inserts' (C, d) rows among them; and
+    at the narrow rows the port's codes and scales equal the reference
+    oracle's on the same fp32 or bf16 values."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
+    import chip_smoke as cs
+    kernels = {_k3_kernel(T, L) for T, L in cs.K3_CHECKED}
+    assert kernels == {(p, v) for p in ("split", "registers", "two sweeps")
+                       for v in (4, 1)}
+    assert _k3_kernel(*cs.K3_SERVE[0]) == ("two sweeps", 4)
+    assert cs.K3_SERVE[0] == cs.SERVE_RING[1:]
+    for T, L in cs.K3_CHECKED:
+        if T * L > 100_000:
+            continue
+        x, u = _xu(T, L, seed=T * L)
+        xt = torch.from_numpy(x).to(getattr(torch, dtype))
+        xw = xt.float().numpy()
+        for levels in (127, 7):
+            q, s = tqz.quantize_sr_2d(xt, torch.from_numpy(u), levels)
+            rq, rs = quantize_sr_ref(jnp.asarray(xw), jnp.asarray(u), levels)
+            np.testing.assert_array_equal(q.numpy(), np.asarray(rq))
+            np.testing.assert_array_equal(
+                s.numpy().view(np.uint32), np.asarray(rs).view(np.uint32))
+
+
 def _bf16(a):
     """numpy fp32 -> the same values rounded to bf16, as a torch bf16
     tensor and as exact fp32 numpy."""
